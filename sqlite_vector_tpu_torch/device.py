@@ -1,0 +1,47 @@
+"""Device resolution: the port runs on the device it is given, never a
+silent substitute.
+
+`None` means the first CUDA device. A CUDA request on a machine without a
+usable GPU raises instead of falling back to the CPU, so a run that was
+meant for the card can never report CPU numbers. Tests pass
+`device="cpu"` explicitly.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from sqlite_vector_tpu_torch.errors import VectorConfigError
+
+
+def resolve_device(device: Any = None) -> torch.device:
+    """Return the torch.device to place a dataset on (default: "cuda")."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise VectorConfigError(
+            "No CUDA device is available: VectorStore() defaults to the GPU "
+            "and never falls back to the CPU. Pass device='cpu' to run on "
+            "the CPU explicitly."
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise VectorConfigError(
+            f"Unsupported device '{dev}': expected 'cuda' or 'cpu'."
+        )
+    return dev
+
+
+def from_numpy(arr: np.ndarray, device: Any = "cpu") -> torch.Tensor:
+    """A copy of a numpy array as a tensor on `device`, dtype kept (the
+    tensor never aliases the caller's array). torch cannot read numpy's
+    bfloat16 (ml_dtypes), so bfloat16 travels as its exact float32 values
+    and is narrowed back on the device."""
+    if arr.dtype.name == "bfloat16":
+        f32 = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32))
+        return f32.to(device).to(torch.bfloat16)
+    arr = np.ascontiguousarray(arr)
+    if not arr.flags.writeable:  # torch.from_numpy wants a writable buffer
+        arr = arr.copy()
+    return torch.from_numpy(arr).to(device, copy=True)

@@ -1,0 +1,233 @@
+"""Fused block-minima scan + exact finish (K1 and its plain twin).
+
+Counterpart of sqlite_vector_tpu/ops/pallas_scan.py. Stage 1 makes one
+pass over the matrix and keeps only per-128-row distance minima [B, N/128];
+the [B, N] distance matrix never exists. Stage 2 (torch ops) selects the k
+best groups (exact: if a true top-k row's group were not selected, k groups
+would each hold a row smaller than it), gathers their k*128 rows, rescores
+them exactly and takes the final top-k, ties going to the earliest row.
+
+Stage 1 has two implementations of one contract:
+  - block_minima_reference: plain PyTorch, the definition of the output;
+  - the CUDA kernel csrc/block_minima.cu, hand-written for Hopper.
+`block_minima` picks by where the tensors live: the twin for CPU tensors,
+the kernel for CUDA tensors (it raises rather than fall back).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from sqlite_vector_tpu_torch.ops.distance import (
+    NEARLY_ZERO,
+    pairwise_distance,
+    sqrt_rn,
+)
+from sqlite_vector_tpu_torch.ops.rerank import candidate_distances
+from sqlite_vector_tpu_torch.ops.topk import topk_ascending
+from sqlite_vector_tpu_torch.types import DistanceMetric
+
+# rows per minima group
+BLOCK = 128
+
+# the kernel's enum codes (csrc/block_minima.cu: Metric, DType)
+_METRIC_CODE = {
+    DistanceMetric.L2: 0,
+    DistanceMetric.SQUARED_L2: 1,
+    DistanceMetric.COSINE: 2,
+    DistanceMetric.DOT: 3,
+    DistanceMetric.L1: 4,
+}
+_DTYPE_CODE = {
+    torch.float32: 0,
+    torch.float16: 1,
+    torch.bfloat16: 2,
+    torch.uint8: 3,
+    torch.int8: 4,
+}
+
+# bound on the twin's [B, rows] distance intermediates (elements)
+_TWIN_CHUNK_ELEMS = 1 << 26
+# bound on the finish's gathered candidate rows (elements); the rescore's
+# widened temporaries are a small multiple of it (ops/rerank.py)
+_FINISH_CHUNK_ELEMS = 1 << 26
+
+
+def _snap_threshold(metric: DistanceMetric) -> float:
+    # L2 rides in the SQUARED domain until the finish's sqrt, so it snaps at
+    # NEARLY_ZERO^2; snapping squared values at NEARLY_ZERO would zero true
+    # distances up to ~9.8e-4
+    return NEARLY_ZERO * NEARLY_ZERO if metric is DistanceMetric.L2 else NEARLY_ZERO
+
+
+def _rank_ready(d: torch.Tensor, metric: DistanceMetric) -> torch.Tensor:
+    """Near-zero snap BEFORE ranking (a raw 4e-7 must tie with a true 0.0,
+    earliest row winning), then NaN -> +inf (NaN rows are never selected,
+    like the reference's strict `<` slot replacement)."""
+    d = torch.where(d.abs() <= _snap_threshold(metric), 0.0, d)
+    return torch.where(torch.isnan(d), torch.inf, d)
+
+
+def block_minima_reference(
+    queries: torch.Tensor,
+    base: torch.Tensor,
+    metric: DistanceMetric,
+    valid: int,
+) -> torch.Tensor:
+    """Plain-PyTorch twin of the kernel: float32 [B, ceil(N/128)] minima of
+    the rank-ready distances, rows >= valid at +inf. L2 stays squared."""
+    b, n = queries.shape[0], base.shape[0]
+    groups = -(-n // BLOCK)
+    sq_metric = (
+        DistanceMetric.SQUARED_L2 if metric is DistanceMetric.L2 else metric
+    )
+    dist = torch.full(
+        (b, groups * BLOCK), torch.inf, dtype=torch.float32, device=base.device
+    )
+    rows = max(BLOCK, _TWIN_CHUNK_ELEMS // max(b, 1))
+    for s in range(0, valid, rows):
+        e = min(s + rows, valid)
+        d = pairwise_distance(queries, base[s:e], sq_metric, snap=False)
+        dist[:, s:e] = _rank_ready(d, metric)
+    return dist.view(b, groups, BLOCK).amin(-1)
+
+
+def _check(queries: torch.Tensor, base: torch.Tensor, valid: int) -> None:
+    if queries.dim() != 2 or base.dim() != 2:
+        raise ValueError("block_minima: queries and base must be 2-D")
+    if queries.shape[1] != base.shape[1]:
+        raise ValueError(
+            f"block_minima: query dim {queries.shape[1]} != base dim "
+            f"{base.shape[1]}"
+        )
+    if queries.dtype != base.dtype or base.dtype not in _DTYPE_CODE:
+        raise ValueError(
+            "block_minima: queries and base must share one of float32, "
+            f"float16, bfloat16, uint8, int8 (got {queries.dtype}, "
+            f"{base.dtype})"
+        )
+    if queries.device != base.device:
+        raise ValueError("block_minima: queries and base on different devices")
+    if not (0 <= valid <= base.shape[0]):
+        raise ValueError(f"block_minima: valid={valid} outside [0, N]")
+
+
+def block_minima(
+    queries: torch.Tensor,
+    base: torch.Tensor,
+    metric: DistanceMetric,
+    valid: int,
+) -> torch.Tensor:
+    """Per-128-row distance minima [B, ceil(N/128)] float32.
+
+    CPU tensors run block_minima_reference; CUDA tensors launch the K1
+    kernel (csrc/block_minima.cu) and count the launch in
+    `block_minima.launches`.
+    """
+    _check(queries, base, valid)
+    dev = base.device
+    if dev.type == "cpu":
+        return block_minima_reference(queries, base, metric, valid)
+    if dev.type != "cuda":
+        raise ValueError(f"block_minima: unsupported device {dev}")
+    if not (queries.is_contiguous() and base.is_contiguous()):
+        raise ValueError("block_minima: the kernel needs contiguous tensors")
+    b, d = queries.shape
+    n = base.shape[0]
+    if n >= 2**31 or b >= 2**31:
+        raise ValueError("block_minima: B and N must fit int32")
+    out = torch.empty((b, -(-n // BLOCK)), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    from sqlite_vector_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    with torch.cuda.device(dev):
+        rc = lib.svt_block_minima(
+            queries.data_ptr(),
+            base.data_ptr(),
+            out.data_ptr(),
+            b,
+            n,
+            d,
+            valid,
+            _DTYPE_CODE[base.dtype],
+            _METRIC_CODE[metric],
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"block_minima kernel launch failed: cudaError {rc}")
+    block_minima.launches += 1
+    return out
+
+
+block_minima.launches = 0
+
+
+def _finish_from_minima(
+    minima: torch.Tensor,
+    queries: torch.Tensor,
+    base: torch.Tensor,
+    valid: int,
+    metric: DistanceMetric,
+    k: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k from block minima: select k groups, rescore k*128 rows.
+
+    The rescore runs in chunks of queries, and each query chunk's
+    candidates in slices, so that no gathered [queries, candidates, d]
+    block exceeds _FINISH_CHUNK_ELEMS elements whatever B and k are."""
+    b, n, dim = queries.shape[0], base.shape[0], base.shape[1]
+    kg = min(k, minima.shape[1])
+    dev = base.device
+    if kg == 0:
+        return (
+            torch.full((b, k), torch.inf, device=dev),
+            torch.full((b, k), -1, dtype=torch.int64, device=dev),
+        )
+    # stable: among equal minima the earlier group is taken; then ascending
+    # group order so candidates stay in global row order for tie parity
+    gidx = torch.sort(minima, dim=-1, stable=True).indices[:, :kg]
+    gidx = torch.sort(gidx, dim=-1).values
+    n_cand = kg * BLOCK
+    # queries per chunk bound the [bq, n_cand] distances and a one-group
+    # slice; candidates per slice then fill the rest of the bound
+    bq = max(1, min(b, _FINISH_CHUNK_ELEMS // n_cand, _FINISH_CHUNK_ELEMS // (BLOCK * dim)))
+    cs = max(1, _FINISH_CHUNK_ELEMS // (bq * dim))
+    lane = torch.arange(BLOCK, device=dev)
+    vals, idx = [], []
+    for s in range(0, b, bq):
+        q = queries[s : s + bq]
+        pos = (gidx[s : s + bq, :, None] * BLOCK + lane).reshape(q.shape[0], n_cand)
+        d = torch.cat(
+            [
+                candidate_distances(q, base[pos[:, c : c + cs].clamp(0, n - 1)], metric)
+                for c in range(0, n_cand, cs)
+            ],
+            dim=1,
+        )
+        d = torch.where((pos < valid) & (pos < n), _rank_ready(d, metric), torch.inf)
+        v, cpos = topk_ascending(d, k)  # padded with +inf / -1 past n_cand
+        vals.append(v)
+        idx.append(torch.where(cpos >= 0, torch.gather(pos, 1, cpos.clamp(min=0)), -1))
+    vals, idx = torch.cat(vals), torch.cat(idx)
+    if metric is DistanceMetric.L2:
+        vals = sqrt_rn(vals)
+    vals = torch.where(vals.abs() <= NEARLY_ZERO, 0.0, vals)
+    return vals, torch.where(torch.isposinf(vals), -1, idx)
+
+
+def block_scan_topk(
+    queries: torch.Tensor,
+    base: torch.Tensor,
+    metric: DistanceMetric,
+    k: int,
+    *,
+    valid_count: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused top-k scan via block minima + exact finish. Same contract as
+    ops.scan.scan_topk: (distances [B, k] float32, positions [B, k] int64)
+    ascending; unfilled slots +inf / -1."""
+    valid = base.shape[0] if valid_count is None else int(valid_count)
+    minima = block_minima(queries, base, metric, valid)
+    return _finish_from_minima(minima, queries, base, valid, metric, k)

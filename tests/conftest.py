@@ -46,6 +46,11 @@ def pytest_configure(config):
         "nonfinite_inputs: deliberately feeds NaN/Inf into jitted code "
         "(auto-skipped when the CI NaN guard sets JAX_DEBUG_NANS)",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: runs a hand-written CUDA kernel of sqlite_vector_tpu_torch on "
+        "the card (skips where torch.cuda.is_available() is False)",
+    )
 
 
 def pytest_collection_modifyitems(config, items):

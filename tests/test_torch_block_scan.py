@@ -1,0 +1,237 @@
+"""PyTorch port parity for the block-minima scan (K1).
+
+The twin (block_minima_reference) is held against the JAX package's Pallas
+kernels run in interpret mode on the CPU, as tests/test_pallas_scan.py runs
+them; block_scan_topk against pallas_scan_topk. The CUDA kernel itself is
+held against the twin in tests/test_torch_kernel_cuda.py, on a card.
+"""
+
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from sqlite_vector_tpu.ops import distance as jax_distance
+from sqlite_vector_tpu.ops import pallas_scan
+from sqlite_vector_tpu.types import DistanceMetric as JaxMetric
+from sqlite_vector_tpu_torch.device import from_numpy
+from sqlite_vector_tpu_torch.ops import block_scan
+from sqlite_vector_tpu_torch.ops.block_scan import (
+    BLOCK,
+    block_minima,
+    block_minima_reference,
+    block_scan_topk,
+)
+from sqlite_vector_tpu_torch.ops.scan import fused_scan_topk, scan_topk
+from sqlite_vector_tpu_torch.types import DistanceMetric
+from tests.parity import REL_TOL_BY_TYPE, assert_topk_parity
+
+DTYPES = {
+    "FLOAT32": np.float32,
+    "FLOAT16": np.float16,
+    "FLOATB16": ml_dtypes.bfloat16,
+    "UINT8": np.uint8,
+    "INT8": np.int8,
+}
+METRICS = [m.value for m in DistanceMetric]
+
+
+def rows(rng, dtype, shape):
+    if dtype in (np.uint8, np.int8):
+        info = np.iinfo(dtype)
+        return rng.integers(info.min, info.max + 1, shape).astype(dtype)
+    return rng.standard_normal(shape).astype(np.float32).astype(dtype)
+
+
+def scan_case(vtype, seed, n=700, d=100, b=3):
+    """Unaligned shapes with a NaN row (floats), a duplicated row, a
+    zero-norm row and a self-match."""
+    rng = np.random.default_rng(seed)
+    base = rows(rng, DTYPES[vtype], (n, d))
+    q = rows(rng, DTYPES[vtype], (b, d))
+    if vtype not in ("UINT8", "INT8"):
+        base[5] = np.nan
+    base[400] = base[10]
+    base[200] = 0
+    q[0] = base[10]
+    return q, base
+
+
+def assert_minima_match(got, want, vtype):
+    np.testing.assert_array_equal(np.isinf(got), np.isinf(want))
+    if vtype in ("UINT8", "INT8"):
+        np.testing.assert_array_equal(got, want)
+        return
+    tol = 1e-5 if vtype == "FLOAT32" else REL_TOL_BY_TYPE[vtype]
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("vtype", list(DTYPES))
+@pytest.mark.parametrize("metric", METRICS)
+def test_twin_minima_match_jax_manual_kernel(vtype, metric):
+    q, base = scan_case(vtype, METRICS.index(metric))
+    n, valid = base.shape[0], 650  # valid < n: rows >= 650 are +inf
+    want = np.asarray(
+        pallas_scan._pallas_block_minima_manual(
+            q, base, np.int32(valid), metric=JaxMetric(metric), interpret=True
+        )
+    )[: q.shape[0], : -(-n // BLOCK)]
+    got = block_minima(from_numpy(q), from_numpy(base), DistanceMetric(metric), valid)
+    assert_minima_match(got.numpy(), want, vtype)
+
+
+@pytest.mark.parametrize("vtype", ["FLOAT32", "INT8"])
+@pytest.mark.parametrize("metric", METRICS)
+def test_twin_minima_match_jax_grid_kernel(vtype, metric):
+    q, base = scan_case(vtype, 40 + METRICS.index(metric), n=500, d=40, b=2)
+    n, valid = base.shape[0], 333
+    if vtype == "INT8":
+        bsq = (base.astype(np.int32) ** 2).sum(-1)
+    else:
+        bsq = (base.astype(np.float32) ** 2).sum(-1)
+    want = np.asarray(
+        pallas_scan._pallas_block_minima(
+            q, base, bsq, np.int32(valid), metric=JaxMetric(metric), interpret=True
+        )
+    )[: q.shape[0], : -(-n // BLOCK)]
+    got = block_minima_reference(
+        from_numpy(q), from_numpy(base), DistanceMetric(metric), valid
+    )
+    assert_minima_match(got.numpy(), want, vtype)
+
+
+@pytest.mark.parametrize("vtype", ["FLOAT32", "FLOATB16", "UINT8"])
+@pytest.mark.parametrize("metric", METRICS)
+def test_block_scan_topk_matches_jax(vtype, metric):
+    q, base = scan_case(vtype, 70 + METRICS.index(metric))
+    valid, k = 650, 12
+    jm, tm = JaxMetric(metric), DistanceMetric(metric)
+    want_v, want_i = pallas_scan.pallas_scan_topk(
+        q, base, jm, k, valid_count=valid, interpret=True, variant="manual"
+    )
+    got_v, got_i = block_scan_topk(from_numpy(q), from_numpy(base), tm, k, valid_count=valid)
+    got_v, got_i = got_v.numpy(), got_i.numpy()
+    if vtype == "UINT8":
+        # integer-domain distances are exact: identical ids and values
+        np.testing.assert_array_equal(got_i, np.asarray(want_i))
+        np.testing.assert_array_equal(got_v, np.asarray(want_v))
+        return
+    # tie-aware against the JAX package's full distance matrix
+    oracle = np.asarray(jax_distance.pairwise_distance(q, base, jm)).astype(np.float64)
+    oracle[:, valid:] = np.inf
+    for i in range(q.shape[0]):
+        assert_topk_parity(
+            np.arange(base.shape[0]), oracle[i], got_i[i], got_v[i], k,
+            rel_tol=REL_TOL_BY_TYPE[vtype], label=f"{vtype}/{metric}[{i}]",
+        )
+    np.testing.assert_allclose(
+        got_v, np.asarray(want_v), rtol=REL_TOL_BY_TYPE[vtype], atol=1e-5
+    )
+
+
+def test_l2_snap_in_squared_domain():
+    """The pre-ranking snap is NEARLY_ZERO^2 for L2 (squared until the
+    finish's sqrt): a true 9.5e-4 neighbor must not be zeroed and tie with
+    an exact duplicate (JAX: tests/test_pallas_scan.py)."""
+    rng = np.random.default_rng(0)
+    q = np.zeros((1, 8), np.float32)
+    q[0, 0] = 1e-3
+    base = rng.standard_normal((200, 8)).astype(np.float32)
+    base[3] = q[0]
+    base[3, 1] = 9.5e-4  # squared distance 9.02e-7 > NEARLY_ZERO^2
+    base[124] = q[0]  # exact duplicate: true distance 0
+    want_v, want_i = pallas_scan.pallas_scan_topk(q, base, JaxMetric.L2, 2, interpret=True)
+    got_v, got_i = block_scan_topk(from_numpy(q), from_numpy(base), DistanceMetric.L2, 2)
+    assert got_i.tolist() == [[124, 3]] == np.asarray(want_i).tolist()
+    assert float(got_v[0, 0]) == 0.0
+    np.testing.assert_allclose(got_v.numpy(), np.asarray(want_v), rtol=1e-6)
+
+
+def test_near_zero_snap_ties_go_to_earliest_row():
+    """DOT distances within NEARLY_ZERO snap to 0 before ranking, so the
+    earliest row wins among them, exactly as the plain scan ranks them."""
+    base = np.zeros((600, 32), np.float32)
+    base[2, 0] = 1e-7  # raw -4e-7, snapped to 0
+    q = np.zeros((1, 32), np.float32)
+    q[0, 0] = 4.0
+    got_v, got_i = block_scan_topk(from_numpy(q), from_numpy(base), DistanceMetric.DOT, 1)
+    want_v, want_i = pallas_scan.pallas_scan_topk(q, base, JaxMetric.DOT, 1, interpret=True)
+    plain_v, plain_i = scan_topk(from_numpy(q), from_numpy(base), DistanceMetric.DOT, 1)
+    assert int(got_i[0, 0]) == int(np.asarray(want_i)[0, 0]) == int(plain_i[0, 0]) == 0
+    assert float(got_v[0, 0]) == float(plain_v[0, 0]) == 0.0
+
+
+def test_cosine_zero_norm_query_beats_nan_group():
+    """A zero-norm query scores 1.0 against every row, NaN rows included
+    (zero norm is applied last), so a fully-NaN first group still yields
+    row 0 first."""
+    rng = np.random.default_rng(1)
+    base = rng.standard_normal((700, 64)).astype(np.float32)
+    base[:128] = np.nan
+    q = np.zeros((1, 64), np.float32)
+    want_v, want_i = pallas_scan.pallas_scan_topk(q, base, JaxMetric.COSINE, 3, interpret=True)
+    got_v, got_i = block_scan_topk(from_numpy(q), from_numpy(base), DistanceMetric.COSINE, 3)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
+    assert int(got_i[0, 0]) == 0 and float(got_v[0, 0]) == 1.0
+
+
+def test_k_beyond_valid_rows_pads():
+    rng = np.random.default_rng(2)
+    base = np.zeros((512, 16), np.float32)
+    base[:7] = rng.standard_normal((7, 16)).astype(np.float32) + 3.0
+    q = np.zeros((1, 16), np.float32)
+    got_v, got_i = block_scan_topk(
+        from_numpy(q), from_numpy(base), DistanceMetric.L2, 20, valid_count=7
+    )
+    assert set(got_i[0, :7].tolist()) == set(range(7))
+    assert (got_i[0, 7:] == -1).all() and torch.isinf(got_v[0, 7:]).all()
+
+
+def test_router_sends_scans_to_block_scan():
+    rng = np.random.default_rng(4)
+    base = from_numpy(rows(rng, np.float32, (300, 16)))
+    q = base[:2].clone()
+    got = fused_scan_topk(q, base, DistanceMetric.L2, 3, valid_count=290)
+    want = block_scan_topk(q, base, DistanceMetric.L2, 3, valid_count=290)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert got[1][:, 0].tolist() == [0, 1]
+
+
+@pytest.mark.parametrize("limit", [3000, 6144])
+@pytest.mark.parametrize("vtype", ["FLOAT32", "FLOAT16", "UINT8", "INT8"])
+@pytest.mark.parametrize("metric", ["L2", "COSINE", "L1"])
+def test_finish_chunks_stay_under_the_element_bound(monkeypatch, limit, vtype, metric):
+    """A small bound splits the finish over queries (2 per chunk at 6144,
+    1 at 3000) and candidates: the result is unchanged, and no gathered
+    block of candidate rows holds more elements than the bound."""
+    q, base = scan_case(vtype, 90 + METRICS.index(metric), n=1500, d=24, b=4)
+    q, base, tm = from_numpy(q), from_numpy(base), DistanceMetric(metric)
+    want = block_scan_topk(q, base, tm, 9, valid_count=1400)
+    seen = []
+    rescore = block_scan.candidate_distances
+
+    def spy(qs, cand, m):
+        seen.append(cand.numel())
+        return rescore(qs, cand, m)
+
+    monkeypatch.setattr(block_scan, "_FINISH_CHUNK_ELEMS", limit)
+    monkeypatch.setattr(block_scan, "candidate_distances", spy)
+    got = block_scan_topk(q, base, tm, 9, valid_count=1400)
+    assert len(seen) > 4 and max(seen) <= limit
+    assert torch.equal(got[1], want[1])
+    if vtype in ("UINT8", "INT8"):
+        assert torch.equal(got[0], want[0])
+    else:  # a float dot may round differently in a smaller matmul
+        torch.testing.assert_close(got[0], want[0], rtol=1e-6, atol=1e-6)
+
+
+def test_block_minima_rejects_what_the_kernel_does_not_take():
+    q = torch.zeros((2, 8), dtype=torch.float32)
+    with pytest.raises(ValueError):
+        block_minima(q, torch.zeros((10, 8), dtype=torch.float64), DistanceMetric.L2, 10)
+    with pytest.raises(ValueError):
+        block_minima(q, torch.zeros((10, 9)), DistanceMetric.L2, 10)
+    with pytest.raises(ValueError):
+        block_minima(q, torch.zeros((10, 8)), DistanceMetric.L2, 11)
+

@@ -1,0 +1,224 @@
+"""PyTorch port parity for the Dataset slice: create -> add -> exact search
+-> quantize -> quantized search, against the JAX VectorStore on the same
+rows (both on the CPU), plus the port's own contracts: no jax import, no
+silent CPU fallback, and a clear error for everything not yet ported."""
+
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import sqlite_vector_tpu as jax_svt
+import sqlite_vector_tpu_torch as svt
+from sqlite_vector_tpu_torch.interop import dataset_from_state
+from tests.parity import REL_TOL_BY_TYPE, assert_topk_parity
+
+METRICS = ["L2", "SQUARED_L2", "COSINE", "DOT", "L1"]
+
+
+def both(options, batches):
+    """The same rows, added batch by batch, in a JAX and a port dataset."""
+    jds = jax_svt.VectorStore().create("docs", options)
+    pds = svt.VectorStore(device="cpu").create("docs", options)
+    for rows in batches:
+        np.testing.assert_array_equal(pds.add(rows), jds.add(rows))
+    return jds, pds
+
+
+def assert_same_neighbors(jds, pds, q, k, vtype="FLOAT32"):
+    """Port ids tie-aware against the JAX dataset's own distances."""
+    oracle = np.asarray(jds.distances(q), np.float64)
+    pid, pd = pds.search(q, k)
+    jid, jd = jds.search(q, k)
+    assert pid.shape == jid.shape == (q.shape[0], k) and pid.dtype == np.int64
+    for i in range(q.shape[0]):
+        assert_topk_parity(
+            jds.ids, oracle[i], pid[i], pd[i], k,
+            rel_tol=REL_TOL_BY_TYPE[vtype], label=f"port q{i}",
+        )
+    np.testing.assert_allclose(pd, jd, rtol=REL_TOL_BY_TYPE[vtype], atol=1e-5)
+    return pid, pd
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_exact_and_quantized_slice_match_jax(metric):
+    rng = np.random.default_rng(METRICS.index(metric))
+    base = rng.standard_normal((1500, 48)).astype(np.float32)
+    # two batches: the second crosses the 1024-row capacity (doubling)
+    jds, pds = both(f"dimension=48,type=FLOAT32,distance={metric}", [base[:1000], base[1000:]])
+    assert len(pds) == len(jds) == 1500
+    assert pds._vectors.shape[0] == 2048
+    q = np.concatenate([base[[3, 1200]], rng.standard_normal((2, 48)).astype(np.float32)])
+    pid, pd = assert_same_neighbors(jds, pds, q, 10)
+    if metric in ("L2", "SQUARED_L2"):
+        assert pid[0, 0] == 4 and pd[0, 0] == 0.0  # self-match first at 0
+    # single-vector query: [k] results
+    sid, sd = pds.search(q[1], 10)
+    np.testing.assert_array_equal(sid, pid[1])
+
+    assert pds.quantize() == jds.quantize() == 1500
+    (jq, js, jo), (pq, ps, po) = jds.quant_params, pds.quant_params
+    assert (pq.value, ps, po) == (jq.value, js, jo)
+    np.testing.assert_array_equal(
+        pds._quant.codes.numpy(), np.asarray(jds._quant.codes)[:1500]
+    )
+    # integer-domain distances: identical ids and values
+    jid, jd = jds.search(q, 10, exact=False)
+    qid, qd = pds.search(q, 10, exact=False)
+    np.testing.assert_array_equal(qid, jid)
+    np.testing.assert_array_equal(qd, jd)
+
+
+@pytest.mark.parametrize("vtype", ["UINT8", "INT8", "FLOAT16", "FLOATB16"])
+def test_exact_search_other_dtypes_match_jax(vtype):
+    rng = np.random.default_rng(5)
+    if vtype in ("UINT8", "INT8"):
+        lo, hi = (0, 256) if vtype == "UINT8" else (-128, 128)
+        base = rng.integers(lo, hi, (700, 40)).astype(np.float32)
+    else:
+        base = rng.standard_normal((700, 40)).astype(np.float32)
+    jds, pds = both(f"dimension=40,type={vtype},distance=L2", [base])
+    q = base[[0, 350, 699]]
+    pid, pd = assert_same_neighbors(jds, pds, q, 7, vtype)
+    assert pd[0, 0] == 0.0
+    np.testing.assert_array_equal(
+        np.asarray(pds.get(pds.ids[[0, 350]]), np.float32),
+        np.asarray(jds.get(jds.ids[[0, 350]]), np.float32),
+    )
+
+
+def test_normalized_cosine_fast_path_matches_jax():
+    rng = np.random.default_rng(6)
+    base = rng.standard_normal((600, 32)).astype(np.float32)
+    base /= np.linalg.norm(base, axis=1, keepdims=True)
+    base[10] = 0.0  # zero-norm row scores exactly 1.0
+    jds, pds = both("dimension=32,distance=COSINE,normalized=1", [base])
+    q = np.concatenate([base[[4, 10]], rng.standard_normal((1, 32)).astype(np.float32)])
+    assert pds._cosine_dot_fast(q)
+    pid, pd = assert_same_neighbors(jds, pds, q, 5)
+    assert pid[0, 0] == 5 and pd[0, 0] == 0.0
+    assert (pd[1] == 1.0).all()
+
+
+def test_quantized_state_through_interop_matches_jax():
+    """dataset_from_state: the port searches the JAX dataset's own rows and
+    int8 codes; uint8 here (non-negative data -> AUTO resolves to UINT8)."""
+    rng = np.random.default_rng(8)
+    base = rng.random((900, 24)).astype(np.float32) * 5
+    jds = jax_svt.VectorStore().create("docs", "dimension=24,distance=COSINE")
+    jds.add(base, ids=np.arange(100, 1000))
+    jds.quantize()
+    quant, count = jds._quant, len(jds)
+    pds = dataset_from_state(
+        {
+            "vectors": np.asarray(jds._vectors)[:count],
+            "ids": jds.ids,
+            "codes": np.asarray(quant.codes)[:count],
+            "qtype": quant.qtype.value,
+            "scale": quant.scale,
+            "offset": quant.offset,
+        },
+        "dimension=24,distance=COSINE",
+        device="cpu",
+    )
+    assert pds.quant_params[0] is svt.QuantType.U8
+    q = base[[1, 2, 3]] + 0.01
+    np.testing.assert_array_equal(pds.search(q, 6, exact=False)[0], jds.search(q, 6, exact=False)[0])
+    np.testing.assert_array_equal(pds.search(q, 6, exact=False)[1], jds.search(q, 6, exact=False)[1])
+    assert_same_neighbors(jds, pds, q, 6)
+
+
+def test_stale_codes_keep_their_snapshot_ids():
+    rng = np.random.default_rng(9)
+    base = rng.standard_normal((300, 16)).astype(np.float32)
+    jds, pds = both("dimension=16", [base])
+    jds.quantize()
+    pds.quantize()
+    extra = base[:5] * 1.0001
+    jds.add(extra)
+    pds.add(extra)
+    assert pds.quant_stale and jds.quant_stale
+    q = base[:2]
+    np.testing.assert_array_equal(pds.search(q, 8, exact=False)[0], jds.search(q, 8, exact=False)[0])
+    assert_same_neighbors(jds, pds, q, 8)  # exact sees the appended rows
+
+
+def test_edge_results_and_errors_match_jax():
+    rng = np.random.default_rng(10)
+    base = rng.standard_normal((6, 8)).astype(np.float32)
+    jds, pds = both("dimension=8", [base])
+    for k in (0, 10):  # k=0, and k > count: -1 / +inf padding
+        pid, pd = pds.search(base[:2], k)
+        jid, jd = jds.search(base[:2], k)
+        np.testing.assert_array_equal(pid, jid)
+        np.testing.assert_allclose(pd, jd, rtol=1e-5, atol=1e-5)
+    assert pds.search(base[0], 10)[0].shape == (6,)  # single query: trimmed
+    with pytest.raises(svt.VectorCodecError):
+        pds.search(np.zeros(7, np.float32), 3)
+    with pytest.raises(svt.VectorStateError):
+        pds.search(base[0], 3, exact=False)
+    with pytest.raises(svt.VectorConfigError):
+        pds.add(base[:2], ids=[1, 99])  # id 1 exists
+    with pytest.raises(svt.VectorConfigError):
+        pds.search(base[0], -1)
+    with pytest.raises(svt.VectorStateError):
+        pds.get([12345])
+    store = svt.VectorStore(device="cpu")
+    store.create("A", "dimension=8")
+    assert "a" in store and store.names() == ["A"]
+    with pytest.raises(svt.VectorConfigError):
+        store.create("a", "dimension=9")
+    store.drop("A")
+    assert "a" not in store
+    with pytest.raises(svt.VectorStateError):
+        store.get("A")
+
+
+def test_unported_paths_raise_config_error():
+    base = np.random.default_rng(11).standard_normal((20, 8)).astype(np.float32)
+    ds = svt.VectorStore(device="cpu").create("d", "dimension=8")
+    ds.add(base)
+    ds.quantize()
+    for mode in ("rerank", "refine", "approx"):
+        with pytest.raises(svt.VectorConfigError, match="ROADMAP"):
+            ds.search(base[0], 3, mode=mode)
+    with pytest.raises(svt.VectorConfigError, match="ROADMAP"):
+        ds.search(base[0], 3, ids_filter=[1, 2])
+    with pytest.raises(svt.VectorConfigError, match="ROADMAP"):
+        ds.quantize(qtype="int4")
+    with pytest.raises(svt.VectorConfigError, match="ROADMAP"):
+        ds.quantize(checkpoint="unused")
+    with pytest.raises(svt.VectorConfigError, match="ROADMAP"):
+        svt.Dataset("h", svt.parse_options("dimension=8"), device="cpu", storage="host")
+    with pytest.raises(svt.VectorConfigError, match="ROADMAP"):
+        svt.VectorStore(device="cpu", mesh=object())
+    half = svt.VectorStore(device="cpu").create("h", "dimension=8,type=FLOAT16")
+    bad = base.copy()
+    bad[3, 2] = np.nan
+    half.add(bad)
+    with pytest.raises(svt.VectorConfigError, match="ROADMAP"):
+        half.search(base[0], 3)  # lane-skip semantics need the policy twins
+
+
+def test_default_device_refuses_missing_gpu(monkeypatch):
+    """device=None means CUDA; with no GPU it raises instead of running on
+    the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(svt.VectorConfigError, match="CUDA"):
+        svt.VectorStore()
+    with pytest.raises(svt.VectorConfigError, match="CUDA"):
+        svt.Dataset("d", svt.parse_options("dimension=4"))
+    assert svt.backend() == "cpu/torch"
+
+
+def test_package_imports_without_jax():
+    code = (
+        "import sys\n"
+        "import sqlite_vector_tpu_torch, sqlite_vector_tpu_torch.interop\n"
+        "import sqlite_vector_tpu_torch.ops.block_scan, sqlite_vector_tpu_torch.ops._build\n"
+        "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
+        "assert 'sqlite_vector_tpu' not in sys.modules\n"
+    )
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
