@@ -8,11 +8,15 @@ Run from the repository root with no arguments:
 Phases, each printing its own lines:
   1. device   the card (nvidia-smi name and power limit), torch/CUDA versions
               and the TF32 flags, which are pinned off;
-  2. build    compile the block-minima kernel (K1) from csrc/ with nvcc;
+  2. build    compile the block-minima kernel (K1) and the packed-int4 kernel
+              (K2) from csrc/ with nvcc, one process per source;
   3. kernel   K1 against its plain PyTorch twin on the card for every
               (metric x dtype) pair, N = 100003 (ragged last group),
               d in {100, 384}, B in {1, 8, 33}, valid < N, with a NaN row,
-              two duplicate rows and a zero row;
+              two duplicate rows and a zero row; then K2 against its twin
+              for its four metrics, d in {95, 384}, B in {1, 8, 33}, with a
+              zero row, duplicate rows and rows scaled by 1e25 (overflowing
+              surrogates, one group entirely);
   4. main     VectorStore(device="cuda"): create dimension=384 FLOAT32 L2,
               add 1,000,000 rows, search(Q, 20) for 64 queries (half drawn
               from the base) against a plain-torch ground truth, then
@@ -23,7 +27,16 @@ Phases, each printing its own lines:
               u8 codes), held against the twin and timed against it (CUDA
               events, after warm-up, in turns); then end-to-end search at
               B=1 and B=64: QPS as all queries over the whole window of
-              back-to-back calls, and the per-call latency p50, p99 and max.
+              back-to-back calls, and the per-call latency p50, p99 and max;
+  6. int4     on the same rows: quantize(qtype="int4", refine=True), then
+              search(Q, 20, mode="quantized") against the plain int4 tile
+              loop over the same codes and search(Q, 20, mode="refine")
+              against the refine rescore of that loop's candidates; K2's
+              launch count over these searches must be above 0; int4 and
+              refine recall@20 against exact are printed;
+  7. times    K2 alone against its twin at B=1 and B=64 (CUDA events, in
+              turns), then end-to-end int4-quantized and refine search at
+              B=1 and B=64, measured as in phase 5.
 
 Then one JSON line of kernel results, the card line again, and last the
 result line. Any failure raises, so the script exits non-zero and prints no
@@ -167,6 +180,74 @@ def phase_kernel(card: str) -> float:
     return worst
 
 
+def load_tests_module(name: str):
+    """The repo's tests/<name>.py, loaded by path: an installed package
+    named `tests` may shadow the repo's tests/ directory."""
+    spec = importlib.util.spec_from_file_location(
+        f"svt_{name}", Path(__file__).resolve().parent / "tests" / f"{name}.py"
+    )
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def compare_int4_minima(args, metric, valid: int, label: str) -> float:
+    """K2 against its twin on the same CUDA tensors: +inf positions equal
+    and finite minima EQUAL (tolerance 0): both take the exact integer dot
+    and then the same float32 epilogue, each op rounded once in the same
+    order (__fmul_rn/__fsub_rn and a correctly rounded 1/sqrt in the
+    kernel, one torch op per step in the twin). Returns max |kernel - twin|
+    over the finite minima."""
+    from sqlite_vector_tpu_torch.ops.int4_scan import (
+        int4_block_minima,
+        int4_block_minima_reference,
+    )
+
+    got = int4_block_minima(*args, metric, valid)
+    ref = int4_block_minima_reference(*args, metric, valid)
+    torch.cuda.synchronize()
+    check(got.shape == ref.shape, f"{label}: shape {got.shape} != {ref.shape}")
+    check(not bool(torch.isnan(got).any()), f"{label}: NaN minima")
+    check(torch.equal(torch.isinf(got), torch.isinf(ref)), f"{label}: inf positions differ")
+    fin = torch.isfinite(ref)
+    worst = float((got[fin] - ref[fin]).abs().max()) if bool(fin.any()) else 0.0
+    check(torch.equal(got[fin], ref[fin]), f"{label}: max |kernel - twin| {worst}")
+    return worst
+
+
+def phase_kernel_int4(card: str) -> float:
+    """K2 vs twin for its 4 metrics x d in {95, 384} x B in {1, 8, 33};
+    returns the largest |kernel - twin| over finite minima."""
+    from sqlite_vector_tpu_torch.ops.int4_scan import int4_block_minima
+    from sqlite_vector_tpu_torch.types import DistanceMetric
+
+    # the card tests' edge cases: zero row, duplicates, 1e25-scaled rows
+    int4_case = load_tests_module("test_torch_kernel_cuda").int4_case
+    n, valid = 100_003, 100_003 - 77
+    metrics = [m for m in DistanceMetric if m is not DistanceMetric.L1]
+    worst = 0.0
+    t0 = time.perf_counter()
+    for d in (95, 384):
+        for b in (1, 8, 33):
+            args, _ = int4_case(n, d, b, "cuda", seed=SEED + 2 + d + b)
+            for metric in metrics:
+                label = f"K2 {metric.value}/d={d}/B={b}"
+                worst = max(worst, compare_int4_minima(args, metric, valid, label))
+                if b > 1 and metric is DistanceMetric.L2:
+                    # group 1 against the scaled query: NaN or +inf throughout
+                    m = int4_block_minima(*args, metric, valid)
+                    check(float(m[-1, 1]) == float("inf"), f"{label}: overflowing group not +inf")
+            del args
+    print(
+        f"[kernel] K2 == twin for {len(metrics)} metrics x d in (95, 384) x B in "
+        f"(1, 8, 33) (N={n}, valid={valid}, zero/duplicate/1e25-scaled rows; "
+        f"+inf positions equal, finite minima equal); max |kernel - twin| = "
+        f"{worst!r} in {time.perf_counter() - t0:.1f} s | {card}",
+        flush=True,
+    )
+    return worst
+
+
 def phase_main(card: str):
     import sqlite_vector_tpu_torch as svt
     from sqlite_vector_tpu_torch.ops.block_scan import block_minima
@@ -174,13 +255,7 @@ def phase_main(card: str):
     from sqlite_vector_tpu_torch.ops.quantize import quantize_device
     from sqlite_vector_tpu_torch.ops.scan import scan_topk
 
-    # the repo's tie-aware top-k check, loaded by path: an installed
-    # package named `tests` may shadow the repo's tests/ directory
-    spec = importlib.util.spec_from_file_location(
-        "svt_parity", Path(__file__).resolve().parent / "tests" / "parity.py"
-    )
-    parity = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(parity)
+    parity = load_tests_module("parity")  # the repo's tie-aware top-k check
     REL_TOL_BY_TYPE, assert_topk_parity = parity.REL_TOL_BY_TYPE, parity.assert_topk_parity
 
     rng = np.random.default_rng(SEED)
@@ -251,7 +326,7 @@ def phase_main(card: str):
         f"{recall!r}; K1 launches (exact + quantized) {launches} | {card}",
         flush=True,
     )
-    return ds, Q, launches
+    return ds, Q, ids_e, launches
 
 
 def phase_times(card: str, ds, Q) -> tuple[float, float, float]:
@@ -296,27 +371,144 @@ def phase_times(card: str, ds, Q) -> tuple[float, float, float]:
             flush=True,
         )
 
-    for mode, exact in (("exact", True), ("quantized", False)):
-        for b, reps in ((1, 500), (B_MAIN, 200)):
-            qs = Q[:b]
-            for _ in range(3):  # warm-up
-                ds.search(qs, K, exact=exact)
-            walls = []
-            t_window = time.perf_counter()
-            for _ in range(reps):
-                t0 = time.perf_counter()
-                ds.search(qs, K, exact=exact)  # returns host arrays: synchronous
-                walls.append(time.perf_counter() - t0)
-            window = time.perf_counter() - t_window
-            p50, p99 = (float(np.percentile(walls, p)) * 1e3 for p in (50, 99))
-            print(
-                f"[times] search {mode} {shape} k={K} B={b}: QPS {b * reps / window!r} "
-                f"({b * reps} queries in {reps} back-to-back calls, {window * 1e3!r} ms "
-                f"window); call latency p50 {p50!r} ms, p99 {p99!r} ms, max "
-                f"{max(walls) * 1e3!r} ms | {card}",
-                flush=True,
-            )
+    for mode in ("exact", "quantized"):
+        search_times(card, ds, Q, mode, shape, ((1, 500), (B_MAIN, 200)))
     return main_ms[0], main_ms[1], worst
+
+
+def search_times(card: str, ds, Q, mode: str, shape: str, plan, label: str = "") -> None:
+    """End-to-end search: for each (B, calls) in plan, QPS as all queries
+    over the whole window of back-to-back calls, and the per-call latency
+    p50, p99 and max (host clock; search returns host arrays, so each call
+    is synchronous)."""
+    for b, reps in plan:
+        qs = Q[:b]
+        for _ in range(3):  # warm-up
+            ds.search(qs, K, mode=mode)
+        walls = []
+        t_window = time.perf_counter()
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            ds.search(qs, K, mode=mode)
+            walls.append(time.perf_counter() - t0)
+        window = time.perf_counter() - t_window
+        p50, p99 = (float(np.percentile(walls, p)) * 1e3 for p in (50, 99))
+        print(
+            f"[times] search {label or mode} {shape} k={K} B={b}: QPS {b * reps / window!r} "
+            f"({b * reps} queries in {reps} back-to-back calls, {window * 1e3!r} ms "
+            f"window); call latency p50 {p50!r} ms, p99 {p99!r} ms, max "
+            f"{max(walls) * 1e3!r} ms | {card}",
+            flush=True,
+        )
+
+
+def same_topk(label: str, ids, vals, want_ids, want_vals) -> None:
+    """Equal distances, and equal ids up to the order among equal
+    distances (the earliest row wins ties on both sides, so in practice
+    the ids are equal too)."""
+    check(np.array_equal(vals, want_vals), f"{label}: distances differ from the plain path")
+    for i in range(ids.shape[0]):
+        for v in np.unique(vals[i]):
+            at = vals[i] == v
+            check(
+                sorted(ids[i][at]) == sorted(want_ids[i][at]),
+                f"{label} q{i}: ids at distance {v} differ from the plain path",
+            )
+
+
+def phase_int4(card: str, ds, Q, ids_e) -> int:
+    """int4 quantize + mode="quantized" and mode="refine" on the main rows,
+    each held against its plain counterpart on the same codes; returns K2's
+    launch count over the two searches."""
+    from sqlite_vector_tpu_torch.ops.block_scan import block_minima
+    from sqlite_vector_tpu_torch.ops.int4_scan import int4_block_minima
+    from sqlite_vector_tpu_torch.ops.quantize4 import int4_scan_topk_plain
+    from sqlite_vector_tpu_torch.ops.refine import refine_candidates
+    from sqlite_vector_tpu_torch.types import DistanceMetric
+
+    L2 = DistanceMetric.L2
+    t0 = time.perf_counter()
+    ds.quantize(qtype="int4", refine=True)
+    torch.cuda.synchronize()
+    t_quant = time.perf_counter() - t0
+    quant = ds._quant
+    ids_all = quant.ids
+    n = quant.count
+    Qd = torch.from_numpy(Q).cuda()
+
+    block_minima.launches = 0
+    int4_block_minima.launches = 0
+    ids_q, d_q = ds.search(Q, K, mode="quantized")
+    ids_r, d_r = ds.search(Q, K, mode="refine")
+    launches = int4_block_minima.launches
+    check(launches > 0, "int4 quantized/refine search did not launch K2")
+    check(block_minima.launches == 0, "int4 searches launched K1")
+
+    # quantized: the plain tile loop over the same codes
+    pv, pi = int4_scan_topk_plain(
+        Qd, quant.codes, quant.row_scale, quant.sq_norms, L2, K, dim=DIM_MAIN, valid_count=n
+    )
+    pi = pi.cpu().numpy()
+    same_topk("int4 quantized", ids_q, d_q, np.where(pi >= 0, ids_all[pi], -1), pv.cpu().numpy())
+
+    # refine: the same rescore over the plain tile loop's candidates
+    _, cand = int4_scan_topk_plain(
+        Qd, quant.codes, quant.row_scale, quant.sq_norms, L2, 4 * K, dim=DIM_MAIN, valid_count=n
+    )
+    rv, ri = refine_candidates(Qd, cand, quant.codes8, quant.scale8, quant.offset8, L2, K)
+    ri = ri.cpu().numpy()
+    same_topk("refine", ids_r, d_r, np.where(ri >= 0, ids_all[ri], -1), rv.cpu().numpy())
+
+    def recall(ids):
+        return float(np.mean([len(set(ids[i]) & set(ids_e[i])) / K for i in range(B_MAIN)]))
+
+    print(
+        f"[int4] quantize(qtype='int4', refine=True) in {t_quant:.2f} s (packed "
+        f"{quant.codes.numel()} B, sidecar {quant.qtype8.value} scale8={float(quant.scale8)!r}); "
+        f"search(Q[{B_MAIN}], {K}, mode='quantized') == the plain int4 tile loop over the "
+        f"same codes (distances equal, ids tie-aware); mode='refine' == the refine rescore "
+        f"of the plain loop's candidates; recall@{K} vs exact: int4 {recall(ids_q)!r}, "
+        f"refine {recall(ids_r)!r}; K2 launches {launches}, K1 launches 0 | {card}",
+        flush=True,
+    )
+    return launches
+
+
+def phase_int4_times(card: str, ds, Q) -> tuple[float, float]:
+    """K2 alone against its twin at B=1 and B=B_MAIN, then end-to-end
+    int4-quantized and refine search. Returns (kernel ms, twin ms) at
+    B=B_MAIN."""
+    from sqlite_vector_tpu_torch.ops.int4_scan import (
+        int4_block_minima,
+        int4_block_minima_reference,
+    )
+    from sqlite_vector_tpu_torch.ops.quantize4 import quantize_query_int8
+    from sqlite_vector_tpu_torch.types import DistanceMetric
+
+    L2 = DistanceMetric.L2
+    quant = ds._quant
+    n = quant.count
+    shape = f"{n}x{DIM_MAIN}"
+    Qd = torch.from_numpy(Q).cuda()
+    out = None
+    for b, iters in ((1, 20), (B_MAIN, 10)):
+        qc, qs, _ = quantize_query_int8(Qd[:b])
+        args = (qc, qs, quant.codes, quant.row_scale, quant.sq_norms)
+        compare_int4_minima(args, L2, n, f"main-path K2 B={b}")
+        k_ms, p_ms = in_turns(
+            lambda: int4_block_minima_reference(*args, L2, n),
+            lambda: int4_block_minima(*args, L2, n),
+            iters,
+        )
+        gbs = quant.codes.numel() / (k_ms * 1e-3) / 1e9
+        print(
+            f"[times] K2 {shape} f32 queries B={b} L2 (== twin): kernel {k_ms!r} ms "
+            f"({gbs:.0f} GB/s of packed codes), twin {p_ms!r} ms | {card}",
+            flush=True,
+        )
+    for mode, label in (("quantized", "int4 quantized"), ("refine", "refine expand=4")):
+        search_times(card, ds, Q, mode, shape, ((1, 200), (B_MAIN, 100)), label)
+    return k_ms, p_ms
 
 
 def main() -> int:
@@ -338,23 +530,38 @@ def main() -> int:
     t0 = time.perf_counter()
     load_library()
     print(
-        f"[build] K1 built from csrc/ and loaded in {time.perf_counter() - t0:.1f} s "
+        f"[build] K1 and K2 built from csrc/ and loaded in {time.perf_counter() - t0:.1f} s "
         f"-> {library_path().name}",
         flush=True,
     )
     max_err = phase_kernel(card)
-    ds, Q, launches = phase_main(card)
-    k_ms, p_ms, main_err = phase_times(card, ds, Q)
-    print(json.dumps({"kernels": [{
-        "name": "block_minima",
-        "route": "cuda",
-        "source": "sqlite_vector_tpu_torch/csrc/block_minima.cu",
-        "replaces": "sqlite_vector_tpu/ops/pallas_scan.py:681",
-        "launches": launches,
-        "max_abs_err": max(max_err, main_err),
-        "ms": k_ms,
-        "plain_ms": p_ms,
-    }]}))
+    k2_err = phase_kernel_int4(card)
+    ds, Q, ids_e, launches = phase_main(card)
+    k_ms, p_ms, main_err = phase_times(card, ds, Q)  # reads the int8 state
+    k2_launches = phase_int4(card, ds, Q, ids_e)
+    k2_ms, k2_plain_ms = phase_int4_times(card, ds, Q)
+    print(json.dumps({"kernels": [
+        {
+            "name": "block_minima",
+            "route": "cuda",
+            "source": "sqlite_vector_tpu_torch/csrc/block_minima.cu",
+            "replaces": "sqlite_vector_tpu/ops/pallas_scan.py:681",
+            "launches": launches,
+            "max_abs_err": max(max_err, main_err),
+            "ms": k_ms,
+            "plain_ms": p_ms,
+        },
+        {
+            "name": "int4_block_minima",
+            "route": "cuda",
+            "source": "sqlite_vector_tpu_torch/csrc/int4_minima.cu",
+            "replaces": "sqlite_vector_tpu/ops/pallas_int4.py:408",
+            "launches": k2_launches,
+            "max_abs_err": k2_err,
+            "ms": k2_ms,
+            "plain_ms": k2_plain_ms,
+        },
+    ]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,10 +1,15 @@
-"""Dataset and VectorStore on PyTorch: the exact and int8 search slice.
+"""Dataset and VectorStore on PyTorch: the exact, int8, int4 and refine
+search slices.
 
 Port of sqlite_vector_tpu/dataset.py for its main path: create -> add ->
-search(exact) -> quantize() -> search(quantized), on one device. The
-matrix lives on the device as a [capacity, dim] tensor that doubles as rows
-are appended; searches snapshot (count, matrix) and scan the first `count`
-rows through ops.scan.fused_scan_topk.
+search(exact) -> quantize() -> search(quantized), on one device, with int8
+codes or packed int4 codes (quantize(qtype="int4")), and the two-stage
+search(mode="refine") over an int4 quantization with its int8 sidecar
+(quantize(qtype="int4", refine=True)). The matrix lives on the device as a
+[capacity, dim] tensor that doubles as rows are appended; searches snapshot
+(count, matrix) and scan the first `count` rows through
+ops.scan.fused_scan_topk; int4 scans go through
+ops.quantize4.int4_scan_topk and refine through ops.refine.int4_refine_topk.
 
 Everything outside the slice raises VectorConfigError naming the ROADMAP
 item that will port it.
@@ -33,6 +38,8 @@ from sqlite_vector_tpu_torch.ops.quantize import (
     quantize_device,
     resolve_quant_params,
 )
+from sqlite_vector_tpu_torch.ops.quantize4 import int4_scan_topk, quantize4_device
+from sqlite_vector_tpu_torch.ops.refine import int4_refine_topk
 from sqlite_vector_tpu_torch.ops.scan import fused_scan_topk
 from sqlite_vector_tpu_torch.types import (
     DistanceMetric,
@@ -60,7 +67,6 @@ _ROADMAP_ITEM = {
     "search": "1 (rerank and approx modes, Dataset.distances)",
     "masks": "2 (remove/update/compact, ids_filter row masks)",
     "nonfinite": "3 (nonfinite.py policy twins)",
-    "int4": "4 (int4 + K2 + refine)",
     "host": "5 (host-storage streaming)",
     "persistence": "6 (persistence)",
     "mesh": "8 (parallel/ -> torch.distributed)",
@@ -108,10 +114,21 @@ class _QuantState:
     qtype: QuantType
     scale: np.float32
     offset: np.float32
-    codes: torch.Tensor | None  # [count, dim] u8/i8 on the device
+    codes: torch.Tensor | None  # [count, dim] u8/i8 on the device; for INT4
+    # the PACKED [count, ceil(dim/2)] uint8 codes (ops/quantize4.py)
     count: int  # rows quantized
     ids: np.ndarray  # row ids AT QUANTIZE TIME (the codes go stale on add)
     stale: bool = False
+    # -- INT4 only: per-row dequant scale alpha (f32 [count]) and the int32
+    # code square-sums csq; scale/offset stay 1.0/0.0
+    row_scale: torch.Tensor | None = None
+    sq_norms: torch.Tensor | None = None
+    # -- the int8 refine sidecar (quantize(qtype="int4", refine=True)): codes
+    # of the SAME row snapshot, positionally aligned with the packed rows
+    codes8: torch.Tensor | None = None
+    qtype8: QuantType | None = None
+    scale8: np.float32 | None = None
+    offset8: np.float32 | None = None
 
 
 class Dataset:
@@ -189,7 +206,9 @@ class Dataset:
             return self._ids[: self._count]
 
     def memory_bytes(self) -> int:
-        """Device bytes held by the matrix (padded capacity) and codes."""
+        """Device bytes held by the matrix (padded capacity) and the codes
+        (packed bytes for int4; alpha, csq and the refine sidecar are not
+        counted, as in the JAX package)."""
         total = 0
         vecs, quant = self._vectors, self._quant
         if vecs is not None:
@@ -374,6 +393,7 @@ class Dataset:
         *,
         exact: bool = True,
         mode: str | None = None,
+        expand: int = 4,
         ids_filter: Sequence[int] | np.ndarray | None = None,
     ) -> tuple[np.ndarray, np.ndarray]:
         """Top-k nearest neighbors.
@@ -384,11 +404,14 @@ class Dataset:
         unfilled slots trimmed.
 
         mode "exact" (the default, vector_full_scan) scans the full-precision
-        rows; "quantized" (exact=False, vector_quantize_scan) scans the int8
-        codes and returns integer-domain distances. The JAX package's
-        "rerank", "refine" and "approx" modes (with their `expand` and
-        `recall_target` options) and `ids_filter` are not ported yet and
-        raise VectorConfigError.
+        rows; "quantized" (exact=False, vector_quantize_scan) scans the
+        codes: int8 codes return integer-domain distances, packed int4 codes
+        approximate original-domain ones; "refine" scans the int4 codes for
+        k*expand candidates and rescores them against the int8 sidecar
+        (requires quantize(qtype="int4", refine=True)). Positions of the
+        quantized and refine modes index the quantize-time snapshot. The JAX
+        package's "rerank" and "approx" modes (with `recall_target`) and
+        `ids_filter` are not ported yet and raise VectorConfigError.
         """
         if k < 0:
             raise VectorConfigError("k must be >= 0")
@@ -401,8 +424,6 @@ class Dataset:
             )
         if mode in ("rerank", "approx"):
             raise _unported(f"search(mode='{mode}')", "search")
-        if mode == "refine":
-            raise _unported("search(mode='refine')", "int4")
         if ids_filter is not None:
             raise _unported("search(ids_filter=...)", "masks")
         q, single = self._coerce_queries(queries)
@@ -413,8 +434,10 @@ class Dataset:
                 np.full((q.shape[0], k), -1, np.int64),
                 np.full((q.shape[0], k), np.inf, np.float32),
             )
-        if mode == "exact" and self.dtype in (VectorType.F16, VectorType.BF16):
-            # lane-skip dtypes need the reference's non-finite policy kernels
+        if mode in ("exact", "refine") and self.dtype in (VectorType.F16, VectorType.BF16):
+            # lane-skip dtypes need the reference's non-finite policy
+            # kernels; the JAX package routes refine over such data to them
+            # too (its int8 rescore cannot honor their semantics)
             if self._has_nonfinite or not _finite(q):
                 raise _unported(
                     "Exact search over non-finite float16/bfloat16 data", "nonfinite"
@@ -428,6 +451,8 @@ class Dataset:
         cosine_fast = mode == "exact" and self._cosine_dot_fast(q)
         if mode == "exact":
             vals, idx = self._search_exact(q, k, cosine_fast)
+        elif mode == "refine":
+            vals, idx = self._search_refine(q, k, expand, quant)
         else:
             vals, idx = self._search_quantized(q, k, quant)
         # one device->host copy for both outputs: float32 values and int
@@ -440,8 +465,8 @@ class Dataset:
             # into the reference's cosine range and re-snap
             vals = np.where(np.isposinf(vals), vals, np.clip(vals + 1.0, 0.0, 2.0))
             vals = np.where(np.abs(vals) <= NEARLY_ZERO, 0.0, vals).astype(np.float32)
-        # quantized positions index the codes AT QUANTIZE TIME
-        id_map = quant.ids if mode == "quantized" else self._ids
+        # quantized and refine positions index the codes AT QUANTIZE TIME
+        id_map = self._ids if mode == "exact" else quant.ids
         n_map = len(id_map)
         valid = (idx >= 0) & (idx < n_map)
         if n_map == 0:
@@ -483,10 +508,35 @@ class Dataset:
 
     def _search_quantized(self, q: np.ndarray, k: int, quant: _QuantState | None):
         quant = self._require_quant("vector_quantize_scan", quant)
-        # query quantization with the stored params (src/sqlite-vector.c:2162-2177)
         qf = from_numpy(q.astype(np.float32), self.device)
+        if quant.qtype is QuantType.I4:
+            # per-query int8 codes are built inside the int4 scan
+            return int4_scan_topk(
+                qf, quant.codes, quant.row_scale, quant.sq_norms, self.metric, k,
+                dim=self.dimension, valid_count=quant.count,
+            )
+        # query quantization with the stored params (src/sqlite-vector.c:2162-2177)
         qq = quantize_device(qf, quant.scale, quant.offset, quant.qtype)
         return fused_scan_topk(qq, quant.codes, self.metric, k)
+
+    def _search_refine(
+        self, q: np.ndarray, k: int, expand: int, quant: _QuantState | None
+    ):
+        """Two-stage search on the device: int4 prefilter of k*expand
+        candidates, int8-sidecar rescore (ops/refine.py)."""
+        quant = self._require_quant("refine", quant)
+        if quant.qtype is not QuantType.I4 or quant.codes8 is None:
+            raise VectorStateError(
+                "refine: requires an int4 quantization with the int8 "
+                "refine sidecar — run quantize(qtype='int4', refine=True) "
+                "first."
+            )
+        return int4_refine_topk(
+            from_numpy(q.astype(np.float32), self.device),
+            quant.codes, quant.row_scale, quant.sq_norms, quant.codes8,
+            quant.scale8, quant.offset8, self.metric, k,
+            dim=self.dimension, expand=expand, valid_count=quant.count,
+        )
 
     def _require_quant(self, caller: str, quant: _QuantState | None) -> _QuantState:
         if quant is None or quant.codes is None:
@@ -506,23 +556,27 @@ class Dataset:
         checkpoint: str | None = None,
         refine: bool = False,
     ) -> int:
-        """(Re)build int8/uint8 codes on the device; returns the row count.
+        """(Re)build the codes on the device; returns the row count.
 
-        Mirrors vector_quantize (src/sqlite-vector.c:1406-1459): the
-        scale/offset formulas and AUTO resolution match the reference
-        bit-for-bit, and codes are bit-equal to the JAX package's.
+        int8/uint8 mirror vector_quantize (src/sqlite-vector.c:1406-1459):
+        the scale/offset formulas and AUTO resolution match the reference
+        bit-for-bit. qtype="int4" builds packed 4-bit codes with per-row
+        scales (ops/quantize4.py); refine=True (int4 only) adds an int8
+        sidecar of the same rows, with AUTO-resolved params, for
+        search(mode="refine"). Codes are bit-equal to the JAX package's.
         """
         if checkpoint is not None:
             raise _unported("quantize(checkpoint=...)", "persistence")
-        if refine:
-            raise _unported("quantize(refine=True)", "int4")
         opts = parse_options(options, self.options)
         if qtype is not None:
             opts.qtype = (
                 QuantType.from_name(qtype) if isinstance(qtype, str) else qtype
             )
-        if opts.qtype is QuantType.I4:
-            raise _unported("qtype=INT4", "int4")
+        if refine and opts.qtype is not QuantType.I4:
+            raise VectorConfigError(
+                "refine=True requires qtype='int4' — the refine sidecar is "
+                "the int8 rescore stage of the int4 two-stage search."
+            )
         with self._mutate_lock:
             count = self._count
             ids = self._ids[:count].copy()
@@ -536,42 +590,96 @@ class Dataset:
                 )
                 return 0
             vecs = self._vectors[:count]
+            if opts.qtype is QuantType.I4:
+                packed, alpha, csq = quantize4_device(vecs)
+                state = _QuantState(
+                    QuantType.I4, np.float32(1.0), np.float32(0.0), packed,
+                    count, ids, row_scale=alpha, sq_norms=csq,
+                )
+                if refine:
+                    # int8 sidecar of the SAME snapshot, AUTO-resolved params
+                    mn, mx, neg = minmax_and_negative(vecs)
+                    rq8, s8, o8 = resolve_quant_params(mn, mx, neg, QuantType.AUTO)
+                    state.codes8 = self._encode8(vecs, s8, o8, rq8)
+                    state.qtype8, state.scale8, state.offset8 = rq8, s8, o8
+                self._quant = state
+                return count
             mn, mx, neg = minmax_and_negative(vecs)
             rqtype, scale, offset = resolve_quant_params(mn, mx, neg, opts.qtype)
-            codes = torch.empty(
-                (count, self.dimension),
-                dtype=QUANT_TORCH_DTYPE[rqtype],
-                device=self.device,
-            )
-            rows = max(1, _QUANT_CHUNK_ELEMS // self.dimension)
-            for s in range(0, count, rows):
-                codes[s : s + rows] = quantize_device(
-                    vecs[s : s + rows], scale, offset, rqtype
-                )
+            codes = self._encode8(vecs, scale, offset, rqtype)
             self._quant = _QuantState(rqtype, scale, offset, codes, count, ids)
             return count
+
+    def _encode8(self, vecs: torch.Tensor, scale, offset, qtype: QuantType) -> torch.Tensor:
+        """int8/uint8 codes of `vecs`, in row chunks that bound the float32
+        temporaries."""
+        codes = torch.empty(
+            vecs.shape, dtype=QUANT_TORCH_DTYPE[qtype], device=self.device
+        )
+        rows = max(1, _QUANT_CHUNK_ELEMS // self.dimension)
+        for s in range(0, vecs.shape[0], rows):
+            codes[s : s + rows] = quantize_device(vecs[s : s + rows], scale, offset, qtype)
+        return codes
 
     def _install_quant(
         self, codes: np.ndarray, qtype: QuantType, scale: float, offset: float
     ) -> None:
-        """Adopt codes built elsewhere for the current rows (interop)."""
+        """Adopt int8/uint8 codes built elsewhere for the current rows
+        (interop)."""
         with self._mutate_lock:
-            count = self._count
-            if codes.shape != (count, self.dimension):
-                raise VectorConfigError(
-                    f"codes shape {codes.shape} != ({count}, {self.dimension})"
-                )
-            if codes.dtype != qtype.np_dtype:
-                raise VectorConfigError(
-                    f"codes dtype {codes.dtype} does not match qtype {qtype.value}"
-                )
+            self._check_codes(codes, qtype)
             self._quant = _QuantState(
                 qtype,
                 np.float32(scale),
                 np.float32(offset),
                 from_numpy(codes, self.device),
-                count,
+                self._count,
+                self._ids[: self._count].copy(),
+            )
+
+    def _install_quant4(
+        self,
+        packed: np.ndarray,
+        alpha: np.ndarray,
+        csq: np.ndarray,
+        sidecar: tuple[np.ndarray, QuantType, float, float] | None = None,
+    ) -> None:
+        """Adopt an int4 quantization built elsewhere for the current rows
+        (interop), with its refine sidecar (codes8, qtype8, scale8, offset8)
+        when given."""
+        with self._mutate_lock:
+            count = self._count
+            want = (count, (self.dimension + 1) // 2)
+            if packed.shape != want or packed.dtype != np.uint8:
+                raise VectorConfigError(
+                    f"packed codes must be uint8 {want}, got {packed.dtype} "
+                    f"{packed.shape}"
+                )
+            if alpha.shape != (count,) or csq.shape != (count,):
+                raise VectorConfigError("alpha and csq must have one entry per row")
+            state = _QuantState(
+                QuantType.I4, np.float32(1.0), np.float32(0.0),
+                from_numpy(packed, self.device), count,
                 self._ids[:count].copy(),
+                row_scale=from_numpy(alpha.astype(np.float32), self.device),
+                sq_norms=from_numpy(csq.astype(np.int32), self.device),
+            )
+            if sidecar is not None:
+                codes8, qtype8, scale8, offset8 = sidecar
+                self._check_codes(codes8, qtype8)
+                state.codes8 = from_numpy(codes8, self.device)
+                state.qtype8 = qtype8
+                state.scale8, state.offset8 = np.float32(scale8), np.float32(offset8)
+            self._quant = state
+
+    def _check_codes(self, codes: np.ndarray, qtype: QuantType) -> None:
+        if codes.shape != (self._count, self.dimension):
+            raise VectorConfigError(
+                f"codes shape {codes.shape} != ({self._count}, {self.dimension})"
+            )
+        if codes.dtype != qtype.np_dtype:
+            raise VectorConfigError(
+                f"codes dtype {codes.dtype} does not match qtype {qtype.value}"
             )
 
 

@@ -1,7 +1,8 @@
 """Build and load the package's CUDA kernels at first use.
 
-All `csrc/*.cu` sources compile with nvcc into one shared library with a
-plain C interface, bound with ctypes (no PyTorch headers, so a build takes
+Each `csrc/*.cu` source compiles with its own nvcc process, all started
+together, and the objects link into one shared library with a plain C
+interface, bound with ctypes (no PyTorch headers, so a build takes
 seconds). The library lands in `sqlite_vector_tpu_torch/_build/` (ignored
 by git) under a name hashed from the sources and flags, so an edited source
 is rebuilt and an unchanged one is reused.
@@ -28,7 +29,7 @@ BUILD_DIR = _PKG / "_build"
 # --use_fast_math: it changes sqrtf, division and NaN/Inf handling.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -37,6 +38,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # queries, base, out, B, N, d, valid, dtype, metric, stream
     "svt_block_minima": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # qc, qscale, packed, alpha, csq, out, B, N, d, valid, metric, stream
+    "svt_int4_block_minima": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -68,17 +71,33 @@ def library_path() -> Path:
     return BUILD_DIR / f"libsvt_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _nvcc_all(cmds: list[list[str]]) -> None:
+    """Run the commands all at once, wait for every one, then raise on the
+    first that failed."""
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for c in cmds
+    ]
+    for cmd, p, (out, err) in [(c, p, p.communicate()) for c, p in zip(cmds, procs)]:
+        if p.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed with exit code {p.returncode}:\n{' '.join(cmd)}\n{out}{err}"
+            )
+
+
 def _build(out: Path) -> None:
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    sources = [str(s) for s in sorted(CSRC.glob("*.cu"))]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *sources]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n"
-            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
+    tag = f"{out.name}.{os.getpid()}"
+    tmp = out.with_name(f"{tag}.tmp")
+    nvcc = _nvcc()
+    srcs = sorted(CSRC.glob("*.cu"))
+    objs = [str(BUILD_DIR / f"{tag}.{src.stem}.o") for src in srcs]
+    try:
+        _nvcc_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(s)] for s, o in zip(srcs, objs)])
+        _nvcc_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *objs]])
+    finally:
+        for obj in objs:
+            Path(obj).unlink(missing_ok=True)
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
 
 

@@ -164,22 +164,27 @@ def block_minima(
 block_minima.launches = 0
 
 
-def _finish_from_minima(
+def finish_groups(
     minima: torch.Tensor,
-    queries: torch.Tensor,
-    base: torch.Tensor,
+    n: int,
     valid: int,
-    metric: DistanceMetric,
     k: int,
+    dim: int,
+    rescore,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Exact top-k from block minima: select k groups, rescore k*128 rows.
+    """The finish over block minima [B, G]: select the k best groups per
+    query (ties to the earlier group), rescore their k*128 rows, take the
+    final top-k (ties to the earlier row). rescore(s, e, rows) returns the
+    rank-ready [e - s, C] distances of queries s:e to rows [e - s, C]
+    (positions clamped into [0, n)). Returns (values, positions) [B, k],
+    +inf / -1 past the candidates and at rows >= valid.
 
     The rescore runs in chunks of queries, and each query chunk's
-    candidates in slices, so that no gathered [queries, candidates, d]
+    candidates in slices, so that no gathered [queries, candidates, dim]
     block exceeds _FINISH_CHUNK_ELEMS elements whatever B and k are."""
-    b, n, dim = queries.shape[0], base.shape[0], base.shape[1]
+    b = minima.shape[0]
     kg = min(k, minima.shape[1])
-    dev = base.device
+    dev = minima.device
     if kg == 0:
         return (
             torch.full((b, k), torch.inf, device=dev),
@@ -197,20 +202,35 @@ def _finish_from_minima(
     lane = torch.arange(BLOCK, device=dev)
     vals, idx = [], []
     for s in range(0, b, bq):
-        q = queries[s : s + bq]
-        pos = (gidx[s : s + bq, :, None] * BLOCK + lane).reshape(q.shape[0], n_cand)
+        e = min(s + bq, b)
+        pos = (gidx[s:e, :, None] * BLOCK + lane).reshape(e - s, n_cand)
         d = torch.cat(
-            [
-                candidate_distances(q, base[pos[:, c : c + cs].clamp(0, n - 1)], metric)
-                for c in range(0, n_cand, cs)
-            ],
+            [rescore(s, e, pos[:, c : c + cs].clamp(0, n - 1)) for c in range(0, n_cand, cs)],
             dim=1,
         )
-        d = torch.where((pos < valid) & (pos < n), _rank_ready(d, metric), torch.inf)
+        d = torch.where((pos < valid) & (pos < n), d, torch.inf)
         v, cpos = topk_ascending(d, k)  # padded with +inf / -1 past n_cand
         vals.append(v)
         idx.append(torch.where(cpos >= 0, torch.gather(pos, 1, cpos.clamp(min=0)), -1))
-    vals, idx = torch.cat(vals), torch.cat(idx)
+    return torch.cat(vals), torch.cat(idx)
+
+
+def _finish_from_minima(
+    minima: torch.Tensor,
+    queries: torch.Tensor,
+    base: torch.Tensor,
+    valid: int,
+    metric: DistanceMetric,
+    k: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k from block minima: select k groups, rescore k*128 rows
+    exactly (finish_groups), then L2's sqrt and the near-zero snap."""
+    vals, idx = finish_groups(
+        minima, base.shape[0], valid, k, base.shape[1],
+        lambda s, e, rows: _rank_ready(
+            candidate_distances(queries[s:e], base[rows], metric), metric
+        ),
+    )
     if metric is DistanceMetric.L2:
         vals = sqrt_rn(vals)
     vals = torch.where(vals.abs() <= NEARLY_ZERO, 0.0, vals)

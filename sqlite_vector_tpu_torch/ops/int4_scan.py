@@ -1,0 +1,215 @@
+"""Packed-int4 block-minima scan + exact finish (K2 and its plain twin).
+
+Counterpart of sqlite_vector_tpu/ops/pallas_int4.py, shaped like
+ops/block_scan.py. Stage 1 makes one pass over the packed codes and keeps,
+per query and per 128-row group, the minimum of a MONOTONE SURROGATE of the
+int4 distance (per-query constants dropped, which preserves each query's
+ranking of rows):
+
+  L2, SQUARED_L2   alpha^2 * csq - 2 * qscale * alpha * dot
+  DOT              -(qscale * alpha) * dot
+  COSINE           -dot / sqrt(csq)   (0 for a zero row)
+
+where dot is the exact integer dot of the int8 query codes with the row's
+int4 codes. Rows >= valid and NaN surrogates (inf - inf when alpha^2 * csq
+overflows) are +inf. Stage 2 (torch ops) selects the k best groups, gathers
+their k*128 packed rows, rescores them with the exact int4 composition
+(ops.quantize4.int4_distances) and takes the final top-k, through K1's
+finish (ops.block_scan.finish_groups).
+
+Stage 1 has two implementations of one contract:
+  - int4_block_minima_reference: plain PyTorch, the definition of the output;
+  - the CUDA kernel csrc/int4_minima.cu, hand-written for Hopper.
+`int4_block_minima` picks by where the tensors live: the twin for CPU
+tensors, the kernel for CUDA tensors (it raises rather than fall back).
+L1 has no surrogate of this form and is rejected (it runs the plain tile
+loop, ops.quantize4.int4_scan_topk_plain).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from sqlite_vector_tpu_torch.ops.block_scan import BLOCK, _METRIC_CODE, finish_groups
+from sqlite_vector_tpu_torch.ops.distance import sqrt_rn
+from sqlite_vector_tpu_torch.ops.quantize4 import (
+    dot_dtype,
+    int4_distances,
+    packed_width,
+    quantize_query_int8,
+    sanitize_queries,
+    unpack4,
+)
+from sqlite_vector_tpu_torch.types import DistanceMetric
+
+# bound on the twin's unpacked [rows, d] codes and [B, rows] dots (elements)
+_TWIN_CHUNK_ELEMS = 1 << 25
+
+
+def _surrogate(
+    dotf: torch.Tensor,
+    qscale: torch.Tensor,
+    alpha: torch.Tensor,
+    csq: torch.Tensor,
+    metric: DistanceMetric,
+) -> torch.Tensor:
+    """The JAX package's _surrogate_block, op for op: dotf [B, T] float32
+    exact integer dots, qscale [B], alpha and csq [T]."""
+    qs = qscale[:, None]
+    a = alpha[None, :]
+    csqf = csq.float()[None, :]
+    if metric is DistanceMetric.DOT:
+        return -(qs * a) * dotf
+    if metric is DistanceMetric.COSINE:
+        # csq >= 1 when nonzero (integer codes): the clamp only shields the
+        # masked zero rows. 1 / sqrt, each correctly rounded (the kernel
+        # computes the same, not an approximate rsqrt)
+        root = sqrt_rn(torch.clamp(csqf, min=1.0))
+        inv = torch.where(csqf > 0.0, torch.ones_like(root) / root, 0.0)
+        return torch.where(csqf > 0.0, -dotf * inv, 0.0)
+    return a * a * csqf - 2.0 * (qs * a) * dotf
+
+
+def int4_block_minima_reference(
+    qc: torch.Tensor,
+    qscale: torch.Tensor,
+    packed: torch.Tensor,
+    alpha: torch.Tensor,
+    csq: torch.Tensor,
+    metric: DistanceMetric,
+    valid: int,
+) -> torch.Tensor:
+    """Plain-PyTorch twin of K2: float32 [B, ceil(N/128)] per-group minima
+    of the surrogate; rows >= valid and NaN surrogates are +inf."""
+    b, dim = qc.shape
+    n = packed.shape[0]
+    groups = -(-n // BLOCK)
+    acc = dot_dtype(dim)
+    s_all = torch.full(
+        (b, groups * BLOCK), torch.inf, dtype=torch.float32, device=packed.device
+    )
+    qcf = qc.to(acc)
+    rows = max(BLOCK, _TWIN_CHUNK_ELEMS // max(b, dim, 1))
+    for s in range(0, valid, rows):
+        e = min(s + rows, valid)
+        dot = qcf @ unpack4(packed[s:e], dim).to(acc).T
+        sv = _surrogate(dot.float(), qscale, alpha[s:e], csq[s:e], metric)
+        s_all[:, s:e] = torch.where(torch.isnan(sv), torch.inf, sv)
+    return s_all.view(b, groups, BLOCK).amin(-1)
+
+
+def _check(qc, qscale, packed, alpha, csq, metric, valid) -> None:
+    if qc.dim() != 2 or packed.dim() != 2:
+        raise ValueError("int4_block_minima: qc and packed must be 2-D")
+    b, dim = qc.shape
+    n = packed.shape[0]
+    if packed.shape[1] != packed_width(dim):
+        raise ValueError(
+            f"int4_block_minima: packed width {packed.shape[1]} != "
+            f"ceil({dim}/2)"
+        )
+    if qc.dtype != torch.int8 or packed.dtype != torch.uint8:
+        raise ValueError("int4_block_minima: qc must be int8, packed uint8")
+    if qscale.dtype != torch.float32 or qscale.shape != (b,):
+        raise ValueError("int4_block_minima: qscale must be float32 [B]")
+    if alpha.dtype != torch.float32 or alpha.shape != (n,):
+        raise ValueError("int4_block_minima: alpha must be float32 [N]")
+    if csq.dtype != torch.int32 or csq.shape != (n,):
+        raise ValueError("int4_block_minima: csq must be int32 [N]")
+    if len({t.device for t in (qc, qscale, packed, alpha, csq)}) != 1:
+        raise ValueError("int4_block_minima: tensors on different devices")
+    if metric not in _METRIC_CODE or metric is DistanceMetric.L1:
+        raise ValueError(f"int4_block_minima: no surrogate for {metric}")
+    if not (0 <= valid <= n):
+        raise ValueError(f"int4_block_minima: valid={valid} outside [0, N]")
+
+
+def int4_block_minima(
+    qc: torch.Tensor,
+    qscale: torch.Tensor,
+    packed: torch.Tensor,
+    alpha: torch.Tensor,
+    csq: torch.Tensor,
+    metric: DistanceMetric,
+    valid: int,
+) -> torch.Tensor:
+    """Per-128-row surrogate minima [B, ceil(N/128)] float32.
+
+    qc [B, d] int8 and qscale [B] float32 from quantize_query_int8; packed
+    [N, ceil(d/2)] uint8, alpha [N] float32, csq [N] int32 from
+    quantize4_device. CPU tensors run int4_block_minima_reference; CUDA
+    tensors launch the K2 kernel (csrc/int4_minima.cu) and count the launch
+    in `int4_block_minima.launches`.
+    """
+    _check(qc, qscale, packed, alpha, csq, metric, valid)
+    dev = packed.device
+    if dev.type == "cpu":
+        return int4_block_minima_reference(qc, qscale, packed, alpha, csq, metric, valid)
+    if dev.type != "cuda":
+        raise ValueError(f"int4_block_minima: unsupported device {dev}")
+    if not all(t.is_contiguous() for t in (qc, qscale, packed, alpha, csq)):
+        raise ValueError("int4_block_minima: the kernel needs contiguous tensors")
+    b, dim = qc.shape
+    n = packed.shape[0]
+    if n >= 2**31 or b >= 2**31 or dim >= 2**21:
+        raise ValueError("int4_block_minima: B, N must fit int32 and d < 2^21")
+    out = torch.empty((b, -(-n // BLOCK)), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    from sqlite_vector_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    with torch.cuda.device(dev):
+        rc = lib.svt_int4_block_minima(
+            qc.data_ptr(),
+            qscale.data_ptr(),
+            packed.data_ptr(),
+            alpha.data_ptr(),
+            csq.data_ptr(),
+            out.data_ptr(),
+            b,
+            n,
+            dim,
+            valid,
+            _METRIC_CODE[metric],
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"int4_block_minima kernel launch failed: cudaError {rc}")
+    int4_block_minima.launches += 1
+    return out
+
+
+int4_block_minima.launches = 0
+
+
+def int4_block_scan_topk(
+    queries: torch.Tensor,
+    packed: torch.Tensor,
+    alpha: torch.Tensor,
+    csq: torch.Tensor,
+    metric: DistanceMetric,
+    k: int,
+    *,
+    dim: int,
+    valid_count: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """int4 top-k via K2's surrogate minima + exact finish. Same contract as
+    ops.quantize4.int4_scan_topk (float32 queries [B, d]). The finish is
+    K1's group selection and chunked finish (block_scan.finish_groups),
+    rescoring the gathered packed rows with the int4 composition (NaN ->
+    +inf); the query codes are made once for both stages."""
+    valid = packed.shape[0] if valid_count is None else int(valid_count)
+    qc, qscale, qsq = quantize_query_int8(queries)
+    qf = sanitize_queries(queries)
+    minima = int4_block_minima(qc, qscale, packed, alpha, csq, metric, valid)
+
+    def rescore(s: int, e: int, rows: torch.Tensor) -> torch.Tensor:
+        d = int4_distances(
+            qc[s:e], qscale[s:e], qsq[s:e], qf[s:e],
+            unpack4(packed[rows], dim), alpha[rows], csq[rows], metric,
+        )
+        return torch.where(torch.isnan(d), torch.inf, d)
+
+    vals, idx = finish_groups(minima, packed.shape[0], valid, k, dim, rescore)
+    return vals, torch.where(torch.isposinf(vals), -1, idx)

@@ -1,8 +1,10 @@
 """Exact rescoring of per-query candidates (plain PyTorch).
 
 Port of candidate_distances from sqlite_vector_tpu/ops/rerank.py. The
-block-scan finish (ops/block_scan.py) rescores its gathered rows with it;
-the two-stage rerank mode that also uses it is not ported yet.
+block-scan finish (ops/block_scan.py) rescores its gathered rows with it,
+and the refine rescore (ops/refine.py) its dequantized int8 candidates for
+the metrics other than L2; the two-stage rerank mode that also uses it is
+not ported yet.
 """
 
 from __future__ import annotations

@@ -1,7 +1,8 @@
-"""PyTorch port parity for the Dataset slice: create -> add -> exact search
--> quantize -> quantized search, against the JAX VectorStore on the same
-rows (both on the CPU), plus the port's own contracts: no jax import, no
-silent CPU fallback, and a clear error for everything not yet ported."""
+"""PyTorch port parity for the Dataset slices: create -> add -> exact search
+-> quantize (int8 or int4, with the refine sidecar) -> quantized and refine
+search, against the JAX VectorStore on the same rows (both on the CPU),
+plus the port's own contracts: no jax import, no silent CPU fallback, and a
+clear error for everything not yet ported."""
 
 import subprocess
 import sys
@@ -14,6 +15,7 @@ import sqlite_vector_tpu as jax_svt
 import sqlite_vector_tpu_torch as svt
 from sqlite_vector_tpu_torch.interop import dataset_from_state
 from tests.parity import REL_TOL_BY_TYPE, assert_topk_parity
+from tests.test_torch_quantize4 import assert_int4_values_close
 
 METRICS = ["L2", "SQUARED_L2", "COSINE", "DOT", "L1"]
 
@@ -181,13 +183,11 @@ def test_unported_paths_raise_config_error():
     ds = svt.VectorStore(device="cpu").create("d", "dimension=8")
     ds.add(base)
     ds.quantize()
-    for mode in ("rerank", "refine", "approx"):
+    for mode in ("rerank", "approx"):
         with pytest.raises(svt.VectorConfigError, match="ROADMAP"):
             ds.search(base[0], 3, mode=mode)
     with pytest.raises(svt.VectorConfigError, match="ROADMAP"):
         ds.search(base[0], 3, ids_filter=[1, 2])
-    with pytest.raises(svt.VectorConfigError, match="ROADMAP"):
-        ds.quantize(qtype="int4")
     with pytest.raises(svt.VectorConfigError, match="ROADMAP"):
         ds.quantize(checkpoint="unused")
     with pytest.raises(svt.VectorConfigError, match="ROADMAP"):
@@ -200,6 +200,9 @@ def test_unported_paths_raise_config_error():
     half.add(bad)
     with pytest.raises(svt.VectorConfigError, match="ROADMAP"):
         half.search(base[0], 3)  # lane-skip semantics need the policy twins
+    half.quantize(qtype="int4", refine=True)
+    with pytest.raises(svt.VectorConfigError, match="ROADMAP"):
+        half.search(base[0], 3, mode="refine")  # JAX routes it to exact
 
 
 def test_default_device_refuses_missing_gpu(monkeypatch):
@@ -218,7 +221,118 @@ def test_package_imports_without_jax():
         "import sys\n"
         "import sqlite_vector_tpu_torch, sqlite_vector_tpu_torch.interop\n"
         "import sqlite_vector_tpu_torch.ops.block_scan, sqlite_vector_tpu_torch.ops._build\n"
+        "import sqlite_vector_tpu_torch.ops.quantize4, sqlite_vector_tpu_torch.ops.int4_scan\n"
+        "import sqlite_vector_tpu_torch.ops.refine\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "assert 'sqlite_vector_tpu' not in sys.modules\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+
+
+def int4_state(jds):
+    """The JAX dataset's int4 quantization (and refine sidecar) as the
+    arrays interop.dataset_from_state takes."""
+    quant, count = jds._quant, len(jds)
+    state = {
+        "vectors": np.asarray(jds._vectors)[:count],
+        "ids": jds.ids,
+        "packed": np.asarray(quant.codes)[:count],
+        "alpha": np.asarray(quant.row_scale)[:count],
+        "csq": np.asarray(quant.sq_norms)[:count],
+    }
+    if quant.codes8 is not None:
+        state.update(
+            codes8=np.asarray(quant.codes8)[:count], qtype8=quant.qtype8.value,
+            scale8=quant.scale8, offset8=quant.offset8,
+        )
+    return state
+
+
+@pytest.mark.parametrize("dim", [33, 48])
+def test_int4_quantize_builds_the_jax_state(dim):
+    """quantize(qtype="int4", refine=True): packed codes, alpha, csq and the
+    int8 sidecar with its AUTO params, bit-equal to the JAX dataset's."""
+    rng = np.random.default_rng(dim)
+    base = rng.standard_normal((1100, dim)).astype(np.float32)
+    base[7] = 0.0
+    jds, pds = both(f"dimension={dim},distance=L2", [base[:600], base[600:]])
+    assert pds.quantize(qtype="int4", refine=True) == jds.quantize(qtype="int4", refine=True)
+    (jq, js, jo), (pq, ps, po) = jds.quant_params, pds.quant_params
+    assert (pq.value, ps, po) == (jq.value, js, jo) == ("INT4", 1.0, 0.0)
+    want, got = int4_state(jds), pds._quant
+    for name, tensor in (("packed", got.codes), ("alpha", got.row_scale), ("csq", got.sq_norms),
+                         ("codes8", got.codes8)):
+        np.testing.assert_array_equal(tensor.numpy(), want[name], err_msg=name)
+    assert (got.qtype8.value, got.scale8, got.offset8) == (want["qtype8"], want["scale8"], want["offset8"])
+    assert pds.memory_bytes() == pds._vectors.numel() * 4 + got.codes.numel()
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_int4_and_refine_search_through_interop_match_jax(metric):
+    """The port searches the JAX dataset's own int4 codes and sidecar:
+    mode="quantized" and mode="refine" give the JAX ids up to ties and its
+    values within the stated int4 tolerances (assert_int4_values_close;
+    refine's float32 rescore sums within rtol 1e-5)."""
+    rng = np.random.default_rng(30 + METRICS.index(metric))
+    base = rng.standard_normal((800, 40)).astype(np.float32)
+    opts = f"dimension=40,distance={metric}"
+    jds = jax_svt.VectorStore().create("docs", opts)
+    jds.add(base, ids=np.arange(5, 805))
+    jds.quantize(qtype="int4", refine=True)
+    pds = dataset_from_state(int4_state(jds), opts, device="cpu")
+    assert pds.quant_params[0] is svt.QuantType.I4
+    q = np.concatenate([base[[4, 500]], rng.standard_normal((2, 40)).astype(np.float32)])
+    for mode in ("quantized", "refine"):
+        jid, jd = jds.search(q, 8, mode=mode)
+        pid, pd = pds.search(q, 8, mode=mode)
+        assert pid.shape == jid.shape == (4, 8)
+        if mode == "quantized":
+            assert_int4_values_close(pd, jd, q, metric)
+        else:
+            np.testing.assert_allclose(pd, jd, rtol=1e-5, atol=1e-5)
+        swapped = pid != jid
+        np.testing.assert_allclose(pd[swapped], jd[swapped], rtol=1e-5, atol=1e-5)
+        assert pid[0, 0] == jid[0, 0] == 9  # the self-match
+    # single-vector queries and expand
+    np.testing.assert_array_equal(pds.search(q[1], 8, mode="refine")[0], pds.search(q, 8, mode="refine")[0][1])
+    np.testing.assert_array_equal(
+        pds.search(q, 5, mode="refine", expand=2)[0], jds.search(q, 5, mode="refine", expand=2)[0]
+    )
+
+
+def test_int4_codes_go_stale_with_their_snapshot_ids():
+    rng = np.random.default_rng(40)
+    base = rng.standard_normal((300, 16)).astype(np.float32)
+    jds, pds = both("dimension=16", [base])
+    jds.quantize(qtype="int4", refine=True)
+    pds.quantize(qtype="int4", refine=True)
+    jds.add(base[:5] * 1.0001)
+    pds.add(base[:5] * 1.0001)
+    assert pds.quant_stale and jds.quant_stale
+    for mode in ("quantized", "refine"):
+        np.testing.assert_array_equal(pds.search(base[:2], 6, mode=mode)[0], jds.search(base[:2], 6, mode=mode)[0])
+
+
+def test_int4_and_refine_errors_match_jax():
+    base = np.random.default_rng(41).standard_normal((50, 8)).astype(np.float32)
+    jds, pds = both("dimension=8", [base])
+    msgs = []
+    for ds in (jds, pds):
+        with pytest.raises(jax_svt.VectorStateError if ds is jds else svt.VectorStateError) as e1:
+            ds.search(base[0], 3, mode="refine")  # nothing quantized
+        ds.quantize(qtype="int4")
+        with pytest.raises(jax_svt.VectorStateError if ds is jds else svt.VectorStateError) as e2:
+            ds.search(base[0], 3, mode="refine")  # no sidecar
+        ds.quantize(qtype="int8")
+        with pytest.raises(jax_svt.VectorStateError if ds is jds else svt.VectorStateError) as e3:
+            ds.search(base[0], 3, mode="refine")  # int8, not int4
+        with pytest.raises(jax_svt.VectorConfigError if ds is jds else svt.VectorConfigError) as e4:
+            ds.quantize(qtype="int8", refine=True)
+        msgs.append([str(e.value) for e in (e1, e2, e3, e4)])
+    assert msgs[0] == msgs[1]
+    assert "refine" in msgs[1][0] and "int4" in msgs[1][3]
+    # zero rows: an int4 quantize records its params, as in JAX
+    empty_j = jax_svt.VectorStore().create("e", "dimension=8")
+    empty_p = svt.VectorStore(device="cpu").create("e", "dimension=8")
+    assert empty_p.quantize(qtype="int4") == empty_j.quantize(qtype="int4") == 0
+    assert empty_p.quant_params[0].value == empty_j.quant_params[0].value == "INT4"

@@ -1,4 +1,5 @@
-"""The port's CUDA kernel (K1, csrc/block_minima.cu) on the card.
+"""The port's CUDA kernels on the card: K1 (csrc/block_minima.cu) and K2
+(csrc/int4_minima.cu).
 
 Every test here needs a CUDA device and skips without one. The file imports
 neither jax nor the JAX package, so on a machine without jax it runs on its
@@ -17,6 +18,16 @@ from sqlite_vector_tpu_torch.ops.block_scan import (
     block_minima_reference,
     block_scan_topk,
 )
+from sqlite_vector_tpu_torch.ops.int4_scan import (
+    int4_block_minima,
+    int4_block_minima_reference,
+)
+from sqlite_vector_tpu_torch.ops.quantize4 import (
+    int4_scan_topk_plain,
+    quantize4_device,
+    quantize_query_int8,
+)
+from sqlite_vector_tpu_torch.ops.refine import int4_refine_topk, refine_candidates
 from sqlite_vector_tpu_torch.ops.scan import scan_topk
 from sqlite_vector_tpu_torch.types import DistanceMetric
 
@@ -119,3 +130,127 @@ def test_dataset_on_card_matches_cpu(cuda):
     np.testing.assert_allclose(ce[1], pe[1], rtol=1e-5, atol=1e-6)
     np.testing.assert_array_equal(cq[0], pq[0])
     np.testing.assert_array_equal(cq[1], pq[1])
+
+
+K2_METRICS = [m for m in DistanceMetric if m is not DistanceMetric.L1]
+
+
+def int4_case(n, d, b, device, seed=0):
+    """Packed int4 codes of rows with a zero row (csq 0), duplicate rows,
+    and rows scaled by 1e25: every fifth row and all of group 1 (rows
+    128-255). Against the last query, also scaled, alpha^2 * csq and the
+    cross term both overflow, so the L2 surrogate is inf - inf = NaN there
+    and group 1 must read +inf. Query codes with a self-match. chip_smoke.py
+    runs K2 on these cases too, at N = 100,003."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((n, d), generator=gen, device=device)
+    big = torch.zeros(n, dtype=torch.bool, device=device)
+    big[::5] = True
+    big[128:256] = True
+    x[big] *= 1e25
+    x[300] = 0
+    x[n // 2] = x[11]
+    x[n - 3] = x[11]
+    q = torch.randn((b, d), generator=gen, device=device)
+    if b > 1:
+        q[-1] *= 1e25
+    q[0] = x[11]
+    packed, alpha, csq = quantize4_device(x)
+    qc, qs, _ = quantize_query_int8(q)
+    return (qc, qs, packed, alpha, csq), x
+
+
+def assert_k2_matches_twin(got, want):
+    """+inf positions equal; finite minima equal. Both compute the exact
+    integer dot and then the same float32 epilogue, each op rounded once in
+    the same order (the kernel with __fmul_rn/__fsub_rn and a correctly
+    rounded 1/sqrt), so they agree bit for bit."""
+    assert not bool(torch.isnan(got).any())
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    fin = torch.isfinite(want)
+    assert torch.equal(got[fin], want[fin])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [9, 16, 95, 384])  # 1-byte (9, 16) and 16-byte staging
+@pytest.mark.parametrize("b", [1, 3, 17])
+def test_int4_kernel_matches_twin(cuda, d, b):
+    tensors, _ = int4_case(5003, d, b, cuda)
+    before = int4_block_minima.launches
+    for metric in K2_METRICS:
+        got = int4_block_minima(*tensors, metric, 4990)
+        want = int4_block_minima_reference(*tensors, metric, 4990)
+        torch.cuda.synchronize()
+        assert_k2_matches_twin(got, want)
+        assert bool(torch.isinf(got[:, -1]).all())  # rows >= valid only
+        if b > 1 and metric is DistanceMetric.L2:
+            assert float(got[-1, 1]) == float("inf")  # all NaN or +inf
+    assert int4_block_minima.launches == before + len(K2_METRICS)
+
+
+@pytest.mark.cuda
+def test_int4_kernel_unaligned_packed_rows(cuda):
+    """A packed view that starts off a 16-byte boundary takes the 1-byte
+    staging and still equals the twin."""
+    (qc, qs, packed, alpha, csq), _ = int4_case(1000, 64, 2, cuda, seed=4)
+    view = packed.view(-1)[1 : 1 + 999 * 32].view(999, 32)  # row 0 at byte 1
+    got = int4_block_minima(qc, qs, view, alpha[:999], csq[:999], DistanceMetric.L2, 999)
+    want = int4_block_minima_reference(qc, qs, view, alpha[:999], csq[:999], DistanceMetric.L2, 999)
+    assert_k2_matches_twin(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", list(DistanceMetric), ids=lambda m: m.value)
+def test_int4_and_refine_search_launch_k2_except_l1(cuda, metric):
+    """search(mode="quantized") over int4 codes and search(mode="refine")
+    launch K2 for the matmul metrics and never for L1; both equal the same
+    searches run on the CPU over the same rows (ids; values within 1e-5,
+    float32 sums of another order)."""
+    rng = np.random.default_rng(5)
+    base = rng.standard_normal((3000, 96)).astype(np.float32)
+    q = base[[7, 2500]] + np.float32(1e-3)
+    results = []
+    for device in ("cuda", "cpu"):
+        ds = svt.VectorStore(device=device).create("d", f"dimension=96,distance={metric.value}")
+        ds.add(base)
+        ds.quantize(qtype="int4", refine=True)
+        before = int4_block_minima.launches
+        results.append((ds.search(q, 9, mode="quantized"), ds.search(q, 9, mode="refine")))
+        if device == "cuda":
+            launched = int4_block_minima.launches - before
+            assert launched == (0 if metric is DistanceMetric.L1 else 2)
+    for got, want in zip(results[0], results[1]):
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_allclose(got[1], want[1], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_refine_memory_is_bounded_at_large_batch_and_k(cuda):
+    """B=256, k=100, expand=4 over 1M x 384 int4 codes: the int4 finish
+    rescores 400 groups x 128 rows per query (256 x 51,200 x 384 = 5 G
+    unpacked codes, 20 GB as float32 at once) in blocks of at most 2^26
+    codes, and the refine rescore gathers [256, 400, 384] int8 rows (39 M
+    elements); the peak above the resident codes stays under 2 GiB."""
+    n, d, b, k = 1_000_000, 384, 256, 100
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn((n, d), generator=gen, device=cuda)
+    packed, alpha, csq = quantize4_device(x)
+    scale8 = np.float32(127.0) / np.float32(float(x.abs().max()))
+    codes8 = torch.clamp(torch.round(x * float(scale8)), -127, 127).to(torch.int8)
+    q = x[:b].clone()
+    del x
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    before = int4_block_minima.launches
+    vals, idx = int4_refine_topk(
+        q, packed, alpha, csq, codes8, scale8, 0.0, DistanceMetric.L2, k, dim=d, expand=4
+    )
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - held < 2 * 2**30
+    assert int4_block_minima.launches == before + 1
+    assert torch.equal(idx[:, 0], torch.arange(b, device=cuda))  # self-matches
+    # the first 4 queries against a refine prefiltered by the plain tile loop
+    _, cand = int4_scan_topk_plain(q[:4], packed, alpha, csq, DistanceMetric.L2, 4 * k, dim=d)
+    pv, pi = refine_candidates(q[:4], cand, codes8, scale8, 0.0, DistanceMetric.L2, k)
+    assert torch.equal(idx[:4], pi) and torch.equal(vals[:4], pv)

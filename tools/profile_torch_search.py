@@ -3,12 +3,14 @@
 
 Builds the configuration chip_smoke.py drives (N x 384 FLOAT32, L2, rows
 from N(0, 1) with --seed, 64 queries of which half are drawn from the
-base), quantizes it, and profiles --reps searches each of exact and
-quantized mode at B=1 and B=64, k=20, with torch.profiler after a warm-up.
-For each it prints one line: device busy time per search (the union of the
-device's kernel, copy and memset intervals) against the profiled wall time
-per search, the device operations per search, the block-minima kernel's
-(K1) device time per search, and the three next largest device operations.
+base), and profiles --reps searches each of exact and int8-quantized mode,
+then after quantize(qtype="int4", refine=True) of int4-quantized and refine
+mode, at B=1 and B=64, k=20, with torch.profiler after a warm-up. For each
+it prints one line: device busy time per search (the union of the device's
+kernel, copy and memset intervals) against the profiled wall time per
+search, the device operations per search, the scan kernel's device time
+per search (K1, the block-minima kernel, or K2, the packed-int4 kernel),
+and the three next largest device operations.
 The profiler inflates wall times; chip_smoke.py reports unprofiled ones.
 
     python3 tools/profile_torch_search.py [--n 1000000] [--reps 10]
@@ -57,16 +59,22 @@ def busy_us(events) -> float:
     return total
 
 
-def profile_search(ds, q: np.ndarray, exact: bool, reps: int) -> str:
+# the scan kernel of each mode: (label, substring of its device name)
+K1 = ("K1", "block_minima_kernel")
+K2 = ("K2", "int4_minima_kernel")
+
+
+def profile_search(ds, q: np.ndarray, mode: str, kernel: tuple[str, str], reps: int) -> str:
     from torch.profiler import ProfilerActivity, profile
 
+    label, kname = kernel
     for _ in range(3):
-        ds.search(q, K, exact=exact)
+        ds.search(q, K, mode=mode)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
-            ds.search(q, K, exact=exact)  # returns host arrays: synchronous
+            ds.search(q, K, mode=mode)  # returns host arrays: synchronous
         wall_ms = (time.perf_counter() - t0) * 1e3 / reps
     ops = device_ops(prof)
     if not ops:
@@ -75,18 +83,18 @@ def profile_search(ds, q: np.ndarray, exact: bool, reps: int) -> str:
     per_name = collections.Counter()
     for e in ops:
         per_name[e.name] += e.time_range.elapsed_us() / 1e3 / reps
-    k1_ms = sum(t for name, t in per_name.items() if "block_minima_kernel" in name)
-    if k1_ms == 0:
-        raise RuntimeError("the profiled searches launched no block-minima kernel")
+    kernel_ms = sum(t for name, t in per_name.items() if kname in name)
+    if kernel_ms == 0:
+        raise RuntimeError(f"the profiled searches launched no {kname}")
     rest = [
         f"{name[:60]} {t!r} ms"
         for name, t in per_name.most_common()
-        if "block_minima_kernel" not in name
+        if kname not in name
     ][:3]
     return (
         f"device busy {busy_ms!r} of {wall_ms!r} ms profiled wall "
         f"({100 * busy_ms / wall_ms:.1f}%), {len(ops) / reps:.0f} device ops, "
-        f"K1 {k1_ms!r} ms; next: " + "; ".join(rest)
+        f"{label} {kernel_ms!r} ms; next: " + "; ".join(rest)
     )
 
 
@@ -116,11 +124,18 @@ def main() -> int:
     q = np.concatenate(
         [ds.get(ds.ids[picks]), rng.standard_normal((B_MAX - B_MAX // 2, DIM), dtype=np.float32)]
     )
-    ds.quantize()
-    for mode, exact in (("exact", True), ("quantized", False)):
+
+    def report(label: str, mode: str, kernel: tuple[str, str]) -> None:
         for b in (1, B_MAX):
-            line = profile_search(ds, q[:b], exact, args.reps)
-            print(f"[profile] {mode} {args.n}x{DIM} k={K} B={b}: {line} | {card}", flush=True)
+            line = profile_search(ds, q[:b], mode, kernel, args.reps)
+            print(f"[profile] {label} {args.n}x{DIM} k={K} B={b}: {line} | {card}", flush=True)
+
+    ds.quantize()
+    report("exact", "exact", K1)
+    report("int8 quantized", "quantized", K1)
+    ds.quantize(qtype="int4", refine=True)
+    report("int4 quantized", "quantized", K2)
+    report("refine expand=4", "refine", K2)
     return 0
 
 
