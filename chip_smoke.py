@@ -16,7 +16,10 @@ Phases, each printing its own lines:
               two duplicate rows and a zero row; then K2 against its twin
               for its four metrics, d in {95, 384}, B in {1, 8, 33}, with a
               zero row, duplicate rows and rows scaled by 1e25 (overflowing
-              surrogates, one group entirely);
+              surrogates, one group entirely); each case also with the
+              four row masks of tests/test_torch_kernel_cuda.py:mask_case
+              (a random half, a group with no live row, every row masked,
+              three live rows);
   4. main     VectorStore(device="cuda"): create dimension=384 FLOAT32 L2,
               add 1,000,000 rows, search(Q, 20) for 64 queries (half drawn
               from the base) against a plain-torch ground truth, then
@@ -36,7 +39,23 @@ Phases, each printing its own lines:
               refine recall@20 against exact are printed;
   7. times    K2 alone against its twin at B=1 and B=64 (CUDA events, in
               turns), then end-to-end int4-quantized and refine search at
-              B=1 and B=64, measured as in phase 5.
+              B=1 and B=64, measured as in phase 5;
+  8. mutate   on the same rows: remove 10,000 random ids (tombstones, below
+              the compaction threshold); exact search at B=1 and B=64 and
+              distances on 4 queries against the plain masked scan; an
+              ids_filter of 100,000 random live ids in exact, approx (equal
+              to exact bit for bit), int4 quantized, refine and rerank mode
+              over phase 6's now stale int4 snapshot, each against its plain
+              counterpart over the same mask; update 64 rows (each found at
+              distance 0); compact() (results equal as id sets); then a
+              fresh int8 quantize() and filtered quantized and rerank
+              search, and unfiltered rerank, against their plain
+              counterparts. K1's and K2's launch counts over the masked
+              searches must be above 0. Times: remove, update and compact
+              wall ms; masked exact search at B=1 and B=64 beside unmasked;
+              filtered search at B=64 and the filter mask's build; rerank
+              at B=1 and B=64; K1 and K2 alone masked against unmasked at
+              B=64 (CUDA events, in turns).
 
 Then one JSON line of kernel results, the card line again, and last the
 result line. Any failure raises, so the script exits non-zero and prints no
@@ -109,7 +128,9 @@ def make_rows(gen: torch.Generator, n: int, d: int, dtype: torch.dtype) -> torch
     return torch.randn((n, d), generator=gen, device=dev).to(dtype)
 
 
-def compare_minima(q: torch.Tensor, base: torch.Tensor, metric, valid: int, label: str) -> float:
+def compare_minima(
+    q: torch.Tensor, base: torch.Tensor, metric, valid: int, label: str, mask=None
+) -> float:
     """K1 against its twin on the same CUDA tensors: +inf positions equal,
     integer minima equal, float minima within 1e-5 of the magnitude of the
     accumulated terms (both widen to f32 and accumulate in f32, so they
@@ -121,8 +142,8 @@ def compare_minima(q: torch.Tensor, base: torch.Tensor, metric, valid: int, labe
     )
     from sqlite_vector_tpu_torch.types import DistanceMetric
 
-    got = block_minima(q, base, metric, valid)
-    ref = block_minima_reference(q, base, metric, valid)
+    got = block_minima(q, base, metric, valid, mask)
+    ref = block_minima_reference(q, base, metric, valid, mask)
     torch.cuda.synchronize()
     check(got.shape == ref.shape, f"{label}: shape {got.shape} != {ref.shape}")
     check(torch.equal(torch.isinf(got), torch.isinf(ref)), f"{label}: +inf positions differ")
@@ -139,20 +160,23 @@ def compare_minima(q: torch.Tensor, base: torch.Tensor, metric, valid: int, labe
     else:  # |q.b| and the norms are bounded by ||q||^2 + ||b||^2
         qf, bf = q.float(), base[:valid].float()
         bf = bf[torch.isfinite(bf).all(-1)]
-        mag = float((qf * qf).sum(-1).max() + (bf * bf).sum(-1).max())
+        mag = float((qf * qf).sum(-1).max() + (bf * bf).sum(-1).max()) if bf.numel() else 1.0
     worst = float(err.max()) if err.numel() else 0.0
     check(bool((err <= 1e-5 * mag).all()), f"{label}: max |kernel - twin| {worst} over tolerance")
     return worst
 
 
-def phase_kernel(card: str) -> float:
-    """K1 vs twin for all 25 (metric x dtype) pairs; returns the largest
-    |kernel - twin| over finite float minima."""
+def phase_kernel(card: str) -> tuple[float, float]:
+    """K1 vs twin for all 25 (metric x dtype) pairs, unmasked and with each
+    row mask; returns the largest |kernel - twin| over finite float minima,
+    unmasked and masked."""
     from sqlite_vector_tpu_torch.types import DistanceMetric
 
+    cuda_tests = load_tests_module("test_torch_kernel_cuda")
     n, valid = 100_003, 100_003 - 77
+    masks = {kind: cuda_tests.mask_case(kind, n, "cuda", seed=SEED) for kind in cuda_tests.MASK_KINDS}
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    worst = 0.0
+    worst = masked_worst = 0.0
     cases = 0
     t0 = time.perf_counter()
     for dtype in (torch.float32, torch.float16, torch.bfloat16, torch.uint8, torch.int8):
@@ -168,16 +192,22 @@ def phase_kernel(card: str) -> float:
                 for metric in DistanceMetric:
                     label = f"{metric.value}/{dtype}/d={d}/B={b}"
                     worst = max(worst, compare_minima(q, base, metric, valid, label))
+                    for kind, mask in masks.items():
+                        masked_worst = max(masked_worst, compare_minima(
+                            q, base, metric, valid, f"{label}/mask={kind}", mask
+                        ))
                 cases += 1
             del base
     print(
         f"[kernel] K1 == twin on all 25 metric x dtype pairs ({cases} dtype/d/B "
         f"cases x 5 metrics, N={n}, valid={valid}; ints equal, floats within "
-        f"1e-5 of the accumulated magnitude); max |kernel - twin| = {worst!r} "
-        f"in {time.perf_counter() - t0:.1f} s | {card}",
+        f"1e-5 of the accumulated magnitude); max |kernel - twin| = {worst!r}; "
+        f"masked ({len(masks)} row masks each: {', '.join(masks)}): max |kernel - "
+        f"twin| = {masked_worst!r}, +inf groups equal; in "
+        f"{time.perf_counter() - t0:.1f} s | {card}",
         flush=True,
     )
-    return worst
+    return worst, masked_worst
 
 
 def load_tests_module(name: str):
@@ -191,7 +221,7 @@ def load_tests_module(name: str):
     return module
 
 
-def compare_int4_minima(args, metric, valid: int, label: str) -> float:
+def compare_int4_minima(args, metric, valid: int, label: str, mask=None) -> float:
     """K2 against its twin on the same CUDA tensors: +inf positions equal
     and finite minima EQUAL (tolerance 0): both take the exact integer dot
     and then the same float32 epilogue, each op rounded once in the same
@@ -203,8 +233,8 @@ def compare_int4_minima(args, metric, valid: int, label: str) -> float:
         int4_block_minima_reference,
     )
 
-    got = int4_block_minima(*args, metric, valid)
-    ref = int4_block_minima_reference(*args, metric, valid)
+    got = int4_block_minima(*args, metric, valid, mask)
+    ref = int4_block_minima_reference(*args, metric, valid, mask)
     torch.cuda.synchronize()
     check(got.shape == ref.shape, f"{label}: shape {got.shape} != {ref.shape}")
     check(not bool(torch.isnan(got).any()), f"{label}: NaN minima")
@@ -215,17 +245,20 @@ def compare_int4_minima(args, metric, valid: int, label: str) -> float:
     return worst
 
 
-def phase_kernel_int4(card: str) -> float:
-    """K2 vs twin for its 4 metrics x d in {95, 384} x B in {1, 8, 33};
-    returns the largest |kernel - twin| over finite minima."""
+def phase_kernel_int4(card: str) -> tuple[float, float]:
+    """K2 vs twin for its 4 metrics x d in {95, 384} x B in {1, 8, 33},
+    unmasked and with each row mask; returns the largest |kernel - twin|
+    over finite minima, unmasked and masked."""
     from sqlite_vector_tpu_torch.ops.int4_scan import int4_block_minima
     from sqlite_vector_tpu_torch.types import DistanceMetric
 
     # the card tests' edge cases: zero row, duplicates, 1e25-scaled rows
-    int4_case = load_tests_module("test_torch_kernel_cuda").int4_case
+    cuda_tests = load_tests_module("test_torch_kernel_cuda")
+    int4_case = cuda_tests.int4_case
     n, valid = 100_003, 100_003 - 77
+    masks = {kind: cuda_tests.mask_case(kind, n, "cuda", seed=SEED + 1) for kind in cuda_tests.MASK_KINDS}
     metrics = [m for m in DistanceMetric if m is not DistanceMetric.L1]
-    worst = 0.0
+    worst = masked_worst = 0.0
     t0 = time.perf_counter()
     for d in (95, 384):
         for b in (1, 8, 33):
@@ -233,6 +266,10 @@ def phase_kernel_int4(card: str) -> float:
             for metric in metrics:
                 label = f"K2 {metric.value}/d={d}/B={b}"
                 worst = max(worst, compare_int4_minima(args, metric, valid, label))
+                for kind, mask in masks.items():
+                    masked_worst = max(masked_worst, compare_int4_minima(
+                        args, metric, valid, f"{label}/mask={kind}", mask
+                    ))
                 if b > 1 and metric is DistanceMetric.L2:
                     # group 1 against the scaled query: NaN or +inf throughout
                     m = int4_block_minima(*args, metric, valid)
@@ -242,10 +279,11 @@ def phase_kernel_int4(card: str) -> float:
         f"[kernel] K2 == twin for {len(metrics)} metrics x d in (95, 384) x B in "
         f"(1, 8, 33) (N={n}, valid={valid}, zero/duplicate/1e25-scaled rows; "
         f"+inf positions equal, finite minima equal); max |kernel - twin| = "
-        f"{worst!r} in {time.perf_counter() - t0:.1f} s | {card}",
+        f"{worst!r}; masked ({len(masks)} row masks each): max |kernel - twin| = "
+        f"{masked_worst!r}; in {time.perf_counter() - t0:.1f} s | {card}",
         flush=True,
     )
-    return worst
+    return worst, masked_worst
 
 
 def phase_main(card: str):
@@ -511,6 +549,243 @@ def phase_int4_times(card: str, ds, Q) -> tuple[float, float]:
     return k_ms, p_ms
 
 
+def close_topk(label: str, ids, vals, want_ids, want_vals, rtol: float) -> None:
+    """Values within rtol (float32 sums in another order), and wherever the
+    ids differ the two values are a near-tie within that tolerance."""
+    check(ids.shape == want_ids.shape, f"{label}: shape {ids.shape} != {want_ids.shape}")
+    check(np.array_equal(np.isinf(vals), np.isinf(want_vals)), f"{label}: unfilled slots differ")
+    fin = np.isfinite(want_vals)
+    check(
+        np.allclose(vals[fin], want_vals[fin], rtol=rtol, atol=1e-5),
+        f"{label}: distances differ from the plain path beyond rtol {rtol}",
+    )
+    for i in range(ids.shape[0]):
+        if not fin[i].any():
+            continue
+        kth = want_vals[i][fin[i]].max()
+        sure = set(want_ids[i][want_vals[i] < kth - rtol * max(1.0, abs(kth))].tolist())
+        check(sure <= set(ids[i].tolist()), f"{label} q{i}: a clear winner of the plain path is missing")
+
+
+def to_ids(pos: torch.Tensor, id_map: np.ndarray) -> np.ndarray:
+    pos = pos.cpu().numpy()
+    return np.where(pos >= 0, id_map[np.clip(pos, 0, None)], -1)
+
+
+def phase_mutate(card: str, ds, Q) -> dict:
+    """remove, masked and filtered search in every mode against the plain
+    counterparts, update, compact, distances; prints the times and returns
+    the kernels' launches over the masked searches and their masked times
+    at B=B_MAIN."""
+    from sqlite_vector_tpu_torch.ops.block_scan import block_minima
+    from sqlite_vector_tpu_torch.ops.distance import pairwise_distance
+    from sqlite_vector_tpu_torch.ops.int4_scan import int4_block_minima
+    from sqlite_vector_tpu_torch.ops.quantize import quantize_device
+    from sqlite_vector_tpu_torch.ops.quantize4 import int4_scan_topk_plain, quantize_query_int8
+    from sqlite_vector_tpu_torch.ops.refine import refine_candidates
+    from sqlite_vector_tpu_torch.ops.rerank import (
+        candidate_distances,
+        rescore_live_rows,
+        rescore_topk,
+    )
+    from sqlite_vector_tpu_torch.ops.scan import scan_topk
+    from sqlite_vector_tpu_torch.types import DistanceMetric
+
+    L2, F32_TOL = DistanceMetric.L2, 3e-5
+    rng = np.random.default_rng(SEED + 8)
+    Qd = torch.from_numpy(Q).cuda()
+    shape = f"{N_MAIN}x{DIM_MAIN}"
+    out = {}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, (time.perf_counter() - t0) * 1e3
+
+    block_minima.launches = 0
+    int4_block_minima.launches = 0
+    # -- remove: tombstones below the 250,000-row threshold ------------------
+    gone = rng.choice(ds.ids, 10_000, replace=False)
+    removed, t_remove = timed(lambda: ds.remove(gone))
+    check(removed == 10_000 and ds.tombstones == 10_000, "remove did not tombstone 10,000 rows")
+    check(len(ds) == N_MAIN - 10_000, f"len {len(ds)} after remove")
+    count = ds._count
+    vecs = ds._vectors[:count]
+    rows_ids = ds._ids[:count]
+    live = ds._live_mask_dev()
+
+    # -- masked exact at B=1 and B=B_MAIN, against the plain masked scan --
+    for b in (1, B_MAIN):
+        ids_e, d_e = ds.search(Q[:b], K)
+        check(not np.isin(ids_e, gone).any(), f"exact B={b}: a removed id came back")
+        pv, pi = scan_topk(Qd[:b], vecs, L2, K, row_mask=live)
+        close_topk(f"masked exact B={b}", ids_e, d_e, to_ids(pi, rows_ids), pv.cpu().numpy(), F32_TOL)
+    d4 = ds.distances(Q[:4])
+    check(d4.shape == (4, len(ds)), f"distances shape {d4.shape}")
+    want = pairwise_distance(Qd[:4], vecs, L2)[:, live].cpu().numpy()
+    check(np.allclose(d4, want, rtol=1e-6, atol=0), "distances differ from the plain distances of the live rows")
+
+    # -- ids_filter of 100,000 live ids -------------------------------------
+    flt = rng.choice(ds.ids, 100_000, replace=False)
+    quant = ds._quant  # phase 6's int4 + refine snapshot, stale now
+    snap_mask = torch.from_numpy(np.isin(quant.ids, flt)).cuda()
+    live_mask = torch.from_numpy(np.isin(rows_ids, flt)).cuda() & live
+    ids_f, d_f = ds.search(Q, K, ids_filter=flt)
+    check(np.isin(ids_f[ids_f >= 0], flt).all(), "filtered exact returned an id outside the filter")
+    pv, pi = scan_topk(Qd, vecs, L2, K, row_mask=live_mask)
+    close_topk("filtered exact", ids_f, d_f, to_ids(pi, rows_ids), pv.cpu().numpy(), F32_TOL)
+    ids_a, d_a = ds.search(Q, K, mode="approx", ids_filter=flt)
+    check(np.array_equal(ids_a, ids_f) and np.array_equal(d_a, d_f), "approx != exact")
+    qargs = (quant.codes, quant.row_scale, quant.sq_norms)
+    ids_q, d_q = ds.search(Q, K, mode="quantized", ids_filter=flt)
+    pv, pi = int4_scan_topk_plain(Qd, *qargs, L2, K, dim=DIM_MAIN, valid_count=quant.count, row_mask=snap_mask)
+    same_topk("filtered int4 quantized", ids_q, d_q, to_ids(pi, quant.ids), pv.cpu().numpy())
+    ids_r, d_r = ds.search(Q, K, mode="refine", ids_filter=flt)
+    _, cand = int4_scan_topk_plain(
+        Qd, *qargs, L2, 4 * K, dim=DIM_MAIN, valid_count=quant.count, row_mask=snap_mask
+    )
+    rv, ri = refine_candidates(Qd, cand, quant.codes8, quant.scale8, quant.offset8, L2, K)
+    same_topk("filtered refine", ids_r, d_r, to_ids(ri, quant.ids), rv.cpu().numpy())
+
+    def plain_remap(stage1_pos: torch.Tensor):
+        """The rerank id-remap route by hand: snapshot positions -> ids ->
+        live positions, then the same rescore of the live rows."""
+        cand_ids = to_ids(stage1_pos, quant.ids)
+        pos_of = ds._id_to_pos()
+        pos = np.array([[pos_of.get(int(i), -1) for i in row] for row in cand_ids], np.int64)
+        v, i = rescore_live_rows(Qd, ds._vectors, torch.from_numpy(pos).cuda(), L2, K)
+        return to_ids(i, ds._ids), v.cpu().numpy()
+
+    ids_rr, d_rr = ds.search(Q, K, mode="rerank", ids_filter=flt)
+    check(not np.isin(ids_rr, gone).any(), "rerank returned a removed id")
+    _, cand = int4_scan_topk_plain(
+        Qd, *qargs, L2, 4 * K, dim=DIM_MAIN, valid_count=quant.count, row_mask=snap_mask
+    )
+    same_topk("filtered rerank (int4 stage 1, id remap)", ids_rr, d_rr, *plain_remap(cand))
+    masked = {"K1": block_minima.launches, "K2": int4_block_minima.launches}
+    print(
+        f"[mutate] remove(10000) of {N_MAIN} rows: {ds.tombstones} tombstones; masked exact "
+        f"B=1 and B={B_MAIN} == the plain masked scan (rtol {F32_TOL}), no removed id back; "
+        f"distances(Q[:4]) shape {d4.shape} == the plain distances of the live rows; "
+        f"ids_filter of 100000 live ids: exact == plain, approx == exact bit for bit, int4 "
+        f"quantized, refine and rerank (stale int4 snapshot) == their plain counterparts "
+        f"over the same masks; K1 launches {masked['K1']}, K2 launches {masked['K2']} | {card}",
+        flush=True,
+    )
+
+    # -- times with the tombstones in place --------------------------------
+    search_times(card, ds, Q, "exact", shape, ((1, 200), (B_MAIN, 100)), "exact, 10000 tombstones")
+    filtered = ds._search_mask("exact", ds._quant, flt)
+    masks_ms = []
+    for _ in range(20):
+        _, ms = timed(lambda: ds._search_mask("exact", ds._quant, flt))
+        masks_ms.append(ms)
+    reps = 50
+    _, window = timed(lambda: [ds.search(Q, K, ids_filter=flt) for _ in range(reps)])
+    mask_ms = float(np.median(masks_ms))
+    print(
+        f"[times] search exact filtered (100000 of {len(ds)} live ids) {shape} k={K} "
+        f"B={B_MAIN}: QPS {B_MAIN * reps / (window * 1e-3)!r} ({reps} back-to-back calls, "
+        f"{window / reps!r} ms a call) | {card}",
+        flush=True,
+    )
+    print(
+        f"[times] filter mask build (torch.isin of {count} ids against 100000, device, "
+        f"the tombstone mask combined): median {mask_ms!r} ms of 20, "
+        f"{100 * mask_ms / (window / reps):.1f}% of a filtered B={B_MAIN} search | {card}",
+        flush=True,
+    )
+    qc, qs, _ = quantize_query_int8(Qd)
+    k1_ms, k1_plain = in_turns(
+        lambda: block_minima(Qd, vecs, L2, count),
+        lambda: block_minima(Qd, vecs, L2, count, filtered),
+        10,
+    )
+    k2_ms, k2_plain = in_turns(
+        lambda: int4_block_minima(qc, qs, *qargs, L2, quant.count),
+        lambda: int4_block_minima(qc, qs, *qargs, L2, quant.count, snap_mask),
+        10,
+    )
+    out["K1"], out["K2"] = (k1_ms, k1_plain), (k2_ms, k2_plain)
+    for name, (m_ms, u_ms), nbytes in (
+        ("K1", out["K1"], vecs.numel() * 4), ("K2", out["K2"], quant.codes.numel())
+    ):
+        print(
+            f"[times] {name} alone {shape} B={B_MAIN} L2: masked {m_ms!r} ms, unmasked "
+            f"{u_ms!r} ms ({nbytes / (m_ms * 1e-3) / 1e9:.0f} GB/s masked) | {card}",
+            flush=True,
+        )
+
+    # -- update 64 rows, compact ---------------------------------------------
+    upd = rng.choice(ds.ids, B_MAIN, replace=False)
+    fresh = rng.standard_normal((B_MAIN, DIM_MAIN), dtype=np.float32)
+    ds._id_pos_cache = None  # time the live id map's rebuild on its own
+    _, t_id_map = timed(ds._id_to_pos)
+    n_upd, t_update = timed(lambda: ds.update(upd, fresh))
+    ids_u, d_u = ds.search(fresh, 1)
+    check(n_upd == B_MAIN and np.array_equal(ids_u[:, 0], upd), "update: a new vector does not find its id")
+    check(bool((d_u[:, 0] == 0).all()), "update: a new vector is not at distance 0")
+    before = ds.search(Q, K)
+    dropped, t_compact = timed(ds.compact)
+    after = ds.search(Q, K)
+    check(dropped == 10_000 and ds.tombstones == 0 and len(ds) == N_MAIN - 10_000, "compact")
+    for i in range(B_MAIN):
+        check(set(before[0][i]) == set(after[0][i]), f"q{i}: results changed across compaction")
+    print(
+        f"[mutate] update({B_MAIN}) each new vector found at distance 0; compact() dropped "
+        f"{dropped} rows, search results equal as id sets before and after | {card}",
+        flush=True,
+    )
+    print(
+        f"[times] remove(10000) {t_remove!r} ms; update({B_MAIN}) {t_update!r} ms (out of "
+        f"place: a copy of the {ds._vectors.numel() * 4 / 1e9:.2f} GB matrix, with the live "
+        f"id map warm; rebuilt cold, as after a remove, it took {t_id_map!r} ms); compact() "
+        f"{t_compact!r} ms (device gather of {len(ds)} rows) | {card}",
+        flush=True,
+    )
+    search_times(card, ds, Q, "exact", f"{len(ds)}x{DIM_MAIN}", ((1, 200), (B_MAIN, 100)),
+                 "exact, unmasked after compact")
+
+    # -- fresh int8 codes: filtered quantized and rerank, unfiltered rerank --
+    ds.quantize()
+    quant = ds._quant
+    before = (block_minima.launches, int4_block_minima.launches)
+    qq = quantize_device(Qd, quant.scale, quant.offset, quant.qtype)
+    snap_mask = torch.from_numpy(np.isin(quant.ids, flt)).cuda()
+    ids_q, d_q = ds.search(Q, K, mode="quantized", ids_filter=flt)
+    pv, pi = scan_topk(qq, quant.codes, L2, K, row_mask=snap_mask)
+    check(np.array_equal(ids_q, to_ids(pi, quant.ids)) and np.array_equal(d_q, pv.cpu().numpy()),
+          "filtered int8 quantized != the plain masked scan of the same codes")
+    ids_rr, d_rr = ds.search(Q, K, mode="rerank", ids_filter=flt)
+    _, cand = scan_topk(qq, quant.codes, L2, 4 * K, row_mask=snap_mask)
+    same_topk("filtered rerank (int8 stage 1, id remap)", ids_rr, d_rr, *plain_remap(cand))
+    masked["K1"] += block_minima.launches - before[0]
+    masked["K2"] += int4_block_minima.launches - before[1]
+    check(masked["K1"] > 0 and masked["K2"] > 0, f"masked searches launched {masked}")
+    ids_rf, d_rf = ds.search(Q, K, mode="rerank")
+    check(ds.last_rerank_decomposition["translate_s"] == 0.0, "unfiltered fresh rerank not fused")
+    _, cand = scan_topk(qq, quant.codes, L2, 4 * K)
+    vecs = ds._vectors[: ds._count]
+    rv, ri = rescore_topk(
+        cand, K, L2, vecs.shape[0], DIM_MAIN,
+        lambda s, e, rows: candidate_distances(Qd[s:e], vecs[rows], L2),
+    )
+    same_topk("rerank (fused)", ids_rf, d_rf, to_ids(ri, ds._ids), rv.cpu().numpy())
+    print(
+        f"[mutate] fresh int8 quantize(): filtered quantized ids and distances == the plain "
+        f"masked scan; filtered rerank (id remap) and unfiltered rerank (fused) == their "
+        f"plain counterparts; masked-search launches K1 {masked['K1']}, K2 {masked['K2']} "
+        f"| {card}",
+        flush=True,
+    )
+    search_times(card, ds, Q, "rerank", f"{len(ds)}x{DIM_MAIN}", ((1, 200), (B_MAIN, 100)),
+                 "rerank expand=4 (fused)")
+    out["masked_launches"] = masked
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing run", file=sys.stderr)
@@ -534,12 +809,13 @@ def main() -> int:
         f"-> {library_path().name}",
         flush=True,
     )
-    max_err = phase_kernel(card)
-    k2_err = phase_kernel_int4(card)
+    max_err, masked_err = phase_kernel(card)
+    k2_err, k2_masked_err = phase_kernel_int4(card)
     ds, Q, ids_e, launches = phase_main(card)
     k_ms, p_ms, main_err = phase_times(card, ds, Q)  # reads the int8 state
     k2_launches = phase_int4(card, ds, Q, ids_e)
     k2_ms, k2_plain_ms = phase_int4_times(card, ds, Q)
+    masked = phase_mutate(card, ds, Q)["masked_launches"]
     print(json.dumps({"kernels": [
         {
             "name": "block_minima",
@@ -550,6 +826,8 @@ def main() -> int:
             "max_abs_err": max(max_err, main_err),
             "ms": k_ms,
             "plain_ms": p_ms,
+            "masked_launches": masked["K1"],
+            "masked_max_abs_err": masked_err,
         },
         {
             "name": "int4_block_minima",
@@ -560,6 +838,8 @@ def main() -> int:
             "max_abs_err": k2_err,
             "ms": k2_ms,
             "plain_ms": k2_plain_ms,
+            "masked_launches": masked["K2"],
+            "masked_max_abs_err": k2_masked_err,
         },
     ]}))
     print(card_line())

@@ -10,8 +10,14 @@
 //
 // with the distance of _distance_block followed by the epilogue of
 // _make_kernel: L2 stays squared; near-zero snap at NEARLY_ZERO^2 for L2 and
-// NEARLY_ZERO otherwise; NaN -> +inf; rows >= valid -> +inf. The exact top-k
-// finish over these minima runs as torch ops (ops/block_scan.py).
+// NEARLY_ZERO otherwise; NaN -> +inf; rows >= valid -> +inf; and, when a
+// row mask is given, rows whose mask byte is 0 -> +inf (a group with no live
+// row reads +inf). The JAX package sends masked scans to its XLA path, whose
+// masked rows read +inf before the top-k (ops/scan.py scan_topk); here the
+// mask rides in the kernel, so a masked scan on the card is this kernel too.
+// The exact top-k finish over these minima runs as torch ops
+// (ops/block_scan.py), which masks the same rows again inside the groups it
+// selects.
 //
 // What bounds it on an H100: at small query batches the scan is
 // bandwidth-bound (the f32 1M x 384 matrix is 1.54 GB per pass); at large
@@ -140,8 +146,8 @@ __device__ __forceinline__ float compose(uint32_t dot, uint32_t qsq, uint32_t bs
 template <typename T, int QT, bool kIsL1>
 __global__ void __launch_bounds__(kGroup)
 block_minima_kernel(const T* __restrict__ queries, const T* __restrict__ base,
-                    float* __restrict__ out, int B, int N, int d, int valid,
-                    int metric) {
+                    const uint8_t* __restrict__ mask, float* __restrict__ out, int B,
+                    int N, int d, int valid, int metric) {
   using V = typename Elem<T>::V;
   using A = Acc<V>;
   using V4 = Vec4<V>;
@@ -216,7 +222,8 @@ block_minima_kernel(const T* __restrict__ queries, const T* __restrict__ base,
   if (!kIsL1 && tid < QT) qnorm[tid] = qsq;
   __syncthreads();
 
-  const bool row_ok = row0 + tid < valid;
+  // mask is read only below valid (<= N): a row past it is never loaded
+  const bool row_ok = row0 + tid < valid && (mask == nullptr || mask[row0 + tid] != 0);
   const float thresh = metric == kL2 ? kNearlyZeroSq : kNearlyZero;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -241,16 +248,16 @@ block_minima_kernel(const T* __restrict__ queries, const T* __restrict__ base,
 }
 
 template <typename T, int QT>
-int launch_tile(const void* q, const void* base, float* out, int B, int N,
-                int d, int valid, int metric, cudaStream_t stream) {
+int launch_tile(const void* q, const void* base, const uint8_t* mask, float* out,
+                int B, int N, int d, int valid, int metric, cudaStream_t stream) {
   const dim3 grid((N + kGroup - 1) / kGroup, (B + QT - 1) / QT);
   if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
   const T* qt = static_cast<const T*>(q);
   const T* bt = static_cast<const T*>(base);
   if (metric == kL1) {
-    block_minima_kernel<T, QT, true><<<grid, kGroup, 0, stream>>>(qt, bt, out, B, N, d, valid, metric);
+    block_minima_kernel<T, QT, true><<<grid, kGroup, 0, stream>>>(qt, bt, mask, out, B, N, d, valid, metric);
   } else {
-    block_minima_kernel<T, QT, false><<<grid, kGroup, 0, stream>>>(qt, bt, out, B, N, d, valid, metric);
+    block_minima_kernel<T, QT, false><<<grid, kGroup, 0, stream>>>(qt, bt, mask, out, B, N, d, valid, metric);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -258,33 +265,35 @@ int launch_tile(const void* q, const void* base, float* out, int B, int N,
 // query-tile width by batch: one query needs no tile, small batches a
 // narrow one; wide tiles share each staged base tile across 16 queries
 template <typename T>
-int launch(const void* q, const void* base, float* out, int B, int N, int d,
-           int valid, int metric, cudaStream_t stream) {
-  if (B == 1) return launch_tile<T, 1>(q, base, out, B, N, d, valid, metric, stream);
-  if (B <= 4) return launch_tile<T, 4>(q, base, out, B, N, d, valid, metric, stream);
-  return launch_tile<T, 16>(q, base, out, B, N, d, valid, metric, stream);
+int launch(const void* q, const void* base, const uint8_t* mask, float* out, int B,
+           int N, int d, int valid, int metric, cudaStream_t stream) {
+  if (B == 1) return launch_tile<T, 1>(q, base, mask, out, B, N, d, valid, metric, stream);
+  if (B <= 4) return launch_tile<T, 4>(q, base, mask, out, B, N, d, valid, metric, stream);
+  return launch_tile<T, 16>(q, base, mask, out, B, N, d, valid, metric, stream);
 }
 
 }  // namespace
 
-// queries [B, d] and base [N, d], both row-major and of one dtype; out
-// float32 [B, ceil(N/128)]. Launches on `stream` and does not synchronise.
-// Returns a cudaError_t code: 0 when the launch was accepted.
-extern "C" int svt_block_minima(const void* queries, const void* base, void* out,
-                                int B, int N, int d, int valid, int dtype,
+// queries [B, d] and base [N, d], both row-major and of one dtype; mask
+// null (every row live) or N bytes, 0 for a masked row (a torch.bool
+// tensor); out float32 [B, ceil(N/128)]. Launches on `stream` and does not
+// synchronise. Returns a cudaError_t code: 0 when the launch was accepted.
+extern "C" int svt_block_minima(const void* queries, const void* base, const void* mask,
+                                void* out, int B, int N, int d, int valid, int dtype,
                                 int metric, void* stream) {
   if (B <= 0 || N <= 0 || d <= 0 || valid < 0 || valid > N || metric < kL2 ||
       metric > kL1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const uint8_t* m = static_cast<const uint8_t*>(mask);
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case kF32: return launch<float>(queries, base, o, B, N, d, valid, metric, s);
-    case kF16: return launch<__half>(queries, base, o, B, N, d, valid, metric, s);
-    case kBF16: return launch<__nv_bfloat16>(queries, base, o, B, N, d, valid, metric, s);
-    case kU8: return launch<uint8_t>(queries, base, o, B, N, d, valid, metric, s);
-    case kI8: return launch<int8_t>(queries, base, o, B, N, d, valid, metric, s);
+    case kF32: return launch<float>(queries, base, m, o, B, N, d, valid, metric, s);
+    case kF16: return launch<__half>(queries, base, m, o, B, N, d, valid, metric, s);
+    case kBF16: return launch<__nv_bfloat16>(queries, base, m, o, B, N, d, valid, metric, s);
+    case kU8: return launch<uint8_t>(queries, base, m, o, B, N, d, valid, metric, s);
+    case kI8: return launch<int8_t>(queries, base, m, o, B, N, d, valid, metric, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

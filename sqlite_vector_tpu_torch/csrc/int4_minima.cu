@@ -12,8 +12,11 @@
 //   L2, SQUARED_L2  alpha^2 csq - 2 (qscale alpha) dot
 //   DOT             -(qscale alpha) dot
 //   COSINE          -dot / sqrt(max(csq, 1))  (0 where csq == 0)
-// and rows >= valid or with a NaN surrogate at +inf. The exact top-k finish
-// over these minima runs as torch ops (ops/int4_scan.py).
+// and rows >= valid, rows whose mask byte is 0 (when a row mask is given)
+// or with a NaN surrogate at +inf. The JAX package sends masked int4 scans to
+// its XLA tile loop (ops/quantize4.py int4_scan_topk); here the mask rides in
+// the kernel. The exact top-k finish over these minima runs as torch ops
+// (ops/int4_scan.py) and masks the same rows inside the groups it selects.
 //
 // Packed layout (ops/quantize4.py): row i is h = ceil(d/2) bytes; byte j
 // holds code j in its low nibble and code h + j in its high nibble (odd d:
@@ -112,8 +115,8 @@ template <int QT, int VB>
 __global__ void __launch_bounds__(kGroup)
 int4_minima_kernel(const int8_t* __restrict__ qc, const float* __restrict__ qscale,
                    const uint8_t* __restrict__ packed, const float* __restrict__ alpha,
-                   const int32_t* __restrict__ csq, float* __restrict__ out, int B, int N,
-                   int d, int valid, int metric) {
+                   const int32_t* __restrict__ csq, const uint8_t* __restrict__ mask,
+                   float* __restrict__ out, int B, int N, int d, int valid, int metric) {
   __shared__ uint32_t tile[kGroup * kStride];
   __shared__ __align__(16) uint32_t qlo[QT][kChunkWords];
   __shared__ __align__(16) uint32_t qhi[QT][kChunkWords];
@@ -198,7 +201,8 @@ int4_minima_kernel(const int8_t* __restrict__ qc, const float* __restrict__ qsca
   __syncthreads();
 
   const long long row = row0 + tid;
-  const bool row_ok = row < valid;
+  // mask is read only below valid (<= N): a row past it is never loaded
+  const bool row_ok = row < valid && (mask == nullptr || mask[row] != 0);
   const float a = row < N ? alpha[row] : 0.0f;
   const int32_t c = row < N ? csq[row] : 0;
   const int lane = tid & 31;
@@ -224,16 +228,16 @@ int4_minima_kernel(const int8_t* __restrict__ qc, const float* __restrict__ qsca
 
 template <int QT>
 int launch_tile(const int8_t* qc, const float* qscale, const uint8_t* packed,
-                const float* alpha, const int32_t* csq, float* out, int B, int N, int d,
-                int valid, int metric, cudaStream_t stream) {
+                const float* alpha, const int32_t* csq, const uint8_t* mask, float* out,
+                int B, int N, int d, int valid, int metric, cudaStream_t stream) {
   const dim3 grid((N + kGroup - 1) / kGroup, (B + QT - 1) / QT);
   if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
   const int h = (d + 1) / 2;
   const uintptr_t p = reinterpret_cast<uintptr_t>(packed);
   if (h % 16 == 0 && p % 16 == 0) {
-    int4_minima_kernel<QT, 16><<<grid, kGroup, 0, stream>>>(qc, qscale, packed, alpha, csq, out, B, N, d, valid, metric);
+    int4_minima_kernel<QT, 16><<<grid, kGroup, 0, stream>>>(qc, qscale, packed, alpha, csq, mask, out, B, N, d, valid, metric);
   } else {
-    int4_minima_kernel<QT, 1><<<grid, kGroup, 0, stream>>>(qc, qscale, packed, alpha, csq, out, B, N, d, valid, metric);
+    int4_minima_kernel<QT, 1><<<grid, kGroup, 0, stream>>>(qc, qscale, packed, alpha, csq, mask, out, B, N, d, valid, metric);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -241,12 +245,14 @@ int launch_tile(const int8_t* qc, const float* qscale, const uint8_t* packed,
 }  // namespace
 
 // qc int8 [B, d], qscale float32 [B], packed uint8 [N, ceil(d/2)], alpha
-// float32 [N], csq int32 [N], all row-major; out float32 [B, ceil(N/128)].
-// Launches on `stream` and does not synchronise. Returns a cudaError_t
-// code: 0 when the launch was accepted.
+// float32 [N], csq int32 [N], all row-major; mask null (every row live) or
+// N bytes, 0 for a masked row (a torch.bool tensor); out float32
+// [B, ceil(N/128)]. Launches on `stream` and does not synchronise. Returns
+// a cudaError_t code: 0 when the launch was accepted.
 extern "C" int svt_int4_block_minima(const void* qc, const void* qscale, const void* packed,
-                                     const void* alpha, const void* csq, void* out, int B,
-                                     int N, int d, int valid, int metric, void* stream) {
+                                     const void* alpha, const void* csq, const void* mask,
+                                     void* out, int B, int N, int d, int valid, int metric,
+                                     void* stream) {
   if (B <= 0 || N <= 0 || d <= 0 || valid < 0 || valid > N || metric < kL2 || metric > kDot) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -255,9 +261,10 @@ extern "C" int svt_int4_block_minima(const void* qc, const void* qscale, const v
   const uint8_t* pk = static_cast<const uint8_t*>(packed);
   const float* al = static_cast<const float*>(alpha);
   const int32_t* cs = static_cast<const int32_t*>(csq);
+  const uint8_t* m = static_cast<const uint8_t*>(mask);
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B == 1) return launch_tile<1>(q, qs, pk, al, cs, o, B, N, d, valid, metric, s);
-  if (B <= 4) return launch_tile<4>(q, qs, pk, al, cs, o, B, N, d, valid, metric, s);
-  return launch_tile<16>(q, qs, pk, al, cs, o, B, N, d, valid, metric, s);
+  if (B == 1) return launch_tile<1>(q, qs, pk, al, cs, m, o, B, N, d, valid, metric, s);
+  if (B <= 4) return launch_tile<4>(q, qs, pk, al, cs, m, o, B, N, d, valid, metric, s);
+  return launch_tile<16>(q, qs, pk, al, cs, m, o, B, N, d, valid, metric, s);
 }

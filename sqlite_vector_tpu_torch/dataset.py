@@ -1,24 +1,27 @@
-"""Dataset and VectorStore on PyTorch: the exact, int8, int4 and refine
-search slices.
+"""Dataset and VectorStore on PyTorch, on one device.
 
-Port of sqlite_vector_tpu/dataset.py for its main path: create -> add ->
-search(exact) -> quantize() -> search(quantized), on one device, with int8
-codes or packed int4 codes (quantize(qtype="int4")), and the two-stage
-search(mode="refine") over an int4 quantization with its int8 sidecar
-(quantize(qtype="int4", refine=True)). The matrix lives on the device as a
-[capacity, dim] tensor that doubles as rows are appended; searches snapshot
-(count, matrix) and scan the first `count` rows through
-ops.scan.fused_scan_topk; int4 scans go through
-ops.quantize4.int4_scan_topk and refine through ops.refine.int4_refine_topk.
+Port of sqlite_vector_tpu/dataset.py with device storage: create, add,
+remove (tombstones), update, compact, get; search in its five modes
+(exact, approx, quantized over int8 or packed int4 codes, rerank, refine)
+with ids_filter; distances; quantize() (int8, or int4 with the int8 refine
+sidecar) and its lifecycle (is_quantized, quantize_memory, preload,
+drop_quantization). The matrix lives on the device as a [capacity, dim]
+tensor that doubles as rows are appended; searches snapshot (count,
+matrix) and scan the first `count` rows through ops.scan.fused_scan_topk
+(K1 on CUDA tensors); int4 scans go through ops.quantize4.int4_scan_topk
+(K2), refine through ops.refine.int4_refine_topk, rerank through
+ops.rerank. Row masks (ids_filter, tombstones) are [N] torch.bool tensors
+built on the device and ride into the kernels.
 
-Everything outside the slice raises VectorConfigError naming the ROADMAP
-item that will port it.
+Everything else raises VectorConfigError naming the ROADMAP item that will
+port it.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import threading
+import time
 from typing import Any, Sequence
 
 import numpy as np
@@ -38,9 +41,15 @@ from sqlite_vector_tpu_torch.ops.quantize import (
     quantize_device,
     resolve_quant_params,
 )
-from sqlite_vector_tpu_torch.ops.quantize4 import int4_scan_topk, quantize4_device
+from sqlite_vector_tpu_torch.ops.quantize4 import (
+    int4_scan_distances,
+    int4_scan_topk,
+    packed_width,
+    quantize4_device,
+)
 from sqlite_vector_tpu_torch.ops.refine import int4_refine_topk
-from sqlite_vector_tpu_torch.ops.scan import fused_scan_topk
+from sqlite_vector_tpu_torch.ops.rerank import rerank_topk, rescore_live_rows
+from sqlite_vector_tpu_torch.ops.scan import fused_scan_topk, scan_distances
 from sqlite_vector_tpu_torch.types import (
     DistanceMetric,
     QuantType,
@@ -64,8 +73,6 @@ TORCH_DTYPE = {
 
 # What the slice leaves out, by the ROADMAP.md queue-1 item that ports it.
 _ROADMAP_ITEM = {
-    "search": "1 (rerank and approx modes, Dataset.distances)",
-    "masks": "2 (remove/update/compact, ids_filter row masks)",
     "nonfinite": "3 (nonfinite.py policy twins)",
     "host": "5 (host-storage streaming)",
     "persistence": "6 (persistence)",
@@ -109,6 +116,22 @@ def _to_host(t: torch.Tensor, vtype: VectorType) -> np.ndarray:
     return t.cpu().numpy()
 
 
+def _fit_mask(mask: torch.Tensor | None, n: int) -> torch.Tensor | None:
+    """A row mask cut or padded to n rows. A mask built before a concurrent
+    add() is shorter than the rows scanned: the rows past it stay excluded
+    for this query (transient skew, never an index error)."""
+    if mask is None or mask.shape[0] == n:
+        return mask
+    if mask.shape[0] > n:
+        return mask[:n]
+    return torch.cat([mask, mask.new_zeros(n - mask.shape[0])])
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 @dataclasses.dataclass
 class _QuantState:
     qtype: QuantType
@@ -117,7 +140,8 @@ class _QuantState:
     codes: torch.Tensor | None  # [count, dim] u8/i8 on the device; for INT4
     # the PACKED [count, ceil(dim/2)] uint8 codes (ops/quantize4.py)
     count: int  # rows quantized
-    ids: np.ndarray  # row ids AT QUANTIZE TIME (the codes go stale on add)
+    ids: np.ndarray  # row ids AT QUANTIZE TIME (the codes go stale on add,
+    # remove and update, and keep serving with these ids)
     stale: bool = False
     # -- INT4 only: per-row dequant scale alpha (f32 [count]) and the int32
     # code square-sums csq; scale/offset stay 1.0/0.0
@@ -171,11 +195,32 @@ class Dataset:
         self._quant: _QuantState | None = None
         # sticky: some ingested row held NaN/Inf
         self._has_nonfinite = False
+        # remove() tombstones rows in place: every scan of the live rows
+        # masks them, and compaction runs only past a threshold. Each
+        # mutation publishes a NEW _dead array (never written in place), so
+        # a mask built from an old one stays what it was
+        self._dead = np.zeros((0,), dtype=bool)
+        self._n_dead = 0
+        # cached (dead array, ~dead[:count]) and (that mask, its device
+        # copy): keyed by the arrays themselves, so a search that built a
+        # mask from an older _dead can never install it as current
+        self._live_np: tuple | None = None
+        self._live_dev: tuple | None = None
+        # device copies of id arrays for filter masks: [(array, tensor)]
+        self._ids_dev: list[tuple[np.ndarray, torch.Tensor]] = []
+        # bumped (under the lock) by every row mutation; quantize() snapshots
+        # it so a mutation landing during its build marks the codes stale
+        self._mutation_gen = 0
+        # bumped only when row POSITIONS move (compaction): a search that
+        # raced one re-runs (see search)
+        self._layout_gen = 0
+        # per-stage timing of the most recent mode="rerank" call
+        self.last_rerank_decomposition: dict | None = None
 
     # -- properties ---------------------------------------------------------
 
     def __len__(self) -> int:
-        return self._count
+        return self._count - self._n_dead
 
     @property
     def dimension(self) -> int:
@@ -190,20 +235,35 @@ class Dataset:
         return self.options.distance
 
     @property
+    def is_quantized(self) -> bool:
+        return self._quant is not None
+
+    @property
     def quant_params(self) -> tuple[QuantType, float, float] | None:
         q = self._quant
         return (q.qtype, float(q.scale), float(q.offset)) if q else None
 
     @property
     def quant_stale(self) -> bool:
-        """True when rows were added after the last quantize(): quantized
-        scans still run on the old codes, as in the reference."""
+        """True when rows changed after the last quantize(): quantized
+        scans still run on the old codes, as in the reference, until
+        quantize() runs again."""
         return bool(self._quant and self._quant.stale)
 
     @property
     def ids(self) -> np.ndarray:
+        """The live row ids, in row order."""
+        # under the lock: compaction swaps _ids and _dead one after the other
         with self._mutate_lock:
+            if self._n_dead:
+                return self._ids[: self._count][~self._dead[: self._count]]
             return self._ids[: self._count]
+
+    @property
+    def tombstones(self) -> int:
+        """Rows removed but not yet compacted (still holding matrix rows,
+        masked out of every scan of the live rows)."""
+        return self._n_dead
 
     def memory_bytes(self) -> int:
         """Device bytes held by the matrix (padded capacity) and the codes
@@ -228,7 +288,8 @@ class Dataset:
 
         Accepts a [N, dim] array (any castable dtype), a single [dim] vector,
         JSON array strings, or raw little-endian blobs. The quantized codes
-        are marked stale, not rebuilt (reference contract: API.md:242).
+        are marked stale, not rebuilt (reference contract: API.md:242). A
+        removed row's id may be used again.
         """
         with self._mutate_lock:
             return self._add_locked(vectors, ids)
@@ -248,7 +309,10 @@ class Dataset:
                 raise VectorConfigError("ids must have one entry per vector")
             if len(np.unique(new_ids)) != n_new:
                 raise VectorConfigError("add: duplicate ids within the batch")
-            if self._count and np.isin(new_ids, self._ids[: self._count]).any():
+            live_ids = self._ids[: self._count]
+            if self._n_dead:
+                live_ids = live_ids[~self._dead[: self._count]]
+            if len(live_ids) and np.isin(new_ids, live_ids).any():
                 raise VectorConfigError(
                     "add: id(s) already exist — use update() to replace rows"
                 )
@@ -256,8 +320,7 @@ class Dataset:
 
         start, end = self._count, self._count + n_new
         rows = from_numpy(arr, self.device)
-        if self.dtype in _FLOAT_TYPES and not self._has_nonfinite:
-            self._has_nonfinite = not bool(torch.isfinite(rows).all())
+        self._note_nonfinite(rows)
         cap = 0 if self._vectors is None else self._vectors.shape[0]
         if end > cap:
             # amortized capacity doubling: one copy of the live rows per
@@ -275,11 +338,22 @@ class Dataset:
         # cannot disturb one; the count is published after the rows land
         self._vectors[start:end] = rows
         self._ids = np.concatenate([self._ids[:start], new_ids])
-        self._id_pos_cache = None
+        self._dead = np.concatenate([self._dead[:start], np.zeros(n_new, bool)])
+        self._invalidate_row_caches()
         self._count = end
+        self._mutation_gen += 1
         if self._quant is not None:
             self._quant.stale = True
         return new_ids
+
+    def _note_nonfinite(self, rows: torch.Tensor) -> None:
+        if self.dtype in _FLOAT_TYPES and not self._has_nonfinite:
+            self._has_nonfinite = not bool(torch.isfinite(rows).all())
+
+    def _invalidate_row_caches(self) -> None:
+        self._id_pos_cache = None
+        self._live_np = None
+        self._live_dev = None
 
     @classmethod
     def from_arrays(
@@ -319,8 +393,30 @@ class Dataset:
             ds.add(vectors, ids)
         return ds
 
+    def _adopt_rows(self, vectors: np.ndarray, ids: np.ndarray, dead: np.ndarray) -> None:
+        """Install rows, their ids and their tombstones built elsewhere
+        (interop) into an empty dataset. A tombstoned id may recur among
+        the rows, as after remove() and add() of that id; live ids are
+        unique."""
+        ids = np.asarray(ids, np.int64)
+        dead = np.asarray(dead, bool)
+        if dead.shape != ids.shape or ids.shape != (len(vectors),):
+            raise VectorConfigError("ids and dead must have one entry per vector")
+        live = ids[~dead]
+        if len(np.unique(live)) != len(live):
+            raise VectorConfigError("live row ids must be unique")
+        with self._mutate_lock:
+            if self._count:
+                raise VectorStateError("_adopt_rows needs an empty dataset")
+            self._add_locked(vectors, None)
+            self._ids = ids.copy()
+            self._next_rowid = int(ids.max()) + 1 if len(ids) else 1
+            self._dead = dead.copy()
+            self._n_dead = int(dead.sum())
+            self._invalidate_row_caches()
+
     def get(self, ids: Sequence[int] | np.ndarray) -> np.ndarray:
-        """Fetch stored vectors by row id. Unknown ids raise."""
+        """Fetch stored vectors by row id. Unknown and removed ids raise."""
         ids = np.atleast_1d(np.asarray(ids, np.int64))
         with self._mutate_lock:
             id_to_pos = self._id_to_pos()
@@ -334,11 +430,125 @@ class Dataset:
             return _to_host(self._vectors[index], self.dtype)
 
     def _id_to_pos(self) -> dict[int, int]:
+        """Lazy id -> row position map over the LIVE rows, invalidated on
+        mutation (tombstoned rows are not addressable)."""
         if self._id_pos_cache is None:
-            self._id_pos_cache = {
-                int(v): i for i, v in enumerate(self._ids[: self._count])
-            }
+            count = self._count
+            live = np.flatnonzero(~self._dead[:count])
+            self._id_pos_cache = dict(zip(self._ids[live].tolist(), live.tolist()))
         return self._id_pos_cache
+
+    # -- mutation ------------------------------------------------------------
+
+    def remove(self, ids: Sequence[int] | np.ndarray) -> int:
+        """Delete rows by id; returns the number removed.
+
+        Rows are tombstoned in place: the device matrix is untouched and
+        every scan of the live rows masks them, until the tombstones reach
+        max(1024, count // 4) (or every row), when the matrix is compacted.
+        Quantized codes go stale and keep serving the quantize-time
+        snapshot until quantize() runs again (the reference's contract)."""
+        with self._mutate_lock:
+            return self._remove_locked(ids)
+
+    def _remove_locked(self, ids) -> int:
+        ids = np.asarray(ids, np.int64)
+        cnt = self._count
+        if ids.size == 0 or cnt == 0:
+            return 0
+        hit = np.isin(self._ids[:cnt], ids) & ~self._dead[:cnt]
+        removed = int(hit.sum())
+        if removed == 0:
+            return 0
+        dead = self._dead.copy()
+        dead[:cnt] |= hit
+        self._dead = dead
+        self._n_dead += removed
+        self._invalidate_row_caches()
+        self._mutation_gen += 1
+        if self._quant is not None:
+            self._quant.stale = True
+        # the JAX package's threshold, so positions (and with them the order
+        # among equal distances) agree with it after any sequence of calls
+        if self._n_dead >= max(1024, cnt // 4) or self._n_dead == cnt:
+            self._compact_locked()
+        return removed
+
+    def compact(self) -> int:
+        """Physically drop tombstoned rows now (instead of waiting for the
+        threshold). Returns the number of rows dropped; no-op without
+        tombstones."""
+        with self._mutate_lock:
+            dropped = self._n_dead
+            self._compact_locked()
+            return dropped
+
+    def _compact_locked(self) -> None:
+        """Gather the live rows of the device matrix into a fresh one: one
+        upload of the row index, no re-upload of rows. A concurrent search
+        keeps the matrix it snapshotted; the layout generation, bumped
+        last, makes one that raced this re-run."""
+        if self._n_dead == 0:
+            return
+        cnt = self._count
+        keep = ~self._dead[:cnt]
+        kept = np.flatnonzero(keep)
+        n = len(kept)
+        cap = _next_capacity(n)
+        if n:
+            index = np.zeros((cap,), np.int64)  # rows past n: copies of row 0
+            index[:n] = kept
+            self._vectors = self._vectors.index_select(0, from_numpy(index, self.device))
+        else:
+            self._vectors = torch.zeros(
+                (cap, self.dimension), dtype=TORCH_DTYPE[self.dtype], device=self.device
+            )
+        self._ids = self._ids[:cnt][keep]
+        self._dead = np.zeros((n,), bool)
+        self._n_dead = 0
+        self._invalidate_row_caches()
+        self._count = n
+        self._mutation_gen += 1
+        self._layout_gen += 1  # positions moved
+
+    def update(
+        self, ids: Sequence[int] | np.ndarray, vectors: np.ndarray | Sequence[Any]
+    ) -> int:
+        """Replace the vectors of existing rows; returns the count.
+
+        Unknown (and removed) ids raise. Duplicate ids in one batch keep
+        their last vector. The rows are written into a copy of the matrix,
+        installed with one reference assignment, as the JAX package's
+        out-of-place scatter does: a concurrent search keeps the matrix it
+        snapshotted and sees old rows or new, never a half-written one."""
+        with self._mutate_lock:
+            return self._update_locked(ids, vectors)
+
+    def _update_locked(self, ids, vectors) -> int:
+        ids = np.atleast_1d(np.asarray(ids, np.int64))
+        arr = self._coerce_batch(vectors)
+        if arr.shape[0] != ids.size:
+            raise VectorConfigError("ids must have one entry per vector")
+        if ids.size == 0:
+            return 0
+        id_to_pos = self._id_to_pos()
+        try:
+            pos = np.asarray([id_to_pos[int(i)] for i in ids], np.int64)
+        except KeyError as e:
+            raise VectorStateError(f"update: unknown row id {e.args[0]}") from None
+        # duplicate ids: the last occurrence wins (a scatter with repeated
+        # indices has no defined order)
+        last = {int(p): i for i, p in enumerate(pos)}
+        sel = np.fromiter(last.values(), np.int64, count=len(last))
+        rows = from_numpy(arr[sel], self.device)
+        self._note_nonfinite(rows)
+        matrix = self._vectors.clone()
+        matrix[from_numpy(pos[sel], self.device)] = rows
+        self._vectors = matrix
+        self._mutation_gen += 1
+        if self._quant is not None:
+            self._quant.stale = True
+        return int(ids.size)
 
     def _coerce_batch(self, vectors: Any) -> np.ndarray:
         dim = self.dimension
@@ -368,6 +578,86 @@ class Dataset:
                 rows.append(a.astype(np_dtype, copy=False))
         return np.stack(rows) if rows else np.zeros((0, dim), np_dtype)
 
+    # -- row masks -----------------------------------------------------------
+
+    def _live_row_mask(self) -> np.ndarray | None:
+        """Cached [count]-bool mask of the non-tombstoned rows; None when
+        every row is live."""
+        if self._n_dead == 0:
+            return None
+        count = self._count
+        dead = self._dead
+        cached = self._live_np
+        if cached is not None and cached[0] is dead and len(cached[1]) == count:
+            return cached[1]
+        live = ~dead[:count]
+        self._live_np = (dead, live)
+        return live
+
+    def _live_mask_dev(self) -> torch.Tensor | None:
+        """The live-row mask on the device, uploaded once per mutation and
+        keyed by the host mask OBJECT: a racing search never re-installs a
+        copy made before an invalidation."""
+        live = self._live_row_mask()
+        if live is None:
+            return None
+        cached = self._live_dev
+        if cached is not None and cached[0] is live:
+            return cached[1]
+        dev = from_numpy(live, self.device)
+        self._live_dev = (live, dev)
+        return dev
+
+    def _ids_on_device(self, ids: np.ndarray) -> torch.Tensor:
+        """Device copy of an id array, cached by the array OBJECT (the live
+        ids and a quantization's snapshot ids are replaced, never written
+        in place), two entries: the live ids and one snapshot's."""
+        for arr, dev in self._ids_dev:
+            if arr is ids:
+                return dev
+        dev = from_numpy(ids, self.device)
+        self._ids_dev = [(ids, dev)] + self._ids_dev[:1]
+        return dev
+
+    def _quant_id_map(self, quant: _QuantState | None) -> np.ndarray:
+        if quant is None:
+            return self._ids
+        # pad so indexing with clipped positions stays in bounds
+        return quant.ids if len(quant.ids) else np.full((1,), -1, np.int64)
+
+    def _search_mask(
+        self, mode: str, quant: _QuantState | None, ids_filter: Any
+    ) -> torch.Tensor | None:
+        """The search's row mask on the device, or None.
+
+        ids_filter has two index spaces: exact and approx scan the live
+        rows, quantized, refine and rerank stage 1 the quantize-time
+        snapshot (quant.ids). Tombstones mask exact and approx only:
+        quantized scans serve the stale snapshot unfiltered (the reference's
+        staleness contract) and rerank drops removed rows through its live
+        id remap. The filter is matched with torch.isin against a cached
+        device copy of the ids: the same mask as np.isin."""
+        live_space = mode in ("exact", "approx")
+        mask = None
+        if ids_filter is not None:
+            flt = from_numpy(np.asarray(ids_filter, np.int64).reshape(-1), self.device)
+            if live_space:
+                count, ids = self._count, self._ids
+            else:
+                count, ids = (quant.count if quant else 0), self._quant_id_map(quant)
+            mask = torch.isin(self._ids_on_device(ids)[:count], flt)
+        if live_space:
+            live = self._live_mask_dev()
+            if live is not None:
+                if mask is None:
+                    mask = live
+                else:
+                    # a concurrent add() may have grown one of the two since
+                    # it was built: combine over the common prefix
+                    m = min(len(mask), len(live))
+                    mask = mask[:m] & live[:m]
+        return mask
+
     # -- queries --------------------------------------------------------------
 
     def _coerce_queries(self, queries: Any) -> tuple[np.ndarray, bool]:
@@ -394,6 +684,7 @@ class Dataset:
         exact: bool = True,
         mode: str | None = None,
         expand: int = 4,
+        recall_target: float = 0.95,
         ids_filter: Sequence[int] | np.ndarray | None = None,
     ) -> tuple[np.ndarray, np.ndarray]:
         """Top-k nearest neighbors.
@@ -401,17 +692,20 @@ class Dataset:
         Returns (ids [B, k] int64, distances [B, k] float32), both sorted by
         ascending distance; slots beyond the available rows hold id -1 /
         distance +inf. Single-vector queries return [k]-shaped results with
-        unfilled slots trimmed.
+        unfilled slots trimmed. ids_filter restricts the search to the given
+        row ids.
 
-        mode "exact" (the default, vector_full_scan) scans the full-precision
-        rows; "quantized" (exact=False, vector_quantize_scan) scans the
-        codes: int8 codes return integer-domain distances, packed int4 codes
-        approximate original-domain ones; "refine" scans the int4 codes for
-        k*expand candidates and rescores them against the int8 sidecar
-        (requires quantize(qtype="int4", refine=True)). Positions of the
-        quantized and refine modes index the quantize-time snapshot. The JAX
-        package's "rerank" and "approx" modes (with `recall_target`) and
-        `ids_filter` are not ported yet and raise VectorConfigError.
+        mode "exact" (the default, vector_full_scan) scans the live
+        full-precision rows; "approx" (with recall_target in (0, 1]) runs
+        the exact scan, as the JAX package does off the TPU (recall 1.0);
+        "quantized" (exact=False, vector_quantize_scan) scans the codes:
+        int8 codes return integer-domain distances, packed int4 codes
+        approximate original-domain ones; "rerank" scans the codes for
+        k*expand candidates and rescores them against the live
+        full-precision rows; "refine" scans the int4 codes for k*expand
+        candidates and rescores them against the int8 sidecar (requires
+        quantize(qtype="int4", refine=True)). Positions of the quantized
+        and refine modes index the quantize-time snapshot.
         """
         if k < 0:
             raise VectorConfigError("k must be >= 0")
@@ -422,10 +716,6 @@ class Dataset:
                 "mode must be exact|quantized|rerank|refine|approx, "
                 f"got '{mode}'"
             )
-        if mode in ("rerank", "approx"):
-            raise _unported(f"search(mode='{mode}')", "search")
-        if ids_filter is not None:
-            raise _unported("search(ids_filter=...)", "masks")
         q, single = self._coerce_queries(queries)
         if k == 0 or self._count == 0:
             if single:
@@ -434,45 +724,65 @@ class Dataset:
                 np.full((q.shape[0], k), -1, np.int64),
                 np.full((q.shape[0], k), np.inf, np.float32),
             )
-        if mode in ("exact", "refine") and self.dtype in (VectorType.F16, VectorType.BF16):
+        if mode != "quantized" and self.dtype in (VectorType.F16, VectorType.BF16):
             # lane-skip dtypes need the reference's non-finite policy
-            # kernels; the JAX package routes refine over such data to them
-            # too (its int8 rescore cannot honor their semantics)
+            # kernels; the JAX package routes rerank and refine over such
+            # data to them too (their rescores cannot honor the semantics)
             if self._has_nonfinite or not _finite(q):
                 raise _unported(
                     "Exact search over non-finite float16/bfloat16 data", "nonfinite"
                 )
 
-        # ONE quant snapshot: the scanned codes and the id map agree. Rows
-        # never move in this slice (add() only appends), so positions map to
-        # ids without the reference's layout-generation retry, which comes
-        # with compaction (ROADMAP.md queue 1, item 2)
-        quant = self._quant
-        cosine_fast = mode == "exact" and self._cosine_dot_fast(q)
-        if mode == "exact":
-            vals, idx = self._search_exact(q, k, cosine_fast)
-        elif mode == "refine":
-            vals, idx = self._search_refine(q, k, expand, quant)
-        else:
-            vals, idx = self._search_quantized(q, k, quant)
-        # one device->host copy for both outputs: float32 values and int
-        # positions (< 2^53) are both exact in float64
-        host = torch.stack([vals.double(), idx.double()]).cpu().numpy()
-        vals = host[0].astype(np.float32)
-        idx = host[1].astype(np.int64)
-        if cosine_fast:
-            # the fast path scanned -dot: shift to 1 - dot (monotonic), clamp
-            # into the reference's cosine range and re-snap
-            vals = np.where(np.isposinf(vals), vals, np.clip(vals + 1.0, 0.0, 2.0))
-            vals = np.where(np.abs(vals) <= NEARLY_ZERO, 0.0, vals).astype(np.float32)
-        # quantized and refine positions index the codes AT QUANTIZE TIME
-        id_map = self._ids if mode == "exact" else quant.ids
-        n_map = len(id_map)
-        valid = (idx >= 0) & (idx < n_map)
-        if n_map == 0:
-            out_ids = np.full(idx.shape, -1, np.int64)
-        else:
-            out_ids = np.where(valid, id_map[np.clip(idx, 0, n_map - 1)], -1)
+        def attempt():
+            # ONE quant snapshot: the mask's index space, the scanned codes
+            # and the id map agree
+            quant = self._quant
+            mask = self._search_mask(mode, quant, ids_filter)
+            cosine_fast = mode in ("exact", "approx") and self._cosine_dot_fast(q)
+            if mode in ("exact", "approx"):
+                if mode == "approx" and not 0.0 < recall_target <= 1.0:
+                    raise VectorConfigError(
+                        f"recall_target must be in (0, 1], got {recall_target}"
+                    )
+                vals, idx = self._search_exact(q, k, mask, cosine_fast)
+            elif mode == "refine":
+                vals, idx = self._search_refine(q, k, mask, expand, quant)
+            elif mode == "rerank":
+                vals, idx = self._search_rerank(q, k, mask, expand, quant)
+            else:
+                vals, idx = self._search_quantized(q, k, mask, quant)
+            # one device->host copy for both outputs: float32 values and int
+            # positions (< 2^53) are both exact in float64
+            host = torch.stack([vals.double(), idx.double()]).cpu().numpy()
+            vals = host[0].astype(np.float32)
+            idx = host[1].astype(np.int64)
+            if cosine_fast:
+                # the fast path scanned -dot: shift to 1 - dot (monotonic),
+                # clamp into the reference's cosine range and re-snap
+                vals = np.where(np.isposinf(vals), vals, np.clip(vals + 1.0, 0.0, 2.0))
+                vals = np.where(np.abs(vals) <= NEARLY_ZERO, 0.0, vals).astype(np.float32)
+            # quantized and refine positions index the codes AT QUANTIZE
+            # TIME; exact, approx and rerank positions the live layout
+            id_map = self._quant_id_map(quant) if mode in ("quantized", "refine") else self._ids
+            n_map = len(id_map)
+            valid = (idx >= 0) & (idx < n_map)
+            if n_map == 0:
+                out_ids = np.full(idx.shape, -1, np.int64)
+            else:
+                out_ids = np.where(valid, id_map[np.clip(idx, 0, n_map - 1)], -1)
+            return out_ids, vals, valid
+
+        # positions mean something only in the row layout they were scanned
+        # in; compaction moves rows, so a search that raced one re-runs (the
+        # last attempt under the mutation lock)
+        layout0 = self._layout_gen
+        out_ids, vals, valid = attempt()
+        if self._layout_gen != layout0:
+            layout0 = self._layout_gen
+            out_ids, vals, valid = attempt()
+            if self._layout_gen != layout0:
+                with self._mutate_lock:
+                    out_ids, vals, valid = attempt()
         if single:
             keep = valid[0]
             return out_ids[0][keep], vals[0][keep]
@@ -493,34 +803,38 @@ class Dataset:
             and _finite(q)
         )
 
-    def _search_exact(self, q: np.ndarray, k: int, cosine_fast: bool):
+    def _search_exact(self, q: np.ndarray, k: int, mask, cosine_fast: bool):
         metric = self.metric
         if cosine_fast:
             metric = DistanceMetric.DOT
             q = _unit_rows(q)
         # count BEFORE the matrix: add() publishes the count only after its
         # rows landed in the matrix it installed, so every matrix read after
-        # the count holds those rows
+        # the count holds those rows (a compaction that shrank the matrix
+        # meanwhile is caught by the layout generation)
         count = self._count
-        vecs = self._vectors
+        base = self._vectors[:count]
         qd = from_numpy(q, self.device)
-        return fused_scan_topk(qd, vecs[:count], metric, k)
+        return fused_scan_topk(
+            qd, base, metric, k, row_mask=_fit_mask(mask, base.shape[0])
+        )
 
-    def _search_quantized(self, q: np.ndarray, k: int, quant: _QuantState | None):
+    def _search_quantized(self, q: np.ndarray, k: int, mask, quant: _QuantState | None):
         quant = self._require_quant("vector_quantize_scan", quant)
         qf = from_numpy(q.astype(np.float32), self.device)
+        row_mask = _fit_mask(mask, quant.count)
         if quant.qtype is QuantType.I4:
             # per-query int8 codes are built inside the int4 scan
             return int4_scan_topk(
                 qf, quant.codes, quant.row_scale, quant.sq_norms, self.metric, k,
-                dim=self.dimension, valid_count=quant.count,
+                dim=self.dimension, valid_count=quant.count, row_mask=row_mask,
             )
         # query quantization with the stored params (src/sqlite-vector.c:2162-2177)
         qq = quantize_device(qf, quant.scale, quant.offset, quant.qtype)
-        return fused_scan_topk(qq, quant.codes, self.metric, k)
+        return fused_scan_topk(qq, quant.codes, self.metric, k, row_mask=row_mask)
 
     def _search_refine(
-        self, q: np.ndarray, k: int, expand: int, quant: _QuantState | None
+        self, q: np.ndarray, k: int, mask, expand: int, quant: _QuantState | None
     ):
         """Two-stage search on the device: int4 prefilter of k*expand
         candidates, int8-sidecar rescore (ops/refine.py)."""
@@ -536,7 +850,79 @@ class Dataset:
             quant.codes, quant.row_scale, quant.sq_norms, quant.codes8,
             quant.scale8, quant.offset8, self.metric, k,
             dim=self.dimension, expand=expand, valid_count=quant.count,
+            row_mask=_fit_mask(mask, quant.count),
         )
+
+    def _search_rerank(
+        self, q: np.ndarray, k: int, mask, expand: int, quant: _QuantState | None
+    ):
+        """Code prefilter + exact rescore against the live rows.
+
+        Fused route (ops.rerank.rerank_topk): fresh int8/u8 codes of exactly
+        the live rows, no mask; both stages on the device. Otherwise the
+        id-remap route: stage 1 is the quantized scan at k*expand (masked,
+        in snapshot space), its snapshot positions map to live positions
+        through the ids under the mutation lock (removed rows drop out),
+        and ops.rerank.rescore_live_rows rescores the gathered live rows on
+        the device. last_rerank_decomposition records the stages' seconds
+        (the remap's gather runs inside its rescore, so host_gather_s is
+        0.0 there; the fused route reports everything under stage1_s)."""
+        quant = self._require_quant("rerank", quant)
+        count = self._count
+        qf = from_numpy(q.astype(np.float32), self.device)
+        b = q.shape[0]
+        if (
+            not quant.stale
+            and mask is None
+            and quant.qtype is not QuantType.I4
+            and quant.count == count
+        ):
+            t0 = time.perf_counter()
+            qq = quantize_device(qf, quant.scale, quant.offset, quant.qtype)
+            vals, idx = rerank_topk(
+                qf, self._vectors[:count], qq, quant.codes, self.metric, k,
+                expand=expand, valid_count=quant.count,
+            )
+            _sync(self.device)
+            self.last_rerank_decomposition = {
+                "batch": b, "k": k, "expand": expand,
+                "stage1_s": time.perf_counter() - t0,
+                "translate_s": 0.0, "host_gather_s": 0.0, "rescore_s": 0.0,
+                "gathered_rows": 0,
+            }
+            return vals, idx
+
+        ke = max(k * expand, k)
+        t0 = time.perf_counter()
+        _, idx = self._search_quantized(q, ke, mask, quant)
+        idx = idx.cpu().numpy()
+        t1 = time.perf_counter()
+        # snapshot positions -> live positions through the ids; the id map
+        # and the matrix it indexes come from one generation (under the lock)
+        with self._mutate_lock:
+            qids = self._quant_id_map(quant)
+            live = self._id_to_pos()
+            flat = idx.reshape(-1)
+            ok = (flat >= 0) & (flat < len(qids))
+            pos = np.full(flat.shape, -1, np.int64)
+            if ok.any():
+                pos[ok] = np.fromiter(
+                    (live.get(int(i), -1) for i in qids[flat[ok]]),
+                    np.int64, count=int(ok.sum()),
+                )
+            pos = pos.reshape(b, ke)
+            vecs = self._vectors
+        t2 = time.perf_counter()
+        vals, out = rescore_live_rows(qf, vecs, from_numpy(pos, self.device), self.metric, k)
+        _sync(self.device)
+        t3 = time.perf_counter()
+        self.last_rerank_decomposition = {
+            "batch": b, "k": k, "expand": expand,
+            "stage1_s": t1 - t0, "translate_s": t2 - t1,
+            "host_gather_s": 0.0, "rescore_s": t3 - t2,
+            "gathered_rows": int(np.unique(pos[pos >= 0]).size),
+        }
+        return vals, out
 
     def _require_quant(self, caller: str, quant: _QuantState | None) -> _QuantState:
         if quant is None or quant.codes is None:
@@ -545,6 +931,49 @@ class Dataset:
                 "(reference requires vector_quantize before vector_quantize_scan)."
             )
         return quant
+
+    def distances(self, queries: Any, *, exact: bool = True) -> np.ndarray:
+        """Full distance vector(s), the *_stream virtual tables' analogue.
+
+        Returns [B, N] (or [N] for one query) unordered distances: exact
+        over the live rows (tombstoned columns dropped); exact=False over
+        the quantize-time snapshot's codes ([:, :quant.count], int8
+        integer-domain or int4 approximate values)."""
+        q, single = self._coerce_queries(queries)
+        if self._count == 0:
+            out = np.zeros((q.shape[0], 0), np.float32)
+            return out[0] if single else out
+        if exact:
+            raw_policy = self.dtype in (VectorType.F16, VectorType.BF16) or (
+                self.dtype is VectorType.F32
+                and self.metric in (DistanceMetric.L2, DistanceMetric.SQUARED_L2)
+            )
+            if raw_policy and (self._has_nonfinite or not _finite(q)):
+                # the plain decomposition gives NaN where the reference's
+                # direct kernels give +Inf
+                raise _unported(
+                    "Dataset.distances over non-finite rows or queries", "nonfinite"
+                )
+            count = self._count
+            base = self._vectors[:count]
+            d = scan_distances(from_numpy(q, self.device), base, self.metric)
+            live = self._live_mask_dev()
+            if live is not None and live.shape[0] == base.shape[0]:
+                d = d[:, live]  # drop tombstoned columns
+        else:
+            quant = self._require_quant("vector_quantize_scan_stream", self._quant)
+            if quant.qtype is QuantType.I4:
+                d = int4_scan_distances(
+                    from_numpy(q.astype(np.float32), self.device), quant.codes,
+                    quant.row_scale, quant.sq_norms, self.metric, dim=self.dimension,
+                )
+            else:
+                qq = quantize_device(
+                    from_numpy(q, self.device), quant.scale, quant.offset, quant.qtype
+                )
+                d = scan_distances(qq, quant.codes, self.metric)
+        out = d.cpu().numpy()
+        return out[0] if single else out
 
     # -- quantization ---------------------------------------------------------
 
@@ -564,6 +993,12 @@ class Dataset:
         scales (ops/quantize4.py); refine=True (int4 only) adds an int8
         sidecar of the same rows, with AUTO-resolved params, for
         search(mode="refine"). Codes are bit-equal to the JAX package's.
+
+        Tombstoned rows are compacted away first, so codes never cover a
+        removed row. The build runs outside the mutation lock from one
+        snapshot of the rows (no mutator writes rows below a snapshotted
+        count in place); a mutation that lands during it marks the new
+        codes stale.
         """
         if checkpoint is not None:
             raise _unported("quantize(checkpoint=...)", "persistence")
@@ -578,37 +1013,38 @@ class Dataset:
                 "the int8 rescore stage of the int4 two-stage search."
             )
         with self._mutate_lock:
+            self._compact_locked()
+            gen0 = self._mutation_gen
             count = self._count
             ids = self._ids[:count].copy()
-            if count == 0:
-                # reference: zero rows still records resolved params
-                resolved = (
-                    QuantType.U8 if opts.qtype is QuantType.AUTO else opts.qtype
-                )
-                self._quant = _QuantState(
-                    resolved, np.float32(1.0), np.float32(0.0), None, 0, ids
-                )
-                return 0
-            vecs = self._vectors[:count]
-            if opts.qtype is QuantType.I4:
-                packed, alpha, csq = quantize4_device(vecs)
-                state = _QuantState(
-                    QuantType.I4, np.float32(1.0), np.float32(0.0), packed,
-                    count, ids, row_scale=alpha, sq_norms=csq,
-                )
-                if refine:
-                    # int8 sidecar of the SAME snapshot, AUTO-resolved params
-                    mn, mx, neg = minmax_and_negative(vecs)
-                    rq8, s8, o8 = resolve_quant_params(mn, mx, neg, QuantType.AUTO)
-                    state.codes8 = self._encode8(vecs, s8, o8, rq8)
-                    state.qtype8, state.scale8, state.offset8 = rq8, s8, o8
-                self._quant = state
-                return count
+            vecs = None if count == 0 else self._vectors[:count]
+        if count == 0:
+            # reference: zero rows still records resolved params
+            resolved = QuantType.U8 if opts.qtype is QuantType.AUTO else opts.qtype
+            state = _QuantState(resolved, np.float32(1.0), np.float32(0.0), None, 0, ids)
+        elif opts.qtype is QuantType.I4:
+            packed, alpha, csq = quantize4_device(vecs)
+            state = _QuantState(
+                QuantType.I4, np.float32(1.0), np.float32(0.0), packed,
+                count, ids, row_scale=alpha, sq_norms=csq,
+            )
+            if refine:
+                # int8 sidecar of the SAME snapshot, AUTO-resolved params
+                mn, mx, neg = minmax_and_negative(vecs)
+                rq8, s8, o8 = resolve_quant_params(mn, mx, neg, QuantType.AUTO)
+                state.codes8 = self._encode8(vecs, s8, o8, rq8)
+                state.qtype8, state.scale8, state.offset8 = rq8, s8, o8
+        else:
             mn, mx, neg = minmax_and_negative(vecs)
             rqtype, scale, offset = resolve_quant_params(mn, mx, neg, opts.qtype)
             codes = self._encode8(vecs, scale, offset, rqtype)
-            self._quant = _QuantState(rqtype, scale, offset, codes, count, ids)
-            return count
+            state = _QuantState(rqtype, scale, offset, codes, count, ids)
+        with self._mutate_lock:
+            # a mutation landed during the build: the same staleness
+            # contract as mutating after quantize()
+            state.stale = self._mutation_gen != gen0
+            self._quant = state
+        return count
 
     def _encode8(self, vecs: torch.Tensor, scale, offset, qtype: QuantType) -> torch.Tensor:
         """int8/uint8 codes of `vecs`, in row chunks that bound the float32
@@ -621,20 +1057,48 @@ class Dataset:
             codes[s : s + rows] = quantize_device(vecs[s : s + rows], scale, offset, qtype)
         return codes
 
+    def quantize_memory(self) -> int:
+        """Bytes of the quantized representation, as the JAX package counts
+        them: rows * (8-byte rowid + dim code bytes) for int8/uint8, the
+        reference's SUM(LENGTH(data)) (src/sqlite-vector.c:1486-1499); for
+        int4 the record stride 16 + ceil(dim/2) (rowid, alpha, csq, packed
+        codes) plus dim bytes a row for the refine sidecar."""
+        quant = self._require_quant("vector_quantize_memory", self._quant)
+        if quant.qtype is QuantType.I4:
+            total = quant.count * (16 + packed_width(self.dimension))
+            if quant.codes8 is not None:
+                total += quant.count * self.dimension
+            return total
+        return quant.count * (8 + self.dimension)
+
+    def preload(self) -> None:
+        """Pin the quantized codes on the device (vector_quantize_preload).
+        Device-storage codes are built on the device, so this only checks
+        that a quantization exists."""
+        self._require_quant("vector_quantize_preload", self._quant)
+
+    def drop_quantization(self) -> None:
+        """Free the codes (vector_quantize_cleanup, src/sqlite-vector.c:
+        1501-1524); a silent no-op without a quantization (:1510)."""
+        self._quant = None
+
     def _install_quant(
-        self, codes: np.ndarray, qtype: QuantType, scale: float, offset: float
+        self,
+        codes: np.ndarray,
+        qtype: QuantType,
+        scale: float,
+        offset: float,
+        ids: np.ndarray | None = None,
+        stale: bool = False,
     ) -> None:
-        """Adopt int8/uint8 codes built elsewhere for the current rows
-        (interop)."""
+        """Adopt int8/uint8 codes built elsewhere (interop): of the current
+        rows, or of the snapshot whose row ids are `ids`."""
         with self._mutate_lock:
-            self._check_codes(codes, qtype)
+            ids = self._snapshot_ids(ids)
+            self._check_codes(codes, qtype, len(ids))
             self._quant = _QuantState(
-                qtype,
-                np.float32(scale),
-                np.float32(offset),
-                from_numpy(codes, self.device),
-                self._count,
-                self._ids[: self._count].copy(),
+                qtype, np.float32(scale), np.float32(offset),
+                from_numpy(codes, self.device), len(ids), ids, stale=stale,
             )
 
     def _install_quant4(
@@ -643,13 +1107,16 @@ class Dataset:
         alpha: np.ndarray,
         csq: np.ndarray,
         sidecar: tuple[np.ndarray, QuantType, float, float] | None = None,
+        ids: np.ndarray | None = None,
+        stale: bool = False,
     ) -> None:
-        """Adopt an int4 quantization built elsewhere for the current rows
-        (interop), with its refine sidecar (codes8, qtype8, scale8, offset8)
-        when given."""
+        """Adopt an int4 quantization built elsewhere (interop), with its
+        refine sidecar (codes8, qtype8, scale8, offset8) when given: of the
+        current rows, or of the snapshot whose row ids are `ids`."""
         with self._mutate_lock:
-            count = self._count
-            want = (count, (self.dimension + 1) // 2)
+            ids = self._snapshot_ids(ids)
+            count = len(ids)
+            want = (count, packed_width(self.dimension))
             if packed.shape != want or packed.dtype != np.uint8:
                 raise VectorConfigError(
                     f"packed codes must be uint8 {want}, got {packed.dtype} "
@@ -659,23 +1126,27 @@ class Dataset:
                 raise VectorConfigError("alpha and csq must have one entry per row")
             state = _QuantState(
                 QuantType.I4, np.float32(1.0), np.float32(0.0),
-                from_numpy(packed, self.device), count,
-                self._ids[:count].copy(),
+                from_numpy(packed, self.device), count, ids, stale=stale,
                 row_scale=from_numpy(alpha.astype(np.float32), self.device),
                 sq_norms=from_numpy(csq.astype(np.int32), self.device),
             )
             if sidecar is not None:
                 codes8, qtype8, scale8, offset8 = sidecar
-                self._check_codes(codes8, qtype8)
+                self._check_codes(codes8, qtype8, count)
                 state.codes8 = from_numpy(codes8, self.device)
                 state.qtype8 = qtype8
                 state.scale8, state.offset8 = np.float32(scale8), np.float32(offset8)
             self._quant = state
 
-    def _check_codes(self, codes: np.ndarray, qtype: QuantType) -> None:
-        if codes.shape != (self._count, self.dimension):
+    def _snapshot_ids(self, ids: np.ndarray | None) -> np.ndarray:
+        if ids is None:
+            return self._ids[: self._count].copy()
+        return np.array(ids, np.int64)
+
+    def _check_codes(self, codes: np.ndarray, qtype: QuantType, count: int) -> None:
+        if codes.shape != (count, self.dimension):
             raise VectorConfigError(
-                f"codes shape {codes.shape} != ({self._count}, {self.dimension})"
+                f"codes shape {codes.shape} != ({count}, {self.dimension})"
             )
         if codes.dtype != qtype.np_dtype:
             raise VectorConfigError(

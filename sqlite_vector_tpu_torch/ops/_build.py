@@ -36,10 +36,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # every exported launcher: name -> argtypes (each returns a cudaError_t)
 _SIGNATURES = {
-    # queries, base, out, B, N, d, valid, dtype, metric, stream
-    "svt_block_minima": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # qc, qscale, packed, alpha, csq, out, B, N, d, valid, metric, stream
-    "svt_int4_block_minima": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # queries, base, mask (or None), out, B, N, d, valid, dtype, metric, stream
+    "svt_block_minima": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # qc, qscale, packed, alpha, csq, mask (or None), out, B, N, d, valid,
+    # metric, stream
+    "svt_int4_block_minima": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

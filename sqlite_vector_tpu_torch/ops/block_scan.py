@@ -12,6 +12,14 @@ Stage 1 has two implementations of one contract:
   - the CUDA kernel csrc/block_minima.cu, hand-written for Hopper.
 `block_minima` picks by where the tensors live: the twin for CPU tensors,
 the kernel for CUDA tensors (it raises rather than fall back).
+
+Row masks (ids_filter, removed rows) ride in stage 1: a masked row reads
++inf in the minima, so a group with no live row reads +inf, and the finish
+scores masked rows +inf again inside the groups it selects (a group's
+minimum can come from a live row beside masked ones). The selection stays
+exact: a live top-k row's group has a finite minimum no larger than the
+row, so it is among the k selected unless k groups each hold a live row
+that beats it.
 """
 
 from __future__ import annotations
@@ -73,9 +81,11 @@ def block_minima_reference(
     base: torch.Tensor,
     metric: DistanceMetric,
     valid: int,
+    row_mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Plain-PyTorch twin of the kernel: float32 [B, ceil(N/128)] minima of
-    the rank-ready distances, rows >= valid at +inf. L2 stays squared."""
+    the rank-ready distances, rows >= valid and rows where row_mask ([N]
+    bool) is False at +inf. L2 stays squared."""
     b, n = queries.shape[0], base.shape[0]
     groups = -(-n // BLOCK)
     sq_metric = (
@@ -89,7 +99,19 @@ def block_minima_reference(
         e = min(s + rows, valid)
         d = pairwise_distance(queries, base[s:e], sq_metric, snap=False)
         dist[:, s:e] = _rank_ready(d, metric)
+    if row_mask is not None:
+        dist[:, :n] = torch.where(row_mask, dist[:, :n], torch.inf)
     return dist.view(b, groups, BLOCK).amin(-1)
+
+
+def check_row_mask(row_mask: torch.Tensor | None, n: int, device: torch.device, who: str) -> None:
+    """A row mask is None or an [n] torch.bool tensor on the scan's device."""
+    if row_mask is None:
+        return
+    if row_mask.dtype != torch.bool or row_mask.shape != (n,):
+        raise ValueError(f"{who}: row_mask must be a torch.bool tensor of shape ({n},)")
+    if row_mask.device != device:
+        raise ValueError(f"{who}: row_mask on {row_mask.device}, the scan on {device}")
 
 
 def _check(queries: torch.Tensor, base: torch.Tensor, valid: int) -> None:
@@ -117,8 +139,10 @@ def block_minima(
     base: torch.Tensor,
     metric: DistanceMetric,
     valid: int,
+    row_mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Per-128-row distance minima [B, ceil(N/128)] float32.
+    """Per-128-row distance minima [B, ceil(N/128)] float32; rows where
+    row_mask ([N] bool, optional) is False read +inf.
 
     CPU tensors run block_minima_reference; CUDA tensors launch the K1
     kernel (csrc/block_minima.cu) and count the launch in
@@ -126,12 +150,15 @@ def block_minima(
     """
     _check(queries, base, valid)
     dev = base.device
+    check_row_mask(row_mask, base.shape[0], dev, "block_minima")
     if dev.type == "cpu":
-        return block_minima_reference(queries, base, metric, valid)
+        return block_minima_reference(queries, base, metric, valid, row_mask)
     if dev.type != "cuda":
         raise ValueError(f"block_minima: unsupported device {dev}")
     if not (queries.is_contiguous() and base.is_contiguous()):
         raise ValueError("block_minima: the kernel needs contiguous tensors")
+    if row_mask is not None and not row_mask.is_contiguous():
+        raise ValueError("block_minima: the kernel needs a contiguous row_mask")
     b, d = queries.shape
     n = base.shape[0]
     if n >= 2**31 or b >= 2**31:
@@ -146,6 +173,7 @@ def block_minima(
         rc = lib.svt_block_minima(
             queries.data_ptr(),
             base.data_ptr(),
+            None if row_mask is None else row_mask.data_ptr(),
             out.data_ptr(),
             b,
             n,
@@ -171,13 +199,15 @@ def finish_groups(
     k: int,
     dim: int,
     rescore,
+    row_mask: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The finish over block minima [B, G]: select the k best groups per
     query (ties to the earlier group), rescore their k*128 rows, take the
     final top-k (ties to the earlier row). rescore(s, e, rows) returns the
     rank-ready [e - s, C] distances of queries s:e to rows [e - s, C]
     (positions clamped into [0, n)). Returns (values, positions) [B, k],
-    +inf / -1 past the candidates and at rows >= valid.
+    +inf / -1 past the candidates, at rows >= valid and at rows where
+    row_mask ([n] bool, optional) is False.
 
     The rescore runs in chunks of queries, and each query chunk's
     candidates in slices, so that no gathered [queries, candidates, dim]
@@ -208,7 +238,10 @@ def finish_groups(
             [rescore(s, e, pos[:, c : c + cs].clamp(0, n - 1)) for c in range(0, n_cand, cs)],
             dim=1,
         )
-        d = torch.where((pos < valid) & (pos < n), d, torch.inf)
+        keep = (pos < valid) & (pos < n)
+        if row_mask is not None:
+            keep &= row_mask[pos.clamp(0, n - 1)]
+        d = torch.where(keep, d, torch.inf)
         v, cpos = topk_ascending(d, k)  # padded with +inf / -1 past n_cand
         vals.append(v)
         idx.append(torch.where(cpos >= 0, torch.gather(pos, 1, cpos.clamp(min=0)), -1))
@@ -222,6 +255,7 @@ def _finish_from_minima(
     valid: int,
     metric: DistanceMetric,
     k: int,
+    row_mask: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k from block minima: select k groups, rescore k*128 rows
     exactly (finish_groups), then L2's sqrt and the near-zero snap."""
@@ -230,6 +264,7 @@ def _finish_from_minima(
         lambda s, e, rows: _rank_ready(
             candidate_distances(queries[s:e], base[rows], metric), metric
         ),
+        row_mask,
     )
     if metric is DistanceMetric.L2:
         vals = sqrt_rn(vals)
@@ -244,10 +279,12 @@ def block_scan_topk(
     k: int,
     *,
     valid_count: int | None = None,
+    row_mask: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused top-k scan via block minima + exact finish. Same contract as
     ops.scan.scan_topk: (distances [B, k] float32, positions [B, k] int64)
-    ascending; unfilled slots +inf / -1."""
+    ascending; unfilled slots +inf / -1; rows where row_mask ([N] bool) is
+    False are never returned."""
     valid = base.shape[0] if valid_count is None else int(valid_count)
-    minima = block_minima(queries, base, metric, valid)
-    return _finish_from_minima(minima, queries, base, valid, metric, k)
+    minima = block_minima(queries, base, metric, valid, row_mask)
+    return _finish_from_minima(minima, queries, base, valid, metric, k, row_mask)

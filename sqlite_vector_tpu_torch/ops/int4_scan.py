@@ -11,8 +11,8 @@ ranking of rows):
   COSINE           -dot / sqrt(csq)   (0 for a zero row)
 
 where dot is the exact integer dot of the int8 query codes with the row's
-int4 codes. Rows >= valid and NaN surrogates (inf - inf when alpha^2 * csq
-overflows) are +inf. Stage 2 (torch ops) selects the k best groups, gathers
+int4 codes. Rows >= valid, rows a row mask excludes and NaN surrogates
+(inf - inf when alpha^2 * csq overflows) are +inf. Stage 2 (torch ops) selects the k best groups, gathers
 their k*128 packed rows, rescores them with the exact int4 composition
 (ops.quantize4.int4_distances) and takes the final top-k, through K1's
 finish (ops.block_scan.finish_groups).
@@ -30,7 +30,12 @@ from __future__ import annotations
 
 import torch
 
-from sqlite_vector_tpu_torch.ops.block_scan import BLOCK, _METRIC_CODE, finish_groups
+from sqlite_vector_tpu_torch.ops.block_scan import (
+    BLOCK,
+    _METRIC_CODE,
+    check_row_mask,
+    finish_groups,
+)
 from sqlite_vector_tpu_torch.ops.distance import sqrt_rn
 from sqlite_vector_tpu_torch.ops.quantize4 import (
     dot_dtype,
@@ -78,9 +83,11 @@ def int4_block_minima_reference(
     csq: torch.Tensor,
     metric: DistanceMetric,
     valid: int,
+    row_mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Plain-PyTorch twin of K2: float32 [B, ceil(N/128)] per-group minima
-    of the surrogate; rows >= valid and NaN surrogates are +inf."""
+    of the surrogate; rows >= valid, rows where row_mask ([N] bool) is False
+    and NaN surrogates are +inf."""
     b, dim = qc.shape
     n = packed.shape[0]
     groups = -(-n // BLOCK)
@@ -95,6 +102,8 @@ def int4_block_minima_reference(
         dot = qcf @ unpack4(packed[s:e], dim).to(acc).T
         sv = _surrogate(dot.float(), qscale, alpha[s:e], csq[s:e], metric)
         s_all[:, s:e] = torch.where(torch.isnan(sv), torch.inf, sv)
+    if row_mask is not None:
+        s_all[:, :n] = torch.where(row_mask, s_all[:, :n], torch.inf)
     return s_all.view(b, groups, BLOCK).amin(-1)
 
 
@@ -132,8 +141,10 @@ def int4_block_minima(
     csq: torch.Tensor,
     metric: DistanceMetric,
     valid: int,
+    row_mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Per-128-row surrogate minima [B, ceil(N/128)] float32.
+    """Per-128-row surrogate minima [B, ceil(N/128)] float32; rows where
+    row_mask ([N] bool, optional) is False read +inf.
 
     qc [B, d] int8 and qscale [B] float32 from quantize_query_int8; packed
     [N, ceil(d/2)] uint8, alpha [N] float32, csq [N] int32 from
@@ -143,11 +154,15 @@ def int4_block_minima(
     """
     _check(qc, qscale, packed, alpha, csq, metric, valid)
     dev = packed.device
+    check_row_mask(row_mask, packed.shape[0], dev, "int4_block_minima")
     if dev.type == "cpu":
-        return int4_block_minima_reference(qc, qscale, packed, alpha, csq, metric, valid)
+        return int4_block_minima_reference(
+            qc, qscale, packed, alpha, csq, metric, valid, row_mask
+        )
     if dev.type != "cuda":
         raise ValueError(f"int4_block_minima: unsupported device {dev}")
-    if not all(t.is_contiguous() for t in (qc, qscale, packed, alpha, csq)):
+    tensors = (qc, qscale, packed, alpha, csq) + (() if row_mask is None else (row_mask,))
+    if not all(t.is_contiguous() for t in tensors):
         raise ValueError("int4_block_minima: the kernel needs contiguous tensors")
     b, dim = qc.shape
     n = packed.shape[0]
@@ -166,6 +181,7 @@ def int4_block_minima(
             packed.data_ptr(),
             alpha.data_ptr(),
             csq.data_ptr(),
+            None if row_mask is None else row_mask.data_ptr(),
             out.data_ptr(),
             b,
             n,
@@ -193,16 +209,18 @@ def int4_block_scan_topk(
     *,
     dim: int,
     valid_count: int | None = None,
+    row_mask: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """int4 top-k via K2's surrogate minima + exact finish. Same contract as
-    ops.quantize4.int4_scan_topk (float32 queries [B, d]). The finish is
+    ops.quantize4.int4_scan_topk (float32 queries [B, d]; rows where
+    row_mask ([N] bool) is False are never returned). The finish is
     K1's group selection and chunked finish (block_scan.finish_groups),
     rescoring the gathered packed rows with the int4 composition (NaN ->
     +inf); the query codes are made once for both stages."""
     valid = packed.shape[0] if valid_count is None else int(valid_count)
     qc, qscale, qsq = quantize_query_int8(queries)
     qf = sanitize_queries(queries)
-    minima = int4_block_minima(qc, qscale, packed, alpha, csq, metric, valid)
+    minima = int4_block_minima(qc, qscale, packed, alpha, csq, metric, valid, row_mask)
 
     def rescore(s: int, e: int, rows: torch.Tensor) -> torch.Tensor:
         d = int4_distances(
@@ -211,5 +229,5 @@ def int4_block_scan_topk(
         )
         return torch.where(torch.isnan(d), torch.inf, d)
 
-    vals, idx = finish_groups(minima, packed.shape[0], valid, k, dim, rescore)
+    vals, idx = finish_groups(minima, packed.shape[0], valid, k, dim, rescore, row_mask)
     return vals, torch.where(torch.isposinf(vals), -1, idx)

@@ -20,8 +20,8 @@ codes.
 The numpy spec below is copied verbatim from the JAX module (importing it
 would import jax). The device build and the scans are torch ops. The scan
 router, int4_scan_topk, sends the four matmul metrics to the K2 block-minima
-scan (ops/int4_scan.py) and L1 to the plain tile loop, as the JAX package
-does (no kernel exists for L1 in either package).
+scan (ops/int4_scan.py), masked or not, and L1 to the plain tile loop, as the
+JAX package does (no kernel exists for L1 in either package).
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from sqlite_vector_tpu_torch.ops.block_scan import check_row_mask
 from sqlite_vector_tpu_torch.ops.distance import l1_distance, sqrt_rn
 from sqlite_vector_tpu_torch.ops.topk import merge_topk, topk_ascending
 from sqlite_vector_tpu_torch.types import DistanceMetric
@@ -301,10 +302,13 @@ def int4_scan_topk_plain(
     *,
     dim: int,
     valid_count: int | None = None,
+    row_mask: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The plain tile loop (the JAX package's _int4_scan_topk_impl): per
     row tile, unpack, score every row, take the tile's top-k and merge it
-    into the running top-k (the earlier tile wins ties)."""
+    into the running top-k (the earlier tile wins ties). Rows >= valid_count
+    and rows where row_mask ([N] bool) is False score +inf."""
+    check_row_mask(row_mask, packed.shape[0], packed.device, "int4_scan_topk")
     qc, qscale, qsq = quantize_query_int8(queries)
     qf = sanitize_queries(queries)
     b, n = queries.shape[0], packed.shape[0]
@@ -318,8 +322,10 @@ def int4_scan_topk_plain(
         codes = unpack4(packed[s:e], dim)
         d = int4_distances(qc, qscale, qsq, qf, codes, alpha[s:e], csq[s:e], metric)
         d = torch.where(torch.isnan(d), torch.inf, d)
-        rows = torch.arange(s, e, device=dev)
-        d = torch.where(rows[None, :] < valid, d, torch.inf)
+        keep = torch.arange(s, e, device=dev) < valid
+        if row_mask is not None:
+            keep &= row_mask[s:e]
+        d = torch.where(keep[None, :], d, torch.inf)
         tv, ti = topk_ascending(d, min(k, e - s))
         vals, idx = merge_topk(vals, idx, tv, ti + s, k)
     return vals, torch.where(torch.isposinf(vals), -1, idx)
@@ -335,20 +341,49 @@ def int4_scan_topk(
     *,
     dim: int,
     valid_count: int | None = None,
+    row_mask: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused int4 top-k scan: (distances [B, k] f32 approximate
-    original-domain, positions [B, k] int64), ascending, +inf/-1 padding.
+    original-domain, positions [B, k] int64), ascending, +inf/-1 padding;
+    rows where row_mask ([N] bool) is False are never returned.
 
     Routing: L1 has no matmul form and runs the plain tile loop; every
     other metric runs the K2 block-minima scan + exact finish
-    (ops.int4_scan.int4_block_scan_topk), which launches the CUDA kernel on
-    CUDA tensors and its plain twin on CPU tensors."""
+    (ops.int4_scan.int4_block_scan_topk), masked or not, which launches the
+    CUDA kernel on CUDA tensors and its plain twin on CPU tensors."""
     if metric is DistanceMetric.L1:
         return int4_scan_topk_plain(
-            queries, packed, alpha, csq, metric, k, dim=dim, valid_count=valid_count
+            queries, packed, alpha, csq, metric, k, dim=dim,
+            valid_count=valid_count, row_mask=row_mask,
         )
     from sqlite_vector_tpu_torch.ops.int4_scan import int4_block_scan_topk
 
     return int4_block_scan_topk(
-        queries, packed, alpha, csq, metric, k, dim=dim, valid_count=valid_count
+        queries, packed, alpha, csq, metric, k, dim=dim,
+        valid_count=valid_count, row_mask=row_mask,
     )
+
+
+def int4_scan_distances(
+    queries: torch.Tensor,
+    packed: torch.Tensor,
+    alpha: torch.Tensor,
+    csq: torch.Tensor,
+    metric: DistanceMetric,
+    *,
+    dim: int,
+) -> torch.Tensor:
+    """Full [B, N] approximate original-domain distance matrix (the
+    *_stream virtual tables' int4 analogue), row tile by row tile so the
+    unpacked codes stay bounded."""
+    qc, qscale, qsq = quantize_query_int8(queries)
+    qf = sanitize_queries(queries)
+    b, n = queries.shape[0], packed.shape[0]
+    out = torch.empty((b, n), dtype=torch.float32, device=packed.device)
+    tile = max(1, _TILE_ELEMS // max(dim, b, 1))
+    for s in range(0, n, tile):
+        e = min(s + tile, n)
+        out[:, s:e] = int4_distances(
+            qc, qscale, qsq, qf, unpack4(packed[s:e], dim), alpha[s:e], csq[s:e], metric
+        )
+    return out

@@ -235,3 +235,122 @@ def test_block_minima_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):
         block_minima(q, torch.zeros((10, 8)), DistanceMetric.L2, 11)
 
+
+
+# -- row masks ---------------------------------------------------------------
+
+MASKS = ["half", "dead-group", "all-masked", "fewer-than-k"]
+
+
+def mask_case(kind, n, seed):
+    """A random 50% mask; the same with group 1 (rows 128-255) all masked;
+    every row masked; and three live rows, fewer than the k of the tests."""
+    m = np.random.default_rng(seed).random(n) < 0.5
+    if kind == "dead-group":
+        m[BLOCK : 2 * BLOCK] = False
+    elif kind == "all-masked":
+        m[:] = False
+    elif kind == "fewer-than-k":
+        m[:] = False
+        m[[3, 400, 649]] = True
+    return m
+
+
+def per_row(q, base, metric, valid, mask):
+    """The rank-ready per-row values the twin reduces, with rows >= valid
+    and masked rows at +inf, padded to whole groups."""
+    sq = DistanceMetric.SQUARED_L2 if metric is DistanceMetric.L2 else metric
+    from sqlite_vector_tpu_torch.ops.distance import pairwise_distance
+
+    d = block_scan._rank_ready(pairwise_distance(q, base, sq, snap=False), metric)
+    keep = torch.from_numpy(mask) & (torch.arange(base.shape[0]) < valid)
+    d = torch.where(keep, d, torch.inf)
+    pad = -(-base.shape[0] // BLOCK) * BLOCK - base.shape[0]
+    return torch.nn.functional.pad(d, (0, pad), value=torch.inf)
+
+
+@pytest.mark.parametrize("kind", MASKS)
+@pytest.mark.parametrize("vtype", ["FLOAT32", "FLOATB16", "UINT8", "INT8"])
+@pytest.mark.parametrize("metric", METRICS)
+def test_masked_twin_minima_are_group_minima_of_live_rows(kind, vtype, metric):
+    """The masked twin's minima equal the per-group minimum of the unmasked
+    per-row values with masked rows at +inf, exactly (the same float ops);
+    a group with no live row reads +inf."""
+    q, base = scan_case(vtype, 200 + METRICS.index(metric))
+    mask = mask_case(kind, base.shape[0], METRICS.index(metric))
+    tq, tb, tm = from_numpy(q), from_numpy(base), DistanceMetric(metric)
+    got = block_minima(tq, tb, tm, 650, torch.from_numpy(mask))
+    want = per_row(tq, tb, tm, 650, mask).view(q.shape[0], -1, BLOCK).amin(-1)
+    assert torch.equal(got, want)
+    if kind in ("dead-group", "all-masked"):
+        assert torch.isinf(got[:, 1]).all()
+
+
+def jax_masked_scan(q, base, metric, k, valid, mask):
+    from sqlite_vector_tpu.ops.scan import scan_topk as jax_scan_topk
+
+    v, i = jax_scan_topk(
+        q, base, JaxMetric(metric), k, valid_count=valid, row_mask=np.asarray(mask)
+    )
+    return np.asarray(v), np.asarray(i)
+
+
+@pytest.mark.parametrize("kind", MASKS)
+@pytest.mark.parametrize("vtype", ["FLOAT32", "UINT8"])
+@pytest.mark.parametrize("metric", METRICS)
+def test_masked_block_scan_topk_matches_jax_masked_scan(kind, vtype, metric):
+    """block_scan_topk(row_mask=) against the JAX masked route
+    (ops/scan.py scan_topk(row_mask=)): integer-domain ids and values equal;
+    float ids tie-aware against JAX's own masked distances, values within
+    REL_TOL_BY_TYPE. Masked rows never come back, and a mask with fewer
+    live rows than k pads with -1 / +inf. With the two partial masks k = 4
+    of the 6 groups, so the masked minima choose the groups rescored."""
+    q, base = scan_case(vtype, 300 + METRICS.index(metric))
+    mask = mask_case(kind, base.shape[0], 7 + METRICS.index(metric))
+    valid, k = 650, (4 if kind in ("half", "dead-group") else 12)
+    tm = DistanceMetric(metric)
+    got_v, got_i = fused_scan_topk(
+        from_numpy(q), from_numpy(base), tm, k, valid_count=valid,
+        row_mask=torch.from_numpy(mask),
+    )
+    got_v, got_i = got_v.numpy(), got_i.numpy()
+    want_v, want_i = jax_masked_scan(q, base, metric, k, valid, mask)
+    live = mask & (np.arange(base.shape[0]) < valid)
+    assert live[got_i[got_i >= 0]].all()
+    assert ((got_i >= 0).sum(1) <= live.sum()).all()
+    if vtype == "UINT8":
+        np.testing.assert_array_equal(got_i, want_i)
+        np.testing.assert_array_equal(got_v, want_v)
+        return
+    oracle = np.asarray(jax_distance.pairwise_distance(q, base, JaxMetric(metric))).astype(np.float64)
+    oracle[:, ~live] = np.inf
+    for i in range(q.shape[0]):
+        assert_topk_parity(
+            np.arange(base.shape[0]), oracle[i], got_i[i], got_v[i], k,
+            rel_tol=REL_TOL_BY_TYPE[vtype], label=f"{kind}/{metric}[{i}]",
+        )
+    np.testing.assert_allclose(got_v, want_v, rtol=REL_TOL_BY_TYPE[vtype], atol=1e-5)
+
+
+def test_masked_plain_scan_matches_jax_masked_scan():
+    """The plain scan_topk(row_mask=) (what chip_smoke.py holds the masked
+    searches against) equals the JAX masked route on integer codes."""
+    q, base = scan_case("INT8", 5)
+    mask = mask_case("half", base.shape[0], 5)
+    got_v, got_i = scan_topk(
+        from_numpy(q), from_numpy(base), DistanceMetric.L2, 9, valid_count=650,
+        row_mask=torch.from_numpy(mask),
+    )
+    want_v, want_i = jax_masked_scan(q, base, "L2", 9, 650, mask)
+    np.testing.assert_array_equal(got_i.numpy(), want_i)
+    np.testing.assert_array_equal(got_v.numpy(), want_v)
+
+
+def test_row_mask_rejects_wrong_shape_and_dtype():
+    q = torch.zeros((2, 8))
+    base = torch.zeros((10, 8))
+    for bad in (torch.ones(9, dtype=torch.bool), torch.ones(10, dtype=torch.uint8)):
+        with pytest.raises(ValueError, match="row_mask"):
+            block_minima(q, base, DistanceMetric.L2, 10, bad)
+        with pytest.raises(ValueError, match="row_mask"):
+            scan_topk(q, base, DistanceMetric.L2, 3, row_mask=bad)

@@ -183,11 +183,6 @@ def test_unported_paths_raise_config_error():
     ds = svt.VectorStore(device="cpu").create("d", "dimension=8")
     ds.add(base)
     ds.quantize()
-    for mode in ("rerank", "approx"):
-        with pytest.raises(svt.VectorConfigError, match="ROADMAP"):
-            ds.search(base[0], 3, mode=mode)
-    with pytest.raises(svt.VectorConfigError, match="ROADMAP"):
-        ds.search(base[0], 3, ids_filter=[1, 2])
     with pytest.raises(svt.VectorConfigError, match="ROADMAP"):
         ds.quantize(checkpoint="unused")
     with pytest.raises(svt.VectorConfigError, match="ROADMAP"):
@@ -203,6 +198,18 @@ def test_unported_paths_raise_config_error():
     half.quantize(qtype="int4", refine=True)
     with pytest.raises(svt.VectorConfigError, match="ROADMAP"):
         half.search(base[0], 3, mode="refine")  # JAX routes it to exact
+    half.quantize()
+    for mode in ("approx", "rerank"):  # JAX: the policy scan, as exact
+        with pytest.raises(svt.VectorConfigError, match="ROADMAP"):
+            half.search(base[0], 3, mode=mode)
+    # exact distances where JAX needs its raw-value policy kernels: f32 L2
+    # over a row holding Inf (the plain decomposition gives NaN, not +Inf)
+    inf_rows = base.copy()
+    inf_rows[2, 1] = np.inf
+    f32 = svt.VectorStore(device="cpu").create("i", "dimension=8,distance=L2")
+    f32.add(inf_rows)
+    with pytest.raises(svt.VectorConfigError, match="ROADMAP"):
+        f32.distances(base[0])
 
 
 def test_default_device_refuses_missing_gpu(monkeypatch):

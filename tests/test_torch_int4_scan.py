@@ -27,6 +27,7 @@ from sqlite_vector_tpu_torch.ops.int4_scan import (
 )
 from sqlite_vector_tpu_torch.types import DistanceMetric
 from tests.parity import assert_topk_parity
+from tests.test_torch_block_scan import MASKS, mask_case
 from tests.test_torch_quantize4 import assert_int4_values_close, rows_with_edges
 
 K2_METRICS = ["L2", "SQUARED_L2", "COSINE", "DOT"]
@@ -277,3 +278,60 @@ def test_int4_block_minima_rejects_what_the_kernel_does_not_take():
     for tensors, metric, valid in bad:
         with pytest.raises(ValueError):
             int4_block_minima(*tensors, metric, valid)
+
+
+# -- row masks ---------------------------------------------------------------
+
+@pytest.mark.parametrize("kind", MASKS)
+@pytest.mark.parametrize("metric", K2_METRICS)
+def test_masked_twin_minima_are_group_minima_of_live_rows(kind, metric):
+    """The masked twin's minima equal the per-group minimum of the per-row
+    surrogates (the JAX _surrogate_block's ops, computed here for every
+    row) with masked rows and rows >= valid at +inf, bit for bit; a group
+    with no live row reads +inf."""
+    q, (packed, alpha, csq) = case(120 + K2_METRICS.index(metric), 700, 40, 3)
+    mask = mask_case(kind, 700, K2_METRICS.index(metric))
+    qc, qs, _ = q4.quantize_query_int8(from_numpy(q))
+    args = (qc, qs, from_numpy(packed), from_numpy(alpha), from_numpy(csq), DistanceMetric(metric), 650)
+    got = int4_block_minima(*args, torch.from_numpy(mask))
+    dot = qc.float() @ q4.unpack4(from_numpy(packed), 40).float().T
+    sv = int4_scan._surrogate(dot, qs, from_numpy(alpha), from_numpy(csq), DistanceMetric(metric))
+    keep = torch.from_numpy(mask) & (torch.arange(700) < 650)
+    sv = torch.where(keep & ~torch.isnan(sv), sv, torch.inf)
+    sv = torch.nn.functional.pad(sv, (0, 6 * BLOCK - 700), value=torch.inf)
+    assert torch.equal(got, sv.view(3, 6, BLOCK).amin(-1))
+    if kind in ("dead-group", "all-masked"):
+        assert torch.isinf(got[:, 1]).all()
+
+
+@pytest.mark.parametrize("kind", MASKS)
+@pytest.mark.parametrize("metric", ["L2", "SQUARED_L2", "COSINE", "DOT", "L1"])
+def test_masked_scan_matches_jax_masked_route(kind, metric):
+    """int4_scan_topk(row_mask=) (K2's route; L1 the plain tile loop)
+    against the JAX masked route, its tile loop: values within the int4
+    tolerances (assert_int4_values_close), ids equal up to ties; masked
+    rows never come back; fewer live rows than k pad with -1 / +inf. With
+    the two partial masks k = 4 of the 6 groups, so K2's masked minima
+    choose the groups rescored."""
+    q, (packed, alpha, csq) = case(130 + len(kind), 700, 24, 3)
+    mask = mask_case(kind, 700, 11)
+    k, valid = (4 if kind in ("half", "dead-group") else 9), 650
+    jv, ji = jq4.int4_scan_topk(
+        jnp.asarray(q), jnp.asarray(packed), jnp.asarray(alpha), jnp.asarray(csq),
+        JaxMetric(metric), k, dim=24, valid_count=valid, row_mask=jnp.asarray(mask),
+    )
+    gv, gi = q4.int4_scan_topk(
+        from_numpy(q), from_numpy(packed), from_numpy(alpha), from_numpy(csq),
+        DistanceMetric(metric), k, dim=24, valid_count=valid,
+        row_mask=torch.from_numpy(mask),
+    )
+    gv, gi, jv, ji = gv.numpy(), gi.numpy(), np.asarray(jv), np.asarray(ji)
+    live = mask & (np.arange(700) < valid)
+    assert live[gi[gi >= 0]].all()
+    assert_int4_values_close(gv, jv, q, metric)
+    swapped = gi != ji
+    np.testing.assert_allclose(gv[swapped], jv[swapped], rtol=1e-5)
+    if kind == "all-masked":
+        assert (gi == -1).all() and np.isinf(gv).all()
+    if kind == "fewer-than-k":
+        assert ((gi >= 0).sum(1) <= 3).all() and (gi[:, 3:] == -1).all()

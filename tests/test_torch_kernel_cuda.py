@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card: K1 (csrc/block_minima.cu) and K2
-(csrc/int4_minima.cu).
+(csrc/int4_minima.cu), unmasked and with row masks, and the searches that
+launch them.
 
 Every test here needs a CUDA device and skips without one. The file imports
 neither jax nor the JAX package, so on a machine without jax it runs on its
@@ -254,3 +255,111 @@ def test_refine_memory_is_bounded_at_large_batch_and_k(cuda):
     _, cand = int4_scan_topk_plain(q[:4], packed, alpha, csq, DistanceMetric.L2, 4 * k, dim=d)
     pv, pi = refine_candidates(q[:4], cand, codes8, scale8, 0.0, DistanceMetric.L2, k)
     assert torch.equal(idx[:4], pi) and torch.equal(vals[:4], pv)
+
+
+MASK_KINDS = ["half", "dead-group", "all-masked", "fewer-than-k"]
+
+
+def mask_case(kind, n, device, seed=0):
+    """Row masks ([n] torch.bool): a random 50% mask; the same with group 1
+    (rows 128-255) all masked; every row masked; three live rows (fewer than
+    any k used). chip_smoke.py runs the kernels on these cases too, at
+    N = 100,003."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    m = torch.rand(n, generator=gen, device=device) < 0.5
+    if kind == "dead-group":
+        m[128:256] = False
+    elif kind == "all-masked":
+        m[:] = False
+    elif kind == "fewer-than-k":
+        m[:] = False
+        m[[3, n // 2, n - 80]] = True
+    return m
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", MASK_KINDS)
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_masked_kernel_matches_twin(cuda, kind, dtype):
+    """Masked K1 against its masked twin for the 5 metrics of each dtype
+    (25 pairs over the dtype cases), B in {1, 17}: +inf positions equal
+    (a group with no live row reads +inf), integers equal, floats within
+    accumulation order as unmasked."""
+    for b in (1, 17):
+        q, base = case(dtype, 5003, 100, b, cuda, seed=b)
+        mask = mask_case(kind, 5003, cuda, seed=b)
+        before = block_minima.launches
+        for metric in DistanceMetric:
+            got = block_minima(q, base, metric, 4990, mask)
+            want = block_minima_reference(q, base, metric, 4990, mask)
+            assert torch.equal(torch.isinf(got), torch.isinf(want)), metric
+            if kind in ("dead-group", "all-masked"):
+                assert bool(torch.isinf(got[:, 1]).all())
+            if dtype.is_floating_point:
+                fin = torch.isfinite(want)
+                torch.testing.assert_close(got[fin], want[fin], rtol=1e-5, atol=1e-3)
+            else:
+                assert torch.equal(got, want), metric
+        assert block_minima.launches == before + len(DistanceMetric)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", MASK_KINDS)
+@pytest.mark.parametrize("d", [16, 95, 384])
+def test_masked_int4_kernel_matches_twin(cuda, kind, d):
+    """Masked K2 against its masked twin for its 4 metrics: bit-equal."""
+    for b in (1, 17):
+        tensors, _ = int4_case(5003, d, b, cuda, seed=b)
+        mask = mask_case(kind, 5003, cuda, seed=b)
+        before = int4_block_minima.launches
+        for metric in K2_METRICS:
+            got = int4_block_minima(*tensors, metric, 4990, mask)
+            want = int4_block_minima_reference(*tensors, metric, 4990, mask)
+            torch.cuda.synchronize()
+            assert_k2_matches_twin(got, want)
+            if kind in ("dead-group", "all-masked"):
+                assert bool(torch.isinf(got[:, 1]).all())
+        assert int4_block_minima.launches == before + len(K2_METRICS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", list(DistanceMetric), ids=lambda m: m.value)
+def test_masked_searches_launch_the_kernels_and_match_cpu(cuda, metric, monkeypatch):
+    """With tombstones and an ids_filter, every mode on a CUDA dataset
+    launches K1 or K2 (int4 L1 excepted, as in the JAX package) and never
+    the plain scan or a twin; ids equal the same searches on the CPU and
+    values agree within 1e-5 (float32 sums in another order)."""
+    from sqlite_vector_tpu_torch.ops import block_scan, int4_scan, scan
+
+    rng = np.random.default_rng(7)
+    base = rng.standard_normal((3000, 96)).astype(np.float32)
+    q = base[[7, 2500]] + np.float32(1e-3)
+    flt = np.arange(1, 3001)[::2]
+    results = {}
+    for device in ("cuda", "cpu"):
+        ds = svt.VectorStore(device=device).create("d", f"dimension=96,distance={metric.value}")
+        ids = ds.add(base)
+        out = []
+        for qtype, gone in (("int8", ids[100:160]), ("int4", ids[200:260])):
+            ds.quantize(qtype=qtype, refine=qtype == "int4")  # compacts first
+            ds.remove(gone)
+            modes = ["exact", "approx", "quantized", "rerank"] + (["refine"] if qtype == "int4" else [])
+            for mode in modes:
+                if device == "cuda":
+                    def fail(*a, **kw):
+                        raise AssertionError("plain route on a CUDA tensor")
+
+                    for mod, name in ((scan, "scan_topk"), (block_scan, "block_minima_reference"),
+                                      (int4_scan, "int4_block_minima_reference")):
+                        monkeypatch.setattr(mod, name, fail)
+                    k1, k2 = block_minima.launches, int4_block_minima.launches
+                out.append(ds.search(q, 9, mode=mode, ids_filter=flt))
+                if device == "cuda":
+                    monkeypatch.undo()
+                    int4_l1 = metric is DistanceMetric.L1 and qtype == "int4" and mode not in ("exact", "approx")
+                    launched = block_minima.launches - k1 + int4_block_minima.launches - k2
+                    assert launched > 0 or int4_l1, (qtype, mode)
+        results[device] = out
+    for got, want in zip(results["cuda"], results["cpu"]):
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_allclose(got[1], want[1], rtol=1e-5, atol=1e-5)

@@ -20,6 +20,7 @@ from sqlite_vector_tpu_torch.device import from_numpy
 from sqlite_vector_tpu_torch.ops import refine
 from sqlite_vector_tpu_torch.ops.refine import int4_refine_topk
 from sqlite_vector_tpu_torch.types import DistanceMetric
+from tests.test_torch_block_scan import MASKS, mask_case
 
 METRICS = [m.value for m in DistanceMetric]
 
@@ -129,3 +130,32 @@ def test_refine_on_the_twin_route_never_calls_the_tile_loop(monkeypatch):
         from_numpy(codes8), s8, o8, DistanceMetric.DOT, 5, dim=40,
     )
     assert i.shape == (4, 5) and torch.isfinite(v).all()
+
+
+@pytest.mark.parametrize("kind", MASKS)
+@pytest.mark.parametrize("metric", ["L2", "COSINE", "DOT", "L1"])
+def test_masked_refine_matches_jax(kind, metric):
+    """int4_refine_topk(row_mask=) against the JAX function with the same
+    mask: the mask applies to stage 1 only (JAX ops/refine.py), so masked
+    rows never reach the rescore; values within rtol 1e-5 and ids equal up
+    to ties (assert_refine_close); fewer live rows than k pad."""
+    q, packed, alpha, csq, codes8, s8, o8 = refine_case(50 + len(kind), n=700, dim=24)
+    mask = mask_case(kind, 700, 3)
+    k, expand, valid = 8, 3, 690
+    jv, ji = jax_refine(
+        jnp.asarray(q), jnp.asarray(packed), jnp.asarray(alpha), jnp.asarray(csq),
+        jnp.asarray(codes8), s8, o8, JaxMetric(metric), k, dim=24, expand=expand,
+        valid_count=valid, row_mask=jnp.asarray(mask),
+    )
+    gv, gi = int4_refine_topk(
+        from_numpy(q), from_numpy(packed), from_numpy(alpha), from_numpy(csq),
+        from_numpy(codes8), s8, o8, DistanceMetric(metric), k, dim=24,
+        expand=expand, valid_count=valid, row_mask=torch.from_numpy(mask),
+    )
+    gv, gi, jv, ji = gv.numpy(), gi.numpy(), np.asarray(jv), np.asarray(ji)
+    assert mask[gi[gi >= 0]].all() and (gi < valid).all()
+    np.testing.assert_array_equal(np.isinf(gv), np.isinf(jv))
+    fin = np.isfinite(jv)
+    assert_refine_close(jv[fin], ji[fin], gv[fin], gi[fin])
+    if kind == "fewer-than-k":
+        assert (gi[:, 3:] == -1).all()

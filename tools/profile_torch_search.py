@@ -5,7 +5,9 @@ Builds the configuration chip_smoke.py drives (N x 384 FLOAT32, L2, rows
 from N(0, 1) with --seed, 64 queries of which half are drawn from the
 base), and profiles --reps searches each of exact and int8-quantized mode,
 then after quantize(qtype="int4", refine=True) of int4-quantized and refine
-mode, at B=1 and B=64, k=20, with torch.profiler after a warm-up. For each
+mode, then of exact mode with 1% of the rows removed (tombstones, masked
+inside K1) and with an ids_filter of 10% of the live ids on top, at B=1 and
+B=64, k=20, with torch.profiler after a warm-up. For each
 it prints one line: device busy time per search (the union of the device's
 kernel, copy and memset intervals) against the profiled wall time per
 search, the device operations per search, the scan kernel's device time
@@ -64,17 +66,20 @@ K1 = ("K1", "block_minima_kernel")
 K2 = ("K2", "int4_minima_kernel")
 
 
-def profile_search(ds, q: np.ndarray, mode: str, kernel: tuple[str, str], reps: int) -> str:
+def profile_search(
+    ds, q: np.ndarray, mode: str, kernel: tuple[str, str], reps: int, ids_filter=None
+) -> str:
     from torch.profiler import ProfilerActivity, profile
 
     label, kname = kernel
     for _ in range(3):
-        ds.search(q, K, mode=mode)
+        ds.search(q, K, mode=mode, ids_filter=ids_filter)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
-            ds.search(q, K, mode=mode)  # returns host arrays: synchronous
+            # returns host arrays: synchronous
+            ds.search(q, K, mode=mode, ids_filter=ids_filter)
         wall_ms = (time.perf_counter() - t0) * 1e3 / reps
     ops = device_ops(prof)
     if not ops:
@@ -125,9 +130,9 @@ def main() -> int:
         [ds.get(ds.ids[picks]), rng.standard_normal((B_MAX - B_MAX // 2, DIM), dtype=np.float32)]
     )
 
-    def report(label: str, mode: str, kernel: tuple[str, str]) -> None:
+    def report(label: str, mode: str, kernel: tuple[str, str], ids_filter=None) -> None:
         for b in (1, B_MAX):
-            line = profile_search(ds, q[:b], mode, kernel, args.reps)
+            line = profile_search(ds, q[:b], mode, kernel, args.reps, ids_filter)
             print(f"[profile] {label} {args.n}x{DIM} k={K} B={b}: {line} | {card}", flush=True)
 
     ds.quantize()
@@ -136,6 +141,10 @@ def main() -> int:
     ds.quantize(qtype="int4", refine=True)
     report("int4 quantized", "quantized", K2)
     report("refine expand=4", "refine", K2)
+    ds.remove(rng.choice(ds.ids, args.n // 100, replace=False))  # below the compaction threshold
+    report("exact, 1% tombstones", "exact", K1)
+    flt = rng.choice(ds.ids, len(ds) // 10, replace=False)
+    report("exact, 1% tombstones + 10% ids_filter", "exact", K1, flt)
     return 0
 
 
