@@ -8,12 +8,20 @@ Run from the repository root with no arguments:
 Phases, each printing its own lines:
   1. device   the card (nvidia-smi name and power limit), torch/CUDA versions
               and the TF32 flags, which are pinned off;
-  2. build    compile the block-minima kernel (K1) and the packed-int4 kernel
-              (K2) from csrc/ with nvcc, one process per source;
+  2. build    compile K1's two bodies (csrc/block_minima_mma.cu on tensor
+              cores, csrc/block_minima.cu on CUDA cores) and the packed-int4
+              kernel (K2) from csrc/ with nvcc, one process per source, and
+              print what ptxas reported of each function (registers, stack,
+              spills); no instance of the tensor-core body may spill;
   3. kernel   K1 against its plain PyTorch twin on the card for every
-              (metric x dtype) pair, N = 100003 (ragged last group),
-              d in {100, 384}, B in {1, 8, 33}, valid < N, with a NaN row,
-              two duplicate rows and a zero row; then K2 against its twin
+              (metric x dtype) pair, in the body ops/block_scan.py:k1_body
+              routes it to, N = 100003 (ragged last group), d in {100, 384},
+              B in {1, 8, 33, 64, 65, 200} (query-tile edges), valid < N,
+              with a NaN row, two duplicate rows and a zero row; then f32
+              rows and queries with +Inf, -Inf, values whose squared norms
+              overflow, and 0 x Inf (tests/test_torch_kernel_cuda.py:
+              nonfinite_case) under
+              every metric; then K2 against its twin
               for its four metrics, d in {95, 384}, B in {1, 8, 33}, with a
               zero row, duplicate rows and rows scaled by 1e25 (overflowing
               surrogates, one group entirely); each case also with the
@@ -25,12 +33,17 @@ Phases, each printing its own lines:
               from the base) against a plain-torch ground truth, then
               quantize() and search(Q, 20, exact=False) against the plain
               integer-domain scan of the same codes; K1's launch count over
-              these searches must be above 0;
-  5. times    K1 at the main path's shapes (f32 B=1 and B=64, the int8 codes,
-              u8 codes), held against the twin and timed against it (CUDA
-              events, after warm-up, in turns); then end-to-end search at
-              B=1 and B=64: QPS as all queries over the whole window of
-              back-to-back calls, and the per-call latency p50, p99 and max;
+              these searches must be above 0, every launch in its
+              tensor-core body;
+  5. times    K1 at the main path's shapes (f32, the int8 codes and u8 codes,
+              each at B=1 and B=64), both bodies held against the twin and
+              timed in turns (CUDA events, after warm-up) with the twin, the
+              CUDA-core body and the library yardstick (library_call), beside
+              its bound (k1_bound) and its share of it; then end-to-end
+              search at B=1 and B=64: QPS as all queries over the whole
+              window of back-to-back calls, and the per-call latency p50,
+              p99 and max; then exact and int8 search at B=1 with K1 in
+              each body, in turns (body_latency);
   6. int4     on the same rows: quantize(qtype="int4", refine=True), then
               search(Q, 20, mode="quantized") against the plain int4 tile
               loop over the same codes and search(Q, 20, mode="refine")
@@ -55,15 +68,19 @@ Phases, each printing its own lines:
               wall ms; masked exact search at B=1 and B=64 beside unmasked;
               filtered search at B=64 and the filter mask's build; rerank
               at B=1 and B=64; K1 and K2 alone masked against unmasked at
-              B=64 (CUDA events, in turns).
+              B=64 (CUDA events, in turns); after compact, K1 alone at B=1
+              in each body and exact B=1 search with each (body_latency).
 
-Then one JSON line of kernel results, the card line again, and last the
-result line. Any failure raises, so the script exits non-zero and prints no
+Then one JSON line of kernel results (each with its bound, the side that
+bounds it and the library yardstick; K1's main-path numbers are f32 B=64,
+the rest under "by_shape"), the card line again, and last the result
+line. Any failure raises, so the script exits non-zero and prints no
 result; so does a machine without CUDA.
 """
 
 from __future__ import annotations
 
+import functools
 import importlib.util
 import json
 import subprocess
@@ -106,17 +123,63 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def in_turns(plain, kernel, iters: int) -> tuple[float, float]:
-    """(kernel ms, plain ms), measured plain, kernel, kernel, plain after a
-    warm-up of each."""
-    for fn in (plain, kernel):
+def in_turns(fns, iters: int) -> list[float]:
+    """Mean ms per call of each fn, measured in turns (f1..fn, then fn..f1)
+    after a warm-up of each."""
+    for fn in fns:
         fn()
     torch.cuda.synchronize()
-    p1 = cuda_ms(plain, iters)
-    k1 = cuda_ms(kernel, iters)
-    k2 = cuda_ms(kernel, iters)
-    p2 = cuda_ms(plain, iters)
-    return (k1 + k2) / 2, (p1 + p2) / 2
+    first = [cuda_ms(fn, iters) for fn in fns]
+    second = [cuda_ms(fn, iters) for fn in reversed(fns)][::-1]
+    return [(a + b) / 2 for a, b in zip(first, second)]
+
+
+# The card's published peaks (NVIDIA H100 SXM data sheet, dense, at 700 W):
+# HBM bytes per second, and operations per second by operand type on the
+# tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"tf32": 495e12, "int8": 1979e12}
+
+
+def bound(nbytes: float, ops: float, peak: str) -> tuple[float, str]:
+    """The least ms the card could take: the larger of the bytes over the
+    HBM rate and the operations over the type's peak, and which of the two
+    it is."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[peak] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k1_bound(b: int, n: int, d: int, elem: int, masked: bool = False) -> tuple[float, str]:
+    """K1's bound: queries and rows read once (plus a mask byte a row), the
+    [B, ceil(N/128)] float32 minima written once; 2 B N d products, each
+    three TF32 products for 4-byte rows (the 3xTF32 split, the cheapest
+    float32-accurate product on the card: 67 TFLOP/s of float32 outside
+    the tensor cores is slower) and one int8 product for 1-byte codes."""
+    nbytes = (b + n) * d * elem + b * -(-n // 128) * 4 + (n if masked else 0)
+    if elem == 4:
+        return bound(nbytes, 3 * 2.0 * b * n * d, "tf32")
+    return bound(nbytes, 2.0 * b * n * d, "int8")
+
+
+def k2_bound(b: int, n: int, d: int, masked: bool = False) -> tuple[float, str]:
+    """K2's bound: packed codes (d/2 bytes a row), alpha and csq (4 bytes
+    each a row), int8 query codes and their scales read once, the minima
+    written once; 2 B N d int8 operations."""
+    nbytes = n * (d // 2 + 8) + b * (d + 4) + b * -(-n // 128) * 4 + (n if masked else 0)
+    return bound(nbytes, 2.0 * b * n * d, "int8")
+
+
+def library_call(q: torch.Tensor, base: torch.Tensor):
+    """One PyTorch call computing K1's products on the same inputs, timed as
+    a yardstick and used nowhere in the port: torch.matmul with TF32 off
+    for float32, torch._int_mm for int8 where it takes the shape (more than
+    16 queries, d and N multiples of 8); None otherwise (u8, i8 at B=1)."""
+    if base.dtype is torch.float32:
+        return lambda: torch.matmul(q, base.T)
+    if base.dtype is torch.int8 and q.shape[0] > 16 and q.shape[1] % 8 == 0 and base.shape[0] % 8 == 0:
+        return lambda: torch._int_mm(q, base.T)
+    return None
 
 
 def make_rows(gen: torch.Generator, n: int, d: int, dtype: torch.dtype) -> torch.Tensor:
@@ -129,47 +192,70 @@ def make_rows(gen: torch.Generator, n: int, d: int, dtype: torch.dtype) -> torch
 
 
 def compare_minima(
-    q: torch.Tensor, base: torch.Tensor, metric, valid: int, label: str, mask=None
+    q: torch.Tensor, base: torch.Tensor, metric, valid: int, label: str, mask=None, body=None
 ) -> float:
-    """K1 against its twin on the same CUDA tensors: +inf positions equal,
-    integer minima equal, float minima within 1e-5 of the magnitude of the
-    accumulated terms (both widen to f32 and accumulate in f32, so they
-    differ by summation order only). Returns max |kernel - twin| over the
-    finite float minima (0 for integers)."""
+    """K1, in the body k1_body routes to (or `body`), against its twin on
+    the same CUDA tensors: +inf and -inf positions equal, integer minima
+    equal, float minima within 1e-5 of the magnitude each accumulates
+    (tests/test_torch_kernel_cuda.py: minima_tolerance: the bodies differ
+    from the twin's cuBLAS product by summation order, and the tensor-core
+    body by the 3xTF32 split, whose dropped lo.lo' term is 2^-22 of each
+    product). Returns max |kernel - twin| over the finite float minima (0
+    for integers)."""
     from sqlite_vector_tpu_torch.ops.block_scan import (
+        _launch_k1,
         block_minima,
         block_minima_reference,
     )
-    from sqlite_vector_tpu_torch.types import DistanceMetric
 
-    got = block_minima(q, base, metric, valid, mask)
+    if body is None:
+        got = block_minima(q, base, metric, valid, mask)
+    else:
+        got = _launch_k1(q, base, metric, valid, mask, body)
     ref = block_minima_reference(q, base, metric, valid, mask)
+    minima_tolerance = load_tests_module("test_torch_kernel_cuda").minima_tolerance
     torch.cuda.synchronize()
     check(got.shape == ref.shape, f"{label}: shape {got.shape} != {ref.shape}")
-    check(torch.equal(torch.isinf(got), torch.isinf(ref)), f"{label}: +inf positions differ")
+    check(torch.equal(torch.isposinf(got), torch.isposinf(ref)), f"{label}: +inf positions differ")
+    check(torch.equal(torch.isneginf(got), torch.isneginf(ref)), f"{label}: -inf positions differ")
     check(not bool(torch.isnan(got).any()), f"{label}: NaN minima")
     if not base.dtype.is_floating_point:
         check(torch.equal(got, ref), f"{label}: integer minima differ")
         return 0.0
     fin = torch.isfinite(ref)
-    err = (got[fin] - ref[fin]).abs()
-    if metric is DistanceMetric.COSINE:
-        mag = 1.0
-    elif metric is DistanceMetric.L1:
-        mag = ref[fin].abs() + 1.0
-    else:  # |q.b| and the norms are bounded by ||q||^2 + ||b||^2
-        qf, bf = q.float(), base[:valid].float()
-        bf = bf[torch.isfinite(bf).all(-1)]
-        mag = float((qf * qf).sum(-1).max() + (bf * bf).sum(-1).max()) if bf.numel() else 1.0
+    err = (got.double() - ref.double()).abs()[fin]
+    tol = minima_tolerance(q, base, metric, valid, ref)[fin]
     worst = float(err.max()) if err.numel() else 0.0
-    check(bool((err <= 1e-5 * mag).all()), f"{label}: max |kernel - twin| {worst} over tolerance")
+    check(bool((err <= tol).all()), f"{label}: max |kernel - twin| {worst} over tolerance")
     return worst
 
 
-def phase_kernel(card: str) -> tuple[float, float]:
+def check_nonfinite(n: int, masks=None) -> float:
+    """K1 against its twin on tests/test_torch_kernel_cuda.py:nonfinite_case
+    under every metric, unmasked
+    and with each of `masks`; DOT over group 30 reads -inf for query 2.
+    Returns max |kernel - twin| over the finite minima."""
+    from sqlite_vector_tpu_torch.ops.block_scan import block_minima
+    from sqlite_vector_tpu_torch.types import DistanceMetric
+
+    q, base = load_tests_module("test_torch_kernel_cuda").nonfinite_case(n, "cuda", seed=SEED)
+    valid = n - 40
+    worst = 0.0
+    for metric in DistanceMetric:
+        for kind, mask in [("none", None), *(masks or {}).items()]:
+            label = f"non-finite f32 {metric.value}/mask={kind}"
+            worst = max(worst, compare_minima(q, base, metric, valid, label, mask))
+    dot = block_minima(q, base, DistanceMetric.DOT, valid)
+    check(float(dot[2, 30]) == float("-inf"), "DOT over a +Inf column does not read -inf")
+    check(float(dot[6, 31]) == float("-inf"), "DOT of -Inf against -Inf does not read -inf")
+    return worst
+
+
+def phase_kernel(card: str) -> tuple[float, float, float]:
     """K1 vs twin for all 25 (metric x dtype) pairs, unmasked and with each
-    row mask; returns the largest |kernel - twin| over finite float minima,
-    unmasked and masked."""
+    row mask, then the non-finite f32 case; returns the largest |kernel -
+    twin| over finite float minima, unmasked, masked and non-finite (whose
+    minima reach 1e37)."""
     from sqlite_vector_tpu_torch.types import DistanceMetric
 
     cuda_tests = load_tests_module("test_torch_kernel_cuda")
@@ -186,7 +272,7 @@ def phase_kernel(card: str) -> tuple[float, float]:
                 base[5] = torch.nan  # NaN row
             base[70_000] = base[10]  # duplicate rows
             base[200] = 0  # zero row
-            for b in (1, 8, 33):
+            for b in (1, 8, 33, 64, 65, 200):
                 q = make_rows(gen, b, d, dtype)
                 q[0] = base[10]  # a self-match
                 for metric in DistanceMetric:
@@ -198,21 +284,25 @@ def phase_kernel(card: str) -> tuple[float, float]:
                         ))
                 cases += 1
             del base
+    nonfinite_worst = check_nonfinite(n, masks)
     print(
         f"[kernel] K1 == twin on all 25 metric x dtype pairs ({cases} dtype/d/B "
-        f"cases x 5 metrics, N={n}, valid={valid}; ints equal, floats within "
-        f"1e-5 of the accumulated magnitude); max |kernel - twin| = {worst!r}; "
-        f"masked ({len(masks)} row masks each: {', '.join(masks)}): max |kernel - "
-        f"twin| = {masked_worst!r}, +inf groups equal; in "
-        f"{time.perf_counter() - t0:.1f} s | {card}",
+        f"cases, B in 1, 8, 33, 64, 65, 200, x 5 metrics, N={n}, valid={valid}; ints "
+        f"equal, floats within 1e-5 of the accumulated magnitude); max |kernel - twin| "
+        f"= {worst!r}; masked ({len(masks)} row masks each: {', '.join(masks)}): max "
+        f"|kernel - twin| = {masked_worst!r}, +inf groups equal; non-finite f32 rows "
+        f"and queries (+Inf, -Inf, overflowing norms, 0 x Inf) under every metric, unmasked "
+        f"and masked: +-inf positions equal, max |kernel - twin| = {nonfinite_worst!r}; "
+        f"in {time.perf_counter() - t0:.1f} s | {card}",
         flush=True,
     )
-    return worst, masked_worst
+    return worst, masked_worst, nonfinite_worst
 
 
+@functools.cache
 def load_tests_module(name: str):
-    """The repo's tests/<name>.py, loaded by path: an installed package
-    named `tests` may shadow the repo's tests/ directory."""
+    """The repo's tests/<name>.py, loaded once, by path: an installed
+    package named `tests` may shadow the repo's tests/ directory."""
     spec = importlib.util.spec_from_file_location(
         f"svt_{name}", Path(__file__).resolve().parent / "tests" / f"{name}.py"
     )
@@ -319,9 +409,11 @@ def phase_main(card: str):
 
     # -- exact -----------------------------------------------------------
     block_minima.launches = 0
+    block_minima.body_launches = {"mma": 0, "simt": 0}
     ids_e, d_e = ds.search(Q, K)
     launches = block_minima.launches
     check(launches > 0, "exact search did not launch K1")
+    check(block_minima.body_launches["mma"] == launches, "exact search left K1's tensor-core body")
     vecs = ds._vectors[: len(ds)]
     Qd = torch.from_numpy(Q).cuda()
     oracle = pairwise_distance(Qd, vecs, svt.DistanceMetric.L2).cpu().numpy()
@@ -348,6 +440,8 @@ def phase_main(card: str):
     before = block_minima.launches
     ids_q, d_q = ds.search(Q, K, exact=False)
     check(block_minima.launches > before, "quantized search did not launch K1")
+    check(block_minima.body_launches == {"mma": block_minima.launches, "simt": 0},
+          "quantized search left K1's tensor-core body")
     launches = block_minima.launches
     codes = ds._quant.codes
     qq = quantize_device(Qd, scale, offset, qt)
@@ -367,13 +461,18 @@ def phase_main(card: str):
     return ds, Q, ids_e, launches
 
 
-def phase_times(card: str, ds, Q) -> tuple[float, float, float]:
-    """K1 at the main path's own shapes, held against its twin and timed
-    against it; then end-to-end search. Returns (kernel ms, twin ms) at
-    f32 B=B_MAIN and the largest |kernel - twin| seen here."""
+def phase_times(card: str, ds, Q) -> dict:
+    """K1 at the main path's shapes (f32, the int8 codes and u8 codes, each
+    at B=1 and B=B_MAIN), both bodies held against the twin, then timed in
+    turns with the twin, the CUDA-core body and the library yardstick,
+    beside its bound; then end-to-end search. Returns, by label, the
+    kernel's, the twin's, the CUDA-core body's and the library's ms with the
+    bound, and the largest |kernel - twin| seen here under "max_abs_err"."""
     from sqlite_vector_tpu_torch.ops.block_scan import (
+        _launch_k1,
         block_minima,
         block_minima_reference,
+        k1_body,
     )
     from sqlite_vector_tpu_torch.ops.quantize import quantize_device
     from sqlite_vector_tpu_torch.types import DistanceMetric
@@ -384,34 +483,83 @@ def phase_times(card: str, ds, Q) -> tuple[float, float, float]:
     n = vecs.shape[0]
     shape = f"{n}x{DIM_MAIN}"
     qt, scale, offset = ds.quant_params
+    codes_q = quantize_device(Qd, scale, offset, qt)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    worst = 0.0
-    main_ms = None
-    for label, q, base, iters in (
-        ("f32 B=1", Qd[:1].contiguous(), vecs, 20),
-        (f"f32 B={B_MAIN}", Qd, vecs, 10),
-        (f"{qt.value} codes B={B_MAIN}", quantize_device(Qd, scale, offset, qt), ds._quant.codes, 10),
-        (f"u8 B={B_MAIN}", make_rows(gen, B_MAIN, DIM_MAIN, torch.uint8),
-         make_rows(gen, n, DIM_MAIN, torch.uint8), 10),
+    u8_base = make_rows(gen, n, DIM_MAIN, torch.uint8)
+    u8_q = make_rows(gen, B_MAIN, DIM_MAIN, torch.uint8)
+    out = {"max_abs_err": 0.0}
+    for label, q, base in (
+        ("f32 B=1", Qd[:1].contiguous(), vecs),
+        (f"f32 B={B_MAIN}", Qd, vecs),
+        (f"{qt.value} codes B=1", codes_q[:1].contiguous(), ds._quant.codes),
+        (f"{qt.value} codes B={B_MAIN}", codes_q, ds._quant.codes),
+        ("u8 B=1", u8_q[:1].contiguous(), u8_base),
+        (f"u8 B={B_MAIN}", u8_q, u8_base),
     ):
-        worst = max(worst, compare_minima(q, base, L2, n, f"main-path {label}"))
-        k_ms, p_ms = in_turns(
+        b = q.shape[0]
+        out["max_abs_err"] = max(out["max_abs_err"], compare_minima(q, base, L2, n, f"main-path {label}"))
+        compare_minima(q, base, L2, n, f"main-path {label}, CUDA-core body", body="simt")
+        fns = [
             lambda: block_minima_reference(q, base, L2, n),
             lambda: block_minima(q, base, L2, n),
-            iters,
-        )
-        if base is vecs and q.shape[0] == B_MAIN:
-            main_ms = (k_ms, p_ms)
-        gbs = base.numel() * base.element_size() / (k_ms * 1e-3) / 1e9
+            lambda: _launch_k1(q, base, L2, n, None, "simt"),
+        ]
+        lib = library_call(q, base)
+        ms = in_turns(fns + ([lib] if lib else []), 20 if b == 1 else 10)
+        lim, by = k1_bound(b, n, DIM_MAIN, base.element_size())
+        out[label] = {"ms": ms[1], "plain_ms": ms[0], "simt_ms": ms[2],
+                      "library_ms": ms[3] if lib else None, "bound_ms": lim, "bound_by": by}
         print(
-            f"[times] K1 {shape} {label} L2 (== twin): kernel {k_ms!r} ms "
-            f"({gbs:.0f} GB/s of matrix), twin {p_ms!r} ms | {card}",
+            f"[times] K1 {shape} {label} L2 (both bodies == twin; {k1_body(base.dtype, L2, DIM_MAIN)} "
+            f"body): kernel {ms[1]!r} ms, bound {lim!r} ms ({by}), {100 * lim / ms[1]:.1f}% "
+            f"of bound; CUDA-core body {ms[2]!r} ms; twin {ms[0]!r} ms; library "
+            f"{'none' if not lib else repr(ms[3]) + ' ms'} | {card}",
             flush=True,
         )
+    del u8_base
 
     for mode in ("exact", "quantized"):
         search_times(card, ds, Q, mode, shape, ((1, 500), (B_MAIN, 200)))
-    return main_ms[0], main_ms[1], worst
+    body_latency(card, ds, Q, shape)
+    return out
+
+
+def body_latency(
+    card: str, ds, Q, shape: str, modes=("exact", "quantized"), label: str = "",
+    rounds: int = 10, calls: int = 100,
+) -> None:
+    """Search at B=1 in each of `modes` with K1 in its routed (tensor-core)
+    body and forced onto the CUDA-core body, in one process on the same
+    data: p50 call latency of `calls` back-to-back calls per round, the two
+    bodies in turns (ABBA), `rounds` rounds each."""
+    from sqlite_vector_tpu_torch.ops import block_scan
+
+    routed = block_scan.k1_body
+    for mode in modes:
+        p50 = {"mma": [], "simt": []}
+        for r in range(rounds):
+            for body in ("mma", "simt") if r % 2 == 0 else ("simt", "mma"):
+                block_scan.k1_body = routed if body == "mma" else (lambda *_: "simt")
+                try:
+                    for _ in range(3):
+                        ds.search(Q[:1], K, mode=mode)
+                    walls = []
+                    for _ in range(calls):
+                        t0 = time.perf_counter()
+                        ds.search(Q[:1], K, mode=mode)
+                        walls.append(time.perf_counter() - t0)
+                finally:
+                    block_scan.k1_body = routed
+                p50[body].append(float(np.median(walls)) * 1e3)
+        wins = sum(a < b for a, b in zip(p50["mma"], p50["simt"]))
+        print(
+            f"[times] search {mode}{label} {shape} k={K} B=1, K1 body in turns ({rounds} rounds of "
+            f"{calls} calls): p50 per round, tensor-core body {p50['mma']!r} ms, CUDA-core body "
+            f"{p50['simt']!r} ms; medians {float(np.median(p50['mma']))!r} / "
+            f"{float(np.median(p50['simt']))!r} ms; tensor-core body faster in {wins}/{rounds} "
+            f"rounds | {card}",
+            flush=True,
+        )
 
 
 def search_times(card: str, ds, Q, mode: str, shape: str, plan, label: str = "") -> None:
@@ -533,9 +681,8 @@ def phase_int4_times(card: str, ds, Q) -> tuple[float, float]:
         qc, qs, _ = quantize_query_int8(Qd[:b])
         args = (qc, qs, quant.codes, quant.row_scale, quant.sq_norms)
         compare_int4_minima(args, L2, n, f"main-path K2 B={b}")
-        k_ms, p_ms = in_turns(
-            lambda: int4_block_minima_reference(*args, L2, n),
-            lambda: int4_block_minima(*args, L2, n),
+        p_ms, k_ms = in_turns(
+            [lambda: int4_block_minima_reference(*args, L2, n), lambda: int4_block_minima(*args, L2, n)],
             iters,
         )
         gbs = quant.codes.numel() / (k_ms * 1e-3) / 1e9
@@ -577,7 +724,7 @@ def phase_mutate(card: str, ds, Q) -> dict:
     counterparts, update, compact, distances; prints the times and returns
     the kernels' launches over the masked searches and their masked times
     at B=B_MAIN."""
-    from sqlite_vector_tpu_torch.ops.block_scan import block_minima
+    from sqlite_vector_tpu_torch.ops.block_scan import _launch_k1, block_minima
     from sqlite_vector_tpu_torch.ops.distance import pairwise_distance
     from sqlite_vector_tpu_torch.ops.int4_scan import int4_block_minima
     from sqlite_vector_tpu_torch.ops.quantize import quantize_device
@@ -698,14 +845,13 @@ def phase_mutate(card: str, ds, Q) -> dict:
         flush=True,
     )
     qc, qs, _ = quantize_query_int8(Qd)
-    k1_ms, k1_plain = in_turns(
-        lambda: block_minima(Qd, vecs, L2, count),
-        lambda: block_minima(Qd, vecs, L2, count, filtered),
+    k1_plain, k1_ms = in_turns(
+        [lambda: block_minima(Qd, vecs, L2, count), lambda: block_minima(Qd, vecs, L2, count, filtered)],
         10,
     )
-    k2_ms, k2_plain = in_turns(
-        lambda: int4_block_minima(qc, qs, *qargs, L2, quant.count),
-        lambda: int4_block_minima(qc, qs, *qargs, L2, quant.count, snap_mask),
+    k2_plain, k2_ms = in_turns(
+        [lambda: int4_block_minima(qc, qs, *qargs, L2, quant.count),
+         lambda: int4_block_minima(qc, qs, *qargs, L2, quant.count, snap_mask)],
         10,
     )
     out["K1"], out["K2"] = (k1_ms, k1_plain), (k2_ms, k2_plain)
@@ -747,6 +893,18 @@ def phase_mutate(card: str, ds, Q) -> dict:
     )
     search_times(card, ds, Q, "exact", f"{len(ds)}x{DIM_MAIN}", ((1, 200), (B_MAIN, 100)),
                  "exact, unmasked after compact")
+    vecs = ds._vectors[: ds._count]
+    q1 = Qd[:1]
+    k1_mma, k1_simt = in_turns(
+        [lambda: block_minima(q1, vecs, L2, len(ds)), lambda: _launch_k1(q1, vecs, L2, len(ds), None, "simt")],
+        20,
+    )
+    print(
+        f"[times] K1 alone {len(ds)}x{DIM_MAIN} B=1 L2 after compact: tensor-core body "
+        f"{k1_mma!r} ms, CUDA-core body {k1_simt!r} ms | {card}",
+        flush=True,
+    )
+    body_latency(card, ds, Q, f"{len(ds)}x{DIM_MAIN}", ("exact",), " after compact")
 
     # -- fresh int8 codes: filtered quantized and rerank, unfiltered rerank --
     ds.quantize()
@@ -790,7 +948,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing run", file=sys.stderr)
         return 1
-    from sqlite_vector_tpu_torch.ops._build import library_path, load_library
+    from sqlite_vector_tpu_torch.ops._build import library_path, load_library, ptxas_report
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -805,29 +963,41 @@ def main() -> int:
     t0 = time.perf_counter()
     load_library()
     print(
-        f"[build] K1 and K2 built from csrc/ and loaded in {time.perf_counter() - t0:.1f} s "
+        f"[build] K1 (both bodies) and K2 built from csrc/ and loaded in {time.perf_counter() - t0:.1f} s "
         f"-> {library_path().name}",
         flush=True,
     )
-    max_err, masked_err = phase_kernel(card)
+    for name, said in ptxas_report().items():
+        print(f"[build] ptxas {name}: {said}", flush=True)
+        if "mma_minima_kernel" in name:
+            check(" 0 bytes spill stores" in f" {said}", f"{name} spills: {said}")
+    max_err, masked_err, nonfinite_err = phase_kernel(card)
     k2_err, k2_masked_err = phase_kernel_int4(card)
     ds, Q, ids_e, launches = phase_main(card)
-    k_ms, p_ms, main_err = phase_times(card, ds, Q)  # reads the int8 state
+    k1 = phase_times(card, ds, Q)  # reads the int8 state
     k2_launches = phase_int4(card, ds, Q, ids_e)
     k2_ms, k2_plain_ms = phase_int4_times(card, ds, Q)
     masked = phase_mutate(card, ds, Q)["masked_launches"]
+    k1_main = k1[f"f32 B={B_MAIN}"]
+    k2_lim, k2_by = k2_bound(B_MAIN, N_MAIN, DIM_MAIN)
     print(json.dumps({"kernels": [
         {
             "name": "block_minima",
             "route": "cuda",
-            "source": "sqlite_vector_tpu_torch/csrc/block_minima.cu",
+            "source": "sqlite_vector_tpu_torch/csrc/block_minima_mma.cu",
             "replaces": "sqlite_vector_tpu/ops/pallas_scan.py:681",
             "launches": launches,
-            "max_abs_err": max(max_err, main_err),
-            "ms": k_ms,
-            "plain_ms": p_ms,
+            "max_abs_err": max(max_err, k1["max_abs_err"]),
+            "ms": k1_main["ms"],
+            "plain_ms": k1_main["plain_ms"],
+            "bound_ms": k1_main["bound_ms"],
+            "bound_by": k1_main["bound_by"],
+            "library_ms": k1_main["library_ms"],
             "masked_launches": masked["K1"],
             "masked_max_abs_err": masked_err,
+            "nonfinite_max_abs_err": nonfinite_err,
+            "cuda_core_body": "sqlite_vector_tpu_torch/csrc/block_minima.cu",
+            "by_shape": {k: v for k, v in k1.items() if k != "max_abs_err"},
         },
         {
             "name": "int4_block_minima",
@@ -838,6 +1008,9 @@ def main() -> int:
             "max_abs_err": k2_err,
             "ms": k2_ms,
             "plain_ms": k2_plain_ms,
+            "bound_ms": k2_lim,
+            "bound_by": k2_by,
+            "library_ms": None,
             "masked_launches": masked["K2"],
             "masked_max_abs_err": k2_masked_err,
         },

@@ -4,8 +4,9 @@ Same contract as the JAX package beside it (which stays the reference):
 the Dataset/VectorStore API, its option strings, enums and errors. This
 slice ports the main path on one device: create, add, exact search, int8
 quantize and quantized search. Scans on CUDA tensors run a hand-written
-block-minima kernel (csrc/block_minima.cu, built with nvcc at first use);
-on CPU tensors they run the kernel's plain PyTorch twin.
+block-minima kernel (K1: csrc/block_minima_mma.cu on tensor cores and
+csrc/block_minima.cu on CUDA cores, built with nvcc at first use); on CPU
+tensors they run the kernel's plain PyTorch twin.
 
 This package imports torch and numpy, never jax.
 """

@@ -1,4 +1,8 @@
-// K1: fused distance + per-128-row block minima, for NVIDIA Hopper (sm_90a).
+// K1: fused distance + per-128-row block minima, for NVIDIA Hopper (sm_90a):
+// the CUDA-core body. The dot-family metrics over float32 rows and u8/i8
+// codes run on tensor cores in csrc/block_minima_mma.cu; this body serves L1,
+// float16 and bfloat16, and d past the tensor-core body's bounds
+// (ops/block_scan.py:k1_body routes).
 //
 // Replaces the TPU kernel in sqlite_vector_tpu/ops/pallas_scan.py, all three
 // of its schedules: _pallas_block_minima (_make_kernel), the manual-DMA
@@ -21,8 +25,8 @@
 //
 // What bounds it on an H100: at small query batches the scan is
 // bandwidth-bound (the f32 1M x 384 matrix is 1.54 GB per pass); at large
-// batches it is bound by the CUDA-core FMA rate, because this first version
-// uses no tensor cores. The design is the simple, right one:
+// batches it is bound by the CUDA-core FMA rate. The design is the simple,
+// right one:
 //   - grid x over 128-row groups, grid y over query tiles of QT queries
 //     (N stays on x: gridDim.y is capped at 65535);
 //   - one thread per row; each step stages a [128 x 64] base tile and a
@@ -33,8 +37,8 @@
 //   - ||q||^2, ||b||^2 and q.b are each one fmaf chain over the columns in
 //     the same order, so a self-match gives exactly 0 before the clamp;
 //   - the group minimum is a warp shuffle plus shared memory.
-// Later work: wgmma and TMA staging, an int8 MMA path with the u8 offset
-// correction, vectorised coalesced tile loads, L2 reuse across query tiles.
+// Later work (ROADMAP queue 2): half floats on tensor cores, L1 with
+// vectorised loads.
 //
 // Build (plain C interface, bound with ctypes; no --use_fast_math, which
 // would change sqrtf, division and the NaN/Inf handling the epilogue needs):

@@ -5,7 +5,9 @@ together, and the objects link into one shared library with a plain C
 interface, bound with ctypes (no PyTorch headers, so a build takes
 seconds). The library lands in `sqlite_vector_tpu_torch/_build/` (ignored
 by git) under a name hashed from the sources and flags, so an edited source
-is rebuilt and an unchanged one is reused.
+is rebuilt and an unchanged one is reused. Beside it lies what ptxas
+reported for each kernel (`-Xptxas -v`: registers, stack, spills), which
+`ptxas_report` reads.
 
 Nothing here runs at import: the CPU tests import every module on machines
 with neither nvcc nor a GPU.
@@ -27,9 +29,10 @@ BUILD_DIR = _PKG / "_build"
 
 # sm_90a keeps wgmma/setmaxnreg available to later kernels. No
 # --use_fast_math: it changes sqrtf, division and NaN/Inf handling.
+# -Xptxas -v only reports (each kernel's registers, stack and spills).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -38,6 +41,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # queries, base, mask (or None), out, B, N, d, valid, dtype, metric, stream
     "svt_block_minima": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # the same arguments and the query tile (K1's tensor-core body)
+    "svt_block_minima_mma": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # qc, qscale, packed, alpha, csq, mask (or None), out, B, N, d, valid,
     # metric, stream
     "svt_int4_block_minima": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
@@ -72,18 +77,21 @@ def library_path() -> Path:
     return BUILD_DIR / f"libsvt_kernels_{h.hexdigest()[:16]}.so"
 
 
-def _nvcc_all(cmds: list[list[str]]) -> None:
+def _nvcc_all(cmds: list[list[str]]) -> list[str]:
     """Run the commands all at once, wait for every one, then raise on the
-    first that failed."""
+    first that failed; returns each command's output."""
     procs = [
         subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for c in cmds
     ]
+    outs = []
     for cmd, p, (out, err) in [(c, p, p.communicate()) for c, p in zip(cmds, procs)]:
         if p.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed with exit code {p.returncode}:\n{' '.join(cmd)}\n{out}{err}"
             )
+        outs.append(out + err)
+    return outs
 
 
 def _build(out: Path) -> None:
@@ -94,12 +102,35 @@ def _build(out: Path) -> None:
     srcs = sorted(CSRC.glob("*.cu"))
     objs = [str(BUILD_DIR / f"{tag}.{src.stem}.o") for src in srcs]
     try:
-        _nvcc_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(s)] for s, o in zip(srcs, objs)])
+        reports = _nvcc_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(s)] for s, o in zip(srcs, objs)])
         _nvcc_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *objs]])
     finally:
         for obj in objs:
             Path(obj).unlink(missing_ok=True)
+    _report_path(out).write_text("".join(reports))
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+
+
+def _report_path(lib: Path) -> Path:
+    return lib.with_suffix(".ptxas.txt")
+
+
+def ptxas_report() -> dict[str, str]:
+    """What ptxas said of each function of the built library (kernels and
+    non-inlined device functions): mangled name -> its "Used ... registers"
+    and "... spill ..." lines, joined."""
+    report: dict[str, str] = {}
+    name = None
+    for line in _report_path(library_path()).read_text().splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            report.setdefault(name, "")
+        elif "Function properties for" in line:
+            name = line.rsplit(" ", 1)[-1]
+            report.setdefault(name, "")
+        elif name and ("Used" in line or "spill" in line):
+            report[name] = "; ".join(p for p in (report[name], line.split(":", 1)[-1].strip()) if p)
+    return report
 
 
 def load_library() -> ctypes.CDLL:

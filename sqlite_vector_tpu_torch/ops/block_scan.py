@@ -9,7 +9,11 @@ them exactly and takes the final top-k, ties going to the earliest row.
 
 Stage 1 has two implementations of one contract:
   - block_minima_reference: plain PyTorch, the definition of the output;
-  - the CUDA kernel csrc/block_minima.cu, hand-written for Hopper.
+  - the CUDA kernel K1, hand-written for Hopper, in two bodies:
+    csrc/block_minima_mma.cu (tensor cores: integer MMA for u8/i8 codes,
+    3xTF32 for float32; the dot-family metrics) and csrc/block_minima.cu
+    (CUDA cores: L1, float16, bfloat16, and d past the MMA body's bounds).
+    k1_body says which body a call takes.
 `block_minima` picks by where the tensors live: the twin for CPU tensors,
 the kernel for CUDA tensors (it raises rather than fall back).
 
@@ -38,7 +42,7 @@ from sqlite_vector_tpu_torch.types import DistanceMetric
 # rows per minima group
 BLOCK = 128
 
-# the kernel's enum codes (csrc/block_minima.cu: Metric, DType)
+# the kernel's enum codes (Metric, DType in both csrc/block_minima*.cu)
 _METRIC_CODE = {
     DistanceMetric.L2: 0,
     DistanceMetric.SQUARED_L2: 1,
@@ -53,6 +57,23 @@ _DTYPE_CODE = {
     torch.uint8: 3,
     torch.int8: 4,
 }
+
+# The MMA body (csrc/block_minima_mma.cu) keeps a tile of 8, 16, 32 or 64
+# queries in shared memory, each row padded to a multiple of 128 bytes plus
+# 16, beside its 110,592-byte ring of row tiles; the query tile may take this
+# many bytes (the kernel takes the tile width from mma_query_tile).
+_MMA_QUERY_BYTES = 110592
+_MMA_QUERY_TILES = (8, 16, 32, 64)
+# Integer codes take the MMA body only while no int32 partial sum can reach
+# 2^31 (d * 255^2 and d * 128^2 < 2^31): there its exact int32 sums equal the
+# CUDA-core body's uint32-wrap sums.
+_MMA_MAX_DIM = {torch.float32: None, torch.uint8: 33025, torch.int8: 131071}
+_MMA_METRICS = (
+    DistanceMetric.L2,
+    DistanceMetric.SQUARED_L2,
+    DistanceMetric.COSINE,
+    DistanceMetric.DOT,
+)
 
 # bound on the twin's [B, rows] distance intermediates (elements)
 _TWIN_CHUNK_ELEMS = 1 << 26
@@ -104,6 +125,31 @@ def block_minima_reference(
     return dist.view(b, groups, BLOCK).amin(-1)
 
 
+def mma_query_tile(dtype: torch.dtype, d: int, b: int) -> int:
+    """Queries per block of K1's MMA body: the narrowest of 8, 16, 32 and 64
+    that covers b among the tiles whose padded query rows fit the shared
+    budget, else the widest that fits (a larger batch takes several tiles);
+    0 when not even 8 rows fit."""
+    row_bytes = d * dtype.itemsize
+    pitch = -(-row_bytes // 128) * 128 + 16
+    fitting = [t for t in _MMA_QUERY_TILES if t * pitch <= _MMA_QUERY_BYTES]
+    return next((t for t in fitting if t >= b), fitting[-1] if fitting else 0)
+
+
+def k1_body(dtype: torch.dtype, metric: DistanceMetric, d: int) -> str:
+    """Which body of K1 serves a scan: "mma" (tensor cores) for the
+    dot-family metrics over float32 rows and u8/i8 codes while a tile of
+    8 padded query rows fits the shared budget and, for codes, no int32
+    partial sum can overflow; "simt" (CUDA cores) otherwise. The batch
+    does not route: the MMA body serves every B."""
+    if metric not in _MMA_METRICS or dtype not in _MMA_MAX_DIM:
+        return "simt"
+    bound = _MMA_MAX_DIM[dtype]
+    if bound is not None and d > bound:
+        return "simt"
+    return "mma" if mma_query_tile(dtype, d, 1) else "simt"
+
+
 def check_row_mask(row_mask: torch.Tensor | None, n: int, device: torch.device, who: str) -> None:
     """A row mask is None or an [n] torch.bool tensor on the scan's device."""
     if row_mask is None:
@@ -145,14 +191,30 @@ def block_minima(
     row_mask ([N] bool, optional) is False read +inf.
 
     CPU tensors run block_minima_reference; CUDA tensors launch the K1
-    kernel (csrc/block_minima.cu) and count the launch in
-    `block_minima.launches`.
+    kernel in the body k1_body picks and count the launch in
+    `block_minima.launches` and by body in `block_minima.body_launches`.
     """
     _check(queries, base, valid)
     dev = base.device
     check_row_mask(row_mask, base.shape[0], dev, "block_minima")
     if dev.type == "cpu":
         return block_minima_reference(queries, base, metric, valid, row_mask)
+    return _launch_k1(queries, base, metric, valid, row_mask, k1_body(base.dtype, metric, base.shape[1]))
+
+
+def _launch_k1(
+    queries: torch.Tensor,
+    base: torch.Tensor,
+    metric: DistanceMetric,
+    valid: int,
+    row_mask: torch.Tensor | None,
+    body: str,
+) -> torch.Tensor:
+    """K1 in `body` ("mma" or "simt") on checked CUDA tensors. block_minima
+    passes k1_body's choice; chip_smoke.py forces "simt" to hold and time
+    the CUDA-core body beside the tensor-core one. Raises where the MMA body
+    does not take the scan."""
+    dev = base.device
     if dev.type != "cuda":
         raise ValueError(f"block_minima: unsupported device {dev}")
     if not (queries.is_contiguous() and base.is_contiguous()):
@@ -163,33 +225,42 @@ def block_minima(
     n = base.shape[0]
     if n >= 2**31 or b >= 2**31:
         raise ValueError("block_minima: B and N must fit int32")
+    if body == "mma" and k1_body(base.dtype, metric, d) != "mma":
+        raise ValueError("block_minima: the MMA body does not take this scan")
     out = torch.empty((b, -(-n // BLOCK)), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
     from sqlite_vector_tpu_torch.ops._build import load_library
 
     lib = load_library()
+    args = [
+        queries.data_ptr(),
+        base.data_ptr(),
+        None if row_mask is None else row_mask.data_ptr(),
+        out.data_ptr(),
+        b,
+        n,
+        d,
+        valid,
+        _DTYPE_CODE[base.dtype],
+        _METRIC_CODE[metric],
+    ]
+    if body == "mma":
+        launch = lib.svt_block_minima_mma
+        args.append(mma_query_tile(base.dtype, d, b))
+    else:
+        launch = lib.svt_block_minima
     with torch.cuda.device(dev):
-        rc = lib.svt_block_minima(
-            queries.data_ptr(),
-            base.data_ptr(),
-            None if row_mask is None else row_mask.data_ptr(),
-            out.data_ptr(),
-            b,
-            n,
-            d,
-            valid,
-            _DTYPE_CODE[base.dtype],
-            _METRIC_CODE[metric],
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+        rc = launch(*args, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"block_minima kernel launch failed: cudaError {rc}")
     block_minima.launches += 1
+    block_minima.body_launches[body] += 1
     return out
 
 
 block_minima.launches = 0
+block_minima.body_launches = {"mma": 0, "simt": 0}
 
 
 def finish_groups(

@@ -10,7 +10,7 @@ Port of sqlite_vector_tpu/ops/scan.py. Three entry points:
 Positions are row indices into `base`; the Dataset maps them to int64 row
 ids on the host. A row mask ([N] torch.bool, False = excluded: ids_filter,
 removed rows) is taken by both top-k scans; on CUDA tensors the router's
-masked scan runs inside K1 (csrc/block_minima.cu), as the unmasked one does.
+masked scan runs inside K1 (ops/block_scan.py), as the unmasked one does.
 """
 
 from __future__ import annotations

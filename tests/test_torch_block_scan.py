@@ -354,3 +354,118 @@ def test_row_mask_rejects_wrong_shape_and_dtype():
             block_minima(q, base, DistanceMetric.L2, 10, bad)
         with pytest.raises(ValueError, match="row_mask"):
             scan_topk(q, base, DistanceMetric.L2, 3, row_mask=bad)
+
+
+# -- K1's two bodies: which one serves a scan --------------------------------
+
+@pytest.mark.parametrize(
+    "dtype,d,tiles",
+    [
+        # 384 f32 columns: 1,552-byte padded rows, 64 of them fit the budget
+        (torch.float32, 384, {1: 8, 8: 8, 9: 16, 16: 16, 17: 32, 33: 64, 64: 64, 65: 64, 200: 64}),
+        # the widest rows of the 64- and 32-query tiles, and one column past
+        (torch.float32, 416, {64: 64}),
+        (torch.float32, 417, {64: 32}),
+        (torch.float32, 832, {64: 32}),
+        (torch.float32, 833, {64: 16}),
+        # 1,024 f32 columns: 4,240-byte rows, 16 fit (67,840 bytes), 32 do not
+        (torch.float32, 1024, {1: 8, 9: 16, 16: 16, 17: 16, 64: 16, 200: 16}),
+        # the widest f32 row of the MMA body: 13,840 bytes, only 8 fit
+        (torch.float32, 3424, {1: 8, 9: 8, 64: 8}),
+        (torch.float32, 3425, {1: 0, 64: 0}),
+        # 384 codes: 400-byte rows, every tile fits
+        (torch.int8, 384, {1: 8, 8: 8, 9: 16, 32: 32, 33: 64, 65: 64}),
+        (torch.uint8, 13696, {1: 8, 64: 8}),
+        (torch.uint8, 13697, {1: 0}),
+    ],
+    ids=str,
+)
+def test_mma_query_tile_is_the_narrowest_that_covers_b_and_fits(dtype, d, tiles):
+    for b, want in tiles.items():
+        assert block_scan.mma_query_tile(dtype, d, b) == want, b
+        if want:
+            pitch = -(-d * dtype.itemsize // 128) * 128 + 16
+            assert want * pitch <= block_scan._MMA_QUERY_BYTES
+
+
+@pytest.mark.parametrize(
+    "dtype,last_mma_d",
+    # the widest d whose 8 padded query rows (row bytes rounded up to 128,
+    # plus 16) fit the 110,592-byte budget: 13,696 bytes a row
+    [(torch.float32, 3424), (torch.uint8, 13696), (torch.int8, 13696)],
+    ids=str,
+)
+@pytest.mark.parametrize("metric", METRICS)
+def test_k1_body_routes_by_metric_dtype_and_d(dtype, last_mma_d, metric):
+    m = DistanceMetric(metric)
+    want = "simt" if m is DistanceMetric.L1 else "mma"
+    for d in (1, 95, 100, 384, 768, last_mma_d):
+        assert block_scan.k1_body(dtype, m, d) == want, d
+    assert block_scan.k1_body(dtype, m, last_mma_d + 1) == "simt"
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("metric", METRICS)
+def test_k1_body_keeps_half_floats_on_cuda_cores(dtype, metric):
+    for d in (1, 384, 4096):
+        assert block_scan.k1_body(dtype, DistanceMetric(metric), d) == "simt"
+
+
+@pytest.mark.parametrize(
+    "dtype,bound,top", [(torch.uint8, 33025, 255), (torch.int8, 131071, 128)], ids=str
+)
+def test_k1_body_keeps_codes_off_mma_where_int32_could_overflow(monkeypatch, dtype, bound, top):
+    """With the shared budget out of the way, the integer bound alone
+    routes: d * top^2 stays below 2^31 up to the bound and not past it."""
+    assert bound * top * top < 2**31 <= (bound + 1) * top * top
+    monkeypatch.setattr(block_scan, "_MMA_QUERY_BYTES", 1 << 40)
+    for metric in (DistanceMetric.L2, DistanceMetric.COSINE, DistanceMetric.DOT):
+        assert block_scan.k1_body(dtype, metric, bound) == "mma"
+        assert block_scan.k1_body(dtype, metric, bound + 1) == "simt"
+    assert block_scan.k1_body(torch.float32, DistanceMetric.L2, 10**6) == "mma"
+
+
+# -- the bound arithmetic chip_smoke.py reports beside each kernel time -------
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("svt_chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize(
+    "args,ms,by",
+    [
+        # f32 B=64: 1.54 GB at 3.35 TB/s outweighs 3 x 49.2 GFLOP of TF32
+        # at 495 TFLOP/s (0.298 ms)
+        ((64, 1_000_000, 384, 4), 0.45913386029850745, "bytes"),
+        ((1, 1_000_000, 384, 4), 0.4585172501492537, "bytes"),
+        # 1,024 f32 queries: the TF32 products outweigh the bytes
+        ((1024, 1_000_000, 384, 4), 4.766254545454545, "operations"),
+        ((64, 1_000_000, 384, 1), 0.11523125492537313, "bytes"),
+        ((1, 1_000_000, 384, 1), 0.11463630925373133, "bytes"),
+    ],
+)
+def test_k1_bound_is_the_larger_of_bytes_and_operations(args, ms, by):
+    smoke = _chip_smoke()
+    got, side = smoke.k1_bound(*args)
+    assert side == by and got == pytest.approx(ms, rel=1e-12)
+    b, n, d, elem = args
+    nbytes = (b + n) * d * elem + b * (-(-n // 128)) * 4
+    ops = 3 * 2 * b * n * d / 495e12 if elem == 4 else 2 * b * n * d / 1979e12
+    assert got == pytest.approx(max(nbytes / 3.35e12, ops) * 1e3)
+    masked, _ = smoke.k1_bound(*args, masked=True)
+    if by == "bytes":
+        assert masked == pytest.approx(got + n / 3.35e12 * 1e3)
+
+
+def test_k2_bound_counts_packed_codes_and_scales():
+    smoke = _chip_smoke()
+    got, side = smoke.k2_bound(64, 1_000_000, 384)
+    nbytes = 1_000_000 * (192 + 8) + 64 * (384 + 4) + 64 * 7813 * 4
+    assert side == "bytes" and got == pytest.approx(nbytes / 3.35e12 * 1e3, rel=1e-12)

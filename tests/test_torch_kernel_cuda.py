@@ -363,3 +363,163 @@ def test_masked_searches_launch_the_kernels_and_match_cpu(cuda, metric, monkeypa
     for got, want in zip(results["cuda"], results["cpu"]):
         np.testing.assert_array_equal(got[0], want[0])
         np.testing.assert_allclose(got[1], want[1], rtol=1e-5, atol=1e-5)
+
+
+# -- K1's tensor-core body (csrc/block_minima_mma.cu) ------------------------
+
+DOT_FAMILY = [m for m in DistanceMetric if m is not DistanceMetric.L1]
+
+
+def minima_tolerance(q, base, metric, valid, ref):
+    """[B, G] float64: 1e-5 of the magnitude each float minimum accumulates,
+    the largest over its group's rows: sum |q_i b_i| for DOT, and with the
+    norms, ||q||^2 + ||b||^2 + 2 sum |q_i b_i|, for L2; 1 for COSINE and
+    |minimum| + 1 for L1. Rows with a non-finite value give no finite
+    distance and count 0; a non-finite magnitude leaves no room."""
+    if metric is DistanceMetric.COSINE:
+        return torch.full_like(ref, 1e-5, dtype=torch.float64)
+    if metric is DistanceMetric.L1:
+        return 1e-5 * (ref.double().abs() + 1.0)
+    qf, bf = q.double(), base[:valid].double()
+    bf = torch.where(torch.isfinite(bf).all(-1, keepdim=True), bf, 0.0)
+    mag = qf.abs() @ bf.abs().T
+    if metric is not DistanceMetric.DOT:
+        mag = (qf * qf).sum(-1)[:, None] + (bf * bf).sum(-1)[None, :] + 2.0 * mag
+    groups = ref.shape[1]
+    full = torch.zeros((q.shape[0], groups * 128), dtype=torch.float64, device=q.device)
+    full[:, :valid] = mag
+    tol = 1e-5 * full.view(q.shape[0], groups, 128).amax(-1)
+    return torch.where(torch.isfinite(tol), tol, 0.0)
+
+
+def nonfinite_case(n, device, b=8, d=384, seed=0):
+    """float32 rows and queries with non-finite values and overflowing
+    norms. Rows: group 20 scaled by 1.5e18 (squared norms overflow, every
+    dot stays finite); group 30 with +Inf in column 3 and group 31 with
+    -Inf in column 0; row 1000 all +Inf, row 5000 scaled by 1.5e18, row
+    6000 with one -Inf, each in an otherwise finite group. Queries: 0 a
+    self-match; 1 with a zero in column 3 (0 x Inf against group 30); 2 and
+    3 with +1 and -1 there (DOT reads -inf, then +inf, over group 30); 4
+    with +Inf in column 5; 5 scaled by 1.5e18; 6 with -Inf in column 0 (DOT
+    -inf over group 31); 7 plain. n > 6000. No dot overflows: the sum of
+    finite terms that overflows float32 takes its sign from the order of
+    summation (an fmaf chain keeps the first infinite partial sum, cuBLAS
+    can meet both signs and give NaN), so no kernel can match the twin
+    there. chip_smoke.py runs K1 on this case too, at N = 100,003."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    base = torch.randn((n, d), generator=gen, device=device)
+    q = torch.randn((b, d), generator=gen, device=device)
+    base[20 * 128 : 21 * 128] *= 1.5e18
+    base[30 * 128 : 31 * 128, 3] = float("inf")
+    base[31 * 128 : 32 * 128, 0] = float("-inf")
+    base[1000] = float("inf")
+    base[5000] *= 1.5e18
+    base[6000, 7] = float("-inf")
+    q[0] = base[10]
+    q[1, 3] = 0.0
+    q[2, 3] = 1.0
+    q[3, 3] = -1.0
+    q[4, 5] = float("inf")
+    q[5] *= 1.5e18
+    q[6, 0] = float("-inf")
+    return q, base
+
+
+def assert_k1_matches_twin(q, base, metric, valid, mask=None):
+    """+inf and -inf positions equal, no NaN; integer minima equal, float
+    minima within minima_tolerance."""
+    got = block_minima(q, base, metric, valid, mask)
+    want = block_minima_reference(q, base, metric, valid, mask)
+    assert not bool(torch.isnan(got).any())
+    assert torch.equal(torch.isposinf(got), torch.isposinf(want)), metric
+    assert torch.equal(torch.isneginf(got), torch.isneginf(want)), metric
+    fin = torch.isfinite(want)
+    if base.dtype.is_floating_point:
+        err = (got.double() - want.double()).abs()[fin]
+        assert bool((err <= minima_tolerance(q, base, metric, valid, want)[fin]).all()), metric
+    else:
+        assert torch.equal(got, want), metric
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int8], ids=str)
+@pytest.mark.parametrize("d", [95, 100, 384])  # 1-byte, 4-byte and 16-byte staging
+@pytest.mark.parametrize("b", [1, 8, 64, 65])  # query tiles of 8, 64 and two
+def test_mma_body_integer_minima_are_bit_equal(cuda, dtype, d, b):
+    q, base = case(dtype, 5003, d, b, cuda, seed=d + b)
+    before = block_minima.body_launches["mma"]
+    for metric in DOT_FAMILY:
+        assert_k1_matches_twin(q, base, metric, 4990)
+    assert block_minima.body_launches["mma"] == before + len(DOT_FAMILY)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", list(DistanceMetric), ids=lambda m: m.value)
+def test_nonfinite_f32_keeps_the_twin_semantics(cuda, metric):
+    """Inf, -Inf, NaN-making 0 x Inf and overflowing norms, unmasked and
+    with each row mask: the same +inf and -inf groups as the twin, finite
+    minima within tolerance; DOT over a +Inf column reads -inf."""
+    q, base = nonfinite_case(7001, cuda)
+    for kind in [None, *MASK_KINDS]:
+        mask = None if kind is None else mask_case(kind, 7001, cuda, seed=3)
+        got = assert_k1_matches_twin(q, base, metric, 6990, mask)
+        if metric is DistanceMetric.DOT and kind is None:
+            assert float(got[2, 30]) == float("-inf") and float(got[6, 31]) == float("-inf")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.uint8, torch.int8], ids=str)
+@pytest.mark.parametrize("kind", ["dead-group", "all-masked"])
+def test_mma_body_rows_past_valid_and_masked_groups_read_inf(cuda, dtype, kind):
+    """Rows >= valid (the last two groups and part of a third) and a group
+    with no live row read +inf in the tensor-core body, at B = 8 and 65."""
+    n, valid = 5003, 5003 - 300
+    mask = mask_case(kind, n, cuda, seed=4)
+    for b in (8, 65):
+        q, base = case(dtype, n, 100, b, cuda, seed=b)
+        before = block_minima.body_launches["mma"]
+        for metric in DOT_FAMILY:
+            for m in (None, mask):
+                got = assert_k1_matches_twin(q, base, metric, valid, m)
+                assert bool(torch.isinf(got[:, valid // 128 + 1 :]).all())
+                if m is not None:
+                    assert bool(torch.isinf(got[:, 1]).all())
+        assert block_minima.body_launches["mma"] == before + 2 * len(DOT_FAMILY)
+
+
+@pytest.mark.cuda
+def test_mma_body_is_refused_where_it_does_not_apply(cuda):
+    from sqlite_vector_tpu_torch.ops.block_scan import _launch_k1
+
+    q, base = case(torch.float16, 300, 16, 2, cuda)
+    with pytest.raises(ValueError, match="body"):
+        _launch_k1(q, base, DistanceMetric.L2, 300, None, "mma")
+    q, base = case(torch.float32, 300, 16, 2, cuda)
+    with pytest.raises(ValueError, match="body"):
+        _launch_k1(q, base, DistanceMetric.L1, 300, None, "mma")
+    q, base = case(torch.float32, 300, 3425, 2, cuda)  # 8 query rows pass the budget
+    with pytest.raises(ValueError, match="body"):
+        _launch_k1(q, base, DistanceMetric.L2, 300, None, "mma")
+    assert_k1_matches_twin(q, base, DistanceMetric.L2, 300)  # the CUDA-core body takes it
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "d,b,tile",
+    # the widest f32 rows each query tile holds, and one column past them
+    [(416, 64, 64), (417, 64, 32), (832, 32, 32), (833, 32, 16), (1024, 65, 16),
+     (1696, 16, 16), (1697, 16, 8), (3424, 1, 8), (3424, 65, 8)],
+)
+def test_mma_body_at_the_widest_rows_of_each_query_tile(cuda, d, b, tile):
+    """f32 rows up to d = 3,424 (several query tiles for B past the tile):
+    the minima, a self-match's included, stay within tolerance of the twin,
+    which needs the narrow tiles' per-chunk sums at large d."""
+    from sqlite_vector_tpu_torch.ops.block_scan import mma_query_tile
+
+    assert mma_query_tile(torch.float32, d, b) == tile
+    q, base = case(torch.float32, 700, d, b, cuda, seed=d + b)
+    before = block_minima.body_launches["mma"]
+    for metric in DOT_FAMILY:
+        assert_k1_matches_twin(q, base, metric, 690)
+    assert block_minima.body_launches["mma"] == before + len(DOT_FAMILY)
