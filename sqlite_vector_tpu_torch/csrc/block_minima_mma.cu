@@ -68,6 +68,8 @@
 #include <atomic>
 #include <type_traits>
 
+#include "sm90_common.cuh"
+
 namespace {
 
 constexpr int kGroup = 128;          // rows per minima group
@@ -79,7 +81,6 @@ constexpr int kChunk = 128;          // bytes of a row staged per ring step
 constexpr int kPitch = kChunk + 16;  // padded shared row pitch, bytes
 constexpr int kStages = 3;
 constexpr int kStageBytes = kTileRows * kPitch;
-constexpr int kMaxDevices = 64;
 
 constexpr float kNearlyZero = 0x1p-20f;
 constexpr float kNearlyZeroSq = 0x1p-40f;
@@ -125,29 +126,7 @@ __device__ __forceinline__ float compose(uint32_t dot, uint32_t qsq, uint32_t bs
   return (qf == 0.0f || bf == 0.0f) ? 1.0f : __fsub_rn(1.0f, cosv);
 }
 
-// ---- PTX wrappers ----------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_ring() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2) : "memory");
-}
+// ---- PTX wrappers (cp.async ones in sm90_common.cuh) ---------------------
 
 // cvt.rna.tf32.f32 for finite x, in two full-rate integer ops (the
 // conversion unit runs at a quarter of their rate): add half a TF32 ulp to
@@ -198,53 +177,6 @@ __device__ __forceinline__ uint32_t sq4(uint32_t w) {
 }
 
 // ---- the kernel ------------------------------------------------------------
-
-// Stage the kChunk-byte column chunk `ch` of rows [row0, row0 + 256) into a
-// ring stage; bytes past the row end or rows >= N are zero. vec: 16 (the
-// pointer and row pitch are 16-byte aligned), 4, or 1 (plain loads).
-__device__ __forceinline__ void stage_chunk(unsigned char* dst, const unsigned char* base,
-                                            long long row0, int N, int row_bytes, int ch,
-                                            int vec, int tid) {
-  const int c0 = ch * kChunk;
-  if (vec == 16) {
-#pragma unroll
-    for (int i = 0; i < kTileRows * (kChunk / 16) / kThreads; ++i) {
-      const int p = tid + i * kThreads;
-      const int r = p / (kChunk / 16);
-      const int c = c0 + (p % (kChunk / 16)) * 16;
-      const long long row = row0 + r;
-      const bool in = row < N && c < row_bytes;
-      const unsigned char* src = in ? base + row * row_bytes + c : base;
-      cp_async16(smem_addr(dst + r * kPitch + (c - c0)), src, in ? 16 : 0);
-    }
-  } else if (vec == 4) {
-#pragma unroll 4
-    for (int i = 0; i < kTileRows * (kChunk / 4) / kThreads; ++i) {
-      const int p = tid + i * kThreads;
-      const int r = p / (kChunk / 4);
-      const int c = c0 + (p % (kChunk / 4)) * 4;
-      const long long row = row0 + r;
-      const bool in = row < N && c < row_bytes;
-      const unsigned char* src = in ? base + row * row_bytes + c : base;
-      cp_async4(smem_addr(dst + r * kPitch + (c - c0)), src, in ? 4 : 0);
-    }
-  } else {
-    for (int i = 0; i < kTileRows * (kChunk / 4) / kThreads; ++i) {
-      const int p = tid + i * kThreads;
-      const int r = p / (kChunk / 4);
-      const int c = c0 + (p % (kChunk / 4)) * 4;
-      const long long row = row0 + r;
-      uint32_t w = 0;
-      if (row < N) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          if (c + e < row_bytes) w |= static_cast<uint32_t>(base[row * row_bytes + c + e]) << (8 * e);
-        }
-      }
-      *reinterpret_cast<uint32_t*>(dst + r * kPitch + (c - c0)) = w;
-    }
-  }
-}
 
 // An ordered float minimum on shared memory (v is never NaN).
 __device__ __forceinline__ void smem_fmin(float* p, float v) {
@@ -459,8 +391,9 @@ mma_minima_kernel(const T* __restrict__ queries, const T* __restrict__ base,
   const unsigned char* bbytes = reinterpret_cast<const unsigned char*>(base);
   auto issue = [&](int s) {
     const int tile = slot + (s / nchunks) * nslots;
-    stage_chunk(ring + (s % kStages) * kStageBytes, bbytes,
-                static_cast<long long>(tile) * kTileRows, N, row_bytes, s % nchunks, vec, tid);
+    stage_chunk<kTileRows, kThreads>(ring + (s % kStages) * kStageBytes, bbytes,
+                                     static_cast<long long>(tile) * kTileRows, N, row_bytes,
+                                     s % nchunks, kChunk, kPitch, vec, tid);
   };
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
@@ -474,7 +407,7 @@ mma_minima_kernel(const T* __restrict__ queries, const T* __restrict__ base,
   const float thresh = metric == kL2 ? kNearlyZeroSq : kNearlyZero;
 
   for (int s = 0; s < steps; ++s) {
-    cp_async_wait_ring();
+    cp_async_wait<kStages - 2>();
     __syncthreads();
     if (s + kStages - 1 < steps) issue(s + kStages - 1);
     cp_async_commit();
@@ -627,25 +560,6 @@ long long shared_bytes(int qt, long long qpitch) {
   return kStages * kStageBytes + qt * qpitch + qt * 4 + kWarps * qt * 4 + kTileRows * 4;
 }
 
-// The device's SM count and opt-in shared-memory limit per block, read at
-// the first launch on it and kept (packed as sms << 32 | limit).
-cudaError_t device_facts(int dev, int& sms, int& smem_limit) {
-  static std::atomic<long long> facts[kMaxDevices];
-  long long v = facts[dev].load(std::memory_order_acquire);
-  if (v == 0) {
-    cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess) {
-      err = cudaDeviceGetAttribute(&smem_limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    }
-    if (err != cudaSuccess) return err;
-    v = static_cast<long long>(sms) << 32 | static_cast<unsigned>(smem_limit);
-    facts[dev].store(v, std::memory_order_release);
-  }
-  sms = static_cast<int>(v >> 32);
-  smem_limit = static_cast<int>(v & 0xffffffffLL);
-  return cudaSuccess;
-}
-
 template <typename T, int NT>
 int launch_tile(const void* q, const void* base, const uint8_t* mask, float* out, int B, int N,
                 int d, int valid, int metric, cudaStream_t stream) {
@@ -654,41 +568,23 @@ int launch_tile(const void* q, const void* base, const uint8_t* mask, float* out
   const long long qpitch = (row_bytes + kChunk - 1) / kChunk * kChunk + 16;
   const int nqt = (B + QT - 1) / QT;
   auto kernel = mma_minima_kernel<T, NT>;
-  int dev = 0, sms = 0, smem_limit = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
-  if ((err = device_facts(dev, sms, smem_limit)) != cudaSuccess) return static_cast<int>(err);
-  const long long smem_ll = shared_bytes(QT, qpitch);
-  if (smem_ll > smem_limit) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = static_cast<int>(smem_ll);
-  // per device: 0 until the first launch of this instance raises its shared
-  // limit there, then smem << 32 | blocks per SM for the last size asked
   static std::atomic<long long> fit[kMaxDevices];
-  long long f = fit[dev].load(std::memory_order_acquire);
-  if (f == 0) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_limit);
-    if (err != cudaSuccess) return static_cast<int>(err);
+  const long long smem = shared_bytes(QT, qpitch);
+  int dev = 0, sms = 0, smem_limit = 0, per_sm = 0;
+  cudaError_t err = current_device(dev, sms, smem_limit);
+  if (err == cudaSuccess) {
+    err = blocks_per_sm(reinterpret_cast<const void*>(kernel), kThreads, smem, dev, smem_limit, fit,
+                        per_sm);
   }
-  int per_sm = static_cast<int>(f & 0xffffffffLL);
-  if (f == 0 || (f >> 32) != smem) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    fit[dev].store(static_cast<long long>(smem) << 32 | static_cast<unsigned>(per_sm),
-                   std::memory_order_release);
-  }
-  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  if (err != cudaSuccess) return static_cast<int>(err);
   // blocks of one slot are adjacent (qt fastest) and walk the same row tiles
   const int ntiles = (N + kTileRows - 1) / kTileRows;
   long long nslots = (static_cast<long long>(sms) * per_sm + nqt - 1) / nqt;
   if (nslots > ntiles) nslots = ntiles;
   if (nslots < 1) nslots = 1;
   if (nslots * nqt > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const uintptr_t addr = reinterpret_cast<uintptr_t>(base);
-  const int vec = (addr % 16 == 0 && row_bytes % 16 == 0) ? 16
-                  : (addr % 4 == 0 && row_bytes % 4 == 0) ? 4
-                                                          : 1;
-  kernel<<<static_cast<unsigned>(nslots * nqt), kThreads, smem, stream>>>(
+  const int vec = load_width(base, row_bytes);
+  kernel<<<static_cast<unsigned>(nslots * nqt), kThreads, static_cast<int>(smem), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(base), mask, out, B, N, d, valid, metric,
       nqt, vec);
   return static_cast<int>(cudaGetLastError());

@@ -22,6 +22,11 @@
 // holds code j in its low nibble and code h + j in its high nibble (odd d:
 // the last high nibble is the pad code 0), each as nibble = code + 8.
 //
+// This is K2's CUDA-core body. The tensor-core body, csrc/int4_minima_mma.cu,
+// computes the same minima bit for bit and serves every d whose query tile
+// fits its shared memory (d <= 16,384); ops/int4_scan.py:k2_body sends wider
+// rows here.
+//
 // What bounds it on an H100: at B=1 the bytes (192 MB of packed codes at
 // 1M x 384, 0.06 ms at 3.35 TB/s); at large batches the CUDA-core integer
 // dot rate (2 dp4a per 4 packed bytes per query). The design is the
@@ -45,8 +50,6 @@
 //   - rows >= valid and NaN surrogates become +inf explicitly (fminf would
 //     drop a NaN silently), then the group minimum is a warp shuffle plus
 //     shared memory.
-// Later work: wgmma/int8 tensor cores over the nibble planes, TMA staging,
-// L2 reuse across query tiles.
 //
 // Build: see block_minima.cu (same flags; plain C interface, ctypes).
 

@@ -4,7 +4,8 @@ Each `csrc/*.cu` source compiles with its own nvcc process, all started
 together, and the objects link into one shared library with a plain C
 interface, bound with ctypes (no PyTorch headers, so a build takes
 seconds). The library lands in `sqlite_vector_tpu_torch/_build/` (ignored
-by git) under a name hashed from the sources and flags, so an edited source
+by git) under a name hashed from the sources, the headers they share
+(`csrc/*.cuh`) and the flags, so an edited source
 is rebuilt and an unchanged one is reused. Beside it lies what ptxas
 reported for each kernel (`-Xptxas -v`: registers, stack, spills), which
 `ptxas_report` reads.
@@ -46,6 +47,8 @@ _SIGNATURES = {
     # qc, qscale, packed, alpha, csq, mask (or None), out, B, N, d, valid,
     # metric, stream
     "svt_int4_block_minima": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # the same arguments and the query tile (K2's tensor-core body)
+    "svt_int4_block_minima_mma": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -69,9 +72,10 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    """Where the library for the current sources lives (built or not)."""
+    """Where the library for the current sources and headers lives (built
+    or not)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu")):
+    for src in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libsvt_kernels_{h.hexdigest()[:16]}.so"

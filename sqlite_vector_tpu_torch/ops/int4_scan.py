@@ -19,7 +19,11 @@ finish (ops.block_scan.finish_groups).
 
 Stage 1 has two implementations of one contract:
   - int4_block_minima_reference: plain PyTorch, the definition of the output;
-  - the CUDA kernel csrc/int4_minima.cu, hand-written for Hopper.
+  - the CUDA kernel K2, hand-written for Hopper, in two bodies that agree bit
+    for bit: csrc/int4_minima_mma.cu (int8 tensor cores over the nibble
+    planes) and csrc/int4_minima.cu (CUDA cores: __dp4a, for rows too wide
+    for the tensor-core body's shared budget). k2_body says which body a
+    call takes.
 `int4_block_minima` picks by where the tensors live: the twin for CPU
 tensors, the kernel for CUDA tensors (it raises rather than fall back).
 L1 has no surrogate of this form and is rejected (it runs the plain tile
@@ -49,6 +53,16 @@ from sqlite_vector_tpu_torch.types import DistanceMetric
 
 # bound on the twin's unpacked [rows, d] codes and [B, rows] dots (elements)
 _TWIN_CHUNK_ELEMS = 1 << 25
+
+# The tensor-core body (csrc/int4_minima_mma.cu) keeps a tile of 8, 16, 32
+# or 64 queries in shared memory beside its 81,920-byte ring of packed row
+# tiles: per query both code planes, each padded to a multiple of 128 codes
+# (64 packed bytes), so 128 bytes per 64 packed bytes of a row. The query
+# tile may take this many bytes (the kernel takes the tile from
+# k2_query_tile); it admits d <= 2,048 / 4,096 / 8,192 / 16,384 for tiles of
+# 64 / 32 / 16 / 8 queries.
+_K2_QUERY_BYTES = 131072
+_K2_QUERY_TILES = (8, 16, 32, 64)
 
 
 def _surrogate(
@@ -107,6 +121,24 @@ def int4_block_minima_reference(
     return s_all.view(b, groups, BLOCK).amin(-1)
 
 
+def k2_query_tile(d: int, b: int) -> int:
+    """Queries per block of K2's tensor-core body: the narrowest of 8, 16,
+    32 and 64 that covers b among the tiles whose query planes fit the
+    shared budget, else the widest that fits (a larger batch takes several
+    tiles); 0 when not even 8 queries fit."""
+    per_query = 128 * -(-packed_width(d) // 64)
+    fitting = [t for t in _K2_QUERY_TILES if t * per_query <= _K2_QUERY_BYTES]
+    return next((t for t in fitting if t >= b), fitting[-1] if fitting else 0)
+
+
+def k2_body(d: int) -> str:
+    """Which body of K2 serves a scan of d-column codes: "mma" (tensor
+    cores) while a tile of 8 queries fits the shared budget, "simt" (CUDA
+    cores) past it. Every metric K2 takes runs in both bodies, and the
+    batch does not route: the tensor-core body serves every B."""
+    return "mma" if k2_query_tile(d, 1) else "simt"
+
+
 def _check(qc, qscale, packed, alpha, csq, metric, valid) -> None:
     if qc.dim() != 2 or packed.dim() != 2:
         raise ValueError("int4_block_minima: qc and packed must be 2-D")
@@ -149,8 +181,9 @@ def int4_block_minima(
     qc [B, d] int8 and qscale [B] float32 from quantize_query_int8; packed
     [N, ceil(d/2)] uint8, alpha [N] float32, csq [N] int32 from
     quantize4_device. CPU tensors run int4_block_minima_reference; CUDA
-    tensors launch the K2 kernel (csrc/int4_minima.cu) and count the launch
-    in `int4_block_minima.launches`.
+    tensors launch the K2 kernel in the body k2_body picks and count the
+    launch in `int4_block_minima.launches` and by body in
+    `int4_block_minima.body_launches`.
     """
     _check(qc, qscale, packed, alpha, csq, metric, valid)
     dev = packed.device
@@ -159,6 +192,25 @@ def int4_block_minima(
         return int4_block_minima_reference(
             qc, qscale, packed, alpha, csq, metric, valid, row_mask
         )
+    return _launch_k2(qc, qscale, packed, alpha, csq, metric, valid, row_mask, k2_body(qc.shape[1]))
+
+
+def _launch_k2(
+    qc: torch.Tensor,
+    qscale: torch.Tensor,
+    packed: torch.Tensor,
+    alpha: torch.Tensor,
+    csq: torch.Tensor,
+    metric: DistanceMetric,
+    valid: int,
+    row_mask: torch.Tensor | None,
+    body: str,
+) -> torch.Tensor:
+    """K2 in `body` ("mma" or "simt") on checked CUDA tensors.
+    int4_block_minima passes k2_body's choice; chip_smoke.py forces "simt"
+    to hold and time the CUDA-core body beside the tensor-core one. Raises
+    where the tensor-core body does not take the scan."""
+    dev = packed.device
     if dev.type != "cuda":
         raise ValueError(f"int4_block_minima: unsupported device {dev}")
     tensors = (qc, qscale, packed, alpha, csq) + (() if row_mask is None else (row_mask,))
@@ -168,35 +220,44 @@ def int4_block_minima(
     n = packed.shape[0]
     if n >= 2**31 or b >= 2**31 or dim >= 2**21:
         raise ValueError("int4_block_minima: B, N must fit int32 and d < 2^21")
+    if body == "mma" and k2_body(dim) != "mma":
+        raise ValueError("int4_block_minima: the tensor-core body does not take this scan")
     out = torch.empty((b, -(-n // BLOCK)), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
     from sqlite_vector_tpu_torch.ops._build import load_library
 
     lib = load_library()
+    args = [
+        qc.data_ptr(),
+        qscale.data_ptr(),
+        packed.data_ptr(),
+        alpha.data_ptr(),
+        csq.data_ptr(),
+        None if row_mask is None else row_mask.data_ptr(),
+        out.data_ptr(),
+        b,
+        n,
+        dim,
+        valid,
+        _METRIC_CODE[metric],
+    ]
+    if body == "mma":
+        launch = lib.svt_int4_block_minima_mma
+        args.append(k2_query_tile(dim, b))
+    else:
+        launch = lib.svt_int4_block_minima
     with torch.cuda.device(dev):
-        rc = lib.svt_int4_block_minima(
-            qc.data_ptr(),
-            qscale.data_ptr(),
-            packed.data_ptr(),
-            alpha.data_ptr(),
-            csq.data_ptr(),
-            None if row_mask is None else row_mask.data_ptr(),
-            out.data_ptr(),
-            b,
-            n,
-            dim,
-            valid,
-            _METRIC_CODE[metric],
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+        rc = launch(*args, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"int4_block_minima kernel launch failed: cudaError {rc}")
     int4_block_minima.launches += 1
+    int4_block_minima.body_launches[body] += 1
     return out
 
 
 int4_block_minima.launches = 0
+int4_block_minima.body_launches = {"mma": 0, "simt": 0}
 
 
 def int4_block_scan_topk(

@@ -261,6 +261,67 @@ def test_twin_chunks_match_one_pass(monkeypatch):
     assert torch.equal(int4_block_minima_reference(*args), whole)
 
 
+@pytest.mark.parametrize(
+    "d,tiles",
+    [
+        # 384 codes: 192 packed bytes, 3 chunks of 64, 384 bytes a query
+        (384, {1: 8, 8: 8, 9: 16, 16: 16, 17: 32, 33: 64, 64: 64, 65: 64, 200: 64}),
+        (9, {1: 8, 200: 64}),
+        # the widest rows of each tile (64 queries x 2,048 plane bytes =
+        # 131,072), and one code past them (one more 64-byte chunk)
+        (2048, {1: 8, 64: 64, 200: 64}),
+        (2049, {33: 32, 64: 32}),
+        (4096, {32: 32, 64: 32}),
+        (4097, {17: 16, 32: 16}),
+        (8192, {1: 8, 16: 16, 64: 16}),
+        (8193, {9: 8, 16: 8}),
+        (16384, {1: 8, 65: 8}),
+        (16385, {1: 0, 64: 0}),
+    ],
+    ids=str,
+)
+def test_k2_query_tile_is_the_narrowest_that_covers_b_and_fits(d, tiles):
+    for b, want in tiles.items():
+        assert int4_scan.k2_query_tile(d, b) == want, b
+        if want:
+            per_query = 2 * 64 * -(-q4.packed_width(d) // 64)
+            assert want * per_query <= int4_scan._K2_QUERY_BYTES
+
+
+def test_k2_wide_query_tiles_stay_within_the_exact_float_conversion():
+    """The tensor-core body converts the dots of 32- and 64-query tiles to
+    float32 by adding them to 1.5 * 2^23, exact while |dot| <= 8 * 128 * d
+    <= 2^22, so d <= 4,096; its launcher refuses those tiles past that, so
+    k2_query_tile must never pick them there."""
+    for d in range(1, 16385):
+        if int4_scan.k2_query_tile(d, 200) >= 32:
+            assert d <= 4096, d
+    assert int4_scan.k2_query_tile(4096, 200) == 32
+
+
+def test_k2_body_routes_by_d_alone():
+    """The tensor-core body up to d = 16,384 (8 queries of 16,384 plane
+    bytes fill the 131,072-byte budget), the CUDA-core body past it."""
+    for d in (1, 9, 16, 95, 384, 768, 2049, 16383, 16384):
+        assert int4_scan.k2_body(d) == "mma", d
+    for d in (16385, 20000, 2**21 - 1):
+        assert int4_scan.k2_body(d) == "simt", d
+
+
+def test_launch_k2_takes_only_cuda_tensors():
+    """The CPU routes to the twin before any body; a body asked for CPU
+    tensors raises instead of running the twin, and counts nothing."""
+    qc = torch.zeros((2, 8), dtype=torch.int8)
+    args = (qc, torch.ones(2), torch.zeros((10, 4), dtype=torch.uint8), torch.ones(10),
+            torch.ones(10, dtype=torch.int32), DistanceMetric.L2, 10, None)
+    before = (int4_block_minima.launches, dict(int4_block_minima.body_launches))
+    for body in ("mma", "simt"):
+        with pytest.raises(ValueError, match="unsupported device"):
+            int4_scan._launch_k2(*args, body)
+    int4_block_minima(*args[:7])
+    assert (int4_block_minima.launches, int4_block_minima.body_launches) == before
+
+
 def test_int4_block_minima_rejects_what_the_kernel_does_not_take():
     qc = torch.zeros((2, 8), dtype=torch.int8)
     qs = torch.ones(2)

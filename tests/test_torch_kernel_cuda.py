@@ -1,5 +1,6 @@
-"""The port's CUDA kernels on the card: K1 (csrc/block_minima.cu) and K2
-(csrc/int4_minima.cu), unmasked and with row masks, and the searches that
+"""The port's CUDA kernels on the card: K1 (csrc/block_minima_mma.cu and
+csrc/block_minima.cu) and K2 (csrc/int4_minima_mma.cu and
+csrc/int4_minima.cu), unmasked and with row masks, and the searches that
 launch them.
 
 Every test here needs a CUDA device and skips without one. The file imports
@@ -189,15 +190,28 @@ def test_int4_kernel_matches_twin(cuda, d, b):
     assert int4_block_minima.launches == before + len(K2_METRICS)
 
 
+def assert_k2_bodies_match_twin(tensors, metric, valid, mask=None):
+    """K2 forced into each body (_launch_k2): each against the twin as
+    assert_k2_matches_twin holds it, and the two bodies equal bit for bit
+    (float32 bit patterns). Returns the tensor-core body's minima."""
+    from sqlite_vector_tpu_torch.ops.int4_scan import _launch_k2
+
+    want = int4_block_minima_reference(*tensors, metric, valid, mask)
+    got = {body: _launch_k2(*tensors, metric, valid, mask, body) for body in ("mma", "simt")}
+    torch.cuda.synchronize()
+    for minima in got.values():
+        assert_k2_matches_twin(minima, want)
+    assert torch.equal(got["mma"].view(torch.int32), got["simt"].view(torch.int32)), metric
+    return got["mma"]
+
+
 @pytest.mark.cuda
 def test_int4_kernel_unaligned_packed_rows(cuda):
     """A packed view that starts off a 16-byte boundary takes the 1-byte
-    staging and still equals the twin."""
+    staging in both bodies and still equals the twin."""
     (qc, qs, packed, alpha, csq), _ = int4_case(1000, 64, 2, cuda, seed=4)
     view = packed.view(-1)[1 : 1 + 999 * 32].view(999, 32)  # row 0 at byte 1
-    got = int4_block_minima(qc, qs, view, alpha[:999], csq[:999], DistanceMetric.L2, 999)
-    want = int4_block_minima_reference(qc, qs, view, alpha[:999], csq[:999], DistanceMetric.L2, 999)
-    assert_k2_matches_twin(got, want)
+    assert_k2_bodies_match_twin((qc, qs, view, alpha[:999], csq[:999]), DistanceMetric.L2, 999)
 
 
 @pytest.mark.cuda
@@ -523,3 +537,55 @@ def test_mma_body_at_the_widest_rows_of_each_query_tile(cuda, d, b, tile):
     for metric in DOT_FAMILY:
         assert_k1_matches_twin(q, base, metric, 690)
     assert block_minima.body_launches["mma"] == before + len(DOT_FAMILY)
+
+
+# -- K2's tensor-core body (csrc/int4_minima_mma.cu) -------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [9, 16, 95, 384])  # 1-, 4- and 16-byte staging; odd d
+@pytest.mark.parametrize("b", [1, 8, 64, 65, 200])  # query tiles of 8 and 64, and several
+def test_k2_bodies_match_twin_and_each_other(cuda, d, b):
+    """Both bodies of K2 for its 4 metrics, rows >= valid, unmasked and with
+    each row mask: equal to the twin (tolerance 0) and to each other bit for
+    bit; the routed call takes the tensor-core body."""
+    tensors, _ = int4_case(5003, d, b, cuda, seed=d + b)
+    masks = [None] + [mask_case(kind, 5003, cuda, seed=d) for kind in MASK_KINDS]
+    for metric in K2_METRICS:
+        for mask in masks:
+            got = assert_k2_bodies_match_twin(tensors, metric, 4990, mask)
+            assert bool(torch.isinf(got[:, -1]).all())  # rows >= valid only
+        before = dict(int4_block_minima.body_launches)
+        int4_block_minima(*tensors, metric, 4990)
+        assert int4_block_minima.body_launches == {**before, "mma": before["mma"] + 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "d,b,tile",
+    # the widest rows each query tile holds, and one column past them
+    [(2048, 64, 64), (2049, 64, 32), (4096, 32, 32), (4097, 32, 16), (8192, 16, 16),
+     (8193, 16, 8), (16384, 1, 8), (16384, 65, 8)],
+)
+def test_k2_tensor_core_body_at_the_widest_rows_of_each_query_tile(cuda, d, b, tile):
+    from sqlite_vector_tpu_torch.ops.int4_scan import k2_query_tile
+
+    assert k2_query_tile(d, b) == tile
+    tensors, _ = int4_case(700, d, b, cuda, seed=d + b)
+    for metric in K2_METRICS:
+        assert_k2_bodies_match_twin(tensors, metric, 690)
+
+
+@pytest.mark.cuda
+def test_k2_tensor_core_body_is_refused_where_it_does_not_apply(cuda):
+    """Past d = 16,384 not even 8 queries fit the tensor-core body's shared
+    budget: forcing it raises, and the routed call takes the CUDA-core body
+    and equals the twin."""
+    from sqlite_vector_tpu_torch.ops.int4_scan import _launch_k2
+
+    tensors, _ = int4_case(400, 16385, 2, cuda)
+    with pytest.raises(ValueError, match="body"):
+        _launch_k2(*tensors, DistanceMetric.L2, 400, None, "mma")
+    before = dict(int4_block_minima.body_launches)
+    got = int4_block_minima(*tensors, DistanceMetric.L2, 400)
+    assert int4_block_minima.body_launches == {**before, "simt": before["simt"] + 1}
+    assert_k2_matches_twin(got, int4_block_minima_reference(*tensors, DistanceMetric.L2, 400))

@@ -63,7 +63,7 @@ def busy_us(events) -> float:
 
 # the scan kernel of each mode: (label, substring of its device name)
 K1 = ("K1", "mma_minima_kernel")  # the tensor-core body, which serves these searches
-K2 = ("K2", "int4_minima_kernel")
+K2 = ("K2", "int4_mma_minima_kernel")  # the tensor-core body, likewise
 
 
 def profile_search(
