@@ -43,7 +43,11 @@ Phases, each printing its own lines:
               each at B=1 and B=64), both bodies held against the twin and
               timed in turns (CUDA events, after warm-up) with the twin, the
               CUDA-core body and the library yardstick (library_call), beside
-              its bound (k1_bound) and its share of it; then end-to-end
+              its bound (k1_bound) and its share of it; then the CUDA-core
+              body where it is K1's only body (L1 over the f32 rows, L2
+              over the rows cast to float16 and bfloat16, B=1 and B=64)
+              against the twin, its bound (k1_bound_cuda_core) and the
+              library (torch.cdist(p=1), torch.matmul in 16 bits); then end-to-end
               search at B=1 and B=64: QPS as all queries over the whole
               window of back-to-back calls, and the per-call latency p50,
               p99 and max; then exact and int8 search at B=1 with K1 in
@@ -80,6 +84,27 @@ Phases, each printing its own lines:
               at B=1 and B=64; K1 and K2 alone masked against unmasked at
               B=64 (CUDA events, in turns); after compact, K1 alone at B=1
               in each body and exact B=1 search with each (body_latency).
+  9. persist  save the compacted main dataset (shard_rows=250,000) and load
+              it on the card: exact and int8 search at B=64 identical
+              before and after, save/load seconds and GB/s; then
+              save_stream 2,000,000 x 768 FLOAT32 rows from the seed in 8
+              chunks (BASELINE.json config 5's width, its 10M rows cut to
+              2M) and load that directory twice, storage="host" with
+              mmap=True and storage="hbm" as the yardstick: exact search
+              streamed from the memory maps at B=1 and B=64 against the
+              plain-torch ground truth (tie-aware); quantize(checkpoint=)
+              int8 bit-equal to the device build, then resumed with no
+              chunk re-quantized; int8 and int4 search streamed through K1
+              and K2 equal to after preload() and to the hbm load bit for
+              bit; refine refused before preload(), equal after; rerank
+              gathering rows from the memory maps; remove(1000) and exact
+              search over the read-only mirror's tombstones. Every K1 and
+              K2 launch of the streamed searches in its tensor-core body.
+              Times: the pinned-copy ceiling, the host staging rate,
+              streamed exact search at B=1 and B=64 and int8 likewise, one
+              streamed pass's host -> device GB/s, the sweeps of the tile
+              size (256 MiB, 512 MiB, 1 GiB) and of the staging threads (1,
+              4, 8). The data lies in _smoke_data/, removed at the end.
 
 Then one JSON line of kernel results (each with its bound, the side that
 bounds it and the library yardstick; K1's main-path numbers are f32 B=64,
@@ -93,6 +118,7 @@ from __future__ import annotations
 import functools
 import importlib.util
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -106,6 +132,14 @@ N_MAIN = 1_000_000
 DIM_MAIN = 384
 K = 20
 B_MAIN = 64
+# phase 9's host-storage dataset: BASELINE.json config 5's width (768) with
+# its 10,000,000 rows cut to 2,000,000 (a 6.1 GB file), written in chunks
+N_HOST = 2_000_000
+DIM_HOST = 768
+CHUNK_HOST = 250_000
+# streamed tile sizes (bytes) and staging thread counts of phase 9's sweeps
+TILE_SWEEP = (256 << 20, 512 << 20, 1 << 30)
+THREAD_SWEEP = (1, 4, 8)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -151,7 +185,7 @@ def in_turns(fns, iters: int, rounds: int = 1) -> list[float]:
 # HBM bytes per second, and operations per second by operand type on the
 # tensor cores.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"tf32": 495e12, "int8": 1979e12}
+PEAK_OPS_PER_S = {"tf32": 495e12, "int8": 1979e12, "fp16": 989e12, "fp32": 67e12}
 
 
 def bound(nbytes: float, ops: float, peak: str) -> tuple[float, str]:
@@ -173,6 +207,16 @@ def k1_bound(b: int, n: int, d: int, elem: int, masked: bool = False) -> tuple[f
     if elem == 4:
         return bound(nbytes, 3 * 2.0 * b * n * d, "tf32")
     return bound(nbytes, 2.0 * b * n * d, "int8")
+
+
+def k1_bound_cuda_core(b: int, n: int, d: int, elem: int, metric) -> tuple[float, str]:
+    """K1's bound where only its CUDA-core body serves: the same bytes as
+    k1_bound; for L1 2 B N d operations (a subtract and an add a pair, the
+    absolute value a sign bit) at the float32 rate outside the tensor
+    cores, which have no L1 form; for float16/bfloat16 rows the 2 B N d
+    products at the 16-bit tensor-core peak, the least the card could take."""
+    nbytes = (b + n) * d * elem + b * -(-n // 128) * 4
+    return bound(nbytes, 2.0 * b * n * d, "fp32" if metric.value == "L1" else "fp16")
 
 
 def k2_bound(b: int, n: int, d: int, masked: bool = False) -> tuple[float, str]:
@@ -557,6 +601,35 @@ def phase_times(card: str, ds, Q) -> dict:
             flush=True,
         )
     del u8_base
+
+    # K1's CUDA-core body where it is the only body: L1 over the f32 rows,
+    # L2 over the same rows cast to float16 and bfloat16
+    L1 = DistanceMetric.L1
+    cuda_core = [("L1 f32", L1, Qd, vecs, lambda q, base: lambda: torch.cdist(q, base, p=1))]
+    for name, dt in (("f16", torch.float16), ("bf16", torch.bfloat16)):
+        cuda_core.append((f"L2 {name}", L2, Qd.to(dt), vecs.to(dt), lambda q, base: lambda: torch.matmul(q, base.T)))
+    for name, metric, q_all, base, library in cuda_core:
+        check(k1_body(base.dtype, metric, DIM_MAIN) == "simt", f"{name} does not route to the CUDA-core body")
+        for b in (1, B_MAIN):
+            q = q_all[:b].contiguous()
+            label = f"{name} B={b}"
+            out["max_abs_err"] = max(out["max_abs_err"], compare_minima(q, base, metric, n, f"main-path {label}"))
+            ms = in_turns(
+                [lambda: block_minima_reference(q, base, metric, n), lambda: block_minima(q, base, metric, n),
+                 library(q, base)],
+                20 if b == 1 else 5,
+            )
+            lim, by = k1_bound_cuda_core(b, n, DIM_MAIN, base.element_size(), metric)
+            out[label] = {"ms": ms[1], "plain_ms": ms[0], "simt_ms": ms[1], "library_ms": ms[2],
+                          "bound_ms": lim, "bound_by": by}
+            lib_name = "torch.cdist(p=1)" if metric is L1 else f"torch.matmul in {name.split()[1]}"
+            print(
+                f"[times] K1 {shape} {label} {metric.value} (CUDA-core body == twin): kernel "
+                f"{ms[1]!r} ms, bound {lim!r} ms ({by}), {100 * lim / ms[1]:.1f}% of bound; twin "
+                f"{ms[0]!r} ms; library {lib_name} {ms[2]!r} ms | {card}",
+                flush=True,
+            )
+    del cuda_core
 
     for mode in ("exact", "quantized"):
         search_times(card, ds, Q, mode, shape, ((1, 500), (B_MAIN, 200)))
@@ -1009,6 +1082,299 @@ def phase_mutate(card: str, ds, Q) -> dict:
     return out
 
 
+def top_rows(ids_all: np.ndarray, oracle_row: np.ndarray, keep: int = 400):
+    """The `keep` rows of smallest oracle distance (ids and distances): a
+    top-k parity check reads no further, and the id map stays small."""
+    part = np.argpartition(oracle_row, keep)[:keep]
+    return ids_all[part], oracle_row[part]
+
+
+def counts():
+    from sqlite_vector_tpu_torch.ops.block_scan import block_minima
+    from sqlite_vector_tpu_torch.ops.int4_scan import int4_block_minima
+
+    return {"K1": (block_minima.launches, block_minima.body_launches["mma"]),
+            "K2": (int4_block_minima.launches, int4_block_minima.body_launches["mma"])}
+
+
+def phase_persist(card: str, ds, Q) -> dict:
+    """Phase 9: save/load round trip of the main dataset, then a host-storage
+    dataset at BASELINE.json config 5's width, streamed through K1 and K2.
+    Everything it writes lies in _smoke_data/ beside this script, removed
+    at the end. Returns the streamed searches' launches of each kernel."""
+    root = Path(__file__).resolve().parent / "_smoke_data"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir()
+    try:
+        persist_roundtrip(card, ds, Q, root)
+        return host_storage(card, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def persist_roundtrip(card: str, ds, Q, root: Path) -> None:
+    import sqlite_vector_tpu_torch as svt
+
+    want = [ds.search(Q, K), ds.search(Q, K, exact=False)]
+    nbytes = ds._count * DIM_MAIN * 4
+    d = str(root / "main")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ds.save(d, shard_rows=250_000)
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = svt.Dataset.load(d, device="cuda")
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    got = [back.search(Q, K), back.search(Q, K, exact=False)]
+    for mode, (g, w) in zip(("exact", "int8 quantized"), zip(got, want)):
+        check(np.array_equal(g[0], w[0]) and np.array_equal(g[1], w[1]),
+              f"{mode} search after save/load differs from before")
+    print(
+        f"[persist] save({ds._count} x {DIM_MAIN} FLOAT32 + int8 codes, shard_rows=250000) "
+        f"{t_save!r} s ({nbytes / t_save / 1e9:.2f} GB/s of rows); load(storage='hbm') {t_load!r} s "
+        f"({nbytes / t_load / 1e9:.2f} GB/s); exact and int8 search at B={B_MAIN} after the "
+        f"load: ids and values identical to before the save | {card}",
+        flush=True,
+    )
+
+
+def host_storage(card: str, root: Path) -> dict:
+    import sqlite_vector_tpu_torch as svt
+    import sqlite_vector_tpu_torch.dataset as dsmod
+    from sqlite_vector_tpu_torch.ops import streaming
+    from sqlite_vector_tpu_torch.ops.distance import pairwise_distance
+    from sqlite_vector_tpu_torch.types import DistanceMetric
+
+    parity = load_tests_module("parity")
+    L2 = DistanceMetric.L2
+    rng = np.random.default_rng(SEED + 9)
+    picks = np.sort(rng.choice(N_HOST, B_MAIN // 2, replace=False))
+    held = {}
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+
+    def chunks():
+        # made on the card from the seed (numpy's generator took ~20 s)
+        for s in range(0, N_HOST, CHUNK_HOST):
+            c = torch.randn((CHUNK_HOST, DIM_HOST), generator=gen, device="cuda").cpu().numpy()
+            for p in picks[(picks >= s) & (picks < s + CHUNK_HOST)]:
+                held[int(p)] = c[p - s].copy()
+            yield c
+
+    d = str(root / "host")
+    nbytes = N_HOST * DIM_HOST * 4
+    t0 = time.perf_counter()
+    n = svt.Dataset.save_stream(d, chunks(), options=f"dimension={DIM_HOST},type=FLOAT32,distance=L2")
+    t_stream = time.perf_counter() - t0
+    check(n == N_HOST, f"save_stream wrote {n} rows")
+    Qh = np.concatenate([np.stack([held[int(p)] for p in picks]),
+                         rng.standard_normal((B_MAIN - len(picks), DIM_HOST), dtype=np.float32)])
+    t0 = time.perf_counter()
+    host = svt.Dataset.load(d, device="cuda", storage="host", mmap=True)
+    t_host = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hbm = svt.Dataset.load(d, device="cuda")
+    torch.cuda.synchronize()
+    t_hbm = time.perf_counter() - t0
+    shape = f"{N_HOST}x{DIM_HOST}"
+    print(
+        f"[host] {shape} FLOAT32 L2 (BASELINE.json config 5's width; rows cut from its "
+        f"10,000,000 to {N_HOST:,}, a {nbytes / 1e9:.2f} GB file, to fit the smoke's time): "
+        f"save_stream of {N_HOST // CHUNK_HOST} chunks of {CHUNK_HOST} rows {t_stream!r} s (data "
+        f"generation included); load(storage='host', mmap=True) {t_host!r} s "
+        f"({type(host._host_vectors).__name__} of {N_HOST // CHUNK_HOST} memory maps, device bytes "
+        f"{host.memory_bytes()}); load(storage='hbm') {t_hbm!r} s ({nbytes / t_hbm / 1e9:.2f} GB/s) | {card}",
+        flush=True,
+    )
+    streamed = {"K1": [0, 0], "K2": [0, 0]}
+
+    def stream(fn):
+        """fn() on the host dataset, its kernel launches tallied."""
+        c0 = counts()
+        r = fn()
+        for name, (launches, mma) in counts().items():
+            streamed[name][0] += launches - c0[name][0]
+            streamed[name][1] += mma - c0[name][1]
+        return r
+
+    # -- exact: streamed against the device-storage load -----------------
+    Qd = torch.from_numpy(Qh).cuda()
+    ids_all = hbm.ids
+    oracle = pairwise_distance(Qd, hbm._vectors[:N_HOST], L2).cpu().numpy()
+    worst = 0.0
+    for b in (1, B_MAIN):
+        ids_h, d_h = stream(lambda: host.search(Qh[:b], K))
+        ids_m, d_m = hbm.search(Qh[:b], K)
+        for i in range(b):
+            parity.assert_topk_parity(
+                *top_rows(ids_all, oracle[i]), ids_h[i], d_h[i], K,
+                rel_tol=parity.REL_TOL_BY_TYPE["FLOAT32"], label=f"streamed exact B={b} q{i}",
+            )
+        worst = max(worst, float(np.abs(d_h - d_m).max()))
+    for i, p in enumerate(picks):
+        check(ids_h[i, 0] == p + 1 and d_h[i, 0] == 0.0, f"streamed q{i}: self-match not first at 0")
+    print(
+        f"[host] exact search streamed from host (B=1 and B={B_MAIN}, k={K}): ids match the "
+        f"plain-torch ground truth (tie-aware, rel_tol {parity.REL_TOL_BY_TYPE['FLOAT32']}), "
+        f"{len(picks)}/{len(picks)} self-matches first at 0.0; max |streamed - device-storage| "
+        f"value {worst!r} | {card}",
+        flush=True,
+    )
+
+    # -- int8: checkpointed host build, resume, streamed and preloaded ---
+    t0 = time.perf_counter()
+    host.quantize(checkpoint=str(root / "ck8"))
+    t_build = time.perf_counter() - t0
+    hbm.quantize()
+    check(host.quant_params == hbm.quant_params, "host and device int8 params differ")
+    check(np.array_equal(host._quant.codes, hbm._quant.codes.cpu().numpy()),
+          "host int8 codes differ from the device build's")
+    real, calls = dsmod.quantize_device, [0]
+
+    def counting(*a, **kw):
+        calls[0] += 1
+        return real(*a, **kw)
+
+    dsmod.quantize_device = counting
+    try:
+        t0 = time.perf_counter()
+        host.quantize(checkpoint=str(root / "ck8"))
+        t_resume = time.perf_counter() - t0
+    finally:
+        dsmod.quantize_device = real
+    check(calls[0] == 0, f"the second build re-quantized {calls[0]} chunks instead of resuming")
+    want8 = [stream(lambda: host.search(Qh[:b], K, exact=False)) for b in (1, B_MAIN)]
+    print(
+        f"[host] quantize(checkpoint=) int8 over the memory maps {t_build!r} s, codes and params "
+        f"bit-equal to the device build of the hbm load; again with the same checkpoint: "
+        f"resumed, 0 chunks re-quantized, {t_resume!r} s | {card}",
+        flush=True,
+    )
+    times = stream_times(card, host, Qh, shape, nbytes, stream, streaming)
+    search_times(card, host, Qh, "quantized", shape, ((1, 20), (B_MAIN, 10)), "int8 quantized, streamed from host")
+    host.preload()
+    for b, w in zip((1, B_MAIN), want8):
+        for g, x, m in zip(host.search(Qh[:b], K, exact=False), w, hbm.search(Qh[:b], K, exact=False)):
+            check(np.array_equal(g, x) and np.array_equal(g, m),
+                  f"int8 B={b}: streamed, preloaded and device-storage results differ")
+
+    # -- int4 + refine: host build, streamed through K2, then preloaded ---
+    t0 = time.perf_counter()
+    host.quantize(qtype="int4", refine=True, checkpoint=str(root / "ck4"))
+    t_build4 = time.perf_counter() - t0
+    hbm.quantize(qtype="int4", refine=True)
+    want4 = [stream(lambda: host.search(Qh[:b], K, mode="quantized")) for b in (1, B_MAIN)]
+    try:
+        host.search(Qh[:1], K, mode="refine")
+        raise RuntimeError("chip_smoke check failed: refine ran on host-resident codes")
+    except svt.VectorStateError:
+        pass
+    host.preload()
+    for b, w in zip((1, B_MAIN), want4):
+        for g, x, m in zip(host.search(Qh[:b], K, mode="quantized"), w, hbm.search(Qh[:b], K, mode="quantized")):
+            check(np.array_equal(g, x) and np.array_equal(g, m),
+                  f"int4 B={b}: streamed, preloaded and device-storage results differ")
+    same_topk("refine (host after preload)", *host.search(Qh, K, mode="refine"), *hbm.search(Qh, K, mode="refine"))
+    same_topk("rerank (host rows gathered)", *host.search(Qh, K, mode="rerank"), *hbm.search(Qh, K, mode="rerank"))
+    gathered = host.last_rerank_decomposition
+    print(
+        f"[host] quantize(qtype='int4', refine=True, checkpoint=) {t_build4!r} s; int4 search "
+        f"streamed through K2 (B=1, B={B_MAIN}) == after preload() == the device-storage load, "
+        f"bit for bit; refine raised VectorStateError before preload() and equals the device "
+        f"storage after it; rerank (int4 stage 1, {gathered['gathered_rows']} rows gathered from "
+        f"the memory maps in {gathered['host_gather_s'] * 1e3:.1f} ms) equals the device "
+        f"storage's | {card}",
+        flush=True,
+    )
+
+    # -- tombstones on the read-only mirror -------------------------------
+    gone = rng.choice(N_HOST, 1000, replace=False) + 1
+    for x in (host, hbm):
+        check(x.remove(gone) == 1000, "remove(1000)")
+    check(host.tombstones == 1000 and not host._host_writable(), "host tombstones")
+    ids_h, d_h = stream(lambda: host.search(Qh, K))
+    ids_m, d_m = hbm.search(Qh, K)
+    check(not np.isin(ids_h, gone).any(), "streamed exact returned a removed id")
+    close_topk("streamed exact with 1000 tombstones", ids_h, d_h, ids_m, d_m, 3e-5)
+    for name, (launches, mma) in streamed.items():
+        check(launches > 0 and mma == launches, f"streamed searches: {name} launches {launches}, {mma} mma")
+    print(
+        f"[host] remove(1000) leaves {host.tombstones} tombstones on the read-only memory maps; "
+        f"streamed exact B={B_MAIN} == the device storage's (rtol 3e-5), no removed id back; "
+        f"streamed searches launched K1 {streamed['K1'][0]} times, K2 {streamed['K2'][0]} "
+        f"times, all in their tensor-core bodies | {card}",
+        flush=True,
+    )
+    return {"K1": streamed["K1"][0], "K2": streamed["K2"][0], **times}
+
+
+def stream_times(card: str, host, Qh, shape: str, nbytes: int, stream, streaming) -> dict:
+    """The pinned-copy ceiling, the host staging rate, streamed exact search
+    at B=1 and B=64, the achieved host -> device rate of one streamed pass,
+    and the tile-size sweep."""
+    gb = 1 << 30
+    src = torch.empty(gb, dtype=torch.uint8, pin_memory=True)
+    dst = torch.empty(gb, dtype=torch.uint8, device="cuda")
+    ceiling = gb / (cuda_ms(lambda: dst.copy_(src, non_blocking=True), 1) * 1e-3)  # warm-up
+    ceiling = gb / (cuda_ms(lambda: dst.copy_(src, non_blocking=True), 5) * 1e-3)
+    tile_rows = streaming.default_tile_rows([host._host_vectors])
+    buf = torch.empty((tile_rows, DIM_HOST), dtype=torch.float32, pin_memory=True).numpy()
+    rates = []
+    for s in (0, tile_rows, 2 * tile_rows):
+        t0 = time.perf_counter()
+        streaming._read_rows(host._host_vectors, s, buf)
+        rates.append(buf.nbytes / (time.perf_counter() - t0))
+    del src, dst, buf
+    print(
+        f"[times] pinned host -> device copy of 1 GiB (copy_ non_blocking, CUDA events, 5 copies): "
+        f"{ceiling / 1e9!r} GB/s; host staging (np.copyto from the memory maps into a pinned tile "
+        f"of {tile_rows} rows): {[r / 1e9 for r in rates]!r} GB/s | {card}",
+        flush=True,
+    )
+    stream(lambda: search_times(card, host, Qh, "exact", shape, ((1, 10), (B_MAIN, 5)), "exact, streamed from host"))
+    passes = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        stream(lambda: host.search(Qh, K))
+        passes.append(time.perf_counter() - t0)
+    one = float(np.median(passes))
+    print(
+        f"[times] one streamed exact pass at B={B_MAIN}: median {one!r} s of 3, {nbytes / one / 1e9!r} "
+        f"GB/s host -> device, {one / (nbytes / ceiling):.2f}x the pinned-copy time of the "
+        f"{nbytes / 1e9:.2f} GB ({streaming.DEFAULT_TILE_BYTES >> 20} MiB tiles) | {card}",
+        flush=True,
+    )
+    def sweep(name: str, values) -> dict:
+        """Median of 3 streamed exact B=64 passes with streaming.<name> set
+        to each value (after a warm-up pass)."""
+        out, default = {}, getattr(streaming, name)
+        try:
+            for v in values:
+                setattr(streaming, name, v)
+                stream(lambda: host.search(Qh, K))
+                walls = []
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    stream(lambda: host.search(Qh, K))
+                    walls.append(time.perf_counter() - t0)
+                out[v] = float(np.median(walls))
+        finally:
+            setattr(streaming, name, default)
+        return out
+
+    tiles = {t >> 20: s for t, s in sweep("DEFAULT_TILE_BYTES", TILE_SWEEP).items()}
+    threads = sweep("STAGING_THREADS", THREAD_SWEEP)
+    for name, got in (("tile MiB", tiles), (f"staging threads ({streaming.DEFAULT_TILE_BYTES >> 20} MiB tiles)", threads)):
+        print(
+            f"[times] sweep of {name}, streamed exact B={B_MAIN} pass, median of 3 (s): {got!r}; "
+            f"GB/s {({k: nbytes / s / 1e9 for k, s in got.items()})!r} | {card}",
+            flush=True,
+        )
+    return {"pinned_gbps": ceiling / 1e9, "stream_pass_s": one, "tile_sweep_s": tiles,
+            "thread_sweep_s": threads}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing run", file=sys.stderr)
@@ -1043,6 +1409,7 @@ def main() -> int:
     k2_launches = phase_int4(card, ds, Q, ids_e)
     k2 = phase_int4_times(card, ds, Q)
     masked = phase_mutate(card, ds, Q)["masked_launches"]
+    host = phase_persist(card, ds, Q)
     k1_main = k1[f"f32 B={B_MAIN}"]
     k2_main = k2[f"B={B_MAIN}"]
     print(json.dumps({"kernels": [
@@ -1059,6 +1426,7 @@ def main() -> int:
             "bound_by": k1_main["bound_by"],
             "library_ms": k1_main["library_ms"],
             "masked_launches": masked["K1"],
+            "streamed_launches": host["K1"],
             "masked_max_abs_err": masked_err,
             "nonfinite_max_abs_err": nonfinite_err,
             "cuda_core_body": "sqlite_vector_tpu_torch/csrc/block_minima.cu",
@@ -1077,11 +1445,12 @@ def main() -> int:
             "bound_by": k2_main["bound_by"],
             "library_ms": k2_main["library_ms"],
             "masked_launches": masked["K2"],
+            "streamed_launches": host["K2"],
             "masked_max_abs_err": k2_masked_err,
             "cuda_core_body": "sqlite_vector_tpu_torch/csrc/int4_minima.cu",
             "by_shape": {k: v for k, v in k2.items() if k != "max_abs_err"},
         },
-    ]}))
+    ], "host_storage": {k: host[k] for k in ("pinned_gbps", "stream_pass_s", "tile_sweep_s", "thread_sweep_s")}}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

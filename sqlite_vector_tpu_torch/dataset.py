@@ -13,13 +13,23 @@ matrix) and scan the first `count` rows through ops.scan.fused_scan_topk
 ops.rerank. Row masks (ids_filter, tombstones) are [N] torch.bool tensors
 built on the device and ride into the kernels.
 
-Everything else raises VectorConfigError naming the ROADMAP item that will
-port it.
+storage="host" keeps the rows in host RAM (a numpy mirror that doubles as
+rows are appended, or memory-mapped shards after load(mmap=True)) and
+streams them through the device per scan (ops/streaming.py: K1 per tile,
+K2 for int4 codes); its codes stay on the host until preload(). save,
+save_stream and load write and read the JAX package's on-disk format
+(manifest.json version 2 + npy shards), so a directory saved by either
+package loads in the other.
+
+Meshes and the non-finite float16/bfloat16 policy paths raise
+VectorConfigError naming the ROADMAP item that will port them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import threading
 import time
 from typing import Any, Sequence
@@ -28,16 +38,25 @@ import numpy as np
 import torch
 
 from sqlite_vector_tpu_torch.codec import blob_to_array, vector_from_json
-from sqlite_vector_tpu_torch.device import from_numpy, resolve_device
+from sqlite_vector_tpu_torch.device import (
+    bf16_bits,
+    bits_to_device,
+    bits_to_f32,
+    from_numpy,
+    resolve_device,
+)
 from sqlite_vector_tpu_torch.errors import (
     VectorCodecError,
     VectorConfigError,
     VectorStateError,
 )
+from sqlite_vector_tpu_torch.hostarray import ShardedRows
 from sqlite_vector_tpu_torch.ops.distance import NEARLY_ZERO
 from sqlite_vector_tpu_torch.ops.quantize import (
     QUANT_TORCH_DTYPE,
+    fold_stats,
     minmax_and_negative,
+    quant_params_from_stats,
     quantize_device,
     resolve_quant_params,
 )
@@ -50,6 +69,12 @@ from sqlite_vector_tpu_torch.ops.quantize4 import (
 from sqlite_vector_tpu_torch.ops.refine import int4_refine_topk
 from sqlite_vector_tpu_torch.ops.rerank import rerank_topk, rescore_live_rows
 from sqlite_vector_tpu_torch.ops.scan import fused_scan_topk, scan_distances
+from sqlite_vector_tpu_torch.ops.streaming import (
+    int4_streaming_scan_distances,
+    int4_streaming_scan_topk,
+    streaming_scan_distances,
+    streaming_scan_topk,
+)
 from sqlite_vector_tpu_torch.types import (
     DistanceMetric,
     QuantType,
@@ -59,8 +84,12 @@ from sqlite_vector_tpu_torch.types import (
 )
 
 MIN_CAPACITY = 1024
-# rows per chunk of the quantize pass (bounds its float32 temporaries)
-_QUANT_CHUNK_ELEMS = 1 << 26
+# elements per chunk of the host passes (non-finite scan, host quantize
+# build, save) and of the device quantize pass; the JAX package's value,
+# so quantize checkpoints' chunk_rows agree between the two packages
+HOST_CHUNK_ELEMS = 64 << 20
+# bytes per host -> device chunk of an upload (load, preload)
+_UPLOAD_CHUNK_BYTES = 512 << 20
 
 _FLOAT_TYPES = (VectorType.F32, VectorType.F16, VectorType.BF16)
 TORCH_DTYPE = {
@@ -70,12 +99,18 @@ TORCH_DTYPE = {
     VectorType.U8: torch.uint8,
     VectorType.I8: torch.int8,
 }
+# numpy dtype names of the dataset types (bfloat16 is ml_dtypes')
+_DTYPE_NAME = {
+    VectorType.F32: "float32",
+    VectorType.F16: "float16",
+    VectorType.BF16: "bfloat16",
+    VectorType.U8: "uint8",
+    VectorType.I8: "int8",
+}
 
 # What the slice leaves out, by the ROADMAP.md queue-1 item that ports it.
 _ROADMAP_ITEM = {
     "nonfinite": "3 (nonfinite.py policy twins)",
-    "host": "5 (host-storage streaming)",
-    "persistence": "6 (persistence)",
     "mesh": "8 (parallel/ -> torch.distributed)",
 }
 
@@ -110,10 +145,82 @@ def _finite(a: np.ndarray) -> bool:
     return bool(np.isfinite(a).all())
 
 
-def _to_host(t: torch.Tensor, vtype: VectorType) -> np.ndarray:
+def _rows_to_host(t: torch.Tensor, vtype: VectorType) -> np.ndarray:
+    """Device rows in the host storage form (bfloat16 as uint16 bits)."""
     if vtype is VectorType.BF16:
-        return t.float().cpu().numpy().astype(vtype.np_dtype)
+        return t.view(torch.int16).cpu().numpy().view(np.uint16)
     return t.cpu().numpy()
+
+
+def _user_rows(rows: np.ndarray, vtype: VectorType) -> np.ndarray:
+    """Host-form rows as the JAX package returns them (bfloat16 through
+    ml_dtypes)."""
+    return rows.view(vtype.np_dtype) if vtype is VectorType.BF16 else rows
+
+
+def _host_f32(rows: np.ndarray, vtype: VectorType) -> np.ndarray:
+    """float32 values of host-form rows."""
+    if vtype is VectorType.BF16:
+        return bits_to_f32(rows)
+    return np.asarray(rows).astype(np.float32, copy=False)
+
+
+def _on_device(x) -> bool:
+    return isinstance(x, torch.Tensor)
+
+
+def _to_numpy(x, count: int) -> np.ndarray:
+    """The first `count` rows of a device tensor or host array, on the host."""
+    return x[:count].cpu().numpy() if _on_device(x) else np.asarray(x[:count])
+
+
+def _scan_nonfinite(vectors: Any, vtype: VectorType, count: int) -> bool:
+    """Chunked host scan for non-finite values over any row-sliceable
+    host-form array (numpy, memmap, ShardedRows); integer types never scan."""
+    if vtype not in _FLOAT_TYPES or count == 0:
+        return False
+    chunk = max(1, HOST_CHUNK_ELEMS // max(int(vectors.shape[1]), 1))
+    for s in range(0, count, chunk):
+        if not np.isfinite(_host_f32(vectors[s : min(s + chunk, count)], vtype)).all():
+            return True
+    return False
+
+
+def _atomic_npy_save(path: str, arr) -> None:
+    """np.save through a temp file + os.replace: a dataset saved onto the
+    directory it was loaded from may read `arr` through a memmap of the
+    destination, which a plain np.save would truncate first; a crash never
+    leaves a half-written .npy under its name. (The file object keeps
+    np.save from appending ".npy" to the temp name.)"""
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        np.save(f, arr)
+    os.replace(tmp, path)
+
+
+def _atomic_npy_chunks(path: str, shape: tuple, dtype, chunks) -> None:
+    """_atomic_npy_save of an array given as row chunks, written into a
+    memmap of the temp file: the array is never whole in RAM."""
+    if shape[0] == 0:
+        _atomic_npy_save(path, np.zeros(shape, dtype))
+        return
+    tmp = path + ".tmp"
+    out = np.lib.format.open_memmap(tmp, mode="w+", dtype=dtype, shape=shape)
+    at = 0
+    for c in chunks:
+        out[at : at + len(c)] = c
+        at += len(c)
+    if at != shape[0]:
+        raise RuntimeError(f"save: wrote {at} of {shape[0]} rows")
+    out.flush()
+    del out
+    os.replace(tmp, path)
+
+
+def _write_json_atomic(path: str, obj: dict, indent: int | None = None) -> None:
+    with open(path + ".tmp", "w") as f:
+        json.dump(obj, f, indent=indent)
+    os.replace(path + ".tmp", path)
 
 
 def _fit_mask(mask: torch.Tensor | None, n: int) -> torch.Tensor | None:
@@ -137,8 +244,10 @@ class _QuantState:
     qtype: QuantType
     scale: np.float32
     offset: np.float32
-    codes: torch.Tensor | None  # [count, dim] u8/i8 on the device; for INT4
-    # the PACKED [count, ceil(dim/2)] uint8 codes (ops/quantize4.py)
+    codes: torch.Tensor | np.ndarray | None  # [count, dim] u8/i8 on the
+    # device, or on the host (host storage before preload(): numpy or a
+    # memmap, as are row_scale, sq_norms and codes8 then); for INT4 the
+    # PACKED [count, ceil(dim/2)] uint8 codes (ops/quantize4.py)
     count: int  # rows quantized
     ids: np.ndarray  # row ids AT QUANTIZE TIME (the codes go stale on add,
     # remove and update, and keep serving with these ids)
@@ -155,9 +264,114 @@ class _QuantState:
     offset8: np.float32 | None = None
 
 
+def _params_pass(chunk, starts, qtype: QuantType) -> tuple[QuantType, np.float32, np.float32]:
+    """Pass 1 of a chunked build: the quant params of every chunk's rows."""
+    stats = None
+    for s in starts:
+        stats = fold_stats(stats, chunk(s))
+    return quant_params_from_stats(qtype, fold_stats(stats, torch.empty((0,))))
+
+
+def _empty_quant(qtype: QuantType) -> _QuantState:
+    """Zero rows still record resolved params (src/sqlite-vector.c:1170-1178)."""
+    resolved = QuantType.U8 if qtype is QuantType.AUTO else qtype
+    return _QuantState(
+        resolved, np.float32(1.0), np.float32(0.0), None, 0, np.zeros((0,), np.int64)
+    )
+
+
+class _HostBuild:
+    """The arrays and checkpoint files of one host quantize build (the
+    JAX package's files: <name>_checkpoint.json + .npy memmaps in the
+    checkpoint directory). Without a directory the arrays are plain numpy
+    and nothing persists. A checkpoint is trusted only when its meta
+    records this build's data token, row counts, dim, chunk size and
+    requested qtype and its files have the expected shapes."""
+
+    def __init__(self, directory, count, out_count, dim, chunk_rows, requested, token):
+        self.directory = directory
+        self.count, self.out_count, self.dim = count, out_count, dim
+        self.chunk_rows, self.requested, self.token = chunk_rows, requested, token
+        self.arrays: list[np.ndarray] = []
+        self.meta: dict = {}
+        self.meta_path: str | None = None
+
+    def sidecar(self) -> "_HostBuild":
+        return _HostBuild(
+            self.directory, self.count, self.out_count, self.dim,
+            self.chunk_rows, self.requested, self.token,
+        )
+
+    def load(self, meta_name: str, shapes: dict, requested: bool = True) -> dict | None:
+        """The checkpoint meta with its arrays opened (r+) if it matches
+        this build, else None. A finished checkpoint resumes too: every
+        chunk is then skipped."""
+        if not self.directory:
+            return None
+        os.makedirs(self.directory, exist_ok=True)
+        self.meta_path = os.path.join(self.directory, meta_name)
+        paths = [os.path.join(self.directory, name) for name in shapes]
+        try:
+            with open(self.meta_path) as f:
+                m = json.load(f)
+            if not (
+                m["count"] == self.count
+                and m.get("live_count", m["count"]) == self.out_count
+                and m.get("data_token") == self.token
+                and m["dim"] == self.dim
+                and m["chunk_rows"] == self.chunk_rows
+                and (not requested or m["requested_qtype"] == self.requested.value)
+            ):
+                return None
+            arrays = [np.lib.format.open_memmap(p, mode="r+") for p in paths]
+        except (OSError, ValueError, KeyError, TypeError):
+            return None
+        if [a.shape for a in arrays] != list(shapes.values()):
+            return None
+        m["done"] = int(m["done"])
+        self.arrays, self.meta = arrays, m
+        return m
+
+    def start(self, meta_name, qtype, scale, offset, files: dict, requested: bool = True) -> dict:
+        """A fresh build: new arrays (fresh files: an earlier build may
+        still serve searches through a mapping of the old ones, so they
+        are unlinked, never truncated) and its meta at done = 0."""
+        meta = {
+            "qtype": qtype.value, "scale": float(scale), "offset": float(offset),
+            "count": self.count, "live_count": self.out_count, "dim": self.dim,
+            "chunk_rows": self.chunk_rows,
+        }
+        if requested:
+            meta["requested_qtype"] = self.requested.value
+        meta.update(data_token=self.token, done=0)
+        self.meta = meta
+        if not self.directory:
+            self.arrays = [np.empty(shape, dtype) for dtype, shape in files.values()]
+            return meta
+        os.makedirs(self.directory, exist_ok=True)
+        self.meta_path = os.path.join(self.directory, meta_name)
+        self.arrays = []
+        for name, (dtype, shape) in files.items():
+            path = os.path.join(self.directory, name)
+            if os.path.exists(path):
+                os.unlink(path)
+            self.arrays.append(np.lib.format.open_memmap(path, mode="w+", dtype=dtype, shape=shape))
+        _write_json_atomic(self.meta_path, meta)
+        return meta
+
+    def done(self, chunks: int) -> None:
+        """Record `chunks` chunks as built (after their codes are flushed)."""
+        self.meta["done"] = chunks
+        if self.directory:
+            for a in self.arrays:
+                a.flush()
+            _write_json_atomic(self.meta_path, self.meta)
+
+
 class Dataset:
     """A named collection of fixed-dimension vectors with one distance
-    metric, resident on one torch device."""
+    metric, on one torch device: resident there (storage="hbm") or held in
+    host RAM and streamed through it per scan (storage="host")."""
 
     def __init__(
         self,
@@ -178,13 +392,24 @@ class Dataset:
             raise VectorConfigError(
                 f"storage must be 'hbm' or 'host', got '{storage}'"
             )
-        if storage == "host":
-            raise _unported("storage='host'", "host")
         if mesh is not None or sharding is not None:
             raise _unported("Meshes and shardings", "mesh")
         self.name = name
         self.options = options
         self.device = resolve_device(device)
+        # "hbm" keeps the matrix on the device; "host" keeps it in host RAM
+        # (in the host form: bfloat16 as uint16 bits) and streams tiles per
+        # scan, for datasets larger than device memory
+        self._storage = storage
+        self._host_vectors: Any = (
+            np.zeros((0, options.dimension), options.type.host_dtype)
+            if storage == "host" else None
+        )
+        # opaque content token, new on every row mutation and persisted by
+        # save()/load(): a save resume or a quantize checkpoint is trusted
+        # only under the token of the rows it was written from (counts
+        # alone cannot prove the rows unchanged: update() keeps them)
+        self._data_token = os.urandom(16).hex()
         # serializes mutators; searches are lock-free and snapshot
         self._mutate_lock = threading.RLock()
         self._count = 0
@@ -266,14 +491,18 @@ class Dataset:
         return self._n_dead
 
     def memory_bytes(self) -> int:
-        """Device bytes held by the matrix (padded capacity) and the codes
+        """Device bytes held by the matrix (at its padded capacity; none
+        with host storage) and by the codes when they are on the device
         (packed bytes for int4; alpha, csq and the refine sidecar are not
-        counted, as in the JAX package)."""
+        counted). This is the port's own layout, not the JAX package's
+        figure: the port keeps the codes at quant.count rows, where JAX
+        pads them to the matrix capacity, so JAX reports (capacity -
+        count) x code width bytes more."""
         total = 0
         vecs, quant = self._vectors, self._quant
         if vecs is not None:
             total += vecs.numel() * vecs.element_size()
-        if quant is not None and quant.codes is not None:
+        if quant is not None and _on_device(quant.codes):
             total += quant.codes.numel()
         return total
 
@@ -319,36 +548,95 @@ class Dataset:
         self._next_rowid = max(self._next_rowid, int(new_ids.max()) + 1)
 
         start, end = self._count, self._count + n_new
-        rows = from_numpy(arr, self.device)
-        self._note_nonfinite(rows)
-        cap = 0 if self._vectors is None else self._vectors.shape[0]
-        if end > cap:
-            # amortized capacity doubling: one copy of the live rows per
-            # doubling, installed with ONE reference assignment
-            grown = torch.zeros(
-                (_next_capacity(end), self.dimension),
-                dtype=TORCH_DTYPE[self.dtype],
-                device=self.device,
-            )
-            if start:
-                grown[:start] = self._vectors[:start]
-            self._vectors = grown
-        # in place: a search reads only the rows below the count it
-        # snapshotted (it scans matrix[:count]), so writing rows >= count
-        # cannot disturb one; the count is published after the rows land
-        self._vectors[start:end] = rows
+        if self._storage == "host":
+            self._note_nonfinite_host(arr)
+            self._host_append(arr)
+        else:
+            rows = self._rows_to_device(arr)
+            self._note_nonfinite(rows)
+            cap = 0 if self._vectors is None else self._vectors.shape[0]
+            if end > cap:
+                # amortized capacity doubling: one copy of the live rows per
+                # doubling, installed with ONE reference assignment
+                grown = torch.zeros(
+                    (_next_capacity(end), self.dimension),
+                    dtype=TORCH_DTYPE[self.dtype],
+                    device=self.device,
+                )
+                if start:
+                    grown[:start] = self._vectors[:start]
+                self._vectors = grown
+            # in place: a search reads only the rows below the count it
+            # snapshotted (it scans matrix[:count]), so writing rows >= count
+            # cannot disturb one; the count is published after the rows land
+            self._vectors[start:end] = rows
         self._ids = np.concatenate([self._ids[:start], new_ids])
         self._dead = np.concatenate([self._dead[:start], np.zeros(n_new, bool)])
         self._invalidate_row_caches()
         self._count = end
+        self._rows_changed()
+        return new_ids
+
+    def _rows_changed(self) -> None:
+        """Bookkeeping of every row mutation (under the lock)."""
         self._mutation_gen += 1
+        self._data_token = os.urandom(16).hex()
         if self._quant is not None:
             self._quant.stale = True
-        return new_ids
+
+    def _rows_to_device(self, arr: np.ndarray) -> torch.Tensor:
+        """Host-form rows as a device tensor of the dataset dtype."""
+        if self.dtype is VectorType.BF16:
+            return bits_to_device(arr, self.device)
+        return from_numpy(arr, self.device)
+
+    def _query_to_device(self, q: np.ndarray) -> torch.Tensor:
+        """Coerced queries (float32 values for bfloat16) as a device tensor
+        of the dataset dtype."""
+        return from_numpy(q, self.device).to(TORCH_DTYPE[self.dtype])
 
     def _note_nonfinite(self, rows: torch.Tensor) -> None:
         if self.dtype in _FLOAT_TYPES and not self._has_nonfinite:
             self._has_nonfinite = not bool(torch.isfinite(rows).all())
+
+    def _note_nonfinite_host(self, arr: np.ndarray) -> None:
+        if not self._has_nonfinite:
+            self._has_nonfinite = _scan_nonfinite(arr, self.dtype, arr.shape[0])
+
+    def _host_writable(self) -> bool:
+        hv = self._host_vectors
+        return isinstance(hv, np.ndarray) and hv.flags.writeable
+
+    def _can_compact(self) -> bool:
+        """Read-only host mirrors (memory maps, ShardedRows) never compact:
+        that would copy the whole matrix into RAM. Their tombstones stay,
+        and quantize and save filter them chunk by chunk."""
+        return self._storage != "host" or self._host_writable()
+
+    def _host_append(self, arr: np.ndarray) -> None:
+        """Amortized host-mirror append (capacity doubling). A read-only
+        mirror is first copied into a writable one (O(matrix))."""
+        need = self._count + arr.shape[0]
+        cap = self._host_vectors.shape[0] if self._host_writable() else -1
+        if need > cap:
+            grown = np.zeros(
+                (max(_next_capacity(need), cap * 2), self.dimension),
+                self.dtype.host_dtype,
+            )
+            grown[: self._count] = self._host_vectors[: self._count]
+            self._host_vectors = grown
+        self._host_vectors[self._count : need] = arr
+
+    def _attach_host(self, vecs: Any, ids: np.ndarray) -> None:
+        """Adopt a host-form array (numpy, memmap, ShardedRows) as the
+        host mirror, without a copy."""
+        self._host_vectors = vecs
+        self._ids = np.asarray(ids, np.int64)
+        self._dead = np.zeros((len(self._ids),), bool)
+        self._n_dead = 0
+        self._invalidate_row_caches()
+        self._count = len(self._ids)
+        self._next_rowid = int(self._ids.max()) + 1 if len(self._ids) else 1
 
     def _invalidate_row_caches(self) -> None:
         self._id_pos_cache = None
@@ -366,7 +654,9 @@ class Dataset:
         **kwargs: Any,
     ) -> "Dataset":
         """Bulk construction from a [N, dim] host array of the dataset
-        dtype (the rows are uploaded to the device)."""
+        dtype: uploaded to the device (storage="hbm"), or with
+        storage="host" ADOPTED as the host mirror without a copy (numpy,
+        memmap or ShardedRows; bfloat16 read as its bits)."""
         dim = int(vectors.shape[1])
         if isinstance(options, VectorOptions):
             opts = dataclasses.replace(options)
@@ -379,17 +669,24 @@ class Dataset:
                 f"Invalid vector dimension: expected {opts.dimension} but "
                 f"found {dim}."
             )
-        if vectors.dtype != opts.type.np_dtype:
+        if vectors.dtype.name != _DTYPE_NAME[opts.type]:
             raise VectorConfigError(
                 f"from_arrays: array dtype {vectors.dtype} does not match "
                 f"the dataset type {opts.type.value}; cast first or use add()."
             )
         ds = cls(name, opts, **kwargs)
         n = vectors.shape[0]
-        ids = np.arange(1, n + 1, dtype=np.int64) if ids is None else ids
-        if np.asarray(ids).shape != (n,):
+        ids = np.arange(1, n + 1, dtype=np.int64) if ids is None else np.asarray(ids, np.int64)
+        if ids.shape != (n,):
             raise VectorConfigError("ids must have one entry per vector")
-        if n:
+        if ds._storage == "host":
+            if len(np.unique(ids)) != n:
+                raise VectorConfigError("from_arrays: duplicate ids")
+            if opts.type is VectorType.BF16:
+                vectors = vectors.view(np.uint16)
+            ds._has_nonfinite = _scan_nonfinite(vectors, opts.type, n)
+            ds._attach_host(vectors, ids)
+        elif n:
             ds.add(vectors, ids)
         return ds
 
@@ -426,8 +723,12 @@ class Dataset:
                 raise VectorStateError(
                     f"get: unknown row id {e.args[0]}"
                 ) from None
-            index = torch.tensor(pos, dtype=torch.int64, device=self.device)
-            return _to_host(self._vectors[index], self.dtype)
+            if self._storage == "host":
+                rows = np.array(self._host_vectors[np.asarray(pos, np.int64)])
+            else:
+                index = torch.tensor(pos, dtype=torch.int64, device=self.device)
+                rows = _rows_to_host(self._vectors[index], self.dtype)
+            return _user_rows(rows, self.dtype)
 
     def _id_to_pos(self) -> dict[int, int]:
         """Lazy id -> row position map over the LIVE rows, invalidated on
@@ -465,29 +766,36 @@ class Dataset:
         self._dead = dead
         self._n_dead += removed
         self._invalidate_row_caches()
-        self._mutation_gen += 1
-        if self._quant is not None:
-            self._quant.stale = True
+        self._rows_changed()
         # the JAX package's threshold, so positions (and with them the order
         # among equal distances) agree with it after any sequence of calls
-        if self._n_dead >= max(1024, cnt // 4) or self._n_dead == cnt:
+        if self._can_compact() and (self._n_dead >= max(1024, cnt // 4) or self._n_dead == cnt):
             self._compact_locked()
         return removed
 
     def compact(self) -> int:
         """Physically drop tombstoned rows now (instead of waiting for the
         threshold). Returns the number of rows dropped; no-op without
-        tombstones."""
+        tombstones. Raises on a read-only host mirror (memory maps), whose
+        tombstones quantize and save filter instead."""
         with self._mutate_lock:
             dropped = self._n_dead
+            if dropped and not self._can_compact():
+                raise VectorStateError(
+                    "compact: this dataset's host mirror is a read-only "
+                    "mmap/shard view — compaction would materialize the "
+                    "matrix. save() to a new directory instead (it filters "
+                    "tombstones shard-wise)."
+                )
             self._compact_locked()
             return dropped
 
     def _compact_locked(self) -> None:
-        """Gather the live rows of the device matrix into a fresh one: one
-        upload of the row index, no re-upload of rows. A concurrent search
-        keeps the matrix it snapshotted; the layout generation, bumped
-        last, makes one that raced this re-run."""
+        """Drop the tombstoned rows: on the device, gather the live rows of
+        the matrix into a fresh one (one upload of the row index, no
+        re-upload of rows); with host storage, compact the host mirror. A
+        concurrent search keeps the matrix it snapshotted; the layout
+        generation, bumped last, makes one that raced this re-run."""
         if self._n_dead == 0:
             return
         cnt = self._count
@@ -495,7 +803,11 @@ class Dataset:
         kept = np.flatnonzero(keep)
         n = len(kept)
         cap = _next_capacity(n)
-        if n:
+        if self._storage == "host":
+            rows = np.zeros((cap, self.dimension), self.dtype.host_dtype)
+            rows[:n] = self._host_vectors[kept]
+            self._host_vectors = rows
+        elif n:
             index = np.zeros((cap,), np.int64)  # rows past n: copies of row 0
             index[:n] = kept
             self._vectors = self._vectors.index_select(0, from_numpy(index, self.device))
@@ -509,6 +821,7 @@ class Dataset:
         self._invalidate_row_caches()
         self._count = n
         self._mutation_gen += 1
+        self._data_token = os.urandom(16).hex()
         self._layout_gen += 1  # positions moved
 
     def update(
@@ -540,19 +853,31 @@ class Dataset:
         # indices has no defined order)
         last = {int(p): i for i, p in enumerate(pos)}
         sel = np.fromiter(last.values(), np.int64, count=len(last))
-        rows = from_numpy(arr[sel], self.device)
-        self._note_nonfinite(rows)
-        matrix = self._vectors.clone()
-        matrix[from_numpy(pos[sel], self.device)] = rows
-        self._vectors = matrix
-        self._mutation_gen += 1
-        if self._quant is not None:
-            self._quant.stale = True
+        if self._storage == "host":
+            if not self._host_writable():
+                # memory-mapped / shard view: materialize a writable copy
+                self._host_vectors = np.array(self._host_vectors[0 : self._host_vectors.shape[0]])
+            self._note_nonfinite_host(arr[sel])
+            self._host_vectors[pos[sel]] = arr[sel]
+        else:
+            rows = self._rows_to_device(arr[sel])
+            self._note_nonfinite(rows)
+            matrix = self._vectors.clone()
+            matrix[from_numpy(pos[sel], self.device)] = rows
+            self._vectors = matrix
+        self._rows_changed()
         return int(ids.size)
 
     def _coerce_batch(self, vectors: Any) -> np.ndarray:
+        """Rows [N, dim] in the host form of the dataset dtype (bfloat16
+        as uint16 bits, rounded to nearest even)."""
         dim = self.dimension
-        np_dtype = self.dtype.np_dtype
+        if self.dtype is VectorType.BF16:
+            cast = bf16_bits
+        else:
+            np_dtype = self.dtype.np_dtype
+            def cast(a):
+                return a.astype(np_dtype, copy=False)
         if isinstance(vectors, (str, bytes, bytearray, memoryview)):
             vectors = [vectors]
         if isinstance(vectors, np.ndarray) and vectors.ndim in (1, 2):
@@ -561,7 +886,7 @@ class Dataset:
                 raise VectorCodecError(
                     f"Invalid vector dimension: expected {dim} but found {arr.shape[1]}."
                 )
-            return np.ascontiguousarray(arr.astype(np_dtype, copy=False))
+            return np.ascontiguousarray(cast(arr))
         rows = []
         for v in vectors:
             if isinstance(v, str):
@@ -575,8 +900,10 @@ class Dataset:
                         f"Invalid vector dimension: expected {dim} but found "
                         f"{a.shape[-1] if a.ndim else 'a scalar'}."
                     )
-                rows.append(a.astype(np_dtype, copy=False))
-        return np.stack(rows) if rows else np.zeros((0, dim), np_dtype)
+                rows.append(a)
+        if not rows:
+            return np.zeros((0, dim), self.dtype.host_dtype)
+        return np.stack([cast(r) for r in rows])
 
     # -- row masks -----------------------------------------------------------
 
@@ -625,10 +952,20 @@ class Dataset:
         # pad so indexing with clipped positions stays in bounds
         return quant.ids if len(quant.ids) else np.full((1,), -1, np.int64)
 
+    def _streams(self, mode: str, quant: _QuantState | None) -> bool:
+        """Whether the search's scan streams from the host: exact and
+        approx on host storage, the code scans while the codes are on the
+        host (before preload())."""
+        if mode in ("exact", "approx"):
+            return self._storage == "host"
+        return quant is not None and quant.codes is not None and not _on_device(quant.codes)
+
     def _search_mask(
-        self, mode: str, quant: _QuantState | None, ids_filter: Any
-    ) -> torch.Tensor | None:
-        """The search's row mask on the device, or None.
+        self, mode: str, quant: _QuantState | None, ids_filter: Any, on_host: bool = False
+    ) -> torch.Tensor | np.ndarray | None:
+        """The search's row mask on the device (a numpy array with
+        on_host, for the streamed scans, which send it tile by tile), or
+        None.
 
         ids_filter has two index spaces: exact and approx scan the live
         rows, quantized, refine and rerank stage 1 the quantize-time
@@ -638,6 +975,22 @@ class Dataset:
         id remap. The filter is matched with torch.isin against a cached
         device copy of the ids: the same mask as np.isin."""
         live_space = mode in ("exact", "approx")
+        if on_host:
+            mask = None
+            if ids_filter is not None:
+                flt = np.asarray(ids_filter, np.int64).reshape(-1)
+                if live_space:
+                    mask = np.isin(self._ids[: self._count], flt)
+                else:
+                    count = quant.count if quant else 0
+                    mask = np.isin(self._quant_id_map(quant)[:count], flt)
+            live = self._live_row_mask() if live_space else None
+            if live is not None:
+                if mask is None:
+                    return live
+                m = min(len(mask), len(live))
+                mask = mask[:m] & live[:m]
+            return mask
         mask = None
         if ids_filter is not None:
             flt = from_numpy(np.asarray(ids_filter, np.int64).reshape(-1), self.device)
@@ -661,19 +1014,23 @@ class Dataset:
     # -- queries --------------------------------------------------------------
 
     def _coerce_queries(self, queries: Any) -> tuple[np.ndarray, bool]:
-        """Returns (queries [B, dim] in the dataset dtype, was_single)."""
+        """Returns (queries [B, dim] in the dataset dtype, was_single);
+        bfloat16 queries are rounded to it and held as float32 values."""
         dim = self.dimension
         if isinstance(queries, str):
-            return vector_from_json(queries, self.dtype, dim)[None, :], True
-        if isinstance(queries, (bytes, bytearray, memoryview)):
-            return blob_to_array(bytes(queries), self.dtype, dim)[None, :], True
-        arr = np.asarray(queries)
-        single = arr.ndim == 1
-        arr = np.atleast_2d(arr)
-        if arr.shape[1] != dim:
-            raise VectorCodecError(
-                f"Invalid vector dimension: expected {dim} but found {arr.shape[1]}."
-            )
+            arr, single = vector_from_json(queries, self.dtype, dim)[None, :], True
+        elif isinstance(queries, (bytes, bytearray, memoryview)):
+            arr, single = blob_to_array(bytes(queries), self.dtype, dim)[None, :], True
+        else:
+            arr = np.asarray(queries)
+            single = arr.ndim == 1
+            arr = np.atleast_2d(arr)
+            if arr.shape[1] != dim:
+                raise VectorCodecError(
+                    f"Invalid vector dimension: expected {dim} but found {arr.shape[1]}."
+                )
+        if self.dtype is VectorType.BF16:
+            return bits_to_f32(bf16_bits(arr)), single
         return arr.astype(self.dtype.np_dtype), single
 
     def search(
@@ -706,6 +1063,11 @@ class Dataset:
         candidates and rescores them against the int8 sidecar (requires
         quantize(qtype="int4", refine=True)). Positions of the quantized
         and refine modes index the quantize-time snapshot.
+
+        With host storage the exact and approx scans stream the rows
+        through the device, and the code scans stream the codes until
+        preload(); refine needs preload(), and rerank gathers its
+        candidates' rows from the host mirror.
         """
         if k < 0:
             raise VectorConfigError("k must be >= 0")
@@ -737,7 +1099,7 @@ class Dataset:
             # ONE quant snapshot: the mask's index space, the scanned codes
             # and the id map agree
             quant = self._quant
-            mask = self._search_mask(mode, quant, ids_filter)
+            mask = self._search_mask(mode, quant, ids_filter, self._streams(mode, quant))
             cosine_fast = mode in ("exact", "approx") and self._cosine_dot_fast(q)
             if mode in ("exact", "approx"):
                 if mode == "approx" and not 0.0 < recall_target <= 1.0:
@@ -813,8 +1175,12 @@ class Dataset:
         # the count holds those rows (a compaction that shrank the matrix
         # meanwhile is caught by the layout generation)
         count = self._count
+        qd = self._query_to_device(q)
+        if self._storage == "host":
+            return streaming_scan_topk(
+                qd, self._host_vectors, metric, k, valid_count=count, row_mask=mask
+            )
         base = self._vectors[:count]
-        qd = from_numpy(q, self.device)
         return fused_scan_topk(
             qd, base, metric, k, row_mask=_fit_mask(mask, base.shape[0])
         )
@@ -822,6 +1188,18 @@ class Dataset:
     def _search_quantized(self, q: np.ndarray, k: int, mask, quant: _QuantState | None):
         quant = self._require_quant("vector_quantize_scan", quant)
         qf = from_numpy(q.astype(np.float32), self.device)
+        if not _on_device(quant.codes):
+            # host codes stream per query until preload() (the reference's
+            # preloaded-vs-disk split)
+            if quant.qtype is QuantType.I4:
+                return int4_streaming_scan_topk(
+                    qf, quant.codes, quant.row_scale, quant.sq_norms, self.metric, k,
+                    dim=self.dimension, valid_count=quant.count, row_mask=mask,
+                )
+            qq = quantize_device(qf, quant.scale, quant.offset, quant.qtype)
+            return streaming_scan_topk(
+                qq, quant.codes, self.metric, k, valid_count=quant.count, row_mask=mask
+            )
         row_mask = _fit_mask(mask, quant.count)
         if quant.qtype is QuantType.I4:
             # per-query int8 codes are built inside the int4 scan
@@ -845,6 +1223,12 @@ class Dataset:
                 "refine sidecar — run quantize(qtype='int4', refine=True) "
                 "first."
             )
+        if not (_on_device(quant.codes) and _on_device(quant.codes8)):
+            raise VectorStateError(
+                "refine: codes are host-resident — call preload() first "
+                "(refine is a device-side two-stage search; streaming it "
+                "through the host would defeat its no-round-trip contract)."
+            )
         return int4_refine_topk(
             from_numpy(q.astype(np.float32), self.device),
             quant.codes, quant.row_scale, quant.sq_norms, quant.codes8,
@@ -864,9 +1248,12 @@ class Dataset:
         in snapshot space), its snapshot positions map to live positions
         through the ids under the mutation lock (removed rows drop out),
         and ops.rerank.rescore_live_rows rescores the gathered live rows on
-        the device. last_rerank_decomposition records the stages' seconds
-        (the remap's gather runs inside its rescore, so host_gather_s is
-        0.0 there; the fused route reports everything under stage1_s)."""
+        the device. With host storage the candidates' rows come from the
+        host mirror in one sorted-unique gather, and are rescored on the
+        device. last_rerank_decomposition records the stages' seconds
+        (on the device the remap's gather runs inside its rescore, so
+        host_gather_s is 0.0 there; the fused route reports everything
+        under stage1_s)."""
         quant = self._require_quant("rerank", quant)
         count = self._count
         qf = from_numpy(q.astype(np.float32), self.device)
@@ -876,6 +1263,8 @@ class Dataset:
             and mask is None
             and quant.qtype is not QuantType.I4
             and quant.count == count
+            and self._vectors is not None
+            and _on_device(quant.codes)
         ):
             t0 = time.perf_counter()
             qq = quantize_device(qf, quant.scale, quant.offset, quant.qtype)
@@ -911,15 +1300,31 @@ class Dataset:
                     np.int64, count=int(ok.sum()),
                 )
             pos = pos.reshape(b, ke)
-            vecs = self._vectors
-        t2 = time.perf_counter()
-        vals, out = rescore_live_rows(qf, vecs, from_numpy(pos, self.device), self.metric, k)
-        _sync(self.device)
+            t2 = time.perf_counter()
+            if self._storage == "host":
+                # the ONE host gather for the batch, sorted-unique (page
+                # cache friendly on a memory map); positions become indices
+                # into the gathered rows
+                keep = pos >= 0
+                uniq, inv = np.unique(pos[keep], return_inverse=True)
+                rows = np.asarray(self._host_vectors[uniq if len(uniq) else np.zeros(1, np.int64)])
+                vecs = self._rows_to_device(rows)
+                local = np.full(pos.shape, -1, np.int64)
+                local[keep] = inv.reshape(-1)
+            else:
+                uniq, vecs, local = None, self._vectors, pos
         t3 = time.perf_counter()
+        vals, out = rescore_live_rows(qf, vecs, from_numpy(local, self.device), self.metric, k)
+        if uniq is not None:
+            uniq_dev = from_numpy(uniq if len(uniq) else np.zeros(1, np.int64), self.device)
+            out = torch.where(out >= 0, uniq_dev[out.clamp(min=0)], -1)
+        _sync(self.device)
+        t4 = time.perf_counter()
         self.last_rerank_decomposition = {
             "batch": b, "k": k, "expand": expand,
             "stage1_s": t1 - t0, "translate_s": t2 - t1,
-            "host_gather_s": 0.0, "rescore_s": t3 - t2,
+            "host_gather_s": t3 - t2 if uniq is not None else 0.0,
+            "rescore_s": t4 - t3,
             "gathered_rows": int(np.unique(pos[pos >= 0]).size),
         }
         return vals, out
@@ -955,24 +1360,37 @@ class Dataset:
                     "Dataset.distances over non-finite rows or queries", "nonfinite"
                 )
             count = self._count
-            base = self._vectors[:count]
-            d = scan_distances(from_numpy(q, self.device), base, self.metric)
-            live = self._live_mask_dev()
-            if live is not None and live.shape[0] == base.shape[0]:
-                d = d[:, live]  # drop tombstoned columns
+            qd = self._query_to_device(q)
+            if self._storage == "host":
+                d = streaming_scan_distances(qd, self._host_vectors, self.metric, valid_count=count)
+                live = self._live_row_mask()
+                if live is not None and len(live) == count:
+                    d = d[:, live]  # drop tombstoned columns
+            else:
+                base = self._vectors[:count]
+                d = scan_distances(qd, base, self.metric)
+                live = self._live_mask_dev()
+                if live is not None and live.shape[0] == base.shape[0]:
+                    d = d[:, live]  # drop tombstoned columns
         else:
             quant = self._require_quant("vector_quantize_scan_stream", self._quant)
+            qf = from_numpy(q.astype(np.float32), self.device)
+            host = not _on_device(quant.codes)
             if quant.qtype is QuantType.I4:
-                d = int4_scan_distances(
-                    from_numpy(q.astype(np.float32), self.device), quant.codes,
-                    quant.row_scale, quant.sq_norms, self.metric, dim=self.dimension,
-                )
+                args = (qf, quant.codes, quant.row_scale, quant.sq_norms, self.metric)
+                if host:
+                    d = int4_streaming_scan_distances(
+                        *args, dim=self.dimension, valid_count=quant.count
+                    )
+                else:
+                    d = int4_scan_distances(*args, dim=self.dimension)
             else:
-                qq = quantize_device(
-                    from_numpy(q, self.device), quant.scale, quant.offset, quant.qtype
-                )
-                d = scan_distances(qq, quant.codes, self.metric)
-        out = d.cpu().numpy()
+                qq = quantize_device(qf, quant.scale, quant.offset, quant.qtype)
+                if host:
+                    d = streaming_scan_distances(qq, quant.codes, self.metric, valid_count=quant.count)
+                else:
+                    d = scan_distances(qq, quant.codes, self.metric)
+        out = d if isinstance(d, np.ndarray) else d.cpu().numpy()
         return out[0] if single else out
 
     # -- quantization ---------------------------------------------------------
@@ -995,13 +1413,22 @@ class Dataset:
         search(mode="refine"). Codes are bit-equal to the JAX package's.
 
         Tombstoned rows are compacted away first, so codes never cover a
-        removed row. The build runs outside the mutation lock from one
-        snapshot of the rows (no mutator writes rows below a snapshotted
-        count in place); a mutation that lands during it marks the new
-        codes stale.
+        removed row (a read-only host mirror keeps its tombstones, and the
+        host build filters them chunk by chunk). The build runs outside the
+        mutation lock from one snapshot of the rows (no mutator writes rows
+        below a snapshotted count in place); a mutation that lands during
+        it marks the new codes stale.
+
+        With host storage the codes are built in numpy over row chunks of
+        HOST_CHUNK_ELEMS elements (one chunk of peak RAM, bit-equal to the
+        device build) and stay on the host until preload(). `checkpoint`
+        (host storage; ignored on the device, as in the JAX package) names
+        a directory for a RESUMABLE build: params and per-chunk progress
+        persist there and the codes go into on-disk memmaps, so a crashed
+        build resumes at its first unfinished chunk; a build of other rows
+        (another data token, count, dim, chunk size or requested qtype)
+        starts over.
         """
-        if checkpoint is not None:
-            raise _unported("quantize(checkpoint=...)", "persistence")
         opts = parse_options(options, self.options)
         if qtype is not None:
             opts.qtype = (
@@ -1013,15 +1440,18 @@ class Dataset:
                 "the int8 rescore stage of the int4 two-stage search."
             )
         with self._mutate_lock:
-            self._compact_locked()
+            if self._can_compact():
+                self._compact_locked()
             gen0 = self._mutation_gen
             count = self._count
             ids = self._ids[:count].copy()
-            vecs = None if count == 0 else self._vectors[:count]
-        if count == 0:
-            # reference: zero rows still records resolved params
-            resolved = QuantType.U8 if opts.qtype is QuantType.AUTO else opts.qtype
-            state = _QuantState(resolved, np.float32(1.0), np.float32(0.0), None, 0, ids)
+            live = self._live_row_mask()
+            host, token = self._host_vectors, self._data_token
+            vecs = None if count == 0 or host is not None else self._vectors[:count]
+        if host is not None:
+            state = self._quantize_host(opts, checkpoint, refine, host, count, ids, live, token)
+        elif count == 0:
+            state = _empty_quant(opts.qtype)
         elif opts.qtype is QuantType.I4:
             packed, alpha, csq = quantize4_device(vecs)
             state = _QuantState(
@@ -1044,7 +1474,7 @@ class Dataset:
             # contract as mutating after quantize()
             state.stale = self._mutation_gen != gen0
             self._quant = state
-        return count
+        return state.count
 
     def _encode8(self, vecs: torch.Tensor, scale, offset, qtype: QuantType) -> torch.Tensor:
         """int8/uint8 codes of `vecs`, in row chunks that bound the float32
@@ -1052,10 +1482,150 @@ class Dataset:
         codes = torch.empty(
             vecs.shape, dtype=QUANT_TORCH_DTYPE[qtype], device=self.device
         )
-        rows = max(1, _QUANT_CHUNK_ELEMS // self.dimension)
+        rows = max(1, HOST_CHUNK_ELEMS // self.dimension)
         for s in range(0, vecs.shape[0], rows):
             codes[s : s + rows] = quantize_device(vecs[s : s + rows], scale, offset, qtype)
         return codes
+
+    # -- the host build (host storage) -----------------------------------------
+
+    def _quantize_host(
+        self, opts: VectorOptions, checkpoint: str | None, refine: bool,
+        host: Any, count: int, ids: np.ndarray, live: np.ndarray | None, token: str,
+    ) -> _QuantState:
+        """The chunked build over one snapshot of the host mirror (the
+        JAX package's _quantize_host, with the same checkpoint files): each
+        chunk of rows goes to the device, is quantized there by the device
+        build's functions (so the codes are the device build's, bit for
+        bit) and comes back; pass 1 folds the global min/max, pass 2 writes
+        the codes chunk by chunk, resuming after the chunks a matching
+        checkpoint records as done. Tombstoned rows are dropped chunk by
+        chunk, so the codes come out compacted."""
+        dim = self.dimension
+        chunk_rows = max(1, HOST_CHUNK_ELEMS // max(dim, 1))
+        starts = range(0, count, chunk_rows)
+        offs = None
+        if live is not None:
+            live = live[:count]
+            offs = np.zeros(count + 1, np.int64)
+            np.cumsum(live, out=offs[1:])
+            ids = ids[live]
+        out_count = len(ids)
+        if out_count == 0:
+            return _empty_quant(opts.qtype)
+
+        def chunk(s: int) -> torch.Tensor:
+            """Chunk s's live rows on the device, as float32."""
+            c = np.asarray(host[s : min(s + chunk_rows, count)])
+            return self._rows_to_device(c[live[s : s + len(c)]] if live is not None else c).float()
+
+        def span(s: int) -> tuple[int, int]:
+            """Where chunk s's codes go (compacted)."""
+            e = min(s + chunk_rows, count)
+            return (int(offs[s]), int(offs[e])) if offs is not None else (s, e)
+
+        build = _HostBuild(checkpoint, count, out_count, dim, chunk_rows, opts.qtype, token)
+        if opts.qtype is QuantType.I4:
+            return self._quantize_host_i4(build, chunk, span, starts, ids, refine)
+        meta = build.load("quant_checkpoint.json", {"qcodes.npy": (out_count, dim)})
+        if meta is None:
+            rqtype, scale, offset = _params_pass(chunk, starts, opts.qtype)
+            meta = build.start(
+                "quant_checkpoint.json", rqtype, scale, offset,
+                {"qcodes.npy": (rqtype.np_dtype, (out_count, dim))},
+            )
+        else:
+            rqtype = QuantType.from_name(meta["qtype"])
+            scale, offset = np.float32(meta["scale"]), np.float32(meta["offset"])
+        (codes,) = build.arrays
+        for ci, s in enumerate(starts):
+            if ci < meta["done"]:
+                continue
+            c = chunk(s)
+            ws, we = span(s)
+            if len(c):
+                codes[ws:we] = quantize_device(c, scale, offset, rqtype).cpu().numpy()
+            build.done(ci + 1)
+        return _QuantState(rqtype, scale, offset, codes, out_count, ids)
+
+    def _quantize_host_i4(self, build, chunk, span, starts, ids, refine: bool) -> _QuantState:
+        """The int4 host build: packed codes, per-row alpha and csq in one
+        pass (per-row params need no params pass). With refine, the int8
+        sidecar's global min/max accumulate in the same loop and persist
+        with each chunk's progress; stats cover every chunk only if the
+        loop ran from chunk 0 or resumed them, else the sidecar makes its
+        own params pass."""
+        out_count, dim = build.out_count, build.dim
+        p = packed_width(dim)
+        files = {"qcodes.npy": (out_count, p), "qrow_scale.npy": (out_count,), "qcsq.npy": (out_count,)}
+        meta = build.load("quant_checkpoint.json", files)
+        if meta is None:
+            meta = build.start(
+                "quant_checkpoint.json", QuantType.I4, 1.0, 0.0,
+                {"qcodes.npy": (np.uint8, (out_count, p)),
+                 "qrow_scale.npy": (np.float32, (out_count,)),
+                 "qcsq.npy": (np.int32, (out_count,))},
+            )
+        codes, rscale, csq = build.arrays
+        done = meta["done"]
+        stats = meta.get("refine_stats") if refine else None
+        stats_valid = refine and (done == 0 or stats is not None)
+        if not stats_valid:
+            stats = None
+            # partial stats of another build must never be trusted later
+            meta.pop("refine_stats", None)
+        for ci, s in enumerate(starts):
+            if ci < done:
+                continue
+            c = chunk(s)
+            ws, we = span(s)
+            if len(c):
+                pk, al, cs = quantize4_device(c)
+                codes[ws:we], rscale[ws:we], csq[ws:we] = pk.cpu().numpy(), al.cpu().numpy(), cs.cpu().numpy()
+            if stats_valid:
+                stats = fold_stats(stats, c)
+                meta["refine_stats"] = stats
+            build.done(ci + 1)
+        state = _QuantState(
+            QuantType.I4, np.float32(1.0), np.float32(0.0), codes, out_count, ids,
+            row_scale=rscale, sq_norms=csq,
+        )
+        if refine:
+            if stats_valid and stats is None:
+                stats = fold_stats(None, torch.empty((0,)))
+            self._build_refine_sidecar_host(state, build, chunk, span, starts, stats if stats_valid else None)
+        return state
+
+    def _build_refine_sidecar_host(self, state, build, chunk, span, starts, stats) -> None:
+        """The int8 sidecar of the host int4 build: one more chunked pass,
+        positionally aligned with the packed rows, checkpointed in
+        refine8.npy under the same rules. `stats` (the int4 loop's min/max)
+        spares the params pass; None re-streams the chunks for it."""
+        sub = build.sidecar()
+        meta = sub.load("refine8_checkpoint.json", {"refine8.npy": (build.out_count, build.dim)}, requested=False)
+        if meta is None:
+            if stats is not None:
+                rq8, s8, o8 = quant_params_from_stats(QuantType.AUTO, stats)
+            else:
+                rq8, s8, o8 = _params_pass(chunk, starts, QuantType.AUTO)
+            meta = sub.start(
+                "refine8_checkpoint.json", rq8, s8, o8,
+                {"refine8.npy": (rq8.np_dtype, (build.out_count, build.dim))}, requested=False,
+            )
+        else:
+            rq8 = QuantType.from_name(meta["qtype"])
+            s8, o8 = np.float32(meta["scale"]), np.float32(meta["offset"])
+        (codes8,) = sub.arrays
+        for ci, s in enumerate(starts):
+            if ci < meta["done"]:
+                continue
+            c = chunk(s)
+            ws, we = span(s)
+            if len(c):
+                codes8[ws:we] = quantize_device(c, s8, o8, rq8).cpu().numpy()
+            sub.done(ci + 1)
+        state.codes8, state.qtype8 = codes8, rq8
+        state.scale8, state.offset8 = np.float32(s8), np.float32(o8)
 
     def quantize_memory(self) -> int:
         """Bytes of the quantized representation, as the JAX package counts
@@ -1072,10 +1642,42 @@ class Dataset:
         return quant.count * (8 + self.dimension)
 
     def preload(self) -> None:
-        """Pin the quantized codes on the device (vector_quantize_preload).
-        Device-storage codes are built on the device, so this only checks
-        that a quantization exists."""
-        self._require_quant("vector_quantize_preload", self._quant)
+        """Pin the quantized codes on the device (vector_quantize_preload,
+        src/sqlite-vector.c:1338-1404). Device-storage codes are built on
+        the device, so there it only checks that a quantization exists.
+        Host-resident codes (host storage) are uploaded in chunks, with
+        alpha, csq and the refine sidecar; quantized scans then stop
+        streaming, and refine becomes available."""
+        quant = self._require_quant("vector_quantize_preload", self._quant)
+        if _on_device(quant.codes):
+            return
+        n = quant.count
+        pinned = dataclasses.replace(quant, codes=self._upload(quant.codes, n))
+        if quant.qtype is QuantType.I4:
+            pinned.row_scale = from_numpy(np.asarray(quant.row_scale[:n], np.float32), self.device)
+            pinned.sq_norms = from_numpy(np.asarray(quant.sq_norms[:n], np.int32), self.device)
+        if quant.codes8 is not None:
+            pinned.codes8 = self._upload(quant.codes8, n)
+        with self._mutate_lock:
+            if self._quant is quant:  # not replaced meanwhile
+                pinned.stale = quant.stale
+                self._quant = pinned
+
+    def _upload(self, arr, count: int, cap: int | None = None, to_device=None) -> torch.Tensor:
+        """The first `count` rows of a host array (numpy, memmap,
+        ShardedRows) as a [cap, ...] device tensor (zero rows past count),
+        uploaded in chunks of at most _UPLOAD_CHUNK_BYTES: a memory map is
+        never read whole into RAM. `to_device` turns a host chunk into a
+        device tensor (default: from_numpy, dtype kept)."""
+        to_device = to_device or (lambda a: from_numpy(a, self.device))
+        first = to_device(np.asarray(arr[:1]))
+        shape = ((count if cap is None else cap), *first.shape[1:])
+        out = (torch.empty if cap is None else torch.zeros)(shape, dtype=first.dtype, device=self.device)
+        row_bytes = max(1, first.element_size() * int(np.prod(shape[1:], dtype=np.int64)))
+        step = max(1, _UPLOAD_CHUNK_BYTES // row_bytes)
+        for s in range(0, count, step):
+            out[s : min(s + step, count)] = to_device(np.asarray(arr[s : min(s + step, count)]))
+        return out
 
     def drop_quantization(self) -> None:
         """Free the codes (vector_quantize_cleanup, src/sqlite-vector.c:
@@ -1152,6 +1754,330 @@ class Dataset:
             raise VectorConfigError(
                 f"codes dtype {codes.dtype} does not match qtype {qtype.value}"
             )
+
+    # -- persistence ------------------------------------------------------------
+
+    def save(self, directory: str, *, shard_rows: int | None = None, resume: bool = False) -> None:
+        """Persist to a directory in the JAX package's format: manifest.json
+        (version 2), ids.npy, vectors.npy or vectors-NNNNN.npy shards of
+        `shard_rows` rows, and with a quantization qcodes.npy, qids.npy,
+        qrow_scale.npy and qcsq.npy (int4) and qcodes8.npy (the refine
+        sidecar); the analogue of the reference's `_sqliteai_vector` table
+        and vector0_* shadow tables (src/sqlite-vector.c:114, 1000-1026).
+
+        Removed rows are compacted away first, or (read-only host mirror)
+        filtered out shard by shard. bfloat16 rows are stored as their
+        uint16 bits. Rows come to the host at most one shard or one
+        HOST_CHUNK_ELEMS chunk at a time, never the whole matrix.
+
+        Crash discipline: save_in_progress.json lands before any shard and
+        records each shard as it commits; every file commits by temp file
+        and rename; the marker goes after the manifest. `resume=True` skips
+        a shard only when its provenance is proven under this dataset's
+        current data token: by the marker of an interrupted save (a marker
+        of another token disproves everything on disk) or else by the
+        completed manifest. A file's mere existence proves nothing."""
+        with self._mutate_lock:
+            if self._n_dead and self._can_compact():
+                self._compact_locked()  # never persist tombstoned rows
+            # one same-generation snapshot of the row state
+            count, n_dead, ids_arr = self._count, self._n_dead, self._ids
+            live = self._live_row_mask()
+            src = self._host_vectors if self._storage == "host" else self._vectors
+            token, next_rowid, nonfinite = self._data_token, self._next_rowid, self._has_nonfinite
+            quant = self._quant
+        vtype, dim = self.dtype, self.dimension
+
+        def read(start: int, end: int) -> np.ndarray:
+            """Host-form live rows among [start, end)."""
+            if end <= start:
+                return np.zeros((0, dim), vtype.host_dtype)
+            part = (
+                np.asarray(src[start:end]) if self._storage == "host"
+                else _rows_to_host(src[start:end], vtype)
+            )
+            return part[live[start:end]] if live is not None else part
+
+        os.makedirs(directory, exist_ok=True)
+        marker_path = os.path.join(directory, "save_in_progress.json")
+        proven: dict[str, int] = {}
+        if resume:
+            try:
+                with open(marker_path) as f:
+                    marker = json.load(f)
+            except (OSError, ValueError):
+                marker = None
+            if marker is not None:
+                # an interrupted save proves ONLY the shards it recorded;
+                # another token is disproof, with no fall-through to the
+                # manifest (that save may have overwritten its shards)
+                if marker.get("data_token") == token:
+                    proven = {str(k): int(v) for k, v in (marker.get("done_shards") or {}).items()}
+            else:
+                try:
+                    with open(os.path.join(directory, "manifest.json")) as f:
+                        m = json.load(f)
+                    if m.get("data_token") == token:
+                        proven = {str(sh["file"]): int(sh["rows"]) for sh in m.get("vector_shards") or []}
+                except (OSError, ValueError, KeyError, TypeError):
+                    pass
+        done_shards: dict[str, int] = {}
+
+        def commit_marker() -> None:
+            _write_json_atomic(marker_path, {"data_token": token, "done_shards": done_shards})
+
+        commit_marker()
+        manifest = {
+            "name": self.name,
+            "version": 2,
+            "type": vtype.value,
+            "dimension": dim,
+            "distance": self.metric.value,
+            "normalized": self.options.normalized,
+            "max_memory": self.options.max_memory,
+            "count": count - n_dead,
+            "next_rowid": next_rowid,
+            "has_nonfinite": nonfinite,
+            "data_token": token,
+            "quant": None,
+        }
+        ids_live = ids_arr[:count][live[:count]] if live is not None else ids_arr[:count]
+        _atomic_npy_save(os.path.join(directory, "ids.npy"), ids_live)
+        if shard_rows:
+            shards = []
+            for i, start in enumerate(range(0, max(count, 1), shard_rows)):
+                name = f"vectors-{i:05d}.npy"
+                part = read(start, min(start + shard_rows, count))
+                path = os.path.join(directory, name)
+                if not (proven.get(name) == len(part) and os.path.exists(path)):
+                    _atomic_npy_save(path, part)
+                done_shards[name] = len(part)
+                commit_marker()  # a crash after this point proves the shard
+                shards.append({"file": name, "rows": len(part)})
+            manifest["vector_shards"] = shards
+        else:
+            step = max(1, HOST_CHUNK_ELEMS // max(dim, 1))
+            _atomic_npy_chunks(
+                os.path.join(directory, "vectors.npy"), (len(ids_live), dim), vtype.host_dtype,
+                (read(s, min(s + step, count)) for s in range(0, count, step)),
+            )
+        if quant is not None:
+            manifest["quant"] = {
+                "qtype": quant.qtype.value,
+                "scale": float(quant.scale),
+                "offset": float(quant.offset),
+                "count": quant.count,
+                "stale": quant.stale,
+            }
+            n = quant.count
+            files = {"qcodes.npy": quant.codes}
+            if quant.qtype is QuantType.I4:
+                files.update({"qrow_scale.npy": quant.row_scale, "qcsq.npy": quant.sq_norms})
+            if quant.codes8 is not None:
+                manifest["quant"]["refine"] = {
+                    "qtype8": quant.qtype8.value,
+                    "scale8": float(quant.scale8),
+                    "offset8": float(quant.offset8),
+                }
+                files["qcodes8.npy"] = quant.codes8
+            for name, arr in files.items():
+                if arr is not None:
+                    _atomic_npy_save(os.path.join(directory, name), _to_numpy(arr, n))
+            _atomic_npy_save(os.path.join(directory, "qids.npy"), quant.ids)
+        _write_json_atomic(os.path.join(directory, "manifest.json"), manifest, indent=2)
+        try:
+            os.unlink(marker_path)  # the manifest is now the provenance
+        except OSError:
+            pass
+
+    @classmethod
+    def save_stream(
+        cls,
+        directory: str,
+        chunks,
+        *,
+        options: str | VectorOptions | None = None,
+        name: str = "dataset",
+        ids_start: int = 1,
+    ) -> int:
+        """Write a save()-compatible directory from an iterator of
+        [rows, dim] chunks, one shard file per chunk, never holding the
+        matrix whole (for datasets larger than RAM, opened afterwards with
+        load(directory, storage="host", mmap=True)). Row ids run from
+        `ids_start`. Returns the row count. The crash discipline is
+        save()'s: a stream that dies over a completed directory leaves its
+        marker, and load() refuses the mixed state."""
+        opts = dataclasses.replace(options) if isinstance(options, VectorOptions) else parse_options(options)
+        os.makedirs(directory, exist_ok=True)
+        token = os.urandom(16).hex()
+        marker_path = os.path.join(directory, "save_in_progress.json")
+        _write_json_atomic(marker_path, {"data_token": token, "done_shards": {}})
+        vtype = opts.type
+        cast = bf16_bits if vtype is VectorType.BF16 else (lambda a: a.astype(vtype.np_dtype, copy=False))
+        shards, count, dim, nonfinite = [], 0, opts.dimension, False
+        for i, chunk in enumerate(chunks):
+            arr = np.asarray(chunk)
+            if arr.ndim != 2:
+                raise VectorConfigError(f"save_stream: chunk {i} is not a [rows, dim] array")
+            if dim <= 0:
+                dim = int(arr.shape[1])
+            if arr.shape[1] != dim:
+                raise VectorConfigError(
+                    f"Invalid vector dimension: expected {dim} but found {arr.shape[1]}."
+                )
+            arr = cast(arr)
+            nonfinite = nonfinite or _scan_nonfinite(arr, vtype, len(arr))
+            fname = f"vectors-{i:05d}.npy"
+            _atomic_npy_save(os.path.join(directory, fname), arr)
+            shards.append({"file": fname, "rows": int(len(arr))})
+            count += len(arr)
+        if dim <= 0:
+            raise VectorConfigError(
+                "Required 'dimension' option is missing (it must be "
+                "specified in vector_init)."
+            )
+        if not shards:
+            # load() reads an empty shard list as "no shards": write one
+            # empty shard, as save() does
+            _atomic_npy_save(os.path.join(directory, "vectors-00000.npy"), np.zeros((0, dim), vtype.host_dtype))
+            shards.append({"file": "vectors-00000.npy", "rows": 0})
+        _atomic_npy_save(
+            os.path.join(directory, "ids.npy"), np.arange(ids_start, ids_start + count, dtype=np.int64)
+        )
+        manifest = {
+            "name": name,
+            "version": 2,
+            "type": vtype.value,
+            "dimension": dim,
+            "distance": opts.distance.value,
+            "normalized": opts.normalized,
+            "max_memory": opts.max_memory,
+            "count": count,
+            "next_rowid": ids_start + count,
+            "has_nonfinite": nonfinite,
+            "data_token": token,  # the marker's: a leftover marker is this stream
+            "quant": None,
+            "vector_shards": shards,
+        }
+        _write_json_atomic(os.path.join(directory, "manifest.json"), manifest, indent=2)
+        try:
+            os.remove(marker_path)
+        except OSError:
+            pass
+        return count
+
+    @classmethod
+    def load(
+        cls,
+        directory: str,
+        *,
+        device: Any = None,
+        storage: str = "hbm",
+        mmap: bool = False,
+        sharding: Any = None,
+        mesh: Any = None,
+    ) -> "Dataset":
+        """Open a directory written by save() or save_stream() (of either
+        package). storage="hbm" uploads the rows and codes to the device,
+        shard by shard; storage="host" keeps them on the host (the codes,
+        with the refine sidecar, until preload()); mmap=True with host
+        storage attaches the memory-mapped shards with no RAM copy (one
+        shard as-is, several behind hostarray.ShardedRows). The row ids,
+        next rowid, data token and non-finite flag come back as saved.
+        Refuses (ValueError) a directory holding an interrupted save of
+        other content than its manifest describes."""
+        with open(os.path.join(directory, "manifest.json")) as f:
+            manifest = json.load(f)
+        marker_path = os.path.join(directory, "save_in_progress.json")
+        if os.path.exists(marker_path):
+            # an interrupted save of OTHER content may have replaced some
+            # shards: the manifest would stitch two generations together
+            try:
+                with open(marker_path) as f:
+                    marker_token = json.load(f).get("data_token")
+            except (OSError, ValueError):
+                marker_token = None
+            if marker_token != manifest.get("data_token"):
+                raise ValueError(
+                    f"{directory!r} holds an interrupted save of different "
+                    "content than its manifest describes (shard files may "
+                    "be mixed-generation). Re-run Dataset.save() from the "
+                    "source data, or delete save_in_progress.json only if "
+                    "the directory is known consistent."
+                )
+        options = VectorOptions(
+            type=VectorType.from_name(manifest["type"]),
+            dimension=manifest["dimension"],
+            normalized=manifest.get("normalized", False),
+            max_memory=manifest.get("max_memory", 0) or 0,
+            distance=DistanceMetric.from_name(manifest["distance"]),
+        )
+        ds = cls(manifest["name"], options, device=device, storage=storage, sharding=sharding, mesh=mesh)
+        ids = np.load(os.path.join(directory, "ids.npy"))
+        files = [sh["file"] for sh in manifest.get("vector_shards") or []] or ["vectors.npy"]
+        parts = [
+            np.load(os.path.join(directory, f), mmap_mode="r" if mmap or storage == "hbm" else None)
+            for f in files
+        ]
+        if len(ids):
+            vecs = parts[0] if len(parts) == 1 else (
+                ShardedRows(parts) if mmap or storage == "hbm" else np.concatenate(parts)
+            )
+            if storage == "host":
+                ds._attach_host(vecs, ids)
+            else:
+                ds._install_rows(vecs, ids)
+        ds._next_rowid = manifest.get("next_rowid", ds._next_rowid)
+        # the loaded rows ARE the saved content: a checkpointed quantize or
+        # a save resume of that content stays valid across the round trip
+        ds._data_token = manifest.get("data_token", ds._data_token)
+        ds._has_nonfinite = bool(manifest.get("has_nonfinite", False))
+        q = manifest.get("quant")
+        if q:
+            ds._quant = ds._load_quant(directory, q, ids)
+        return ds
+
+    def _install_rows(self, vecs: Any, ids: np.ndarray) -> None:
+        """Upload host-form rows into an empty device-storage dataset."""
+        n = len(ids)
+        self._vectors = self._upload(vecs, n, _next_capacity(n), to_device=self._rows_to_device)
+        self._ids = np.asarray(ids, np.int64)
+        self._dead = np.zeros((n,), bool)
+        self._invalidate_row_caches()
+        self._count = n
+        self._next_rowid = int(self._ids.max()) + 1 if n else 1
+
+    def _load_quant(self, directory: str, q: dict, ids: np.ndarray) -> _QuantState:
+        """The saved quantization: on the host (memory-mapped codes) with
+        host storage, uploaded otherwise."""
+        qtype = QuantType.from_name(q["qtype"])
+        count = int(q["count"])
+
+        def array(name: str, mmap: bool = True):
+            path = os.path.join(directory, name)
+            if not (count and os.path.exists(path)):
+                return None
+            arr = np.load(path, mmap_mode="r" if mmap else None)
+            if self._storage == "host":
+                return arr
+            return self._upload(arr, count)
+
+        qids_path = os.path.join(directory, "qids.npy")
+        qids = np.load(qids_path) if os.path.exists(qids_path) else ids[:count].copy()
+        state = _QuantState(
+            qtype, np.float32(q["scale"]), np.float32(q["offset"]), array("qcodes.npy"),
+            count, qids, stale=q.get("stale", False),
+        )
+        if qtype is QuantType.I4 and state.codes is not None:
+            state.row_scale = array("qrow_scale.npy", mmap=False)
+            state.sq_norms = array("qcsq.npy", mmap=False)
+        r8 = q.get("refine")
+        if r8 and state.codes is not None:
+            state.codes8 = array("qcodes8.npy")
+            if state.codes8 is not None:
+                state.qtype8 = QuantType.from_name(r8["qtype8"])
+                state.scale8, state.offset8 = np.float32(r8["scale8"]), np.float32(r8["offset8"])
+        return state
 
 
 class VectorStore:

@@ -5,6 +5,9 @@ silent substitute.
 usable GPU raises instead of falling back to the CPU, so a run that was
 meant for the card can never report CPU numbers. Tests pass
 `device="cpu"` explicitly.
+
+It also holds the host <-> device conversions of rows, bfloat16's
+included (kept on the host as raw uint16 bits).
 """
 
 from __future__ import annotations
@@ -31,6 +34,34 @@ def resolve_device(device: Any = None) -> torch.device:
             f"Unsupported device '{dev}': expected 'cuda' or 'cpu'."
         )
     return dev
+
+
+def bf16_bits(a: np.ndarray) -> np.ndarray:
+    """bfloat16 values as their raw uint16 bits, the port's host form of
+    bfloat16 rows (numpy has no bfloat16 of its own). A bfloat16 array
+    (ml_dtypes) is reinterpreted; any other is rounded to nearest even,
+    by ml_dtypes where it is installed (the JAX package's rounding, also
+    from float64) and else by torch from float32."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return a.view(np.uint16)
+    try:
+        import ml_dtypes
+    except ImportError:
+        t = torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
+        return t.to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
+    return a.astype(ml_dtypes.bfloat16).view(np.uint16)
+
+
+def bits_to_f32(bits: np.ndarray) -> np.ndarray:
+    """The exact float32 values of bfloat16 bits (uint16)."""
+    return (np.asarray(bits, np.uint16).astype(np.uint32) << 16).view(np.float32)
+
+
+def bits_to_device(bits: np.ndarray, device: Any) -> torch.Tensor:
+    """A bfloat16 tensor on `device` from uint16 bits: the bits travel as
+    int16 and are reinterpreted there, so no numpy bfloat16 is needed."""
+    return from_numpy(np.asarray(bits).view(np.int16), device).view(torch.bfloat16)
 
 
 def from_numpy(arr: np.ndarray, device: Any = "cpu") -> torch.Tensor:

@@ -10,6 +10,9 @@ bit-equal to it:
 
 Every step is a separate float32 torch op, so nothing fuses into a
 differently rounded fma.
+
+The host-storage build runs the same two passes over row chunks brought
+to the device one at a time, folding pass 1 into fold_stats.
 """
 
 from __future__ import annotations
@@ -76,6 +79,51 @@ def resolve_quant_params(
             offset = mn32
         else:
             abs_max = np.float32(max(abs(float(mn32)), abs(float(mx32))))
+            scale = np.float32(127.0) / abs_max
+            offset = np.float32(0.0)
+    return qtype, np.float32(scale), np.float32(offset)
+
+
+def fold_stats(stats: dict | None, x: torch.Tensor) -> dict:
+    """Fold float32 rows x into the running quantize statistics
+    {n_notnan, min_val, max_val, neg} of a chunked build (None starts
+    afresh): NaN skipped, +-Inf kept, each step rounded to float32. The
+    JAX package keeps the same JSON-serializable dict (oracle.
+    accumulate_quant_stats) and persists it with each chunk's progress, so
+    the two packages resume each other's checkpoints."""
+    if stats is None:
+        big = float(np.finfo(np.float32).max)
+        stats = {"n_notnan": 0, "min_val": big, "max_val": -big, "neg": False}
+    n = int((~torch.isnan(x)).sum()) if x.numel() else 0
+    if n:
+        mn, mx, neg = minmax_and_negative(x)
+        stats["n_notnan"] += n
+        stats["min_val"] = float(np.float32(min(float(np.float32(stats["min_val"])), mn)))
+        stats["max_val"] = float(np.float32(max(float(np.float32(stats["max_val"])), mx)))
+        stats["neg"] = stats["neg"] or neg
+    return stats
+
+
+def quant_params_from_stats(
+    qtype: QuantType, stats: dict
+) -> tuple[QuantType, np.float32, np.float32]:
+    """Resolve AUTO and compute (qtype, scale, offset) from fold_stats'
+    statistics (src/sqlite-vector.c:1258-1268; copied from the JAX
+    package's oracle, whose module imports jax through its package)."""
+    if stats["n_notnan"] == 0:
+        # empty / all-NaN: the no-rows params (:1173-1178)
+        resolved = QuantType.U8 if qtype is QuantType.AUTO else qtype
+        return resolved, np.float32(1.0), np.float32(0.0)
+    min_val = np.float32(stats["min_val"])
+    max_val = np.float32(stats["max_val"])
+    if qtype is QuantType.AUTO:
+        qtype = QuantType.I8 if stats["neg"] else QuantType.U8
+    abs_max = np.float32(max(abs(float(min_val)), abs(float(max_val))))
+    with np.errstate(divide="ignore", invalid="ignore"):
+        if qtype is QuantType.U8:
+            scale = np.float32(255.0) / (max_val - min_val)
+            offset = min_val
+        else:
             scale = np.float32(127.0) / abs_max
             offset = np.float32(0.0)
     return qtype, np.float32(scale), np.float32(offset)

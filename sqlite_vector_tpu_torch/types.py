@@ -54,15 +54,22 @@ class VectorType(enum.Enum):
 
     @property
     def np_dtype(self) -> np.dtype:
-        import ml_dtypes  # only numpy bfloat16 arrays need it
+        if self.value == "FLOATB16":
+            import ml_dtypes  # only numpy bfloat16 arrays need it
 
+            return np.dtype(ml_dtypes.bfloat16)
         return {
             "FLOAT32": np.dtype(np.float32),
             "FLOAT16": np.dtype(np.float16),
-            "FLOATB16": np.dtype(ml_dtypes.bfloat16),
             "UINT8": np.dtype(np.uint8),
             "INT8": np.dtype(np.int8),
         }[self.value]
+
+    @property
+    def host_dtype(self) -> np.dtype:
+        """The port's host storage dtype: bfloat16 rows are kept as their
+        raw uint16 bits (numpy has no bfloat16 without ml_dtypes)."""
+        return np.dtype(np.uint16) if self.value == "FLOATB16" else self.np_dtype
 
     @classmethod
     def from_name(cls, name: str) -> "VectorType":

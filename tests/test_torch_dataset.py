@@ -180,15 +180,13 @@ def test_edge_results_and_errors_match_jax():
 
 def test_unported_paths_raise_config_error():
     base = np.random.default_rng(11).standard_normal((20, 8)).astype(np.float32)
-    ds = svt.VectorStore(device="cpu").create("d", "dimension=8")
-    ds.add(base)
-    ds.quantize()
-    with pytest.raises(svt.VectorConfigError, match="ROADMAP"):
-        ds.quantize(checkpoint="unused")
-    with pytest.raises(svt.VectorConfigError, match="ROADMAP"):
-        svt.Dataset("h", svt.parse_options("dimension=8"), device="cpu", storage="host")
+    # storage="host" and quantize(checkpoint=) are ported
+    # (tests/test_torch_persistence.py, tests/test_torch_streaming.py);
+    # meshes, host storage on a mesh included, are not
     with pytest.raises(svt.VectorConfigError, match="ROADMAP"):
         svt.VectorStore(device="cpu", mesh=object())
+    with pytest.raises(svt.VectorConfigError, match="ROADMAP"):
+        svt.Dataset("h", svt.parse_options("dimension=8"), device="cpu", storage="host", mesh=object())
     half = svt.VectorStore(device="cpu").create("h", "dimension=8,type=FLOAT16")
     bad = base.copy()
     bad[3, 2] = np.nan
@@ -223,17 +221,29 @@ def test_default_device_refuses_missing_gpu(monkeypatch):
     assert svt.backend() == "cpu/torch"
 
 
-def test_package_imports_without_jax():
+def test_package_imports_without_jax(tmp_path):
+    """Every module imports without jax, and persistence and host-storage
+    streaming run without it (a sharded save, an mmap load, a streamed
+    search, a checkpointed quantize)."""
     code = (
         "import sys\n"
+        "import numpy as np\n"
         "import sqlite_vector_tpu_torch, sqlite_vector_tpu_torch.interop\n"
         "import sqlite_vector_tpu_torch.ops.block_scan, sqlite_vector_tpu_torch.ops._build\n"
         "import sqlite_vector_tpu_torch.ops.quantize4, sqlite_vector_tpu_torch.ops.int4_scan\n"
-        "import sqlite_vector_tpu_torch.ops.refine\n"
+        "import sqlite_vector_tpu_torch.ops.refine, sqlite_vector_tpu_torch.ops.streaming\n"
+        "import sqlite_vector_tpu_torch.hostarray\n"
+        "from sqlite_vector_tpu_torch.dataset import Dataset\n"
+        "d = sys.argv[1]\n"
+        "rows = np.eye(6, dtype=np.float32)\n"
+        "Dataset.from_arrays('x', rows, device='cpu').save(d + '/a', shard_rows=4)\n"
+        "back = Dataset.load(d + '/a', device='cpu', storage='host', mmap=True)\n"
+        "assert back.search(rows[4], 1)[0][0] == 5\n"
+        "assert back.quantize(checkpoint=d + '/ck') == 6\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "assert 'sqlite_vector_tpu' not in sys.modules\n"
     )
-    subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+    subprocess.run([sys.executable, "-c", code, str(tmp_path)], check=True, timeout=120)
 
 
 def int4_state(jds):

@@ -589,3 +589,98 @@ def test_k2_tensor_core_body_is_refused_where_it_does_not_apply(cuda):
     got = int4_block_minima(*tensors, DistanceMetric.L2, 400)
     assert int4_block_minima.body_launches == {**before, "simt": before["simt"] + 1}
     assert_k2_matches_twin(got, int4_block_minima_reference(*tensors, DistanceMetric.L2, 400))
+
+
+# -- host storage: scans streamed through pinned tiles (ops/streaming.py) ----
+
+
+def _tiny_tiles(monkeypatch, row_bytes: int, rows: int = 257) -> None:
+    from sqlite_vector_tpu_torch.ops import streaming
+
+    monkeypatch.setattr(streaming, "DEFAULT_TILE_BYTES", rows * row_bytes)
+
+
+@pytest.mark.cuda
+def test_streamed_search_equals_the_device_search_bit_for_bit(cuda, tmp_path, monkeypatch):
+    """Host storage with tiles of 257 rows (47 tiles): exact search over
+    integer-valued float32 rows (every dot exact, so any summation order
+    gives the same bits), int8 and int4 quantized search, each equal bit
+    for bit to the same search of a device-storage load of the same
+    directory; with so many small tiles a staging buffer refilled before
+    its copy completed, or a device tile overwritten before its scan, would
+    show. K1 and K2 launch for the streamed searches, in their tensor-core
+    bodies."""
+    rng = np.random.default_rng(21)
+    base = rng.integers(-8, 9, (12_000, 64)).astype(np.float32)
+    base[11_000] = base[17]  # a tie across tiles: the earlier row wins
+    q = np.concatenate([base[[17, 6000]], rng.integers(-8, 9, (62, 64)).astype(np.float32)])
+    d = str(tmp_path / "ds")
+    svt.Dataset.from_arrays("s", base, options="dimension=64,distance=L2", device="cpu").save(d, shard_rows=5000)
+    host = svt.Dataset.load(d, device="cuda", storage="host", mmap=True)
+    dev = svt.Dataset.load(d, device="cuda")
+    _tiny_tiles(monkeypatch, 64 * 4)
+    block_minima.launches, block_minima.body_launches = 0, {"mma": 0, "simt": 0}
+    for b in (1, 64):
+        for got, want in zip(host.search(q[:b], 20), dev.search(q[:b], 20)):
+            np.testing.assert_array_equal(got, want)
+    assert host.search(q[0], 2)[0].tolist() == [18, 11_001]
+    for qtype in ("int8", "int4"):
+        for ds in (host, dev):
+            ds.quantize(qtype=qtype)
+        assert not isinstance(host._quant.codes, torch.Tensor)
+        _tiny_tiles(monkeypatch, 64 if qtype == "int8" else 32 + 8)
+        for b in (1, 64):
+            for got, want in zip(host.search(q[:b], 20, exact=False), dev.search(q[:b], 20, exact=False)):
+                np.testing.assert_array_equal(got, want)
+    assert block_minima.launches > 0 and block_minima.body_launches["simt"] == 0
+    assert int4_block_minima.launches > 0
+
+
+@pytest.mark.cuda
+def test_streamed_tiles_straddle_shards(cuda, tmp_path):
+    """A ShardedRows source of uneven memory-mapped shards, with tiles that
+    straddle shard boundaries, streams the right rows."""
+    from sqlite_vector_tpu_torch.hostarray import ShardedRows
+    from sqlite_vector_tpu_torch.ops.streaming import streaming_scan_topk
+
+    rng = np.random.default_rng(22)
+    base = rng.standard_normal((9000, 48)).astype(np.float32)
+    parts = []
+    for i, (s, e) in enumerate([(0, 1000), (1000, 1001), (1001, 5000), (5000, 9000)]):
+        np.save(tmp_path / f"p{i}.npy", base[s:e])
+        parts.append(np.load(tmp_path / f"p{i}.npy", mmap_mode="r"))
+    q = torch.from_numpy(base[[3, 1000, 4999, 8999]]).to(cuda)
+    got = streaming_scan_topk(q, ShardedRows(parts), DistanceMetric.L2, 9, tile_rows=333)
+    want = streaming_scan_topk(q, base, DistanceMetric.L2, 9, tile_rows=333)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert got[1][:, 0].tolist() == [3, 1000, 4999, 8999]
+
+
+@pytest.mark.cuda
+def test_bf16_host_storage_loads_without_ml_dtypes(cuda, tmp_path):
+    """bfloat16 rows load (host + mmap, and device storage) and search on
+    the card with ml_dtypes hidden from the import path."""
+    import subprocess
+    import sys
+
+    rng = np.random.default_rng(23)
+    base = rng.standard_normal((3000, 32)).astype(np.float32)
+    d = str(tmp_path / "bf")
+    svt.Dataset.save_stream(d, [base[:1000], base[1000:]], options="dimension=32,type=FLOATB16")
+    np.save(tmp_path / "base.npy", base)
+    code = (
+        "import sys\n"
+        "sys.modules['ml_dtypes'] = None\n"
+        "import numpy as np\n"
+        "from sqlite_vector_tpu_torch import Dataset\n"
+        "base = np.load(sys.argv[2])\n"
+        "res = []\n"
+        "for kw in ({'storage': 'host', 'mmap': True}, {'storage': 'hbm'}):\n"
+        "    ds = Dataset.load(sys.argv[1], device='cuda', **kw)\n"
+        "    ids, dist = ds.search(base[[7, 2000]], 5)\n"
+        "    assert ids[:, 0].tolist() == [8, 2001] and (dist[:, 0] == 0).all(), (ids, dist)\n"
+        "    res.append((ids, dist))\n"
+        "assert all((a == b).all() for a, b in zip(*res))\n"
+    )
+    subprocess.run([sys.executable, "-c", code, d, str(tmp_path / "base.npy")], check=True, timeout=300)
