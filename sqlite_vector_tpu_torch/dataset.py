@@ -56,7 +56,6 @@ from sqlite_vector_tpu_torch.ops.quantize import (
     QUANT_TORCH_DTYPE,
     fold_stats,
     minmax_and_negative,
-    quant_params_from_stats,
     quantize_device,
     resolve_quant_params,
 )
@@ -74,6 +73,7 @@ from sqlite_vector_tpu_torch.ops.streaming import (
     int4_streaming_scan_topk,
     streaming_scan_distances,
     streaming_scan_topk,
+    upload_rows,
 )
 from sqlite_vector_tpu_torch.types import (
     DistanceMetric,
@@ -88,8 +88,6 @@ MIN_CAPACITY = 1024
 # build, save) and of the device quantize pass; the JAX package's value,
 # so quantize checkpoints' chunk_rows agree between the two packages
 HOST_CHUNK_ELEMS = 64 << 20
-# bytes per host -> device chunk of an upload (load, preload)
-_UPLOAD_CHUNK_BYTES = 512 << 20
 
 _FLOAT_TYPES = (VectorType.F32, VectorType.F16, VectorType.BF16)
 TORCH_DTYPE = {
@@ -269,7 +267,8 @@ def _params_pass(chunk, starts, qtype: QuantType) -> tuple[QuantType, np.float32
     stats = None
     for s in starts:
         stats = fold_stats(stats, chunk(s))
-    return quant_params_from_stats(qtype, fold_stats(stats, torch.empty((0,))))
+    stats = fold_stats(stats, torch.empty((0,)))
+    return resolve_quant_params(stats["min_val"], stats["max_val"], stats["neg"], qtype)
 
 
 def _empty_quant(qtype: QuantType) -> _QuantState:
@@ -1605,7 +1604,9 @@ class Dataset:
         meta = sub.load("refine8_checkpoint.json", {"refine8.npy": (build.out_count, build.dim)}, requested=False)
         if meta is None:
             if stats is not None:
-                rq8, s8, o8 = quant_params_from_stats(QuantType.AUTO, stats)
+                rq8, s8, o8 = resolve_quant_params(
+                    stats["min_val"], stats["max_val"], stats["neg"], QuantType.AUTO
+                )
             else:
                 rq8, s8, o8 = _params_pass(chunk, starts, QuantType.AUTO)
             meta = sub.start(
@@ -1645,39 +1646,24 @@ class Dataset:
         """Pin the quantized codes on the device (vector_quantize_preload,
         src/sqlite-vector.c:1338-1404). Device-storage codes are built on
         the device, so there it only checks that a quantization exists.
-        Host-resident codes (host storage) are uploaded in chunks, with
-        alpha, csq and the refine sidecar; quantized scans then stop
+        Host-resident codes (host storage) are uploaded through the
+        streamed scans' pinned tiles, with alpha, csq and the refine
+        sidecar; quantized scans then stop
         streaming, and refine becomes available."""
         quant = self._require_quant("vector_quantize_preload", self._quant)
         if _on_device(quant.codes):
             return
         n = quant.count
-        pinned = dataclasses.replace(quant, codes=self._upload(quant.codes, n))
+        pinned = dataclasses.replace(quant, codes=upload_rows(quant.codes, n, self.device))
         if quant.qtype is QuantType.I4:
             pinned.row_scale = from_numpy(np.asarray(quant.row_scale[:n], np.float32), self.device)
             pinned.sq_norms = from_numpy(np.asarray(quant.sq_norms[:n], np.int32), self.device)
         if quant.codes8 is not None:
-            pinned.codes8 = self._upload(quant.codes8, n)
+            pinned.codes8 = upload_rows(quant.codes8, n, self.device)
         with self._mutate_lock:
             if self._quant is quant:  # not replaced meanwhile
                 pinned.stale = quant.stale
                 self._quant = pinned
-
-    def _upload(self, arr, count: int, cap: int | None = None, to_device=None) -> torch.Tensor:
-        """The first `count` rows of a host array (numpy, memmap,
-        ShardedRows) as a [cap, ...] device tensor (zero rows past count),
-        uploaded in chunks of at most _UPLOAD_CHUNK_BYTES: a memory map is
-        never read whole into RAM. `to_device` turns a host chunk into a
-        device tensor (default: from_numpy, dtype kept)."""
-        to_device = to_device or (lambda a: from_numpy(a, self.device))
-        first = to_device(np.asarray(arr[:1]))
-        shape = ((count if cap is None else cap), *first.shape[1:])
-        out = (torch.empty if cap is None else torch.zeros)(shape, dtype=first.dtype, device=self.device)
-        row_bytes = max(1, first.element_size() * int(np.prod(shape[1:], dtype=np.int64)))
-        step = max(1, _UPLOAD_CHUNK_BYTES // row_bytes)
-        for s in range(0, count, step):
-            out[s : min(s + step, count)] = to_device(np.asarray(arr[s : min(s + step, count)]))
-        return out
 
     def drop_quantization(self) -> None:
         """Free the codes (vector_quantize_cleanup, src/sqlite-vector.c:
@@ -2040,7 +2026,7 @@ class Dataset:
     def _install_rows(self, vecs: Any, ids: np.ndarray) -> None:
         """Upload host-form rows into an empty device-storage dataset."""
         n = len(ids)
-        self._vectors = self._upload(vecs, n, _next_capacity(n), to_device=self._rows_to_device)
+        self._vectors = upload_rows(vecs, n, self.device, _next_capacity(n))
         self._ids = np.asarray(ids, np.int64)
         self._dead = np.zeros((n,), bool)
         self._invalidate_row_caches()
@@ -2060,7 +2046,7 @@ class Dataset:
             arr = np.load(path, mmap_mode="r" if mmap else None)
             if self._storage == "host":
                 return arr
-            return self._upload(arr, count)
+            return upload_rows(arr, count, self.device)
 
         qids_path = os.path.join(directory, "qids.npy")
         qids = np.load(qids_path) if os.path.exists(qids_path) else ids[:count].copy()

@@ -104,31 +104,6 @@ def fold_stats(stats: dict | None, x: torch.Tensor) -> dict:
     return stats
 
 
-def quant_params_from_stats(
-    qtype: QuantType, stats: dict
-) -> tuple[QuantType, np.float32, np.float32]:
-    """Resolve AUTO and compute (qtype, scale, offset) from fold_stats'
-    statistics (src/sqlite-vector.c:1258-1268; copied from the JAX
-    package's oracle, whose module imports jax through its package)."""
-    if stats["n_notnan"] == 0:
-        # empty / all-NaN: the no-rows params (:1173-1178)
-        resolved = QuantType.U8 if qtype is QuantType.AUTO else qtype
-        return resolved, np.float32(1.0), np.float32(0.0)
-    min_val = np.float32(stats["min_val"])
-    max_val = np.float32(stats["max_val"])
-    if qtype is QuantType.AUTO:
-        qtype = QuantType.I8 if stats["neg"] else QuantType.U8
-    abs_max = np.float32(max(abs(float(min_val)), abs(float(max_val))))
-    with np.errstate(divide="ignore", invalid="ignore"):
-        if qtype is QuantType.U8:
-            scale = np.float32(255.0) / (max_val - min_val)
-            offset = min_val
-        else:
-            scale = np.float32(127.0) / abs_max
-            offset = np.float32(0.0)
-    return qtype, np.float32(scale), np.float32(offset)
-
-
 def _q_round(s: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     """q_round_u8/q_round_s8 (src/sqlite-vector.c:495-515): half away from
     zero, truncating cast, saturate; NaN -> 0, +Inf -> hi, -Inf -> lo."""

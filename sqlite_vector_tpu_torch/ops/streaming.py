@@ -23,6 +23,10 @@ tile's copy. The host stages tile i+1 while the device scans tile i. A
 pinned buffer is refilled only after the copy that read it has completed,
 and a device buffer is overwritten only after the scan that read it has
 completed (events both), so no tile in flight is ever overwritten. The
+device buffers come from the caching allocator on the current stream, so
+the side stream first waits for the work queued there (a freed block may
+still be in use by it), and the current stream waits for the side stream
+before the buffers go back. The
 last tile is not padded: the kernels take any row count. A row mask goes
 to the device with its tile. On CPU tensors the same loop stages each tile
 and scans it with the kernels' plain twins.
@@ -33,6 +37,7 @@ form, device.bf16_bits) and reinterpreted on the device.
 
 from __future__ import annotations
 
+import os
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Sequence
 
@@ -47,18 +52,28 @@ from sqlite_vector_tpu_torch.types import DistanceMetric
 
 # Bytes per streamed tile (of all the streamed arrays' rows) when
 # tile_rows is not given. Each tile costs the host a few ms of launches
-# beside its staging, so larger tiles stream faster: on the H100's host a
-# 6.1 GB pass took 1.02 / 0.40 / 0.30 s at 64 MiB / 256 MiB / 1 GiB tiles
-# (PERF.md, chip_smoke.py phase 9). Two pinned and two device buffers of
-# this size live for the scan.
+# beside its staging, so larger tiles stream faster: on an H100 80GB HBM3
+# (700 W, 8-core host) a 6.1 GB pass took 0.446 / 0.297 / 0.293, 0.392 /
+# 0.270 / 0.243 and 0.367 / 0.262 / 0.210 s at 256 MiB / 512 MiB / 1 GiB
+# tiles in three runs (PERF.md, chip_smoke.py phase 9). Two pinned and two
+# device buffers of this size live for the scan: 2 GiB of the card's 80.
 DEFAULT_TILE_BYTES = 1 << 30
+
+
+def _usable_cpus() -> int:
+    try:
+        return len(os.sched_getaffinity(0))
+    except AttributeError:  # no affinity call on this platform
+        return os.cpu_count() or 1
+
 
 # Host threads that stage one tile, each copying a slice of its rows
 # (np.copyto releases the GIL): one thread copies a page-cached memory map
-# at ~6 GB/s, far below the ~50 GB/s pinned link. The same pass took 1.00
-# / 0.58 / 0.42 / 0.38 s with 1 / 2 / 4 / 8 threads (PERF.md, phase 9).
+# at ~6-8 GB/s, far below the ~40-50 GB/s pinned link. On the 8-core host
+# above the same pass took 0.963 / 0.345 / 0.237 s with 1 / 4 / 8 threads
+# (PERF.md, phase 9): one thread per usable core, up to the 8 measured.
 # Tiles under _SPLIT_BYTES stage on one thread.
-STAGING_THREADS = 8
+STAGING_THREADS = min(8, _usable_cpus())
 _SPLIT_BYTES = 8 << 20
 
 # Streamed global positions are int32 in the JAX package (matching its scan
@@ -143,6 +158,9 @@ class _Tiles:
                 for _ in range(slots)
             ]
             self.copy_stream = torch.cuda.Stream(device)
+            # the buffers' blocks may have been freed by work still queued
+            # on the current stream: copy into them only after it
+            self.copy_stream.wait_stream(torch.cuda.current_stream(device))
             self.copied = [torch.cuda.Event() for _ in range(slots)]
             self.consumed = [torch.cuda.Event() for _ in range(slots)]
         else:
@@ -203,8 +221,28 @@ class _Tiles:
                     # staged while the device scans tile i
                     rows = self._stage(i + 1)
         finally:
+            if self.cuda:
+                # a copy may still be in flight (the loop was left early):
+                # the buffers go back to the allocator on the current stream
+                compute.wait_stream(self.copy_stream)
             if self.pool is not None:
                 self.pool.shutdown()
+
+
+def upload_rows(arr, count: int, device: torch.device, cap: int | None = None) -> torch.Tensor:
+    """The first `count` rows of a host array (numpy, np.memmap or
+    ShardedRows; bfloat16 as uint16 bits, which arrive as bfloat16) as a
+    [cap, ...] tensor on `device`, zero past count (cap defaults to count),
+    carried through the streamed scans' tiles: a memory map is never read
+    whole into RAM, and on CUDA the rows travel through pinned buffers."""
+    dtype = _TORCH_DTYPE[_bits(arr).dtype.name]
+    dtype = torch.bfloat16 if dtype is torch.int16 else dtype
+    shape = (count if cap is None else cap, *arr.shape[1:])
+    out = (torch.empty if cap is None else torch.zeros)(shape, dtype=dtype, device=device)
+    if count:
+        for start, rows, (t,), _ in _Tiles([arr], count, default_tile_rows([arr]), device):
+            out[start : start + rows].copy_(t)
+    return out
 
 
 def _streamed_topk(

@@ -637,6 +637,34 @@ def test_streamed_search_equals_the_device_search_bit_for_bit(cuda, tmp_path, mo
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("tile", [257, 32_768])  # the small and the large pool
+def test_streamed_scan_after_work_queued_on_the_current_stream(cuda, tile):
+    """Blocks freed while work that uses them is still queued on the current
+    stream go back to the caching allocator at once, and the streamed
+    scan's device tiles are taken from them. Tensors of a tile's size are
+    freed behind a long sleep and a fill: the copies into the tiles must
+    wait for that work, or the fill lands on the staged rows, and the int8
+    scan right after would differ from the resident scan."""
+    from sqlite_vector_tpu_torch.ops.scan import fused_scan_topk
+    from sqlite_vector_tpu_torch.ops.streaming import streaming_scan_topk
+
+    rng = np.random.default_rng(24)
+    codes = rng.integers(-128, 128, (tile * 5 + 3, 64)).astype(np.int8)
+    q = torch.from_numpy(rng.integers(-128, 128, (8, 64)).astype(np.int8)).to(cuda)
+    want = fused_scan_topk(q, torch.from_numpy(codes).to(cuda), DistanceMetric.L2, 20)
+    for _ in range(3):
+        torch.cuda.synchronize()
+        junk = [torch.empty((tile, 64), dtype=torch.int8, device=cuda) for _ in range(4)]
+        torch.cuda._sleep(200_000_000)  # ~0.1 s of work queued ahead of the fill
+        for j in junk:
+            j.fill_(0)  # zero rows would rank first for every query
+        del junk
+        got = streaming_scan_topk(q, codes, DistanceMetric.L2, 20, tile_rows=tile)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
 def test_streamed_tiles_straddle_shards(cuda, tmp_path):
     """A ShardedRows source of uneven memory-mapped shards, with tiles that
     straddle shard boundaries, streams the right rows."""

@@ -188,6 +188,29 @@ def test_threaded_staging_reads_the_same_rows(threads, rng, tmp_path, monkeypatc
         np.testing.assert_array_equal(g.numpy(), w.numpy())
 
 
+@pytest.mark.parametrize("source", ["array", "bf16 bits", "shards"])
+def test_upload_rows_carries_the_rows_through_tiles(source, rng, tmp_path, monkeypatch):
+    """upload_rows (the hbm load and preload() path) gives the first count
+    rows, zeros up to cap, over many tiles; bfloat16 bits arrive as
+    bfloat16."""
+    monkeypatch.setattr(streaming, "DEFAULT_TILE_BYTES", TILE * 24 * 4)
+    base = rng.standard_normal((1000, 24)).astype(np.float32)
+    arr, want = base, torch.from_numpy(base)
+    if source == "bf16 bits":
+        arr = bf16_bits(base)
+        want = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    elif source == "shards":
+        np.save(tmp_path / "a.npy", base[:130])
+        np.save(tmp_path / "b.npy", base[130:])
+        arr = ShardedRows([np.load(tmp_path / f, mmap_mode="r") for f in ("a.npy", "b.npy")])
+    cpu = torch.device("cpu")
+    out = streaming.upload_rows(arr, 990, cpu, cap=1024)
+    assert out.shape == (1024, 24) and out.dtype == want.dtype
+    assert torch.equal(out[:990], want[:990]) and not out[990:].any()
+    assert torch.equal(streaming.upload_rows(arr, 990, cpu), want[:990])
+    assert streaming.upload_rows(arr, 0, cpu).shape == (0, 24)
+
+
 def test_stream_position_bound(monkeypatch, rng):
     monkeypatch.setattr(streaming, "_MAX_STREAM_ROWS", 100)
     base = rng.standard_normal((101, 8)).astype(np.float32)
