@@ -105,11 +105,42 @@ Phases, each printing its own lines:
               streamed pass's host -> device GB/s, the sweeps of the tile
               size (256 MiB, 512 MiB, 1 GiB) and of the staging threads (1,
               4, 8). The data lies in _smoke_data/, removed at the end.
+ 10. front    the SQL surface, serving, the CLI and the non-finite
+              policies on phase 4's 1,000,000 x 384 FLOAT32 rows (the seed's
+              generator again), written as blobs into a SQLite file in
+              _smoke_data/ (removed at the end) and held against `ref`, a
+              Dataset of the same rows: sqlite.connect() with no device
+              (the card; the vtab must load; which loader filled the rows
+              is printed, with the host walk of the native loader and of
+              the sqlite3 row loop timed again), vector_init, then the
+              reference's SQL verbatim:
+              vector_full_scan for the 64 queries == ref.search(q, 20)
+              (tie-aware, rtol 1e-5), K1 once a call on its tensor-core
+              body; vector_quantize (int8), vector_quantize_preload and
+              vector_quantize_scan bit-equal to ref's int8 search, and again
+              from a second connection reading the shadow table; the same
+              for qtype=INT4 through K2; both stream modules for one query
+              (1,000,000 rows) == ref.distances(q) and (q, exact=False);
+              1,000,000 x 384 float16 L2 and bfloat16 DOT rows with a NaN,
+              +Inf or -Inf lane in 1% of the rows: exact search at B=1 and
+              B=8 and distances at B=1 on the card == the same ops on the
+              CPU (B=8 over the first 100,000 rows; rtol 1e-4); a
+              BatchingSearcher (8 client threads x 64 queries x 8 rounds,
+              exact and int8) == the direct search; a 10 s soak on a copy
+              of the rows (a mutator adding, removing and re-quantizing,
+              fallback_exact) with zero errors and device memory back
+              within 1% after close(); serve() on 127.0.0.1 (16 POST
+              /search == the direct search); the CLI's `search ... --json`
+              in a subprocess == the SQL result. Times: the table's cold
+              load, SQL vector_full_scan p50/p99 beside Dataset.search,
+              vector_quantize and the shadow load, serving QPS and latency,
+              HTTP p50, the policy search at B=1 and B=8.
 
 Then one JSON line of kernel results (each with its bound, the side that
 bounds it and the library yardstick; K1's main-path numbers are f32 B=64,
-K2's B=64, the rest under "by_shape"), the card line again, and last the result
-line. Any failure raises, so the script exits non-zero and prints no
+K2's B=64, the rest under "by_shape"; "sql_launches" counts phase 10's
+launches on the SQL path; phase 10's times under "frontends"), the card
+line again, and last the result line. Any failure raises, so the script exits non-zero and prints no
 result; so does a machine without CUDA.
 """
 
@@ -118,6 +149,7 @@ from __future__ import annotations
 import functools
 import importlib.util
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -1097,6 +1129,15 @@ def counts():
             "K2": (int4_block_minima.launches, int4_block_minima.body_launches["mma"])}
 
 
+def zero_counts() -> None:
+    from sqlite_vector_tpu_torch.ops.block_scan import block_minima
+    from sqlite_vector_tpu_torch.ops.int4_scan import int4_block_minima
+
+    for fn in (block_minima, int4_block_minima):
+        fn.launches = 0
+        fn.body_launches = {"mma": 0, "simt": 0}
+
+
 def phase_persist(card: str, ds, Q) -> dict:
     """Phase 9: save/load round trip of the main dataset, then a host-storage
     dataset at BASELINE.json config 5's width, streamed through K1 and K2.
@@ -1375,6 +1416,430 @@ def stream_times(card: str, host, Qh, shape: str, nbytes: int, stream, streaming
             "thread_sweep_s": threads}
 
 
+def phase_frontends(card: str, Q) -> dict:
+    """Phase 10: the SQL surface, serving, the CLI and the non-finite
+    policies, at the main path's width. The 1,000,000 x 384 FLOAT32 rows of
+    phase 4 (the seed's generator again) go into a SQLite file in
+    _smoke_data/ (removed at the end); `ref` is a Dataset of the same rows
+    (the main dataset as phase 4 built it, before phase 8's mutations).
+    Returns K1's and K2's launches on the SQL path, by body."""
+    root = Path(__file__).resolve().parent / "_smoke_data"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir()
+    try:
+        return frontends(card, Q, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def p50_p99(walls) -> tuple[float, float]:
+    return tuple(float(np.percentile(walls, p)) * 1e3 for p in (50, 99))
+
+
+def frontends(card: str, Q, root: Path) -> dict:
+    import sqlite3
+
+    import sqlite_vector_tpu_torch as svt
+    import sqlite_vector_tpu_torch.sqlite as psql
+    from sqlite_vector_tpu_torch import native
+
+    opts = f"dimension={DIM_MAIN},type=FLOAT32,distance=L2"
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED)  # phase 4's rows, chunk by chunk
+    rows = np.concatenate([rng.standard_normal((100_000, DIM_MAIN), dtype=np.float32) for _ in range(N_MAIN // 100_000)])
+    ref = svt.Dataset.from_arrays("ref", rows, options=opts, device="cuda")
+    path = str(root / "frontends.db")
+    raw = sqlite3.connect(path)
+    raw.execute("CREATE TABLE docs (id INTEGER PRIMARY KEY, embedding BLOB)")
+    raw.executemany("INSERT INTO docs (embedding) VALUES (?)", ((r.tobytes(),) for r in rows))
+    raw.commit()
+    raw.close()
+    nbytes = rows.nbytes
+    print(f"[sql] wrote {N_MAIN} x {DIM_MAIN} FLOAT32 rows as blobs into {Path(path).name} "
+          f"({os.path.getsize(path) / 1e9:.2f} GB, one transaction) in {time.perf_counter() - t0:.1f} s "
+          f"(host data generation included) | {card}", flush=True)
+
+    # -- the native host modules, built from csrc/ with g++ and gcc --------
+    t0 = time.perf_counter()
+    loader_built, vtab = native.available(), native.vtab_extension_path()
+    print(f"[build] csrc/svt_native.cpp {'built' if loader_built else 'not built (no Python headers?)'}, "
+          f"csrc/svt_vtab.c {'built' if vtab else 'NOT built'} against csrc/third_party/ into "
+          f"{native.build_dir().relative_to(Path(__file__).resolve().parent)} in {time.perf_counter() - t0:.1f} s "
+          f"| {card}", flush=True)
+
+    # -- the connection: the card by default, the real virtual tables -------
+    conn = psql.connect(path)
+    check(conn.device.type == "cuda", f"connect() placed the datasets on {conn.device}")
+    check(conn.vtab_loaded, "the vtab extension did not load: the reference's SQL cannot run verbatim")
+    conn.execute(f"SELECT vector_init('docs', 'embedding', '{opts}')")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ds = conn._refresh(conn._lookup("docs", "embedding", "chip_smoke"))
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    check(len(ds) == N_MAIN, f"the connection loaded {len(ds)} rows")
+    loader = conn.last_loader
+    ctx = conn._lookup("docs", "embedding", "chip_smoke")
+    t0 = time.perf_counter()
+    conn._load_rows(ctx, min_pk=None)
+    t_rows = time.perf_counter() - t0
+    # the other route for the same rows: inside an open transaction the
+    # native loader (which reads the committed file) is skipped
+    conn.execute("BEGIN")
+    t0 = time.perf_counter()
+    conn._load_rows(ctx, min_pk=None)
+    t_rows_py = time.perf_counter() - t0
+    check(conn.last_loader == "python", f"the load inside a transaction took the {conn.last_loader} loader")
+    conn.rollback()
+    print(f"[sql] connect(): vtab loaded; cold load of the table by the {loader} loader "
+          f"(csrc/svt_native.cpp when 'native', the sqlite3 row loop when 'python'): {t_load!r} s, "
+          f"{nbytes / t_load / 1e9:.2f} GB/s of rows onto the card; the host walk alone, again (page cache "
+          f"warm): {loader} loader {t_rows!r} s, sqlite3 row loop {t_rows_py!r} s | {card}", flush=True)
+    out = {"t_load_s": t_load, "t_rows_s": t_rows, "t_rows_python_s": t_rows_py, "loader": loader}
+    sql_counts = {"K1": [0, 0], "K2": [0, 0]}
+
+    def counted(fn):
+        """Run fn with every launch count set to 0 just before it; add what
+        it launched, read just after, to sql_counts."""
+        zero_counts()
+        r = fn()
+        for name, (launches, mma) in counts().items():
+            sql_counts[name][0] += launches
+            sql_counts[name][1] += mma
+        return r
+
+    def sql_scans(sql: str, k: int = K):
+        """The 64 queries through `sql`, one call each: rows and walls."""
+        got, walls = [], []
+        for q in Q:
+            t = time.perf_counter()
+            got.append(conn_now.execute(sql, (q.tobytes(), k)).fetchall())
+            walls.append(time.perf_counter() - t)
+        return got, walls
+
+    # -- vector_full_scan against Dataset.search ---------------------------
+    full_sql = "SELECT id, distance FROM vector_full_scan('docs', 'embedding', ?, ?)"
+    conn_now = conn
+    for q in Q[:3]:  # warm-up, uncounted
+        conn.execute(full_sql, (q.tobytes(), K)).fetchall()
+    got, sql_walls = counted(lambda: sql_scans(full_sql))
+    k1 = counts()["K1"][0]
+    check(k1 == len(Q) and counts()["K1"][1] == k1 and counts()["K2"][0] == 0,
+          f"64 vector_full_scan calls launched K1 {k1} times (tensor-core body each time expected)")
+    ref_walls, want = [], []
+    for q in Q[:3]:
+        ref.search(q, K)
+    for q in Q:
+        t = time.perf_counter()
+        want.append(ref.search(q, K))
+        ref_walls.append(time.perf_counter() - t)
+    for i, (g, (wi, wd)) in enumerate(zip(got, want)):
+        close_topk(f"SQL vector_full_scan q{i}", np.array([[r[0] for r in g]]), np.array([[r[1] for r in g]], np.float32),
+                   wi[None], wd[None], 1e-5)
+    sql_p50, sql_p99 = p50_p99(sql_walls)
+    print(f"[sql] SELECT id, distance FROM vector_full_scan('docs', 'embedding', ?, 20) for the {len(Q)} queries "
+          f"== Dataset.search(q, 20) (tie-aware, rtol 1e-5); K1 launched once a call, tensor-core body | {card}",
+          flush=True)
+    print(f"[times] SQL vector_full_scan B=1 k={K}: p50 {sql_p50!r} ms, p99 {sql_p99!r} ms over {len(Q)} calls; "
+          f"Dataset.search B=1 p50 {p50_p99(ref_walls)[0]!r} ms in the same run | {card}", flush=True)
+    out.update(sql_full_p50_ms=sql_p50, sql_full_p99_ms=sql_p99, search_p50_ms=p50_p99(ref_walls)[0])
+
+    # -- int8: vector_quantize, preload, own and cross connection ----------
+    quant_sql = "SELECT id, distance FROM vector_quantize_scan('docs', 'embedding', ?, ?)"
+    t0 = time.perf_counter()
+    conn.execute("SELECT vector_quantize('docs', 'embedding')").fetchall()
+    torch.cuda.synchronize()
+    t_q8 = time.perf_counter() - t0
+    conn.execute("SELECT vector_quantize_preload('docs', 'embedding')").fetchall()
+    t0 = time.perf_counter()
+    ref.quantize()
+    torch.cuda.synchronize()
+    t_build8 = time.perf_counter() - t0
+    want8 = [ref.search(q, K, exact=False) for q in Q]
+
+    def same_rows(label, got_rows, want_rows):
+        for i, (g, (wi, wd)) in enumerate(zip(got_rows, want_rows)):
+            check([r[0] for r in g] == wi.tolist() and [r[1] for r in g] == wd.astype(np.float64).tolist(),
+                  f"{label} q{i}: not bit-equal to the Dataset's quantized search")
+
+    got8, _ = counted(lambda: sql_scans(quant_sql))
+    same_rows("SQL int8 vector_quantize_scan", got8, want8)
+    conn2 = psql.connect(path)
+    conn2.execute(f"SELECT vector_init('docs', 'embedding', '{opts}')")
+    t0 = time.perf_counter()
+    conn2.execute("SELECT vector_quantize_preload('docs', 'embedding')").fetchall()
+    torch.cuda.synchronize()
+    t_shadow8 = time.perf_counter() - t0
+    conn_now = conn2
+    got8x, _ = counted(lambda: sql_scans(quant_sql))
+    same_rows("SQL int8 vector_quantize_scan, second connection", got8x, want8)
+    check(conn2._contexts[("docs", "embedding")].dataset is None, "the second connection loaded the rows")
+    check(sql_counts["K1"] == [3 * len(Q), 3 * len(Q)], f"SQL scans launched K1 {sql_counts['K1']}")
+    print(f"[sql] vector_quantize (int8) + preload, then vector_quantize_scan: bit-equal to Dataset.search(q, 20, "
+          f"exact=False); a second connection scans the codes read from the shadow table, bit-equal too; K1 "
+          f"launches on the SQL path so far {sql_counts['K1'][0]}, all tensor-core | {card}", flush=True)
+
+    # -- int4: own connection and cross connection, through K2 -------------
+    conn_now = conn
+    t0 = time.perf_counter()
+    conn.execute("SELECT vector_quantize('docs', 'embedding', 'qtype=INT4')").fetchall()
+    torch.cuda.synchronize()
+    t_q4 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref.quantize(qtype="int4")
+    torch.cuda.synchronize()
+    t_build4 = time.perf_counter() - t0
+    want4 = [ref.search(q, K, mode="quantized") for q in Q]
+    got4, _ = counted(lambda: sql_scans(quant_sql))
+    same_rows("SQL int4 vector_quantize_scan", got4, want4)
+    conn_now = conn2
+    t0 = time.perf_counter()
+    got4x, _ = counted(lambda: sql_scans(quant_sql))
+    t_shadow4 = time.perf_counter() - t0
+    same_rows("SQL int4 vector_quantize_scan, second connection", got4x, want4)
+    check(sql_counts["K2"] == [2 * len(Q), 2 * len(Q)], f"SQL int4 scans launched K2 {sql_counts['K2']}")
+    print(f"[sql] vector_quantize(..., 'qtype=INT4') and vector_quantize_scan, own and second connection: "
+          f"bit-equal to the Dataset's int4 quantized search; K2 launches {sql_counts['K2'][0]}, all tensor-core "
+          f"| {card}", flush=True)
+    print(f"[times] vector_quantize wall (device build + shadow write): int8 {t_q8!r} s, int4 {t_q4!r} s; the "
+          f"device build alone (Dataset.quantize of ref): int8 {t_build8!r} s, int4 {t_build4!r} s; second "
+          f"connection's shadow load: int8 {t_shadow8!r} s (preload), int4 {t_shadow4!r} s (reload + {len(Q)} "
+          f"scans) | {card}", flush=True)
+    out.update(quantize8_s=t_q8, quantize4_s=t_q4, build8_s=t_build8, build4_s=t_build4, shadow_load8_s=t_shadow8)
+
+    # -- the stream modules: every row -----------------------------------------
+    q = Q[0]
+    t0 = time.perf_counter()
+    srows = conn.execute("SELECT id, distance FROM vector_full_scan_stream('docs', 'embedding', ?)",
+                         (q.tobytes(),)).fetchall()
+    t_stream = time.perf_counter() - t0
+    check(len(srows) == N_MAIN, f"vector_full_scan_stream returned {len(srows)} rows")
+    ids = np.array([r[0] for r in srows])
+    d = np.array([r[1] for r in srows])
+    check(np.array_equal(ids, ref.ids), "stream ids are not the rows' ids in order")
+    check(np.allclose(d, ref.distances(q), rtol=1e-5, atol=1e-5), "vector_full_scan_stream != Dataset.distances(q)")
+    qrows = conn.execute("SELECT id, distance FROM vector_quantize_scan_stream('docs', 'embedding', ?)",
+                         (q.tobytes(),)).fetchall()
+    check(len(qrows) == N_MAIN and [r[0] for r in qrows] == ref.ids.tolist(), "quantize stream ids")
+    check(np.array_equal(np.array([r[1] for r in qrows], np.float32), ref.distances(q, exact=False)),
+          "vector_quantize_scan_stream != Dataset.distances(q, exact=False)")
+    print(f"[sql] vector_full_scan_stream and vector_quantize_scan_stream (int4) for one query: {N_MAIN} rows "
+          f"each, == Dataset.distances(q) (rtol 1e-5) and Dataset.distances(q, exact=False) (bit-equal); full "
+          f"stream {t_stream!r} s through SQLite | {card}", flush=True)
+
+    out.update(nonfinite(card))
+    out.update(serving(card, ref, rows, Q, path))
+    # -- the CLI, as a subprocess ---------------------------------------------
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "sqlite_vector_tpu_torch", "search", path, "docs", "embedding",
+         json.dumps(Q[0].tolist()), "-k", str(K), "--json", "--options", opts],
+        capture_output=True, text=True, timeout=300, cwd=Path(__file__).resolve().parent,
+    )
+    t_cli = time.perf_counter() - t0
+    check(cli.returncode == 0, f"the CLI failed: {cli.stderr[-2000:]}")
+    check(json.loads(cli.stdout)["ids"] == [r[0] for r in got[0]], "the CLI's ids differ from the SQL results")
+    print(f"[cli] python -m sqlite_vector_tpu_torch search <db> docs embedding <q> -k {K} --json: ids == the SQL "
+          f"vector_full_scan's, in {t_cli!r} s (a new process: start, table load, kernel library load) | {card}",
+          flush=True)
+    conn.close()
+    conn2.close()
+    out["sql_launches"] = {name: {"launches": v[0], "mma": v[1]} for name, v in sql_counts.items()}
+    return out
+
+
+def nonfinite(card: str) -> dict:
+    """1M x 384 float16 L2 and bfloat16 DOT rows with a NaN, +Inf or -Inf
+    lane in 1% of the rows: exact search at B=1 and B=8 and distances at
+    B=1 on the card, under the reference's non-finite policies, against the
+    same ops on a CPU copy (B=1: all rows; B=8: the first 100,000)."""
+    import sqlite_vector_tpu_torch as svt
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    x = torch.randn((N_MAIN, DIM_MAIN), generator=gen, device="cuda")
+    bad = torch.randperm(N_MAIN, generator=gen, device="cuda")[: N_MAIN // 100]
+    lane = torch.randint(0, DIM_MAIN, (len(bad),), generator=gen, device="cuda")
+    x[bad, lane] = torch.tensor([float("nan"), float("inf"), float("-inf")], device="cuda").repeat(len(bad) // 3 + 1)[: len(bad)]
+    qrow = int(bad[0])  # a row with a NaN lane: a non-finite query, and its own best match
+    out, n8 = {}, 100_000
+    for vtype, metric, dt in (("FLOAT16", "L2", torch.float16), ("FLOATB16", "DOT", torch.bfloat16)):
+        vals = x.to(dt).float().cpu().numpy()  # the rows' exact values (bf16 as float32)
+        q = np.concatenate([vals[qrow : qrow + 1], np.random.default_rng(SEED + 10).standard_normal((7, DIM_MAIN), dtype=np.float32)])
+        opts = f"dimension={DIM_MAIN},type={vtype},distance={metric}"
+        card_ds, cpu_ds = (svt.VectorStore(device=dv).create("nf", opts) for dv in ("cuda", "cpu"))
+        card8, cpu8 = (svt.VectorStore(device=dv).create("nf8", opts) for dv in ("cuda", "cpu"))
+        for ds_, rows_ in ((card_ds, vals), (cpu_ds, vals), (card8, vals[:n8]), (cpu8, vals[:n8])):
+            ds_.add(rows_)
+            check(ds_._has_nonfinite, "the non-finite flag is not set")
+        label = f"{vtype} {metric}"
+        got1, want1 = card_ds.search(q[:1], K), cpu_ds.search(q[:1], K)
+        got8, want8 = card8.search(q, K), cpu8.search(q, K)
+        for b, (g, w) in ((1, (got1, want1)), (8, (got8, want8))):
+            close_topk(f"non-finite {label} B={b}", *g, *w, 1e-4)
+            # -inf ties (DOT's infinite products) go to the earliest row on both sides
+            at_inf = np.isinf(w[1])
+            check(np.array_equal(g[0][at_inf], w[0][at_inf]), f"non-finite {label} B={b}: ids at -inf differ")
+        if metric == "L2":
+            check(got1[0][0, 0] == qrow + 1 and got1[1][0, 0] == 0.0, f"{label}: the NaN-lane row is not its own match at 0")
+        dg, dw = card_ds.distances(q[0]), cpu_ds.distances(q[0])
+        check(np.array_equal(np.isnan(dg), np.isnan(dw)) and np.array_equal(np.isinf(dg), np.isinf(dw)),
+              f"{label}: distances' NaN/Inf positions differ between the card and the CPU")
+        fin = np.isfinite(dw)
+        check(np.allclose(dg[fin], dw[fin], rtol=1e-4, atol=1e-4), f"{label}: distances differ beyond rtol 1e-4")
+        times = {}
+        for b in (1, 8):
+            walls = []
+            for _ in range(5):
+                t = time.perf_counter()
+                card_ds.search(q[:b], K)
+                walls.append(time.perf_counter() - t)
+            times[b] = float(np.median(walls)) * 1e3
+        out[f"nonfinite_{vtype}_ms"] = times
+        print(f"[nonfinite] {N_MAIN} x {DIM_MAIN} {vtype} {metric}, a NaN/+Inf/-Inf lane in {len(bad)} rows: exact "
+              f"search B=1 (all rows) and B=8 (first {n8} rows) on the card == the CPU (ids tie-aware, rtol 1e-4: "
+              f"float32 lane sums in another order); distances B=1 equal, NaN/Inf positions identical; policy "
+              f"search on the card median of 5: B=1 {times[1]!r} ms, B=8 {times[8]!r} ms | {card}", flush=True)
+        del card_ds, cpu_ds, card8, cpu8
+    return out
+
+
+def serving(card: str, ref, rows, Q, path: str) -> dict:
+    """BatchingSearcher on `ref` (exact and int8; every result against the
+    direct search), a 10 s soak on a copy of the rows with a mutator and
+    fallback_exact (zero errors, device memory back), then serve() on
+    localhost."""
+    import gc
+    import threading
+    import urllib.request
+
+    import sqlite_vector_tpu_torch as svt
+
+    ref.quantize()
+    direct = {mode: [ref.search(q, K, mode=mode) for q in Q] for mode in ("exact", "quantized")}
+    out = {}
+    for mode in ("exact", "quantized"):
+        searcher = svt.BatchingSearcher(ref, max_batch=B_MAIN)
+        got, lat, errors = {}, [], []
+
+        def client(t):
+            try:
+                for r in range(8):
+                    for i in range(t, len(Q), 8):
+                        t0 = time.perf_counter()
+                        got[r, i] = searcher.search(Q[i], K, mode=mode)
+                        lat.append(time.perf_counter() - t0)
+            except Exception as e:
+                errors.append(e)
+
+        threads = [threading.Thread(target=client, args=(t,)) for t in range(8)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        window = time.perf_counter() - t0
+        searcher.close()
+        check(not errors, f"serving {mode}: {errors[:3]}")
+        check(len(got) == 8 * len(Q), f"serving {mode}: {len(got)} results")
+        for (r, i), (gi, gd) in got.items():
+            wi, wd = direct[mode][i]
+            if mode == "quantized":
+                check(np.array_equal(gi, wi) and np.array_equal(gd, wd), f"served int8 q{i} != the direct search")
+            else:
+                close_topk(f"served exact q{i}", gi[None], gd[None], wi[None], wd[None], 1e-5)
+        p50, p99 = p50_p99(lat)
+        out[f"serving_{mode}"] = {"qps": len(lat) / window, "p50_ms": p50, "p99_ms": p99}
+        print(f"[serve] BatchingSearcher(max_batch={B_MAIN}), 8 client threads x {len(Q)} queries x 8 rounds, "
+              f"{mode}: every result == the direct search ({'bit for bit' if mode == 'quantized' else 'ids, rtol 1e-5'}"
+              f"); QPS {len(lat) / window!r}, per request p50 {p50!r} ms, p99 {p99!r} ms | {card}", flush=True)
+
+    # -- the soak, on its own copy of the rows ----------------------------------
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    soak = svt.Dataset.from_arrays("soak", rows, options=f"dimension={DIM_MAIN},type=FLOAT32,distance=L2",
+                                   device="cuda")
+    soak.quantize()
+    searcher = svt.BatchingSearcher(soak, max_batch=B_MAIN, fallback_exact=True)
+    stop = threading.Event()
+    errors, served, mutations = [], [0], [0]
+
+    def mutator():
+        mrng = np.random.default_rng(SEED + 11)
+        i = 0
+        try:
+            while not stop.is_set():
+                soak.add(mrng.standard_normal((1000, DIM_MAIN), dtype=np.float32))
+                soak.remove(mrng.choice(soak.ids, size=500, replace=False))
+                if i % 4 == 3:
+                    soak.drop_quantization()
+                    soak.quantize()
+                elif i % 2:
+                    soak.quantize()
+                i += 1
+            mutations[0] = i
+        except Exception as e:
+            errors.append(("mutator", e))
+
+    def client(seed):
+        crng = np.random.default_rng(seed)
+        j = 0
+        try:
+            while not stop.is_set():
+                ids, dist = searcher.search(crng.standard_normal(DIM_MAIN, dtype=np.float32), K,
+                                            mode=("exact", "quantized")[j % 2])
+                j += 1
+                check(np.all(np.diff(dist) >= 0) and np.all(np.isfinite(dist)) and len(set(ids)) == len(ids),
+                      "a soak result is unsorted, non-finite or repeats an id")
+                served[0] += 1
+        except Exception as e:
+            errors.append((f"client-{seed}", e))
+
+    threads = [threading.Thread(target=mutator)] + [threading.Thread(target=client, args=(s,)) for s in range(8)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    time.sleep(10.0)
+    stop.set()
+    for t in threads:
+        t.join()
+    soak_s = time.perf_counter() - t0
+    searcher.close()
+    check(not errors, f"soak errors: {errors[:3]}")
+    del soak, searcher
+    gc.collect()
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    check(abs(after - before) <= 0.01 * before, f"device memory {before} -> {after} bytes across the soak")
+    print(f"[serve] soak {soak_s:.1f} s on a copy of the {N_MAIN} rows: 8 clients (exact and int8, fallback_exact) "
+          f"served {served[0]} requests beside {mutations[0]} mutator rounds (add 1000, remove 500, quantize / drop + "
+          f"quantize), 0 errors; torch.cuda.memory_allocated() {before} -> {after} bytes after close() and del "
+          f"({100 * (after - before) / before:+.3f}%) | {card}", flush=True)
+
+    # -- serve(): HTTP on localhost ---------------------------------------------
+    server = svt.serve(ref, "127.0.0.1", 0, max_batch=B_MAIN)
+    try:
+        port = server.server_address[1]
+        walls = []
+        for i in range(16):
+            body = json.dumps({"vector": Q[i].tolist(), "k": K}).encode()
+            req = urllib.request.Request(f"http://127.0.0.1:{port}/search", data=body,
+                                         headers={"Content-Type": "application/json"})
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=60) as r:
+                resp = json.loads(r.read())
+            walls.append(time.perf_counter() - t0)
+            wi, wd = direct["exact"][i]
+            close_topk(f"HTTP q{i}", np.array([resp["ids"]]), np.array([resp["distances"]], np.float32),
+                       wi[None], wd[None], 1e-5)
+    finally:
+        server.close()
+    out["http_p50_ms"] = p50_p99(walls)[0]
+    print(f"[serve] serve() on 127.0.0.1, 16 POST /search: each == the direct search (ids, rtol 1e-5); HTTP p50 "
+          f"{out['http_p50_ms']!r} ms | {card}", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing run", file=sys.stderr)
@@ -1410,6 +1875,7 @@ def main() -> int:
     k2 = phase_int4_times(card, ds, Q)
     masked = phase_mutate(card, ds, Q)["masked_launches"]
     host = phase_persist(card, ds, Q)
+    fe = phase_frontends(card, Q)
     k1_main = k1[f"f32 B={B_MAIN}"]
     k2_main = k2[f"B={B_MAIN}"]
     print(json.dumps({"kernels": [
@@ -1427,6 +1893,7 @@ def main() -> int:
             "library_ms": k1_main["library_ms"],
             "masked_launches": masked["K1"],
             "streamed_launches": host["K1"],
+            "sql_launches": fe["sql_launches"]["K1"]["launches"],
             "masked_max_abs_err": masked_err,
             "nonfinite_max_abs_err": nonfinite_err,
             "cuda_core_body": "sqlite_vector_tpu_torch/csrc/block_minima.cu",
@@ -1446,11 +1913,13 @@ def main() -> int:
             "library_ms": k2_main["library_ms"],
             "masked_launches": masked["K2"],
             "streamed_launches": host["K2"],
+            "sql_launches": fe["sql_launches"]["K2"]["launches"],
             "masked_max_abs_err": k2_masked_err,
             "cuda_core_body": "sqlite_vector_tpu_torch/csrc/int4_minima.cu",
             "by_shape": {k: v for k, v in k2.items() if k != "max_abs_err"},
         },
-    ], "host_storage": {k: host[k] for k in ("pinned_gbps", "stream_pass_s", "tile_sweep_s", "thread_sweep_s")}}))
+    ], "host_storage": {k: host[k] for k in ("pinned_gbps", "stream_pass_s", "tile_sweep_s", "thread_sweep_s")},
+        "frontends": {k: v for k, v in fe.items() if k != "sql_launches"}}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

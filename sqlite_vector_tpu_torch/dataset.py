@@ -21,7 +21,10 @@ save_stream and load write and read the JAX package's on-disk format
 (manifest.json version 2 + npy shards), so a directory saved by either
 package loads in the other.
 
-Meshes and the non-finite float16/bfloat16 policy paths raise
+Non-finite content takes the reference's policies (ops/nonfinite.py):
+exact and approx search over flagged float16/bfloat16 data or with a
+non-finite query, rerank and refine there (which fall back to exact), and
+exact distances where the raw values need them. Meshes raise
 VectorConfigError naming the ROADMAP item that will port them.
 """
 
@@ -52,6 +55,7 @@ from sqlite_vector_tpu_torch.errors import (
 )
 from sqlite_vector_tpu_torch.hostarray import ShardedRows
 from sqlite_vector_tpu_torch.ops.distance import NEARLY_ZERO
+from sqlite_vector_tpu_torch.ops.nonfinite import needs_policy, needs_raw_policy
 from sqlite_vector_tpu_torch.ops.quantize import (
     QUANT_TORCH_DTYPE,
     fold_stats,
@@ -106,9 +110,8 @@ _DTYPE_NAME = {
     VectorType.I8: "int8",
 }
 
-# What the slice leaves out, by the ROADMAP.md queue-1 item that ports it.
+# What the port leaves out, by the ROADMAP.md queue-1 item that ports it.
 _ROADMAP_ITEM = {
-    "nonfinite": "3 (nonfinite.py policy twins)",
     "mesh": "8 (parallel/ -> torch.distributed)",
 }
 
@@ -522,8 +525,15 @@ class Dataset:
         with self._mutate_lock:
             return self._add_locked(vectors, ids)
 
-    def _add_locked(self, vectors, ids) -> np.ndarray:
-        arr = self._coerce_batch(vectors)
+    def _add_host_rows(self, rows: np.ndarray, ids: np.ndarray) -> np.ndarray:
+        """add() of rows already in the host form ([N, dim] of the dataset
+        dtype, bfloat16 as its uint16 bits), as the SQLite loader reads
+        them: no coercion, so no numpy bfloat16 is needed."""
+        with self._mutate_lock:
+            return self._add_locked(rows, ids, host_form=True)
+
+    def _add_locked(self, vectors, ids, host_form: bool = False) -> np.ndarray:
+        arr = vectors if host_form else self._coerce_batch(vectors)
         n_new = arr.shape[0]
         if n_new == 0:
             return np.zeros((0,), np.int64)
@@ -710,6 +720,71 @@ class Dataset:
             self._dead = dead.copy()
             self._n_dead = int(dead.sum())
             self._invalidate_row_caches()
+
+    def to_sqlite(self, database: str, table: str, column: str = "vector") -> None:
+        """Export into a reference-compatible SQLite database file: the
+        rows as typed little-endian BLOBs with this dataset's row ids as
+        rowids, and with a quantization the shadow table and the
+        `_sqliteai_vector` metadata (vector_quantize of the exported rows
+        on this dataset's device), so the file serves the C extension, the
+        JAX package's sqlite module and this package's alike. Rows come to
+        the host one HOST_CHUNK_ELEMS chunk at a time."""
+        import sqlite_vector_tpu_torch.sqlite as svs
+
+        with self._mutate_lock:
+            if self._n_dead and self._can_compact():
+                self._compact_locked()  # never export tombstoned rows
+            # one same-generation snapshot; a read-only mirror keeps its
+            # tombstones, filtered chunk by chunk below
+            count, ids_arr, live = self._count, self._ids, self._live_row_mask()
+            src = self._host_vectors if self._storage == "host" else self._vectors
+        chunk_rows = max(1, HOST_CHUNK_ELEMS // max(self.dimension, 1))
+
+        def row_stream():
+            for s in range(0, count, chunk_rows):
+                e = min(s + chunk_rows, count)
+                block = np.asarray(src[s:e]) if self._storage == "host" else _rows_to_host(src[s:e], self.dtype)
+                for j in range(e - s):
+                    if live is None or live[s + j]:
+                        yield int(ids_arr[s + j]), np.ascontiguousarray(block[j]).tobytes()
+
+        conn = svs.connect(database, device=self.device)
+        try:
+            q = svs._quote(table)
+            conn.execute(f"CREATE TABLE IF NOT EXISTS {q} ({svs._quote(column)} BLOB)")
+            conn.execute(f"DELETE FROM {q}")
+            conn.executemany(f"INSERT INTO {q} (rowid, {svs._quote(column)}) VALUES (?, ?)", row_stream())
+            conn.commit()
+            conn.vector_init(
+                table, column,
+                f"type={self.dtype.value},dimension={self.dimension},distance={self.metric.value}",
+            )
+            quant = self._quant  # one snapshot against a concurrent drop
+            if quant is not None and quant.count:
+                conn.vector_quantize(table, column, f"qtype={quant.qtype.value}")
+        finally:
+            conn.close()
+
+    @classmethod
+    def from_sqlite(
+        cls, database: str, table: str, column: str, options: str, **kwargs: Any
+    ) -> "Dataset":
+        """Import a (table, column) of a SQLite database file, files
+        written by the C extension included. kwargs go to the Dataset
+        (device=, storage=); the rows are read on the host and added."""
+        import sqlite_vector_tpu_torch.sqlite as svs
+
+        conn = svs.connect(database, device=kwargs.get("device"))
+        try:
+            conn.vector_init(table, column, options)
+            ctx = conn._lookup(table, column, "from_sqlite")
+            ids, rows = conn._load_rows(ctx, min_pk=None)
+            ds = cls(f"{table}.{column}", dataclasses.replace(ctx.options), **kwargs)
+            if len(ids):
+                ds._add_host_rows(rows, ids)
+            return ds
+        finally:
+            conn.close()
 
     def get(self, ids: Sequence[int] | np.ndarray) -> np.ndarray:
         """Fetch stored vectors by row id. Unknown and removed ids raise."""
@@ -1085,30 +1160,29 @@ class Dataset:
                 np.full((q.shape[0], k), -1, np.int64),
                 np.full((q.shape[0], k), np.inf, np.float32),
             )
-        if mode != "quantized" and self.dtype in (VectorType.F16, VectorType.BF16):
-            # lane-skip dtypes need the reference's non-finite policy
-            # kernels; the JAX package routes rerank and refine over such
-            # data to them too (their rescores cannot honor the semantics)
-            if self._has_nonfinite or not _finite(q):
-                raise _unported(
-                    "Exact search over non-finite float16/bfloat16 data", "nonfinite"
-                )
 
         def attempt():
+            # lane-skip dtypes with non-finite data: rerank's and refine's
+            # rescores cannot honor the policies, so they run as exact,
+            # which does (as in the JAX package)
+            policy = self._nonfinite_policy(q)
+            mode_eff = "exact" if mode in ("rerank", "refine") and policy is not None else mode
+            if mode_eff not in ("exact", "approx"):
+                policy = None
             # ONE quant snapshot: the mask's index space, the scanned codes
             # and the id map agree
             quant = self._quant
-            mask = self._search_mask(mode, quant, ids_filter, self._streams(mode, quant))
-            cosine_fast = mode in ("exact", "approx") and self._cosine_dot_fast(q)
-            if mode in ("exact", "approx"):
-                if mode == "approx" and not 0.0 < recall_target <= 1.0:
+            mask = self._search_mask(mode_eff, quant, ids_filter, self._streams(mode_eff, quant))
+            cosine_fast = mode_eff in ("exact", "approx") and self._cosine_dot_fast(q)
+            if mode_eff in ("exact", "approx"):
+                if mode_eff == "approx" and not 0.0 < recall_target <= 1.0:
                     raise VectorConfigError(
                         f"recall_target must be in (0, 1], got {recall_target}"
                     )
-                vals, idx = self._search_exact(q, k, mask, cosine_fast)
-            elif mode == "refine":
+                vals, idx = self._search_exact(q, k, mask, cosine_fast, policy)
+            elif mode_eff == "refine":
                 vals, idx = self._search_refine(q, k, mask, expand, quant)
-            elif mode == "rerank":
+            elif mode_eff == "rerank":
                 vals, idx = self._search_rerank(q, k, mask, expand, quant)
             else:
                 vals, idx = self._search_quantized(q, k, mask, quant)
@@ -1124,7 +1198,7 @@ class Dataset:
                 vals = np.where(np.abs(vals) <= NEARLY_ZERO, 0.0, vals).astype(np.float32)
             # quantized and refine positions index the codes AT QUANTIZE
             # TIME; exact, approx and rerank positions the live layout
-            id_map = self._quant_id_map(quant) if mode in ("quantized", "refine") else self._ids
+            id_map = self._quant_id_map(quant) if mode_eff in ("quantized", "refine") else self._ids
             n_map = len(id_map)
             valid = (idx >= 0) & (idx < n_map)
             if n_map == 0:
@@ -1149,6 +1223,18 @@ class Dataset:
             return out_ids[0][keep], vals[0][keep]
         return out_ids, vals
 
+    def _nonfinite_policy(self, q: np.ndarray, *, raw_values: bool = False) -> VectorType | None:
+        """The dtype whose non-finite policies this scan must run
+        (ops/nonfinite.py), or None: only for dtypes with lane-skip rules
+        (raw_values adds f32 L2/SQUARED_L2, whose decomposition excludes
+        an Inf row from a top-k as the reference does but reads NaN where
+        it reads +Inf), and only when the dataset's flag or the query is
+        non-finite."""
+        needed = needs_raw_policy if raw_values else needs_policy
+        if not needed(self.dtype, self.metric):
+            return None
+        return self.dtype if self._has_nonfinite or not _finite(q) else None
+
     def _cosine_dot_fast(self, q: np.ndarray) -> bool:
         """normalized=1 + COSINE over clean f32 rows: scan a pure dot over
         unit-normalized queries; search() applies 1 + (-dot) on the host (a
@@ -1164,7 +1250,9 @@ class Dataset:
             and _finite(q)
         )
 
-    def _search_exact(self, q: np.ndarray, k: int, mask, cosine_fast: bool):
+    def _search_exact(
+        self, q: np.ndarray, k: int, mask, cosine_fast: bool, policy: VectorType | None = None
+    ):
         metric = self.metric
         if cosine_fast:
             metric = DistanceMetric.DOT
@@ -1177,11 +1265,12 @@ class Dataset:
         qd = self._query_to_device(q)
         if self._storage == "host":
             return streaming_scan_topk(
-                qd, self._host_vectors, metric, k, valid_count=count, row_mask=mask
+                qd, self._host_vectors, metric, k, valid_count=count, row_mask=mask,
+                policy_vtype=policy,
             )
         base = self._vectors[:count]
         return fused_scan_topk(
-            qd, base, metric, k, row_mask=_fit_mask(mask, base.shape[0])
+            qd, base, metric, k, row_mask=_fit_mask(mask, base.shape[0]), policy_vtype=policy
         )
 
     def _search_quantized(self, q: np.ndarray, k: int, mask, quant: _QuantState | None):
@@ -1348,26 +1437,21 @@ class Dataset:
             out = np.zeros((q.shape[0], 0), np.float32)
             return out[0] if single else out
         if exact:
-            raw_policy = self.dtype in (VectorType.F16, VectorType.BF16) or (
-                self.dtype is VectorType.F32
-                and self.metric in (DistanceMetric.L2, DistanceMetric.SQUARED_L2)
-            )
-            if raw_policy and (self._has_nonfinite or not _finite(q)):
-                # the plain decomposition gives NaN where the reference's
-                # direct kernels give +Inf
-                raise _unported(
-                    "Dataset.distances over non-finite rows or queries", "nonfinite"
-                )
+            # the reference's values over non-finite rows or queries: the
+            # plain decomposition gives NaN where its direct kernels give +Inf
+            policy = self._nonfinite_policy(q, raw_values=True)
             count = self._count
             qd = self._query_to_device(q)
             if self._storage == "host":
-                d = streaming_scan_distances(qd, self._host_vectors, self.metric, valid_count=count)
+                d = streaming_scan_distances(
+                    qd, self._host_vectors, self.metric, valid_count=count, policy_vtype=policy
+                )
                 live = self._live_row_mask()
                 if live is not None and len(live) == count:
                     d = d[:, live]  # drop tombstoned columns
             else:
                 base = self._vectors[:count]
-                d = scan_distances(qd, base, self.metric)
+                d = scan_distances(qd, base, self.metric, policy_vtype=policy)
                 live = self._live_mask_dev()
                 if live is not None and live.shape[0] == base.shape[0]:
                     d = d[:, live]  # drop tombstoned columns

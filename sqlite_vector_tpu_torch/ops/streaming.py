@@ -48,7 +48,7 @@ from sqlite_vector_tpu_torch.hostarray import ShardedRows
 from sqlite_vector_tpu_torch.ops.quantize4 import int4_scan_distances, int4_scan_topk
 from sqlite_vector_tpu_torch.ops.scan import fused_scan_topk, scan_distances
 from sqlite_vector_tpu_torch.ops.topk import merge_topk
-from sqlite_vector_tpu_torch.types import DistanceMetric
+from sqlite_vector_tpu_torch.types import DistanceMetric, VectorType
 
 # Bytes per streamed tile (of all the streamed arrays' rows) when
 # tile_rows is not given. Each tile costs the host a few ms of launches
@@ -269,6 +269,7 @@ def streaming_scan_topk(
     valid_count: int | None = None,
     row_mask: np.ndarray | None = None,
     tile_rows: int | None = None,
+    policy_vtype: VectorType | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused top-k over the first valid_count rows of a host [N, dim] array
     (numpy, np.memmap or ShardedRows; bfloat16 as uint16 bits), streamed
@@ -276,10 +277,13 @@ def streaming_scan_topk(
     rows'). Same contract as ops.scan.fused_scan_topk: (distances [B, k]
     float32, positions [B, k] int64) ascending, +inf / -1 padding. row_mask
     ([N] bool host array, optional) excludes rows where False; rows past
-    its length are excluded."""
+    its length are excluded. policy_vtype scans each tile under the
+    non-finite policies (ops.scan.fused_scan_topk)."""
     n = host_vectors.shape[0] if valid_count is None else int(valid_count)
     return _streamed_topk(
-        lambda t, kk, m: fused_scan_topk(queries, t[0], metric, kk, row_mask=m),
+        lambda t, kk, m: fused_scan_topk(
+            queries, t[0], metric, kk, row_mask=m, policy_vtype=policy_vtype
+        ),
         [host_vectors], n, queries.shape[0], k, queries.device, row_mask, tile_rows,
     )
 
@@ -327,13 +331,15 @@ def streaming_scan_distances(
     *,
     valid_count: int | None = None,
     tile_rows: int | None = None,
+    policy_vtype: VectorType | None = None,
 ) -> np.ndarray:
     """Full [B, N] float32 distances over the first valid_count rows of a
     host array, computed tile by tile on the queries' device (the *_stream
-    virtual tables for host-storage datasets)."""
+    virtual tables for host-storage datasets); policy_vtype as in
+    ops.scan.scan_distances."""
     n = host_vectors.shape[0] if valid_count is None else int(valid_count)
     return _streamed_distances(
-        lambda t: scan_distances(queries, t[0], metric),
+        lambda t: scan_distances(queries, t[0], metric, policy_vtype=policy_vtype),
         [host_vectors], n, queries.shape[0], queries.device, tile_rows,
     )
 

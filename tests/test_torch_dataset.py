@@ -187,27 +187,23 @@ def test_unported_paths_raise_config_error():
         svt.VectorStore(device="cpu", mesh=object())
     with pytest.raises(svt.VectorConfigError, match="ROADMAP"):
         svt.Dataset("h", svt.parse_options("dimension=8"), device="cpu", storage="host", mesh=object())
-    half = svt.VectorStore(device="cpu").create("h", "dimension=8,type=FLOAT16")
+    # the non-finite policy paths are ported (tests/test_torch_nonfinite.py):
+    # they answer as the JAX package does instead of raising
     bad = base.copy()
     bad[3, 2] = np.nan
-    half.add(bad)
-    with pytest.raises(svt.VectorConfigError, match="ROADMAP"):
-        half.search(base[0], 3)  # lane-skip semantics need the policy twins
-    half.quantize(qtype="int4", refine=True)
-    with pytest.raises(svt.VectorConfigError, match="ROADMAP"):
-        half.search(base[0], 3, mode="refine")  # JAX routes it to exact
-    half.quantize()
-    for mode in ("approx", "rerank"):  # JAX: the policy scan, as exact
-        with pytest.raises(svt.VectorConfigError, match="ROADMAP"):
-            half.search(base[0], 3, mode=mode)
-    # exact distances where JAX needs its raw-value policy kernels: f32 L2
-    # over a row holding Inf (the plain decomposition gives NaN, not +Inf)
+    jhalf, half = both("dimension=8,type=FLOAT16", [bad])
+    want = jhalf.search(base[0], 3)
+    np.testing.assert_array_equal(half.search(base[0], 3)[0], want[0])
+    for qtype, refine, mode in (("int4", True, "refine"), ("int8", False, "approx"), ("int8", False, "rerank")):
+        half.quantize(qtype=qtype, refine=refine)
+        np.testing.assert_array_equal(half.search(base[0], 3, mode=mode)[0], want[0])  # as exact
+    # exact distances of f32 L2 over a row holding Inf: +Inf, as in JAX
     inf_rows = base.copy()
     inf_rows[2, 1] = np.inf
-    f32 = svt.VectorStore(device="cpu").create("i", "dimension=8,distance=L2")
-    f32.add(inf_rows)
-    with pytest.raises(svt.VectorConfigError, match="ROADMAP"):
-        f32.distances(base[0])
+    jf32, f32 = both("dimension=8,distance=L2", [inf_rows])
+    got = f32.distances(base[0])
+    assert np.isposinf(got[2])
+    np.testing.assert_allclose(got, np.asarray(jf32.distances(base[0])), rtol=1e-5)
 
 
 def test_default_device_refuses_missing_gpu(monkeypatch):
@@ -222,9 +218,9 @@ def test_default_device_refuses_missing_gpu(monkeypatch):
 
 
 def test_package_imports_without_jax(tmp_path):
-    """Every module imports without jax, and persistence and host-storage
-    streaming run without it (a sharded save, an mmap load, a streamed
-    search, a checkpointed quantize)."""
+    """Every module imports without jax, and persistence, host-storage
+    streaming, the non-finite policies, the SQL surface (its virtual
+    tables and the native loader), serving and the CLI run without it."""
     code = (
         "import sys\n"
         "import numpy as np\n"
@@ -232,7 +228,10 @@ def test_package_imports_without_jax(tmp_path):
         "import sqlite_vector_tpu_torch.ops.block_scan, sqlite_vector_tpu_torch.ops._build\n"
         "import sqlite_vector_tpu_torch.ops.quantize4, sqlite_vector_tpu_torch.ops.int4_scan\n"
         "import sqlite_vector_tpu_torch.ops.refine, sqlite_vector_tpu_torch.ops.streaming\n"
-        "import sqlite_vector_tpu_torch.hostarray\n"
+        "import sqlite_vector_tpu_torch.hostarray, sqlite_vector_tpu_torch.ops.nonfinite\n"
+        "import sqlite_vector_tpu_torch.sqlite, sqlite_vector_tpu_torch.serving\n"
+        "import sqlite_vector_tpu_torch.cli, sqlite_vector_tpu_torch.native\n"
+        "import sqlite_vector_tpu_torch.tools.recall, sqlite_vector_tpu_torch.models.embedders\n"
         "from sqlite_vector_tpu_torch.dataset import Dataset\n"
         "d = sys.argv[1]\n"
         "rows = np.eye(6, dtype=np.float32)\n"
@@ -240,8 +239,22 @@ def test_package_imports_without_jax(tmp_path):
         "back = Dataset.load(d + '/a', device='cpu', storage='host', mmap=True)\n"
         "assert back.search(rows[4], 1)[0][0] == 5\n"
         "assert back.quantize(checkpoint=d + '/ck') == 6\n"
+        "half = rows.astype(np.float16)\n"
+        "half[2, 3] = np.nan\n"
+        "h = Dataset.from_arrays('h', half, options='type=FLOAT16', device='cpu')\n"
+        "assert h.search(rows[2], 1)[0][0] == 3\n"
+        "back.to_sqlite(d + '/x.db', 'docs', 'v')\n"
+        "c = sqlite_vector_tpu_torch.sqlite.connect(d + '/x.db', device='cpu')\n"
+        "c.vector_init('docs', 'v', 'dimension=6,type=FLOAT32')\n"
+        "sql = \"SELECT id FROM vector_quantize_scan('docs', 'v', ?, 1)\" if c.vtab_loaded else None\n"
+        "assert sql is None or c.execute(sql, (rows[1].tobytes(),)).fetchone()[0] == 2\n"
+        "s = sqlite_vector_tpu_torch.BatchingSearcher(back)\n"
+        "assert s.search(rows[3], 1)[0][0] == 4\n"
+        "s.close()\n"
+        "assert sqlite_vector_tpu_torch.cli.main(['--cpu', 'ds-info', d + '/a']) == 0\n"
+        "sqlite_vector_tpu_torch.models.embedders.HashEmbedder().encode(['text'])\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
-        "assert 'sqlite_vector_tpu' not in sys.modules\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] == 'sqlite_vector_tpu']\n"
     )
     subprocess.run([sys.executable, "-c", code, str(tmp_path)], check=True, timeout=120)
 

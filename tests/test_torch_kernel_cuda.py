@@ -712,3 +712,65 @@ def test_bf16_host_storage_loads_without_ml_dtypes(cuda, tmp_path):
         "assert all((a == b).all() for a, b in zip(*res))\n"
     )
     subprocess.run([sys.executable, "-c", code, d, str(tmp_path / "base.npy")], check=True, timeout=300)
+
+
+def sql_table(path, rows):
+    import sqlite3
+
+    c = sqlite3.connect(path)
+    c.execute("CREATE TABLE docs (id INTEGER PRIMARY KEY, v BLOB)")
+    c.executemany("INSERT INTO docs (v) VALUES (?)", ((r.tobytes(),) for r in rows))
+    c.commit()
+    c.close()
+
+
+@pytest.mark.cuda
+def test_sql_full_scan_launches_k1_and_equals_the_dataset(cuda, tmp_path):
+    """SQL vector_full_scan on the card (connect() with no device): one K1
+    launch on its tensor-core body a call, the Dataset's result."""
+    import sqlite_vector_tpu_torch.sqlite as psql
+
+    rows = np.random.default_rng(4).standard_normal((6000, 64)).astype(np.float32)
+    sql_table(str(tmp_path / "t.db"), rows)
+    conn = psql.connect(str(tmp_path / "t.db"))
+    assert conn.device.type == "cuda"
+    conn.vector_init("docs", "v", "dimension=64,type=FLOAT32,distance=L2")
+    ref = svt.Dataset.from_arrays("ref", rows, device=cuda)
+    for q in rows[[3, 4000]] + np.float32(1e-3):
+        conn.vector_full_scan("docs", "v", q, 10)  # loads the table
+        before, mma = block_minima.launches, block_minima.body_launches["mma"]
+        got = conn.vector_full_scan("docs", "v", q, 10)
+        assert block_minima.launches == before + 1 and block_minima.body_launches["mma"] == mma + 1
+        ids, dist = ref.search(q, 10)
+        assert [r[0] for r in got] == ids.tolist()
+        np.testing.assert_allclose([r[1] for r in got], dist, rtol=1e-5, atol=1e-6)
+    conn.close()
+
+
+@pytest.mark.cuda
+def test_sql_int4_quantize_scan_launches_k2_and_equals_the_dataset(cuda, tmp_path):
+    """SQL vector_quantize(..., 'qtype=INT4') and vector_quantize_scan on
+    the card, own connection and a second one reading the shadow table:
+    K2 on its tensor-core body, bit-equal to the Dataset's int4 search."""
+    import sqlite_vector_tpu_torch.sqlite as psql
+
+    rows = np.random.default_rng(5).standard_normal((6000, 64)).astype(np.float32)
+    path = str(tmp_path / "t.db")
+    sql_table(path, rows)
+    conn = psql.connect(path)
+    conn.vector_init("docs", "v", "dimension=64,type=FLOAT32,distance=L2")
+    conn.vector_quantize("docs", "v", "qtype=INT4")
+    ref = svt.Dataset.from_arrays("ref", rows, device=cuda)
+    ref.quantize(qtype="int4")
+    other = psql.connect(path)
+    other.vector_init("docs", "v", "dimension=64,type=FLOAT32,distance=L2")
+    q = rows[11]
+    ids, dist = ref.search(q, 10, mode="quantized")
+    for c in (conn, other):
+        before, mma = int4_block_minima.launches, int4_block_minima.body_launches["mma"]
+        got = c.vector_quantize_scan("docs", "v", q, 10)
+        assert int4_block_minima.launches == before + 1 and int4_block_minima.body_launches["mma"] == mma + 1
+        assert [r[0] for r in got] == ids.tolist()
+        assert [r[1] for r in got] == dist.astype(np.float64).tolist()
+    conn.close()
+    other.close()
