@@ -14,16 +14,19 @@ Phases, each printing its own lines:
               cores, csrc/int4_minima.cu on CUDA cores) from csrc/ with nvcc,
               one process per source, and print what ptxas reported of each
               function (registers, stack, spills); no instance of either
-              tensor-core body may spill;
+              tensor-core body or of K1's L1 kernel may spill;
   3. kernel   K1 against its plain PyTorch twin on the card for every
               (metric x dtype) pair, in the body ops/block_scan.py:k1_body
-              routes it to, N = 100003 (ragged last group), d in {100, 384},
+              routes it to (the dot family on tensor cores, L1 on K1's L1
+              kernel), and the 16-bit dot family also on the CUDA-core body,
+              N = 100003 (ragged last group), d in {100, 384} (16-bit also
+              6848, the widest row of the tensor-core body),
               B in {1, 8, 33, 64, 65, 200} (query-tile edges), valid < N,
-              with a NaN row, two duplicate rows and a zero row; then f32
-              rows and queries with +Inf, -Inf, values whose squared norms
-              overflow, and 0 x Inf (tests/test_torch_kernel_cuda.py:
-              nonfinite_case) under
-              every metric; then K2 against its twin
+              with a NaN row, two duplicate rows and a zero row; then f32,
+              f16 and bf16 rows and queries with +Inf, -Inf, values whose
+              squared norms overflow, and 0 x Inf (tests/test_torch_kernel_cuda.py:
+              nonfinite_case) under every metric, the 16-bit dot family in
+              both bodies; then K2 against its twin
               for its four metrics, d in {95, 384}, B in {1, 8, 33, 64, 65,
               200}, with a zero row, duplicate rows and rows scaled by 1e25
               (overflowing surrogates, one group entirely); each case also
@@ -40,18 +43,23 @@ Phases, each printing its own lines:
               these searches must be above 0, every launch in its
               tensor-core body;
   5. times    K1 at the main path's shapes (f32, the int8 codes and u8 codes,
-              each at B=1 and B=64), both bodies held against the twin and
-              timed in turns (CUDA events, after warm-up) with the twin, the
-              CUDA-core body and the library yardstick (library_call), beside
-              its bound (k1_bound) and its share of it; then the CUDA-core
-              body where it is K1's only body (L1 over the f32 rows, L2
-              over the rows cast to float16 and bfloat16, B=1 and B=64)
-              against the twin, its bound (k1_bound_cuda_core) and the
-              library (torch.cdist(p=1), torch.matmul in 16 bits); then end-to-end
-              search at B=1 and B=64: QPS as all queries over the whole
-              window of back-to-back calls, and the per-call latency p50,
-              p99 and max; then exact and int8 search at B=1 with K1 in
-              each body, in turns (body_latency);
+              and L2 over the rows cast to float16 and bfloat16, each at B=1
+              and B=64), both bodies held against the twin and timed in
+              turns (CUDA events, after warm-up) with the twin, the
+              CUDA-core body and the library yardstick (library_call;
+              torch.matmul in 16 bits), beside its bound (k1_bound) and its
+              share of it; then L1 over the f32 rows, the rows in float16
+              and u8 codes on K1's L1 kernel, against the twin, its bound
+              (k1_bound_cuda_core) and torch.cdist(p=1) where it takes the
+              dtype; then end-to-end search at B=1 and B=64: QPS as all
+              queries over the whole window of back-to-back calls, and the
+              per-call latency p50, p99 and max; then exact and int8 search
+              at B=1 with K1 in each body, in turns (body_latency); then
+              FLOAT16 L2, FLOATB16 DOT and FLOAT32 L1 datasets of the same
+              rows (phase_datasets): exact search for the 64 queries against
+              the plain-torch ground truth (tie-aware), every K1 launch in
+              its expected body, the same end-to-end times, and for 16-bit
+              body_latency;
   6. int4     on the same rows: quantize(qtype="int4", refine=True), then
               search(Q, 20, mode="quantized") against the plain int4 tile
               loop over the same codes and search(Q, 20, mode="refine")
@@ -136,9 +144,12 @@ Phases, each printing its own lines:
               vector_quantize and the shadow load, serving QPS and latency,
               HTTP p50, the policy search at B=1 and B=8.
 
-Then one JSON line of kernel results (each with its bound, the side that
-bounds it and the library yardstick; K1's main-path numbers are f32 B=64,
-K2's B=64, the rest under "by_shape"; "sql_launches" counts phase 10's
+Then one JSON line of kernel results, one entry a kernel body (each with
+its bound, the side that bounds it and the library yardstick): K1 on tensor
+cores for f32 and codes (main-path numbers f32 B=64), K1 on tensor cores
+for 16-bit rows (L2 f16 B=64; launches from phase 5's FLOAT16 and FLOATB16
+searches), K1's L1 kernel (L1 f32 B=64; launches from the FLOAT32 L1
+search), K2 (B=64); the rest under "by_shape"; "sql_launches" counts phase 10's
 launches on the SQL path; phase 10's times under "frontends"), the card
 line again, and last the result line. Any failure raises, so the script exits non-zero and prints no
 result; so does a machine without CUDA.
@@ -217,7 +228,7 @@ def in_turns(fns, iters: int, rounds: int = 1) -> list[float]:
 # HBM bytes per second, and operations per second by operand type on the
 # tensor cores.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"tf32": 495e12, "int8": 1979e12, "fp16": 989e12, "fp32": 67e12}
+PEAK_OPS_PER_S = {"tf32": 495e12, "int8": 1979e12, "fp16": 989e12}
 
 
 def bound(nbytes: float, ops: float, peak: str) -> tuple[float, str]:
@@ -230,25 +241,43 @@ def bound(nbytes: float, ops: float, peak: str) -> tuple[float, str]:
 
 
 def k1_bound(b: int, n: int, d: int, elem: int, masked: bool = False) -> tuple[float, str]:
-    """K1's bound: queries and rows read once (plus a mask byte a row), the
-    [B, ceil(N/128)] float32 minima written once; 2 B N d products, each
-    three TF32 products for 4-byte rows (the 3xTF32 split, the cheapest
-    float32-accurate product on the card: 67 TFLOP/s of float32 outside
-    the tensor cores is slower) and one int8 product for 1-byte codes."""
+    """K1's bound for the dot-family metrics: queries and rows read once
+    (plus a mask byte a row), the [B, ceil(N/128)] float32 minima written
+    once; 2 B N d products, each three TF32 products for 4-byte rows (the
+    3xTF32 split, the cheapest float32-accurate product on the card: 67
+    TFLOP/s of float32 outside the tensor cores is slower), one 16-bit
+    product for 2-byte rows (exact in f32) and one int8 product for 1-byte
+    codes."""
     nbytes = (b + n) * d * elem + b * -(-n // 128) * 4 + (n if masked else 0)
     if elem == 4:
         return bound(nbytes, 3 * 2.0 * b * n * d, "tf32")
-    return bound(nbytes, 2.0 * b * n * d, "int8")
+    return bound(nbytes, 2.0 * b * n * d, "fp16" if elem == 2 else "int8")
 
 
-def k1_bound_cuda_core(b: int, n: int, d: int, elem: int, metric) -> tuple[float, str]:
-    """K1's bound where only its CUDA-core body serves: the same bytes as
-    k1_bound; for L1 2 B N d operations (a subtract and an add a pair, the
-    absolute value a sign bit) at the float32 rate outside the tensor
-    cores, which have no L1 form; for float16/bfloat16 rows the 2 B N d
-    products at the 16-bit tensor-core peak, the least the card could take."""
+# The CUDA cores' instruction rates (NVIDIA H100 SXM: 132 SMs at 1.98 GHz,
+# 128 FP32 and 64 INT32 lanes an SM): 67 TFLOP/s counts an FMA as two
+# operations, so FP32 instructions issue at 33.5 T a second, INT32 ones at
+# half that.
+FP32_INSTR_PER_S = 33.5e12
+INT_INSTR_PER_S = 16.75e12
+
+
+def k1_bound_cuda_core(b: int, n: int, d: int, elem: int, signed: bool = False) -> tuple[float, str]:
+    """K1's L1 bound (csrc/block_minima.cu:l1_minima_kernel; the tensor
+    cores have no L1 form): the same bytes as k1_bound; for float rows two
+    FP32 instructions a pair and column (FADD, then FADD with the |x|
+    modifier) at FP32_INSTR_PER_S; for codes the instructions the body
+    compiles to per 4 pairs (tools/k1_sass.py): u8 one (VABSDIFF4.U8.ACC,
+    the add folded in), i8 two (VABSDIFF4 after a sign flip, then IDP.4A
+    against 0x01010101), at INT_INSTR_PER_S (VABSDIFF4's issue rate is not
+    published; the INT32 pipe's is taken)."""
     nbytes = (b + n) * d * elem + b * -(-n // 128) * 4
-    return bound(nbytes, 2.0 * b * n * d, "fp32" if metric.value == "L1" else "fp16")
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    if elem == 1:
+        t_ops = (2.0 if signed else 1.0) * (b * n * d / 4) / INT_INSTR_PER_S * 1e3
+    else:
+        t_ops = 2.0 * b * n * d / FP32_INSTR_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def k2_bound(b: int, n: int, d: int, masked: bool = False) -> tuple[float, str]:
@@ -280,6 +309,19 @@ def library_call(q: torch.Tensor, base: torch.Tensor):
     if base.dtype is torch.int8 and q.shape[0] > 16 and q.shape[1] % 8 == 0 and base.shape[0] % 8 == 0:
         return lambda: torch._int_mm(q, base.T)
     return None
+
+
+def cdist_call(q: torch.Tensor, base: torch.Tensor):
+    """One PyTorch call computing K1's L1 distances on the same inputs,
+    timed as a yardstick and used nowhere in the port: torch.cdist(p=1),
+    where it takes the dtype (it refuses integer codes); None otherwise."""
+    if not base.dtype.is_floating_point:
+        return None
+    try:
+        torch.cdist(q[:1], base[:2], p=1)
+    except RuntimeError:
+        return None
+    return lambda: torch.cdist(q, base, p=1)
 
 
 def make_rows(gen: torch.Generator, n: int, d: int, dtype: torch.dtype) -> torch.Tensor:
@@ -332,22 +374,28 @@ def compare_minima(
 
 def check_nonfinite(n: int, masks=None) -> float:
     """K1 against its twin on tests/test_torch_kernel_cuda.py:nonfinite_case
-    under every metric, unmasked
-    and with each of `masks`; DOT over group 30 reads -inf for query 2.
-    Returns max |kernel - twin| over the finite minima."""
+    in float32, float16 and bfloat16 (bf16 keeps the overflowing norms, f16
+    turns those rows into +-Inf) under every metric, unmasked and with each
+    of `masks`, and for the 16-bit dot family also forced onto the CUDA-core
+    body; DOT over group 30 reads -inf for query 2. Returns max |kernel -
+    twin| over the finite minima."""
     from sqlite_vector_tpu_torch.ops.block_scan import block_minima
     from sqlite_vector_tpu_torch.types import DistanceMetric
 
-    q, base = load_tests_module("test_torch_kernel_cuda").nonfinite_case(n, "cuda", seed=SEED)
     valid = n - 40
     worst = 0.0
-    for metric in DistanceMetric:
-        for kind, mask in [("none", None), *(masks or {}).items()]:
-            label = f"non-finite f32 {metric.value}/mask={kind}"
-            worst = max(worst, compare_minima(q, base, metric, valid, label, mask))
-    dot = block_minima(q, base, DistanceMetric.DOT, valid)
-    check(float(dot[2, 30]) == float("-inf"), "DOT over a +Inf column does not read -inf")
-    check(float(dot[6, 31]) == float("-inf"), "DOT of -Inf against -Inf does not read -inf")
+    for dtype in (torch.float32, torch.float16, torch.bfloat16):
+        q, base = load_tests_module("test_torch_kernel_cuda").nonfinite_case(n, "cuda", seed=SEED, dtype=dtype)
+        for metric in DistanceMetric:
+            for kind, mask in [("none", None), *(masks or {}).items()]:
+                label = f"non-finite {dtype} {metric.value}/mask={kind}"
+                worst = max(worst, compare_minima(q, base, metric, valid, label, mask))
+            if dtype is not torch.float32 and metric is not DistanceMetric.L1:
+                label = f"non-finite {dtype} {metric.value}, CUDA-core body"
+                worst = max(worst, compare_minima(q, base, metric, valid, label, body="simt"))
+        dot = block_minima(q, base, DistanceMetric.DOT, valid)
+        check(float(dot[2, 30]) == float("-inf"), f"{dtype}: DOT over a +Inf column does not read -inf")
+        check(float(dot[6, 31]) == float("-inf"), f"{dtype}: DOT of -Inf against -Inf does not read -inf")
     return worst
 
 
@@ -366,7 +414,9 @@ def phase_kernel(card: str) -> tuple[float, float, float]:
     cases = 0
     t0 = time.perf_counter()
     for dtype in (torch.float32, torch.float16, torch.bfloat16, torch.uint8, torch.int8):
-        for d in (100, 384):
+        half = dtype in (torch.float16, torch.bfloat16)
+        # 6,848: the widest 16-bit row of the tensor-core body
+        for d in (100, 384, 6848) if half else (100, 384):
             base = make_rows(gen, n, d, dtype)
             if dtype.is_floating_point:
                 base[5] = torch.nan  # NaN row
@@ -378,6 +428,8 @@ def phase_kernel(card: str) -> tuple[float, float, float]:
                 for metric in DistanceMetric:
                     label = f"{metric.value}/{dtype}/d={d}/B={b}"
                     worst = max(worst, compare_minima(q, base, metric, valid, label))
+                    if half and metric is not DistanceMetric.L1:  # the other body
+                        worst = max(worst, compare_minima(q, base, metric, valid, f"{label}/simt", body="simt"))
                     for kind, mask in masks.items():
                         masked_worst = max(masked_worst, compare_minima(
                             q, base, metric, valid, f"{label}/mask={kind}", mask
@@ -387,11 +439,12 @@ def phase_kernel(card: str) -> tuple[float, float, float]:
     nonfinite_worst = check_nonfinite(n, masks)
     print(
         f"[kernel] K1 == twin on all 25 metric x dtype pairs ({cases} dtype/d/B "
-        f"cases, B in 1, 8, 33, 64, 65, 200, x 5 metrics, N={n}, valid={valid}; ints "
+        f"cases, d in 100, 384 and for 16-bit 6848, B in 1, 8, 33, 64, 65, 200, x 5 "
+        f"metrics, the 16-bit dot family in both bodies, N={n}, valid={valid}; ints "
         f"equal, floats within 1e-5 of the accumulated magnitude); max |kernel - twin| "
         f"= {worst!r}; masked ({len(masks)} row masks each: {', '.join(masks)}): max "
-        f"|kernel - twin| = {masked_worst!r}, +inf groups equal; non-finite f32 rows "
-        f"and queries (+Inf, -Inf, overflowing norms, 0 x Inf) under every metric, unmasked "
+        f"|kernel - twin| = {masked_worst!r}, +inf groups equal; non-finite f32, f16 and "
+        f"bf16 rows and queries (+Inf, -Inf, overflowing norms, 0 x Inf) under every metric, unmasked "
         f"and masked: +-inf positions equal, max |kernel - twin| = {nonfinite_worst!r}; "
         f"in {time.perf_counter() - t0:.1f} s | {card}",
         flush=True,
@@ -632,36 +685,60 @@ def phase_times(card: str, ds, Q) -> dict:
             f"{'none' if not lib else repr(ms[3]) + ' ms'} | {card}",
             flush=True,
         )
-    del u8_base
 
-    # K1's CUDA-core body where it is the only body: L1 over the f32 rows,
-    # L2 over the same rows cast to float16 and bfloat16
-    L1 = DistanceMetric.L1
-    cuda_core = [("L1 f32", L1, Qd, vecs, lambda q, base: lambda: torch.cdist(q, base, p=1))]
+    # 16-bit rows (the f32 rows cast) on the tensor-core body and forced
+    # onto the CUDA-core body, in turns, beside torch.matmul in 16 bits
     for name, dt in (("f16", torch.float16), ("bf16", torch.bfloat16)):
-        cuda_core.append((f"L2 {name}", L2, Qd.to(dt), vecs.to(dt), lambda q, base: lambda: torch.matmul(q, base.T)))
-    for name, metric, q_all, base, library in cuda_core:
-        check(k1_body(base.dtype, metric, DIM_MAIN) == "simt", f"{name} does not route to the CUDA-core body")
+        base = vecs.to(dt)
+        check(k1_body(dt, L2, DIM_MAIN) == "mma", f"L2 {name} does not route to the tensor-core body")
         for b in (1, B_MAIN):
-            q = q_all[:b].contiguous()
-            label = f"{name} B={b}"
-            out["max_abs_err"] = max(out["max_abs_err"], compare_minima(q, base, metric, n, f"main-path {label}"))
+            q = Qd[:b].to(dt)
+            label = f"L2 {name} B={b}"
+            out["max_abs_err"] = max(out["max_abs_err"], compare_minima(q, base, L2, n, f"main-path {label}"))
+            compare_minima(q, base, L2, n, f"main-path {label}, CUDA-core body", body="simt")
             ms = in_turns(
-                [lambda: block_minima_reference(q, base, metric, n), lambda: block_minima(q, base, metric, n),
-                 library(q, base)],
-                20 if b == 1 else 5,
+                [lambda: block_minima_reference(q, base, L2, n), lambda: block_minima(q, base, L2, n),
+                 lambda: _launch_k1(q, base, L2, n, None, "simt"), lambda: torch.matmul(q, base.T)],
+                20 if b == 1 else 10,
             )
-            lim, by = k1_bound_cuda_core(b, n, DIM_MAIN, base.element_size(), metric)
-            out[label] = {"ms": ms[1], "plain_ms": ms[0], "simt_ms": ms[1], "library_ms": ms[2],
+            lim, by = k1_bound(b, n, DIM_MAIN, 2)
+            out[label] = {"ms": ms[1], "plain_ms": ms[0], "simt_ms": ms[2], "library_ms": ms[3],
                           "bound_ms": lim, "bound_by": by}
-            lib_name = "torch.cdist(p=1)" if metric is L1 else f"torch.matmul in {name.split()[1]}"
             print(
-                f"[times] K1 {shape} {label} {metric.value} (CUDA-core body == twin): kernel "
-                f"{ms[1]!r} ms, bound {lim!r} ms ({by}), {100 * lim / ms[1]:.1f}% of bound; twin "
-                f"{ms[0]!r} ms; library {lib_name} {ms[2]!r} ms | {card}",
+                f"[times] K1 {shape} {label} (both bodies == twin; mma body): kernel {ms[1]!r} ms, "
+                f"bound {lim!r} ms ({by}), {100 * lim / ms[1]:.1f}% of bound; CUDA-core body "
+                f"{ms[2]!r} ms ({ms[2] / ms[1]:.2f}x); twin {ms[0]!r} ms; library torch.matmul in "
+                f"{name} {ms[3]!r} ms | {card}",
                 flush=True,
             )
-    del cuda_core
+        del base
+
+    # L1 on its CUDA-core body (the only body: the tensor cores have no L1
+    # form) over the f32 rows, the same rows in float16, and u8 codes
+    L1 = DistanceMetric.L1
+    for name, q_all, base in (("f32", Qd, vecs), ("f16", Qd.half(), vecs.half()), ("u8", u8_q, u8_base)):
+        check(k1_body(base.dtype, L1, DIM_MAIN) == "simt", f"L1 {name} does not route to the CUDA-core body")
+        for b in (1, B_MAIN):
+            q = q_all[:b].contiguous()
+            label = f"L1 {name} B={b}"
+            out["max_abs_err"] = max(out["max_abs_err"], compare_minima(q, base, L1, n, f"main-path {label}"))
+            lib = cdist_call(q, base)
+            ms = in_turns(
+                [lambda: block_minima_reference(q, base, L1, n), lambda: block_minima(q, base, L1, n)]
+                + ([lib] if lib else []),
+                20 if b == 1 else 3,
+            )
+            lim, by = k1_bound_cuda_core(b, n, DIM_MAIN, base.element_size(), base.dtype is torch.int8)
+            out[label] = {"ms": ms[1], "plain_ms": ms[0], "simt_ms": ms[1],
+                          "library_ms": ms[2] if lib else None, "bound_ms": lim, "bound_by": by}
+            print(
+                f"[times] K1 {shape} {label} (CUDA-core body == twin): kernel {ms[1]!r} ms, bound "
+                f"{lim!r} ms ({by}), {100 * lim / ms[1]:.1f}% of bound; twin {ms[0]!r} ms; library "
+                f"torch.cdist(p=1) {'none' if not lib else repr(ms[2]) + ' ms'} | {card}",
+                flush=True,
+            )
+        del base
+    del u8_base
 
     for mode in ("exact", "quantized"):
         search_times(card, ds, Q, mode, shape, ((1, 500), (B_MAIN, 200)))
@@ -705,6 +782,63 @@ def body_latency(
             f"rounds | {card}",
             flush=True,
         )
+
+
+def phase_datasets(card: str, ds, Q) -> dict:
+    """End-to-end exact search over datasets of the main rows in other
+    types and metrics: FLOAT16 L2 and FLOATB16 DOT (the rows cast, all
+    finite: K1's 16-bit tensor-core body) and FLOAT32 L1 (its CUDA-core L1
+    body), each against the plain-torch ground truth (tie-aware); then B=1
+    and B=64 search times and, for the 16-bit ones, B=1 latency with K1 in
+    each body. Returns, by dataset, the K1 launches of its checked search,
+    every one in the expected body."""
+    import sqlite_vector_tpu_torch as svt
+    from sqlite_vector_tpu_torch.ops.block_scan import block_minima
+    from sqlite_vector_tpu_torch.ops.distance import pairwise_distance
+    from sqlite_vector_tpu_torch.types import DistanceMetric
+
+    parity = load_tests_module("parity")
+    rows = ds._vectors[: len(ds)].cpu().numpy()
+    shape = f"{len(rows)}x{DIM_MAIN}"
+    launches = {}
+    for vtype, metric, body in (("FLOAT16", "L2", "mma"), ("FLOATB16", "DOT", "mma"), ("FLOAT32", "L1", "simt")):
+        label = f"{vtype} {metric}"
+        t0 = time.perf_counter()
+        other = svt.VectorStore(device="cuda").create(
+            label, f"dimension={DIM_MAIN},type={vtype},distance={metric}"
+        )
+        for s in range(0, len(rows), 100_000):
+            other.add(rows[s : s + 100_000])
+        torch.cuda.synchronize()
+        t_add = time.perf_counter() - t0
+        zero_counts()
+        got_ids, got_d = other.search(Q, K)
+        launches[label] = block_minima.launches
+        check(block_minima.launches > 0, f"{label} search did not launch K1")
+        check(block_minima.body_launches[body] == block_minima.launches,
+              f"{label} search left K1's {body} body: {block_minima.body_launches}")
+        qc, _ = other._coerce_queries(Q)
+        qd = torch.from_numpy(np.ascontiguousarray(qc)).cuda().to(other._vectors.dtype)
+        oracle = pairwise_distance(qd, other._vectors[: len(other)], DistanceMetric(metric)).cpu().numpy()
+        ids_all = other.ids
+        for i in range(B_MAIN):
+            parity.assert_topk_parity(
+                ids_all, oracle[i], got_ids[i], got_d[i], K,
+                rel_tol=parity.REL_TOL_BY_TYPE[vtype], label=f"{label} q{i}",
+            )
+        print(
+            f"[datasets] {shape} {label}: added in {t_add:.1f} s; search(Q[{B_MAIN}], {K}) ids "
+            f"match the plain-torch ground truth (tie-aware, rel_tol "
+            f"{parity.REL_TOL_BY_TYPE[vtype]}), K1 launches {block_minima.launches}, all in its "
+            f"{body} body | {card}",
+            flush=True,
+        )
+        search_times(card, other, Q, "exact", shape, ((1, 500), (B_MAIN, 200)), label=f"exact {label}")
+        if body == "mma":
+            body_latency(card, other, Q, shape, modes=("exact",), label=f" {label}")
+        del other
+        torch.cuda.empty_cache()
+    return launches
 
 
 def search_times(card: str, ds, Q, mode: str, shape: str, plan, label: str = "") -> None:
@@ -1865,40 +1999,57 @@ def main() -> int:
     )
     for name, said in ptxas_report().items():
         print(f"[build] ptxas {name}: {said}", flush=True)
-        if "mma_minima_kernel" in name:  # K1's and K2's tensor-core bodies
+        if "mma_minima_kernel" in name or "l1_minima_kernel" in name:
+            # K1's and K2's tensor-core bodies and K1's L1 body
             check(" 0 bytes spill stores" in f" {said}", f"{name} spills: {said}")
     max_err, masked_err, nonfinite_err = phase_kernel(card)
     k2_err, k2_masked_err = phase_kernel_int4(card)
     ds, Q, ids_e, launches = phase_main(card)
     k1 = phase_times(card, ds, Q)  # reads the int8 state
+    other_launches = phase_datasets(card, ds, Q)
     k2_launches = phase_int4(card, ds, Q, ids_e)
     k2 = phase_int4_times(card, ds, Q)
     masked = phase_mutate(card, ds, Q)["masked_launches"]
     host = phase_persist(card, ds, Q)
     fe = phase_frontends(card, Q)
-    k1_main = k1[f"f32 B={B_MAIN}"]
     k2_main = k2[f"B={B_MAIN}"]
+
+    def k1_entry(name: str, source: str, shape: str, n_launches: int, family) -> dict:
+        # one body (or type family) of K1: its times at `shape`, and those
+        # of every shape `family` takes under by_shape
+        main = k1[shape]
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": "sqlite_vector_tpu/ops/pallas_scan.py:681",
+            "launches": n_launches,
+            "max_abs_err": max(max_err, k1["max_abs_err"]),
+            "ms": main["ms"],
+            "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"],
+            "main_shape": shape,
+            "by_shape": {k: v for k, v in k1.items() if k != "max_abs_err" and family(k)},
+        }
+
+    mma_src = "sqlite_vector_tpu_torch/csrc/block_minima_mma.cu"
     print(json.dumps({"kernels": [
         {
-            "name": "block_minima",
-            "route": "cuda",
-            "source": "sqlite_vector_tpu_torch/csrc/block_minima_mma.cu",
-            "replaces": "sqlite_vector_tpu/ops/pallas_scan.py:681",
-            "launches": launches,
-            "max_abs_err": max(max_err, k1["max_abs_err"]),
-            "ms": k1_main["ms"],
-            "plain_ms": k1_main["plain_ms"],
-            "bound_ms": k1_main["bound_ms"],
-            "bound_by": k1_main["bound_by"],
-            "library_ms": k1_main["library_ms"],
+            **k1_entry("block_minima", mma_src, f"f32 B={B_MAIN}", launches,
+                       lambda k: not k.startswith(("L1", "L2 f16", "L2 bf16"))),
             "masked_launches": masked["K1"],
             "streamed_launches": host["K1"],
             "sql_launches": fe["sql_launches"]["K1"]["launches"],
             "masked_max_abs_err": masked_err,
             "nonfinite_max_abs_err": nonfinite_err,
-            "cuda_core_body": "sqlite_vector_tpu_torch/csrc/block_minima.cu",
-            "by_shape": {k: v for k, v in k1.items() if k != "max_abs_err"},
         },
+        k1_entry("block_minima_16bit", mma_src, f"L2 f16 B={B_MAIN}",
+                 other_launches["FLOAT16 L2"] + other_launches["FLOATB16 DOT"],
+                 lambda k: k.startswith(("L2 f16", "L2 bf16"))),
+        k1_entry("block_minima_l1", "sqlite_vector_tpu_torch/csrc/block_minima.cu", f"L1 f32 B={B_MAIN}",
+                 other_launches["FLOAT32 L1"], lambda k: k.startswith("L1")),
         {
             "name": "int4_block_minima",
             "route": "cuda",

@@ -1,15 +1,15 @@
-// K1 on tensor cores: the dot-family block minima for f32 rows and 8-bit codes,
-// for NVIDIA Hopper (sm_90a).
+// K1 on tensor cores: the dot-family block minima for float rows (f32, f16,
+// bf16) and 8-bit codes, for NVIDIA Hopper (sm_90a).
 //
 // Computes what csrc/block_minima.cu computes (its header states the contract,
 // replacing the three TPU schedules of sqlite_vector_tpu/ops/pallas_scan.py):
 //
 //   out[b, g] = min over rows r in [128 g, 128 g + 128) of dist(q_b, base_r)
 //
-// for L2 (squared), SQUARED_L2, COSINE and DOT over float32 rows and u8/i8
-// codes, with the same snap, NaN -> +inf, rows >= valid -> +inf and optional
-// row mask. L1, f16 and bf16 stay on the CUDA-core body of block_minima.cu;
-// ops/block_scan.py:k1_body routes between the two.
+// for L2 (squared), SQUARED_L2, COSINE and DOT over float32, float16 and
+// bfloat16 rows and u8/i8 codes, with the same snap, NaN -> +inf, rows >=
+// valid -> +inf and optional row mask. L1 stays on the CUDA-core body of
+// block_minima.cu; ops/block_scan.py:k1_body routes between the two.
 //
 // The products run where the TPU kernel runs them, on the matrix unit:
 //   - u8/i8: mma.sync m16n8k32 with .u8/.s8 operands and exact int32
@@ -21,17 +21,26 @@
 //   - f32: mma.sync m16n8k8 TF32 in the 3xTF32 split (hi = rna(x),
 //     lo = rna(x - hi), dot ~ hi.hi' + hi.lo' + lo.hi', f32 accumulation;
 //     the rounding is cvt.rna.tf32's, done with integer ops),
-//     the analogue of the TPU's multi-pass bf16 product at HIGHEST. Row and
-//     query norms stay one fmaf chain each in column order. A row or query
-//     whose norm is not finite (Inf, NaN, or overflow) would break the split
-//     (Inf - Inf, 0 * Inf), so for such a (row, query) pair the owning thread
-//     recomputes the dot with the CUDA-core body's fmaf chain from global
-//     memory, which keeps its Inf/NaN semantics (DOT over a +Inf row reads
-//     -inf). That pass runs only for a row tile that holds such a pair.
+//     the analogue of the TPU's multi-pass bf16 product at HIGHEST.
+//   - f16/bf16: mma.sync m16n8k16 with .f16/.bf16 operands and an f32
+//     accumulator. The product of two 16-bit floats is exact in f32, so
+//     this is what the TPU kernel computes (bf16 natively on its matrix
+//     unit, f16 widened to f32, both accumulating in f32).
+//   Row and query norms are fmaf chains in column order over the values
+//   widened to f32: one chain over the row, or for the tiles that sum the
+//   dot chunk by chunk (kPromote) one chain a chunk added to a running
+//   total, as the dot is. A row or query whose norm is not finite (Inf,
+//   NaN, or overflow: bf16 reaches 3.39e38) would break the split or the
+//   tensor cores' sums (Inf - Inf, 0 * Inf, an order-dependent overflow),
+//   so for such a (row, query) pair the owning thread recomputes the dot
+//   with the CUDA-core body's fmaf chain from global memory, which keeps
+//   its Inf/NaN semantics (DOT over a +Inf row reads -inf). That pass runs
+//   only for a row tile that holds such a pair.
 //
 // What bounds it on an H100 (1M x 384): f32 is bandwidth-bound at B=1 (1.54 GB)
-// and bound by tensor-core issue at B=64 (3 x 49 GFLOP of TF32); 8-bit codes
-// are bandwidth-bound (384 MB) at every batch up to 64. The design:
+// and bound by tensor-core issue at B=64 (3 x 49 GFLOP of TF32); 16-bit rows
+// (768 MB) and 8-bit codes (384 MB) are bandwidth-bound at every batch up to
+// 64. The design:
 //   - persistent blocks of 8 warps walk 256-row tiles (two 128-row groups);
 //     each warp owns 32 rows (two m16 tiles) against every query of its tile;
 //   - the block's query tile (up to 64 queries, zero-padded to a multiple of
@@ -45,9 +54,10 @@
 //     of the next chunk or row tile overlap the MMAs of the current one;
 //   - shared rows are padded to 144 bytes: fragment loads, 16-byte row reads
 //     and cp.async stores are conflict-free;
-//   - f32 tiles of 8 and 16 queries add each 128-byte chunk's products to
-//     a running total with one rounded add (the tensor cores' truncating
-//     accumulation over all of a wide row drifts past the tolerance);
+//   - float tiles of 8 and 16 queries (16-bit ones also of 32) add each
+//     128-byte chunk's products, and its norms, to running totals with one
+//     rounded add (the tensor cores' truncating accumulation over all of a
+//     wide row drifts past the tolerance);
 //   - row norms come from the staged tile (one lane a row), the group
 //     minimum from warp shuffles and shared memory;
 //   - the row tile's epilogue runs while no MMA does (every warp reaches it
@@ -60,6 +70,8 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 (as
 // ops/_build.py does; no --use_fast_math).
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -90,10 +102,28 @@ constexpr float kResidScale = 0x1p-19f;
 enum Metric : int { kL2 = 0, kSquaredL2 = 1, kCosine = 2, kDot = 3, kL1 = 4 };
 enum DType : int { kF32 = 0, kF16 = 1, kBF16 = 2, kU8 = 3, kI8 = 4 };
 
+// float rows (f32 in the 3xTF32 split, f16 and bf16 as they are) accumulate
+// in f32; 8-bit codes in int32
 template <typename T>
-constexpr bool kIsFloat = std::is_same<T, float>::value;
+constexpr bool kIsF32 = std::is_same<T, float>::value;
+template <typename T>
+constexpr bool kIsFloat = !std::is_integral<T>::value;
 template <typename T>
 using Acc = typename std::conditional<kIsFloat<T>, float, uint32_t>::type;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// the two 16-bit floats of a word, widened, in column order
+template <typename T>
+__device__ __forceinline__ float2 widen2(uint32_t w) {
+  if constexpr (std::is_same<T, __half>::value) {
+    return __half22float2(*reinterpret_cast<const __half2*>(&w));
+  } else {  // bfloat16: the high half of an f32
+    return make_float2(__uint_as_float(w << 16), __uint_as_float(w & 0xffff0000u));
+  }
+}
 
 __device__ __forceinline__ float as_float(uint32_t v) {
   return static_cast<float>(static_cast<int32_t>(v));
@@ -150,10 +180,22 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <typename T>
-__device__ __forceinline__ void mma_i8(uint32_t (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  if constexpr (std::is_same<T, uint8_t>::value) {
+// the 32-byte k-step of 8-bit codes (m16n8k32, int32 sums) or of 16-bit
+// floats (m16n8k16, f32 sums); the fragments' words are laid out alike
+template <typename T, typename C>
+__device__ __forceinline__ void mma_narrow(C (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                           uint32_t b1) {
+  if constexpr (std::is_same<T, __half>::value) {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+        "{%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  } else if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+        "{%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  } else if constexpr (std::is_same<T, uint8_t>::value) {
     asm("mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
         "{%8,%9}, {%0,%1,%2,%3};\n"
         : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
@@ -300,10 +342,12 @@ __device__ __forceinline__ bool warp_minima(const Acc<T> (&acc)[2][NT][4], Acc<T
 }
 
 // The float pairs of a row tile whose row or query norm is not finite: the
-// dot by the CUDA-core body's fmaf chain (one chain in column order, which
-// keeps its Inf/NaN semantics), composed as there, and folded into wmin.
-// Runs only when warp_minima flagged such a pair.
-__device__ __noinline__ void nonfinite_pass(const float* queries, const float* base,
+// dot by the CUDA-core body's fmaf chain (one chain in column order over the
+// values widened to f32, which keeps its Inf/NaN semantics), composed as
+// there, and folded into wmin. Runs only when warp_minima flagged such a
+// pair.
+template <typename T>
+__device__ __noinline__ void nonfinite_pass(const T* queries, const T* base,
                                             const uint8_t* mask, const float* qnorm,
                                             const float* rowsq, float* wmin, long long row0,
                                             int QT, int q0, int B, int d, int valid, int metric,
@@ -314,10 +358,10 @@ __device__ __noinline__ void nonfinite_pass(const float* queries, const float* b
     const long long row = row0 + r;
     if (q0 + j >= B || row >= valid || (mask != nullptr && mask[row] == 0)) continue;
     if (isfinite(rowsq[r]) && isfinite(qnorm[j])) continue;
-    const float* qr = queries + static_cast<long long>(q0 + j) * d;
-    const float* br = base + row * d;
+    const T* qr = queries + static_cast<long long>(q0 + j) * d;
+    const T* br = base + row * d;
     float dot = 0.0f;
-    for (int c = 0; c < d; ++c) dot = fmaf(qr[c], br[c], dot);
+    for (int c = 0; c < d; ++c) dot = fmaf(to_f32(qr[c]), to_f32(br[c]), dot);
     float dist = compose(dot, qnorm[j], rowsq[r], metric);
     if (fabsf(dist) <= thresh) dist = 0.0f;
     if (isnan(dist)) dist = INFINITY;
@@ -325,7 +369,8 @@ __device__ __noinline__ void nonfinite_pass(const float* queries, const float* b
   }
 }
 
-// T: float, uint8_t or int8_t. NT: 8-query column tiles per block (QT = 8 NT).
+// T: float, __half, __nv_bfloat16, uint8_t or int8_t. NT: 8-query column
+// tiles per block (QT = 8 NT).
 template <typename T, int NT>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 mma_minima_kernel(const T* __restrict__ queries, const T* __restrict__ base,
@@ -335,11 +380,18 @@ mma_minima_kernel(const T* __restrict__ queries, const T* __restrict__ base,
   using A = Acc<T>;
   // The tensor cores accumulate f32 with truncation, so the error of a dot
   // grows with the MMAs summed into one accumulator: at d = 3,424 a
-  // self-match's L2 minimum sat 0.22 off the twin (on an H100). f32 tiles
-  // of 8 and 16 queries (every d past 832 takes one) therefore start each
-  // chunk's MMAs from zero and add them to a running total in one rounded
-  // add; 32- and 64-query tiles hold d <= 832 and have no registers to spare.
-  constexpr bool kPromote = kIsFloat<T> && NT <= 2;
+  // self-match's L2 minimum sat 0.22 off the twin (on an H100). Float
+  // tiles of 8 and 16 queries (every d past 26 chunks of 128 bytes takes
+  // one: 832 f32 or 1,664 16-bit columns), and 16-bit tiles of 32, therefore
+  // start each chunk's MMAs from zero and add them to a running total in
+  // one rounded add; f32 tiles of 32 and 64 queries hold at most 26 chunks
+  // and have no registers to spare, 16-bit tiles of 64 at most 13. Such
+  // tiles sum the row and query norms chunk by chunk the same way (an fmaf
+  // chain in column order over each chunk, one rounded add a chunk): one
+  // chain over all of a wide row sits ~sqrt(d) roundings off the dot, so a
+  // self-match's L2 missed the snap and its COSINE read ~1e-5 (d = 6,848,
+  // bfloat16, on an H100).
+  constexpr bool kPromote = kIsFloat<T> && (NT <= 2 || (!kIsF32<T> && NT <= 4));
   extern __shared__ __align__(16) unsigned char smem[];
 
   const int row_bytes = d * static_cast<int>(sizeof(T));
@@ -368,7 +420,7 @@ mma_minima_kernel(const T* __restrict__ queries, const T* __restrict__ base,
     const int per_row = nchunks * kChunk / static_cast<int>(sizeof(T));
     const int j = i / per_row;
     const int c = i % per_row;
-    T v = T(0);
+    T v{};
     if (q0 + j < B && c < d) v = queries[static_cast<long long>(q0 + j) * d + c];
     reinterpret_cast<T*>(qs + j * qpitch)[c] = v;
   }
@@ -376,8 +428,14 @@ mma_minima_kernel(const T* __restrict__ queries, const T* __restrict__ base,
   if (tid < QT) {
     A s = A(0);
     if constexpr (kIsFloat<T>) {
-      const float* qrow = reinterpret_cast<const float*>(qs + tid * qpitch);
-      for (int c = 0; c < d; ++c) s = fmaf(qrow[c], qrow[c], s);
+      // in column order, chunk by chunk as the rows' norms (kPromote)
+      constexpr int kPer = kChunk / static_cast<int>(sizeof(T));
+      const T* qrow = reinterpret_cast<const T*>(qs + tid * qpitch);
+      for (int c0 = 0; c0 < d; c0 += kPer) {
+        float part = kPromote ? 0.0f : s;
+        for (int c = c0; c < min(d, c0 + kPer); ++c) part = fmaf(to_f32(qrow[c]), to_f32(qrow[c]), part);
+        s = kPromote ? __fadd_rn(s, part) : part;
+      }
     } else {
       const uint32_t* qrow = reinterpret_cast<const uint32_t*>(qs + tid * qpitch);
       for (int w = 0; w < nchunks * kChunk / 4; ++w) s += sq4<T>(qrow[w]);
@@ -429,25 +487,41 @@ mma_minima_kernel(const T* __restrict__ queries, const T* __restrict__ base,
     const unsigned char* wrows = stage + warp * 32 * kPitch;
     const unsigned char* qchunk = qs + ch * kChunk;
 
-    // the lane's row norm, in column order
+    // the lane's row norm, in column order (kPromote: this chunk's sum,
+    // then one rounded add)
     {
+      A part = kPromote ? A(0) : bsq;
       const float4* rp = reinterpret_cast<const float4*>(wrows + lane * kPitch);
 #pragma unroll
       for (int v = 0; v < kChunk / 16; ++v) {
         const float4 x = rp[v];
-        if constexpr (kIsFloat<T>) {
-          bsq = fmaf(x.x, x.x, bsq);
-          bsq = fmaf(x.y, x.y, bsq);
-          bsq = fmaf(x.z, x.z, bsq);
-          bsq = fmaf(x.w, x.w, bsq);
+        if constexpr (kIsF32<T>) {
+          part = fmaf(x.x, x.x, part);
+          part = fmaf(x.y, x.y, part);
+          part = fmaf(x.z, x.z, part);
+          part = fmaf(x.w, x.w, part);
+        } else if constexpr (kIsFloat<T>) {
+          const uint32_t w[4] = {__float_as_uint(x.x), __float_as_uint(x.y), __float_as_uint(x.z),
+                                 __float_as_uint(x.w)};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float2 f = widen2<T>(w[i]);
+            part = fmaf(f.x, f.x, part);
+            part = fmaf(f.y, f.y, part);
+          }
         } else {
-          bsq += sq4<T>(__float_as_uint(x.x)) + sq4<T>(__float_as_uint(x.y)) +
+          part += sq4<T>(__float_as_uint(x.x)) + sq4<T>(__float_as_uint(x.y)) +
                  sq4<T>(__float_as_uint(x.z)) + sq4<T>(__float_as_uint(x.w));
         }
       }
+      if constexpr (kPromote) {
+        bsq = __fadd_rn(bsq, part);
+      } else {
+        bsq = part;
+      }
     }
 
-    // k-steps of 32 bytes: 8 TF32 columns, or 32 codes
+    // k-steps of 32 bytes: 8 TF32 columns, 16 half floats or 32 codes
 #pragma unroll
     for (int ks = 0; ks < kChunk / 32; ++ks) {
       const int w0 = ks * 8 + t;  // 32-bit word of the row within the chunk
@@ -461,7 +535,7 @@ mma_minima_kernel(const T* __restrict__ queries, const T* __restrict__ base,
         a[m][2] = r0[w0 + 4];
         a[m][3] = r1[w0 + 4];
       }
-      if constexpr (kIsFloat<T>) {
+      if constexpr (kIsF32<T>) {
         uint32_t ahi[2][4], alo[2][4];
 #pragma unroll
         for (int m = 0; m < 2; ++m)
@@ -495,7 +569,7 @@ mma_minima_kernel(const T* __restrict__ queries, const T* __restrict__ base,
           const uint32_t b0 = qr[w0];
           const uint32_t b1 = qr[w0 + 4];
 #pragma unroll
-          for (int m = 0; m < 2; ++m) mma_i8<T>(acc[m][n], a[m], b0, b1);
+          for (int m = 0; m < 2; ++m) mma_narrow<T>(acc[m][n], a[m], b0, b1);
         }
       }
     }
@@ -536,8 +610,8 @@ mma_minima_kernel(const T* __restrict__ queries, const T* __restrict__ base,
     }
     if (__syncthreads_or(bad)) {
       if constexpr (kIsFloat<T>) {
-        nonfinite_pass(queries, base, mask, qnorm, rowsq, wmin, row0, QT, q0, B, d, valid,
-                       metric, thresh, tid);
+        nonfinite_pass<T>(queries, base, mask, qnorm, rowsq, wmin, row0, QT, q0, B, d, valid,
+                          metric, thresh, tid);
       }
       __syncthreads();
     }
@@ -607,7 +681,8 @@ int launch(const void* q, const void* base, const uint8_t* mask, float* out, int
 }  // namespace
 
 // The arguments of svt_block_minima (csrc/block_minima.cu), and query_tile.
-// Takes the dot-family metrics over float32, uint8 and int8 only, u8/i8 only
+// Takes the dot-family metrics over float32, float16, bfloat16, uint8 and
+// int8 only, u8/i8 only
 // while no int32 partial sum can reach 2^31, and a query tile whose shared
 // bytes fit the device; anything else returns cudaErrorInvalidValue without
 // launching (ops/block_scan.py:k1_body routes such scans to
@@ -623,6 +698,9 @@ extern "C" int svt_block_minima_mma(const void* queries, const void* base, const
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kF32: return launch<float>(queries, base, m, o, B, N, d, valid, metric, query_tile, s);
+    case kF16: return launch<__half>(queries, base, m, o, B, N, d, valid, metric, query_tile, s);
+    case kBF16:
+      return launch<__nv_bfloat16>(queries, base, m, o, B, N, d, valid, metric, query_tile, s);
     case kU8:
       if (d > 33025) return static_cast<int>(cudaErrorInvalidValue);
       return launch<uint8_t>(queries, base, m, o, B, N, d, valid, metric, query_tile, s);

@@ -438,8 +438,10 @@ class Dataset:
         # bumped (under the lock) by every row mutation; quantize() snapshots
         # it so a mutation landing during its build marks the codes stale
         self._mutation_gen = 0
-        # bumped only when row POSITIONS move (compaction): a search that
-        # raced one re-runs (see search)
+        # a sequence lock over the row POSITIONS: compaction makes it odd
+        # before it moves rows and even again after, so a reader that saw
+        # it even and unchanged across a lock-free attempt saw one layout
+        # (see _in_one_layout)
         self._layout_gen = 0
         # per-stage timing of the most recent mode="rerank" call
         self.last_rerank_decomposition: dict | None = None
@@ -869,7 +871,8 @@ class Dataset:
         the matrix into a fresh one (one upload of the row index, no
         re-upload of rows); with host storage, compact the host mirror. A
         concurrent search keeps the matrix it snapshotted; the layout
-        generation, bumped last, makes one that raced this re-run."""
+        generation, odd from before the first swap to after the last,
+        makes one that raced this re-run."""
         if self._n_dead == 0:
             return
         cnt = self._count
@@ -877,26 +880,29 @@ class Dataset:
         kept = np.flatnonzero(keep)
         n = len(kept)
         cap = _next_capacity(n)
-        if self._storage == "host":
-            rows = np.zeros((cap, self.dimension), self.dtype.host_dtype)
-            rows[:n] = self._host_vectors[kept]
-            self._host_vectors = rows
-        elif n:
-            index = np.zeros((cap,), np.int64)  # rows past n: copies of row 0
-            index[:n] = kept
-            self._vectors = self._vectors.index_select(0, from_numpy(index, self.device))
-        else:
-            self._vectors = torch.zeros(
-                (cap, self.dimension), dtype=TORCH_DTYPE[self.dtype], device=self.device
-            )
-        self._ids = self._ids[:cnt][keep]
-        self._dead = np.zeros((n,), bool)
-        self._n_dead = 0
-        self._invalidate_row_caches()
-        self._count = n
-        self._mutation_gen += 1
-        self._data_token = os.urandom(16).hex()
-        self._layout_gen += 1  # positions moved
+        self._layout_gen += 1  # odd: positions moving
+        try:
+            if self._storage == "host":
+                rows = np.zeros((cap, self.dimension), self.dtype.host_dtype)
+                rows[:n] = self._host_vectors[kept]
+                self._host_vectors = rows
+            elif n:
+                index = np.zeros((cap,), np.int64)  # rows past n: copies of row 0
+                index[:n] = kept
+                self._vectors = self._vectors.index_select(0, from_numpy(index, self.device))
+            else:
+                self._vectors = torch.zeros(
+                    (cap, self.dimension), dtype=TORCH_DTYPE[self.dtype], device=self.device
+                )
+            self._ids = self._ids[:cnt][keep]
+            self._dead = np.zeros((n,), bool)
+            self._n_dead = 0
+            self._invalidate_row_caches()
+            self._count = n
+            self._mutation_gen += 1
+            self._data_token = os.urandom(16).hex()
+        finally:
+            self._layout_gen += 1  # even: one layout again
 
     def update(
         self, ids: Sequence[int] | np.ndarray, vectors: np.ndarray | Sequence[Any]
@@ -1207,21 +1213,25 @@ class Dataset:
                 out_ids = np.where(valid, id_map[np.clip(idx, 0, n_map - 1)], -1)
             return out_ids, vals, valid
 
-        # positions mean something only in the row layout they were scanned
-        # in; compaction moves rows, so a search that raced one re-runs (the
-        # last attempt under the mutation lock)
-        layout0 = self._layout_gen
-        out_ids, vals, valid = attempt()
-        if self._layout_gen != layout0:
-            layout0 = self._layout_gen
-            out_ids, vals, valid = attempt()
-            if self._layout_gen != layout0:
-                with self._mutate_lock:
-                    out_ids, vals, valid = attempt()
+        # positions mean something only in the row layout they were scanned in
+        out_ids, vals, valid = self._in_one_layout(attempt)
         if single:
             keep = valid[0]
             return out_ids[0][keep], vals[0][keep]
         return out_ids, vals
+
+    def _in_one_layout(self, read):
+        """read() as it ran against one row layout: twice lock-free, each
+        kept only if the layout generation was even before it and unchanged
+        after it (no compaction ran or was half done meanwhile), then under
+        the mutation lock, where none can run."""
+        for _ in range(2):
+            gen = self._layout_gen
+            out = read()
+            if gen % 2 == 0 and self._layout_gen == gen:
+                return out
+        with self._mutate_lock:
+            return read()
 
     def _nonfinite_policy(self, q: np.ndarray, *, raw_values: bool = False) -> VectorType | None:
         """The dtype whose non-finite policies this scan must run
@@ -1440,21 +1450,27 @@ class Dataset:
             # the reference's values over non-finite rows or queries: the
             # plain decomposition gives NaN where its direct kernels give +Inf
             policy = self._nonfinite_policy(q, raw_values=True)
-            count = self._count
             qd = self._query_to_device(q)
-            if self._storage == "host":
-                d = streaming_scan_distances(
-                    qd, self._host_vectors, self.metric, valid_count=count, policy_vtype=policy
-                )
-                live = self._live_row_mask()
-                if live is not None and len(live) == count:
-                    d = d[:, live]  # drop tombstoned columns
-            else:
+
+            def live_distances():
+                # the columns are the live rows of one layout
+                count = self._count
+                if self._storage == "host":
+                    d = streaming_scan_distances(
+                        qd, self._host_vectors, self.metric, valid_count=count, policy_vtype=policy
+                    )
+                    live = self._live_row_mask()
+                    if live is not None and len(live) == count:
+                        d = d[:, live]  # drop tombstoned columns
+                    return d
                 base = self._vectors[:count]
                 d = scan_distances(qd, base, self.metric, policy_vtype=policy)
                 live = self._live_mask_dev()
                 if live is not None and live.shape[0] == base.shape[0]:
                     d = d[:, live]  # drop tombstoned columns
+                return d
+
+            d = self._in_one_layout(live_distances)
         else:
             quant = self._require_quant("vector_quantize_scan_stream", self._quant)
             qf = from_numpy(q.astype(np.float32), self.device)

@@ -82,19 +82,19 @@ def library_path() -> Path:
 
 
 def _nvcc_all(cmds: list[list[str]]) -> list[str]:
-    """Run the commands all at once, wait for every one, then raise on the
-    first that failed; returns each command's output."""
+    """Run the commands all at once, wait for every one, then raise with
+    the output of every one that failed; returns each command's output."""
     procs = [
         subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for c in cmds
     ]
-    outs = []
+    outs, failed = [], []
     for cmd, p, (out, err) in [(c, p, p.communicate()) for c, p in zip(cmds, procs)]:
         if p.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed with exit code {p.returncode}:\n{' '.join(cmd)}\n{out}{err}"
-            )
+            failed.append(f"nvcc failed with exit code {p.returncode}:\n{' '.join(cmd)}\n{out}{err}")
         outs.append(out + err)
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return outs
 
 

@@ -10,9 +10,10 @@ them exactly and takes the final top-k, ties going to the earliest row.
 Stage 1 has two implementations of one contract:
   - block_minima_reference: plain PyTorch, the definition of the output;
   - the CUDA kernel K1, hand-written for Hopper, in two bodies:
-    csrc/block_minima_mma.cu (tensor cores: integer MMA for u8/i8 codes,
-    3xTF32 for float32; the dot-family metrics) and csrc/block_minima.cu
-    (CUDA cores: L1, float16, bfloat16, and d past the MMA body's bounds).
+    csrc/block_minima_mma.cu (tensor cores, the dot-family metrics: integer
+    MMA for u8/i8 codes, 3xTF32 for float32, f16/bf16 MMA with f32 sums for
+    float16 and bfloat16) and csrc/block_minima.cu (CUDA cores: L1 for
+    every dtype, and the dot family at d past the MMA body's bounds).
     k1_body says which body a call takes.
 `block_minima` picks by where the tensors live: the twin for CPU tensors,
 the kernel for CUDA tensors (it raises rather than fall back).
@@ -66,8 +67,14 @@ _MMA_QUERY_BYTES = 110592
 _MMA_QUERY_TILES = (8, 16, 32, 64)
 # Integer codes take the MMA body only while no int32 partial sum can reach
 # 2^31 (d * 255^2 and d * 128^2 < 2^31): there its exact int32 sums equal the
-# CUDA-core body's uint32-wrap sums.
-_MMA_MAX_DIM = {torch.float32: None, torch.uint8: 33025, torch.int8: 131071}
+# CUDA-core body's uint32-wrap sums. Float rows have no such bound.
+_MMA_MAX_DIM = {
+    torch.float32: None,
+    torch.float16: None,
+    torch.bfloat16: None,
+    torch.uint8: 33025,
+    torch.int8: 131071,
+}
 _MMA_METRICS = (
     DistanceMetric.L2,
     DistanceMetric.SQUARED_L2,
@@ -138,10 +145,12 @@ def mma_query_tile(dtype: torch.dtype, d: int, b: int) -> int:
 
 def k1_body(dtype: torch.dtype, metric: DistanceMetric, d: int) -> str:
     """Which body of K1 serves a scan: "mma" (tensor cores) for the
-    dot-family metrics over float32 rows and u8/i8 codes while a tile of
-    8 padded query rows fits the shared budget and, for codes, no int32
-    partial sum can overflow; "simt" (CUDA cores) otherwise. The batch
-    does not route: the MMA body serves every B."""
+    dot-family metrics over float32, float16 and bfloat16 rows and u8/i8
+    codes while a tile of 8 padded query rows fits the shared budget
+    (d <= 3,424 for float32, 6,848 for 16-bit floats, 13,696 for codes)
+    and, for codes, no int32 partial sum can overflow; "simt" (CUDA cores)
+    otherwise, L1 always. The batch does not route: both bodies serve
+    every B."""
     if metric not in _MMA_METRICS or dtype not in _MMA_MAX_DIM:
         return "simt"
     bound = _MMA_MAX_DIM[dtype]

@@ -377,6 +377,20 @@ def test_row_mask_rejects_wrong_shape_and_dtype():
         (torch.int8, 384, {1: 8, 8: 8, 9: 16, 32: 32, 33: 64, 65: 64}),
         (torch.uint8, 13696, {1: 8, 64: 8}),
         (torch.uint8, 13697, {1: 0}),
+        # 384 16-bit columns: 784-byte rows, every tile fits
+        (torch.float16, 384, {1: 8, 9: 16, 17: 32, 33: 64, 200: 64}),
+        # the 16-bit tile edges: 64 queries to d = 832, 32 to 1,664, 16 to
+        # 3,392, 8 to 6,848 (13,696 bytes a row), none past
+        (torch.bfloat16, 832, {64: 64}),
+        (torch.bfloat16, 833, {64: 32}),
+        (torch.float16, 1664, {64: 32}),
+        (torch.float16, 1665, {64: 16}),
+        (torch.bfloat16, 3392, {64: 16}),
+        (torch.bfloat16, 3393, {64: 8}),
+        (torch.float16, 6848, {1: 8, 64: 8}),
+        (torch.bfloat16, 6848, {1: 8, 64: 8}),
+        (torch.float16, 6849, {1: 0, 64: 0}),
+        (torch.bfloat16, 6849, {1: 0}),
     ],
     ids=str,
 )
@@ -392,7 +406,8 @@ def test_mma_query_tile_is_the_narrowest_that_covers_b_and_fits(dtype, d, tiles)
     "dtype,last_mma_d",
     # the widest d whose 8 padded query rows (row bytes rounded up to 128,
     # plus 16) fit the 110,592-byte budget: 13,696 bytes a row
-    [(torch.float32, 3424), (torch.uint8, 13696), (torch.int8, 13696)],
+    [(torch.float32, 3424), (torch.float16, 6848), (torch.bfloat16, 6848), (torch.uint8, 13696),
+     (torch.int8, 13696)],
     ids=str,
 )
 @pytest.mark.parametrize("metric", METRICS)
@@ -404,11 +419,16 @@ def test_k1_body_routes_by_metric_dtype_and_d(dtype, last_mma_d, metric):
     assert block_scan.k1_body(dtype, m, last_mma_d + 1) == "simt"
 
 
-@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16], ids=str)
-@pytest.mark.parametrize("metric", METRICS)
-def test_k1_body_keeps_half_floats_on_cuda_cores(dtype, metric):
-    for d in (1, 384, 4096):
-        assert block_scan.k1_body(dtype, DistanceMetric(metric), d) == "simt"
+@pytest.mark.parametrize(
+    "dtype", [torch.float32, torch.float16, torch.bfloat16, torch.uint8, torch.int8], ids=str
+)
+@pytest.mark.parametrize("d", [1, 384, 6848, 131072])
+def test_k1_body_keeps_l1_on_cuda_cores(monkeypatch, dtype, d):
+    """L1 has no tensor-core form: every dtype and d takes the CUDA-core
+    body, whatever the shared budget allows."""
+    assert block_scan.k1_body(dtype, DistanceMetric.L1, d) == "simt"
+    monkeypatch.setattr(block_scan, "_MMA_QUERY_BYTES", 1 << 40)
+    assert block_scan.k1_body(dtype, DistanceMetric.L1, d) == "simt"
 
 
 @pytest.mark.parametrize(
@@ -449,6 +469,11 @@ def _chip_smoke():
         ((1024, 1_000_000, 384, 4), 4.766254545454545, "operations"),
         ((64, 1_000_000, 384, 1), 0.11523125492537313, "bytes"),
         ((1, 1_000_000, 384, 1), 0.11463630925373133, "bytes"),
+        # 16-bit rows: 768 MB, against 2 x 49.2 GFLOP at 989 TFLOP/s (0.050 ms)
+        ((64, 1_000_000, 384, 2), 0.22986545671641792, "bytes"),
+        ((1, 1_000_000, 384, 2), 0.2292632895522388, "bytes"),
+        # 16,384 16-bit queries: the products outweigh the bytes
+        ((16384, 1_000_000, 384, 2), 12.722863498483317, "operations"),
     ],
 )
 def test_k1_bound_is_the_larger_of_bytes_and_operations(args, ms, by):
@@ -457,11 +482,38 @@ def test_k1_bound_is_the_larger_of_bytes_and_operations(args, ms, by):
     assert side == by and got == pytest.approx(ms, rel=1e-12)
     b, n, d, elem = args
     nbytes = (b + n) * d * elem + b * (-(-n // 128)) * 4
-    ops = 3 * 2 * b * n * d / 495e12 if elem == 4 else 2 * b * n * d / 1979e12
+    ops = {4: 3 * 2 * b * n * d / 495e12, 2: 2 * b * n * d / 989e12, 1: 2 * b * n * d / 1979e12}[elem]
     assert got == pytest.approx(max(nbytes / 3.35e12, ops) * 1e3)
     masked, _ = smoke.k1_bound(*args, masked=True)
     if by == "bytes":
         assert masked == pytest.approx(got + n / 3.35e12 * 1e3)
+
+
+@pytest.mark.parametrize(
+    "b,elem,signed,ms,by",
+    [
+        # f32 B=1: 1.54 GB at 3.35 TB/s outweigh 0.77 G FP32 instructions
+        (1, 4, False, 0.4585172501492537, "bytes"),
+        # f32 B=64: 2 x 64 x 1M x 384 = 49.2 G FP32 instructions at 33.5 T/s
+        (64, 4, False, 1.467223880597015, "operations"),
+        (64, 2, False, 1.467223880597015, "operations"),
+        (1, 2, False, 0.2292632895522388, "bytes"),
+        # u8 codes: one integer instruction per 4 pairs at 16.75 T/s
+        (64, 1, False, 0.36680597014925376, "operations"),
+        (1, 1, False, 0.11463630925373133, "bytes"),
+        # i8 codes: two
+        (64, 1, True, 0.7336119402985075, "operations"),
+    ],
+)
+def test_k1_l1_bound_counts_instructions_of_the_cuda_core_body(b, elem, signed, ms, by):
+    smoke = _chip_smoke()
+    n, d = 1_000_000, 384
+    got, side = smoke.k1_bound_cuda_core(b, n, d, elem, signed)
+    assert side == by and got == pytest.approx(ms, rel=1e-12)
+    nbytes = (b + n) * d * elem + b * (-(-n // 128)) * 4
+    per4 = 2 if signed else 1
+    instr = 2 * b * n * d / 33.5e12 if elem > 1 else per4 * (b * n * d / 4) / 16.75e12
+    assert got == pytest.approx(max(nbytes / 3.35e12, instr) * 1e3)
 
 
 def test_k2_bound_counts_packed_codes_and_scales():

@@ -406,9 +406,10 @@ def minima_tolerance(q, base, metric, valid, ref):
     return torch.where(torch.isfinite(tol), tol, 0.0)
 
 
-def nonfinite_case(n, device, b=8, d=384, seed=0):
-    """float32 rows and queries with non-finite values and overflowing
-    norms. Rows: group 20 scaled by 1.5e18 (squared norms overflow, every
+def nonfinite_case(n, device, b=8, d=384, seed=0, dtype=torch.float32):
+    """Rows and queries with non-finite values and overflowing norms, made
+    in float32 and cast to dtype (bfloat16 keeps the 1.5e18 values, float16
+    turns them into +-Inf). Rows: group 20 scaled by 1.5e18 (squared norms overflow, every
     dot stays finite); group 30 with +Inf in column 3 and group 31 with
     -Inf in column 0; row 1000 all +Inf, row 5000 scaled by 1.5e18, row
     6000 with one -Inf, each in an otherwise finite group. Queries: 0 a
@@ -436,7 +437,7 @@ def nonfinite_case(n, device, b=8, d=384, seed=0):
     q[4, 5] = float("inf")
     q[5] *= 1.5e18
     q[6, 0] = float("-inf")
-    return q, base
+    return q.to(dtype), base.to(dtype)
 
 
 def assert_k1_matches_twin(q, base, metric, valid, mask=None):
@@ -506,10 +507,11 @@ def test_mma_body_rows_past_valid_and_masked_groups_read_inf(cuda, dtype, kind):
 def test_mma_body_is_refused_where_it_does_not_apply(cuda):
     from sqlite_vector_tpu_torch.ops.block_scan import _launch_k1
 
-    q, base = case(torch.float16, 300, 16, 2, cuda)
+    q, base = case(torch.float16, 300, 6849, 2, cuda)  # 8 query rows pass the budget
     with pytest.raises(ValueError, match="body"):
         _launch_k1(q, base, DistanceMetric.L2, 300, None, "mma")
-    q, base = case(torch.float32, 300, 16, 2, cuda)
+    assert_k1_matches_twin(q, base, DistanceMetric.L2, 300)  # the CUDA-core body takes it
+    q, base = case(torch.bfloat16, 300, 16, 2, cuda)
     with pytest.raises(ValueError, match="body"):
         _launch_k1(q, base, DistanceMetric.L1, 300, None, "mma")
     q, base = case(torch.float32, 300, 3425, 2, cuda)  # 8 query rows pass the budget
@@ -537,6 +539,103 @@ def test_mma_body_at_the_widest_rows_of_each_query_tile(cuda, d, b, tile):
     for metric in DOT_FAMILY:
         assert_k1_matches_twin(q, base, metric, 690)
     assert block_minima.body_launches["mma"] == before + len(DOT_FAMILY)
+
+
+def assert_close_to_twin(got, want):
+    """Float minima against the twin: +inf and -inf positions equal, no NaN,
+    finite minima within rtol 1e-5 and atol 1e-3 (f32 sums in another
+    order)."""
+    assert not bool(torch.isnan(got).any())
+    assert torch.equal(torch.isposinf(got), torch.isposinf(want))
+    assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+    fin = torch.isfinite(want)
+    torch.testing.assert_close(got[fin], want[fin], rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("d", [100, 384, 3424, 6848])  # 6,848: the widest 16-bit row
+@pytest.mark.parametrize("b", [1, 8, 9, 33, 64, 65, 200])  # the query tiles' edges
+def test_16bit_mma_body_matches_twin_and_cuda_core_body(cuda, dtype, d, b):
+    """float16 and bfloat16 rows on the tensor-core body (f16/bf16 MMA, f32
+    sums, per-chunk sums for the 8- and 16-query tiles): every dot-family
+    metric, unmasked and with each row mask, against the twin and the
+    CUDA-core body. Up to d = 384 within rtol 1e-5 and atol 1e-3 (f32 sums
+    in another order); at every d within minima_tolerance, 1e-5 of the
+    magnitude each minimum accumulates, as the f32 tensor-core body is held:
+    at d = 6,848 the CUDA-core body's fmaf chains sit ~1e-5 of the value
+    off the twin, and a self-match's L2, whose norms are fmaf chains and
+    whose dot comes from the tensor cores, reads up to ~0.06 where the
+    twin's clamp reads 0 (the finish's exact rescore still returns 0)."""
+    from sqlite_vector_tpu_torch.ops.block_scan import _launch_k1, k1_body
+
+    q, base = case(dtype, 5003, d, b, cuda, seed=d + b)
+    masks = [None] + [mask_case(kind, 5003, cuda, seed=d) for kind in MASK_KINDS]
+    for metric in DOT_FAMILY:
+        assert k1_body(dtype, metric, d) == "mma"
+        for mask in masks:
+            before = block_minima.body_launches["mma"]
+            got = assert_k1_matches_twin(q, base, metric, 4990, mask)
+            assert block_minima.body_launches["mma"] == before + 1
+            simt = _launch_k1(q, base, metric, 4990, mask, "simt")
+            torch.cuda.synchronize()
+            want = block_minima_reference(q, base, metric, 4990, mask)
+            tol = minima_tolerance(q, base, metric, 4990, want)
+            fin = torch.isfinite(want)
+            assert torch.equal(torch.isinf(simt), torch.isinf(got))
+            assert bool(((got.double() - simt.double()).abs()[fin] <= 2 * tol[fin]).all())
+            if d <= 384:
+                assert_close_to_twin(got, want)
+                assert_close_to_twin(got, simt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("metric", list(DistanceMetric), ids=lambda m: m.value)
+def test_nonfinite_16bit_keeps_the_twin_semantics(cuda, dtype, metric):
+    """16-bit rows with +-Inf, NaN-making 0 x Inf and (bfloat16) squared
+    norms past float32's range, unmasked and with each row mask: both
+    bodies give the twin's +inf and -inf groups and finite minima within
+    tolerance; DOT over a +Inf column reads -inf."""
+    from sqlite_vector_tpu_torch.ops.block_scan import _launch_k1
+
+    q, base = nonfinite_case(7001, cuda, dtype=dtype)
+    for kind in [None, *MASK_KINDS]:
+        mask = None if kind is None else mask_case(kind, 7001, cuda, seed=3)
+        got = assert_k1_matches_twin(q, base, metric, 6990, mask)
+        if metric is not DistanceMetric.L1:
+            simt = _launch_k1(q, base, metric, 6990, mask, "simt")
+            torch.cuda.synchronize()
+            assert_close_to_twin(simt, block_minima_reference(q, base, metric, 6990, mask))
+        if metric is DistanceMetric.DOT and kind is None:
+            assert float(got[2, 30]) == float("-inf") and float(got[6, 31]) == float("-inf")
+
+
+# -- K1's L1 body (csrc/block_minima.cu:l1_minima_kernel) --------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("d", [95, 100, 384, 3000])  # 1-, 4- and 16-byte staging; many chunks
+def test_l1_body_matches_twin(cuda, dtype, d):
+    """L1 on the CUDA-core body for every dtype, B at the query tiles' edges
+    (8, 16, 32, 64 and several tiles), unmasked and with each row mask,
+    rows >= valid at +inf: codes equal to the twin bit for bit, floats
+    within rtol 1e-5 and atol 1e-3 (f32 sums in another order)."""
+    n, valid = 5003, 5003 - 300
+    masks = [None] + [mask_case(kind, n, cuda, seed=d) for kind in MASK_KINDS]
+    for b in (1, 8, 9, 17, 33, 64, 65, 200):
+        q, base = case(dtype, n, d, b, cuda, seed=d + b)
+        for mask in masks:
+            before = block_minima.body_launches["simt"]
+            got = block_minima(q, base, DistanceMetric.L1, valid, mask)
+            assert block_minima.body_launches["simt"] == before + 1
+            want = block_minima_reference(q, base, DistanceMetric.L1, valid, mask)
+            torch.cuda.synchronize()
+            assert bool(torch.isinf(got[:, valid // 128 + 1 :]).all())
+            if dtype.is_floating_point:
+                assert_close_to_twin(got, want)
+            else:
+                assert torch.equal(got, want)
 
 
 # -- K2's tensor-core body (csrc/int4_minima_mma.cu) -------------------------

@@ -240,7 +240,9 @@ def test_explicit_compact():
     dev_before, layout = pair.p._vectors, pair.p._layout_gen
     assert pair.do("compact") == 10
     assert pair.p.tombstones == 0 and len(pair.p) == 40
-    assert pair.p._vectors is not dev_before and pair.p._layout_gen == layout + 1
+    # the layout generation is a sequence lock: odd while rows move, even
+    # again after, so one compaction advances it by two
+    assert pair.p._vectors is not dev_before and pair.p._layout_gen == layout + 2
     got, dist = pair.do("search", base[20], 1)
     assert got[0] == ids[20] and dist[0] == 0.0
     pair.check_state()
@@ -486,6 +488,61 @@ def test_concurrent_searches_see_consistent_layouts():
     got, dist = ds.search(stable_rows, 1)
     np.testing.assert_array_equal(got[:, 0], stable)
     assert (dist[:, 0] == 0.0).all()
+
+
+@pytest.mark.parametrize("call", ["exact", "approx", "distances"])
+def test_read_inside_a_compaction_sees_one_layout(call):
+    """A read that runs wholly inside a compaction, after the rows and ids
+    moved but before the count did, must not keep what it read there: it
+    returns what the finished layout gives. The compaction is held in that
+    window (its _invalidate_row_caches call waits on an event) while the
+    read starts; then the compaction is released. The query is a removed
+    row: in the window the new matrix's padding rows, copies of it, sit
+    below the old count."""
+    import threading
+
+    rng = np.random.default_rng(17)
+    rows = rng.standard_normal((1000, 8)).astype(np.float32)
+    ds = svt.VectorStore(device="cpu").create("w", "dimension=8")
+    ids = ds.add(rows)
+    ds.remove(ids[:100])  # below the compaction threshold
+    entered, release = threading.Event(), threading.Event()
+    invalidate = ds._invalidate_row_caches
+
+    def held_invalidate():
+        invalidate()
+        if threading.current_thread() is compactor:
+            entered.set()
+            assert release.wait(30)
+
+    ds._invalidate_row_caches = held_invalidate
+    compactor = threading.Thread(target=ds.compact)
+    compactor.start()
+    assert entered.wait(30)
+    if call == "distances":
+        read = lambda: ds.distances(rows[0])
+    else:
+        read = lambda: ds.search(rows[0], 3, mode=call)
+    result = []
+    reader = threading.Thread(target=lambda: result.append(read()))
+    reader.start()
+    reader.join(0.5)  # a read that waits for the layout is still waiting
+    release.set()
+    compactor.join(30)
+    reader.join(30)
+    assert not compactor.is_alive() and not reader.is_alive() and len(result) == 1
+    assert len(ds) == 900
+    if call == "distances":
+        np.testing.assert_array_equal(result[0], read())
+        np.testing.assert_allclose(
+            result[0], np.linalg.norm(rows[100:] - rows[0], axis=1), rtol=1e-5
+        )
+    else:
+        got, dist = result[0]
+        want = read()
+        np.testing.assert_array_equal(got, want[0])
+        np.testing.assert_array_equal(dist, want[1])
+        assert len(got) == 3 and set(got.tolist()) <= set(ids[100:].tolist())
 
 
 def jax_state(jds):

@@ -1,0 +1,115 @@
+#!/usr/bin/env python3
+"""Time K1 (ops/block_scan.py:block_minima, routed as the checkout routes
+it) in two or more checkouts of this repository on one CUDA card, in turns
+(A B B A per round), at the main path's size: 1,000,000 x 384 rows from
+N(0, 1) (seed 0) and 64 queries, cast for the 16-bit and u8 shapes (u8:
+the rows scaled by 32 and offset by 128, clamped).
+
+    python3 tools/time_k1.py CHECKOUT_A CHECKOUT_B [--rounds 2] [--out FILE]
+
+Each turn is a fresh process that imports sqlite_vector_tpu_torch from
+that checkout (its kernels built from its own sources) and reports the mean
+ms per launch over CUDA-event windows after a warm-up. Prints the card
+line, every turn's times and, per checkout and shape, the median over its
+turns; --out writes them as JSON.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+# (metric, dtype, B)
+SHAPES = [
+    ("L1", "float32", 1), ("L1", "float32", 64), ("L1", "float16", 64), ("L1", "uint8", 1),
+    ("L1", "uint8", 64), ("L2", "float16", 1), ("L2", "float16", 64), ("L2", "bfloat16", 1),
+    ("L2", "bfloat16", 64),
+]
+
+
+def worker() -> None:
+    import torch
+
+    from sqlite_vector_tpu_torch.ops.block_scan import block_minima
+    from sqlite_vector_tpu_torch.types import DistanceMetric
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = torch.randn((1_000_000, 384), generator=gen, device="cuda")
+    queries = torch.randn((64, 384), generator=gen, device="cuda")
+    out = {}
+    for metric, dtype, b in SHAPES:
+        dt = getattr(torch, dtype)
+        if dt is torch.uint8:
+            base = (rows * 32 + 128).clamp(0, 255).to(dt)
+            q = (queries[:b] * 32 + 128).clamp(0, 255).to(dt)
+        else:
+            base, q = rows.to(dt), queries[:b].to(dt).contiguous()
+        m = DistanceMetric(metric)
+        n = base.shape[0]
+        for _ in range(3):
+            block_minima(q, base, m, n)
+        torch.cuda.synchronize()
+        iters = 20 if b == 1 else 10
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            block_minima(q, base, m, n)
+        end.record()
+        torch.cuda.synchronize()
+        out[f"{metric} {dtype} B={b}"] = start.elapsed_time(end) / iters
+        del base
+    print(json.dumps(out))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("checkouts", nargs="*")
+    ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--out")
+    ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.worker:
+        worker()
+        return 0
+    if len(args.checkouts) < 2:
+        ap.error("give two or more checkouts")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+    print(card, flush=True)
+    me = str(Path(__file__).resolve())
+    turns = {c: [] for c in args.checkouts}
+    for _ in range(args.rounds):
+        for order in (args.checkouts, args.checkouts[::-1]):
+            for c in order:
+                root = str(Path(c).resolve())
+                env = {**os.environ, "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")}
+                res = subprocess.run(
+                    [sys.executable, me, "--worker"], cwd=root, env=env,
+                    capture_output=True, text=True, timeout=1200,
+                )
+                if res.returncode != 0:
+                    print(res.stdout + res.stderr, file=sys.stderr)
+                    return 1
+                times = json.loads(res.stdout.strip().splitlines()[-1])
+                turns[c].append(times)
+                print(f"{c}: {json.dumps(times)}", flush=True)
+    medians = {
+        c: {k: statistics.median(t[k] for t in ts) for k in ts[0]} for c, ts in turns.items()
+    }
+    for shape in medians[args.checkouts[0]]:
+        print(f"{shape}: " + ", ".join(f"{c} {medians[c][shape]!r} ms" for c in args.checkouts))
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps({"card": card, "turns": turns, "medians": medians}, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
