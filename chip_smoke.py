@@ -5,6 +5,9 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
+On a machine of two or more cards, `python3 chip_smoke.py --cards` builds
+the kernels and runs only phase 11's several-card part (phase_cards).
+
 Phases, each printing its own lines:
   1. device   the card (nvidia-smi name and power limit), torch/CUDA versions
               and the TF32 flags, which are pinned off;
@@ -143,6 +146,31 @@ Phases, each printing its own lines:
               load, SQL vector_full_scan p50/p99 beside Dataset.search,
               vector_quantize and the shadow load, serving QPS and latency,
               HTTP p50, the policy search at B=1 and B=8.
+ 11. mesh     meshes on the card (parallel/): phase 4's 1,000,000 x 384
+              FLOAT32 L2 rows (the seed's generator again) on a 4-shard 1-D
+              mesh (4 shards on cuda:0), on a 1-shard mesh and on one
+              device: exact, int4, int8 and rerank search at B=1 and B=64,
+              k=20, unmasked, with a 100,000-id ids_filter and with 10,000
+              tombstones, each == one device and == the 1-shard mesh (code
+              scans bit-equal, exact rtol 3e-5, rerank 1e-5), int8 params
+              and int4/int8 codes bit-equal to the one-device build, every
+              search launching K1 or K2 once a shard on its tensor-core
+              body and its merge gathering 8 * 4 * B * k bytes, refine
+              refused; then inside phase 9, before its files go, the
+              2,000,000 x 768 file loaded onto the 4-shard mesh with
+              storage="hbm" and with storage="host", mmap=True: exact, int4
+              and int8 at B=64 against phase 9's one-device load; then a
+              2 x 2 (rows x dim) mesh: exact L2 at B=1 and B=64 against the
+              plain-torch ground truth (tie-aware, rel_tol 1e-4), int8
+              bit-equal, INT4 and host storage refused; with several cards,
+              the first part and its times again on a mesh of one shard a
+              card, and the rows with storage="host" streamed to every card
+              at once (exact, int8, int4) against one device. Times: B=1
+              p50 and B=64 QPS of the 4-shard mesh and one device in turns
+              (host clock), K1 and K2 alone on one shard and on the whole
+              rows, and the merge (CUDA events); the shards share one card,
+              so these show the mesh's overhead, not a scaling. "launches"
+              in phase 11 count the mesh datasets' own searches only.
 
 Then one JSON line of kernel results, one entry a kernel body (each with
 its bound, the side that bounds it and the library yardstick): K1 on tensor
@@ -150,7 +178,8 @@ cores for f32 and codes (main-path numbers f32 B=64), K1 on tensor cores
 for 16-bit rows (L2 f16 B=64; launches from phase 5's FLOAT16 and FLOATB16
 searches), K1's L1 kernel (L1 f32 B=64; launches from the FLOAT32 L1
 search), K2 (B=64); the rest under "by_shape"; "sql_launches" counts phase 10's
-launches on the SQL path; phase 10's times under "frontends"), the card
+launches on the SQL path, "mesh_launches" phase 11's; phase 10's times under
+"frontends", phase 11's under "mesh"), the card
 line again, and last the result line. Any failure raises, so the script exits non-zero and prints no
 result; so does a machine without CUDA.
 """
@@ -1463,6 +1492,8 @@ def host_storage(card: str, root: Path) -> dict:
         flush=True,
     )
 
+    mesh_launches = mesh_wide(card, d, hbm, Qh)
+
     # -- tombstones on the read-only mirror -------------------------------
     gone = rng.choice(N_HOST, 1000, replace=False) + 1
     for x in (host, hbm):
@@ -1481,7 +1512,7 @@ def host_storage(card: str, root: Path) -> dict:
         f"times, all in their tensor-core bodies | {card}",
         flush=True,
     )
-    return {"K1": streamed["K1"][0], "K2": streamed["K2"][0], **times}
+    return {"K1": streamed["K1"][0], "K2": streamed["K2"][0], "mesh": mesh_launches, **times}
 
 
 def stream_times(card: str, host, Qh, shape: str, nbytes: int, stream, streaming) -> dict:
@@ -1564,6 +1595,427 @@ def phase_frontends(card: str, Q) -> dict:
         return frontends(card, Q, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+MESH_SHARDS = 4
+# phase 11's ids_filter and tombstones
+MESH_FILTER = 100_000
+MESH_REMOVE = 10_000
+
+
+def walls_in_turns(fns, reps: int) -> list[list[float]]:
+    """Host-clock seconds of each fn's calls, `reps` rounds of turns (fn
+    order reversed every other round) after one warm-up call of each; every
+    call ends on the host (search returns host arrays)."""
+    for fn in fns:
+        fn()
+    walls = [[] for _ in fns]
+    for r in range(reps):
+        for i in (range(len(fns)) if r % 2 == 0 else reversed(range(len(fns)))):
+            t0 = time.perf_counter()
+            fns[i]()
+            walls[i].append(time.perf_counter() - t0)
+    return walls
+
+
+def mesh_search(label: str, ds, one, others, q, mode: str, flt, kernel: str, shards: int, k_merge: int) -> dict:
+    """One search on the mesh dataset `ds`: K1 or K2 launched once per
+    shard, each in its tensor-core body (counted as phases 5 and 7 count),
+    the merge gathering 8 * D * B * k bytes; the result equal to the
+    one-device dataset's (and to each of `others`, meshes of other shapes):
+    bit-equal for the code scans, within the float32 tolerance for exact,
+    rtol 1e-5 for rerank (one device rescores fresh codes on its fused
+    route). Returns the launches of this search alone, by kernel."""
+    from sqlite_vector_tpu_torch.parallel import GATHERED, collective_bytes_per_query
+
+    c0 = counts()
+    GATHERED.reset()
+    got = ds.search(q, K, mode=mode, ids_filter=flt)
+    merged = GATHERED.merge
+    c1 = counts()
+    launched = {name: c1[name][0] - c0[name][0] for name in c1}
+    mma = c1[kernel][1] - c0[kernel][1]
+    check(launched[kernel] == shards and mma == shards,
+          f"{label}: {kernel} launched {launched[kernel]} times ({mma} on tensor cores), not once a shard")
+    check(merged == collective_bytes_per_query(shards, q.shape[0], k_merge),
+          f"{label}: the merge gathered {merged} bytes")
+    for other, name in [(one, "one device")] + others:
+        want = other.search(q, K, mode=mode, ids_filter=flt)
+        if mode in ("quantized",):
+            same_topk(f"{label} vs {name}", *got, *want)
+        else:
+            close_topk(f"{label} vs {name}", *got, *want, 3e-5 if mode == "exact" else 1e-5)
+    return launched
+
+
+def mesh_parity(card: str, rows: np.ndarray, Q, devices: list, label: str) -> dict:
+    """Phase 11 part 1 on a 1-D mesh over `devices`: exact, int4, int8 and
+    rerank search at B=1 and B=64, unmasked, with an ids_filter of 100,000
+    ids and with 10,000 tombstones, against the one-device dataset and a
+    1-shard mesh over the same rows; codes and params bit-equal to the
+    one-device build; refine refused. Returns the K1 and K2 launches of the
+    mesh's own searches (not those of the datasets it is compared with)
+    and the datasets."""
+    import sqlite_vector_tpu_torch as svt
+    from sqlite_vector_tpu_torch.parallel import make_mesh
+
+    opts = f"dimension={DIM_MAIN},type=FLOAT32,distance=L2"
+    shards = len(devices)
+    t0 = time.perf_counter()
+    one = svt.Dataset.from_arrays("one", rows, options=opts, device="cuda")
+    mesh = svt.Dataset.from_arrays("mesh", rows, options=opts, mesh=make_mesh(devices=devices))
+    solo = svt.Dataset.from_arrays("mesh1", rows, options=opts, mesh=make_mesh(devices=devices[:1]))
+    torch.cuda.synchronize()
+    check(mesh._vectors.n_shards == shards and solo._vectors.n_shards == 1, "mesh layouts")
+    print(
+        f"[mesh] {label}: {N_MAIN} x {DIM_MAIN} FLOAT32 L2 rows (phase 4's) on a {shards}-shard mesh "
+        f"over {sorted({str(d) for d in devices})} ({mesh._vectors.shard_rows} rows a shard, "
+        f"{mesh.memory_bytes()} device bytes), a 1-shard mesh and one device, built in "
+        f"{time.perf_counter() - t0:.1f} s | {card}",
+        flush=True,
+    )
+    rng = np.random.default_rng(SEED + 11)
+    flt = rng.choice(N_MAIN, MESH_FILTER, replace=False) + 1
+    others = [(solo, "1-shard mesh")]
+    own = {"K1": 0, "K2": 0}
+    n_search = 0
+
+    def run(tag: str, modes, filters=(None, flt)):
+        nonlocal n_search
+        for mode, kernel, k_merge in modes:
+            for f in filters:
+                for b in (1, B_MAIN):
+                    name = f"{label} {mode} {tag}{' filtered' if f is not None else ''} B={b}"
+                    launched = mesh_search(name, mesh, one, others, Q[:b], mode, f, kernel, shards, k_merge)
+                    for n in own:
+                        own[n] += launched[n]
+                    n_search += 1
+
+    exact = ("exact", "K1", K)
+    run("", [exact])
+    # int4: codes bit-equal, then searched; tombstones over the stale snapshot
+    for ds in (one, mesh, solo):
+        ds.quantize(qtype="int4")
+    for a, b in ((mesh._quant.codes, one._quant.codes), (mesh._quant.row_scale, one._quant.row_scale),
+                 (mesh._quant.sq_norms, one._quant.sq_norms)):
+        check(torch.equal(a.read(0, N_MAIN), b.cpu()), "int4 codes, alpha or csq differ from one device's")
+    run("", [("quantized", "K2", K)])
+    gone = rng.choice(N_MAIN, MESH_REMOVE, replace=False) + 1
+    for ds in (one, mesh, solo):
+        check(ds.remove(gone) == MESH_REMOVE and ds.tombstones == MESH_REMOVE, "remove")
+    run("with tombstones", [exact, ("quantized", "K2", K)], (None,))
+    # int8 (quantize compacts the tombstones away), rerank, then tombstones
+    for ds in (one, mesh, solo):
+        ds.quantize()
+    check(mesh.quant_params == one.quant_params == solo.quant_params, "int8 params differ from one device's")
+    check(torch.equal(mesh._quant.codes.read(0, len(one)), one._quant.codes.cpu()), "int8 codes differ")
+    rerank = ("rerank", "K1", K * 4)
+    run("", [("quantized", "K1", K), rerank])
+    gone = rng.choice(one.ids, MESH_REMOVE, replace=False)
+    for ds in (one, mesh, solo):
+        check(ds.remove(gone) == MESH_REMOVE, "remove")
+    run("with tombstones", [exact, ("quantized", "K1", K), rerank], (None,))
+    for ds, name in ((mesh, "mesh"), (solo, "1-shard mesh")):
+        try:
+            ds.quantize(qtype="int4", refine=True)
+            raise RuntimeError(f"chip_smoke check failed: refine ran on the {name}")
+        except svt.VectorConfigError:
+            pass
+    print(
+        f"[mesh] {label}: {n_search} searches (exact, int4, int8, rerank; B=1 and B={B_MAIN}, k={K}; "
+        f"unmasked, a {MESH_FILTER:,}-id ids_filter, {MESH_REMOVE:,} tombstones) each == one device "
+        f"and == a 1-shard mesh (codes bit-equal, exact within rtol 3e-5, rerank 1e-5); int8 params "
+        f"and int4/int8 codes bit-equal to the one-device build; every search launched K1 or K2 "
+        f"once a shard on its tensor-core body and merged 8*{shards}*B*k bytes (the mesh's own "
+        f"searches launched K1 {own['K1']}, K2 {own['K2']} times); refine refused | {card}",
+        flush=True,
+    )
+    return {**own, "one": one, "mesh": mesh, "solo": solo}
+
+
+def mesh_times(card: str, one, mesh, Q) -> dict:
+    """Phase 11's times on a mesh against one device: B=1 p50 and B=64
+    QPS in turns (host clock), K1 and K2 alone on the first shard and on
+    the whole rows (CUDA events), and the merge onto the first device."""
+    from sqlite_vector_tpu_torch.ops.block_scan import block_minima
+    from sqlite_vector_tpu_torch.ops.int4_scan import int4_block_minima
+    from sqlite_vector_tpu_torch.ops.quantize4 import quantize4_device, quantize_query_int8
+    from sqlite_vector_tpu_torch.ops.scan import fused_scan_topk
+    from sqlite_vector_tpu_torch.parallel.ops import merge_candidates
+    from sqlite_vector_tpu_torch.types import DistanceMetric
+
+    L2 = DistanceMetric.L2
+    out = {}
+    note = ("the shards share one card, so these times show the mesh's overhead, not a scaling"
+            if len({str(d) for d in mesh._mesh.devices.reshape(-1)}) == 1 else "one shard a card")
+    for mode in ("exact", "quantized"):
+        for b, reps in ((1, 60), (B_MAIN, 12)):
+            walls = walls_in_turns([lambda ds=ds: ds.search(Q[:b], K, mode=mode) for ds in (one, mesh)], reps)
+            one_s, mesh_s = (float(np.median(w)) for w in walls)
+            key = f"{mode} ({one._quant.qtype.value if mode == 'quantized' else 'f32'}) B={b}"
+            out[key] = {"one_device_ms": one_s * 1e3, "mesh_ms": mesh_s * 1e3,
+                        "one_device_qps": b / one_s, "mesh_qps": b / mesh_s}
+            print(
+                f"[times] mesh search {key} k={K}, {reps} calls each in turns (host clock): "
+                f"p50 one device {one_s * 1e3!r} ms ({b / one_s!r} QPS), {mesh._vectors.n_shards}-shard "
+                f"mesh {mesh_s * 1e3!r} ms ({b / mesh_s!r} QPS), {mesh_s / one_s:.2f}x; {note} | {card}",
+                flush=True,
+            )
+    qd = torch.from_numpy(Q).cuda()
+    vecs = mesh._vectors
+    shard, sr = vecs.part(0), vecs.shard_rows
+    whole = one._vectors[: len(one)]
+    k1_shard, k1_whole = in_turns([lambda: block_minima(qd.to(shard.device), shard, L2, sr),
+                                   lambda: block_minima(qd, whole, L2, len(one))], 10)
+    # K2 over int4 codes of the same rows (quantize4_device), a shard and the whole
+    qc, qs, _ = quantize_query_int8(qd)
+    p4_shard, p4_whole = quantize4_device(shard), quantize4_device(whole)
+    qc_s, qs_s = qc.to(shard.device), qs.to(shard.device)
+    k2_shard, k2_whole = in_turns([lambda: int4_block_minima(qc_s, qs_s, *p4_shard, L2, sr),
+                                   lambda: int4_block_minima(qc, qs, *p4_whole, L2, len(one))], 10)
+    del p4_shard, p4_whole
+    parts = []
+    for i, part in enumerate(vecs.parts()):
+        v, p = fused_scan_topk(qd.to(part.device), part, L2, K)
+        parts.append((v, torch.where(p >= 0, p + i * sr, -1).to(torch.int32)))
+    merge_ms = cuda_ms(lambda: merge_candidates(parts, K, qd.device), 50)
+    print(
+        f"[times] K1 (f32 L2, B={B_MAIN}, tensor-core body) alone on one shard of {sr} rows "
+        f"{k1_shard!r} ms, on the {len(one)} rows of one device {k1_whole!r} ms; K2 (int4 "
+        f"codes of the same rows) {k2_shard!r} ms a shard, {k2_whole!r} ms on one device "
+        f"(CUDA events, in turns); the merge of {len(parts)} x [{B_MAIN}, {K}] candidates "
+        f"{merge_ms!r} ms | {card}",
+        flush=True,
+    )
+    out.update(k1_shard_ms=k1_shard, k1_one_device_ms=k1_whole, k2_shard_ms=k2_shard,
+               k2_one_device_ms=k2_whole, merge_ms=merge_ms)
+    return out
+
+
+def mesh_2d(card: str, rows: np.ndarray, Q) -> None:
+    """Phase 11 part 3: a 2 x 2 (rows x dim) mesh on the card over the main
+    rows: exact L2 at B=1 and B=64 against the plain-torch ground truth
+    (tie-aware, rel_tol 1e-4: float32 partial sums added across the dim
+    shards) and the one-device values; int8 params, codes and values
+    bit-equal to one device's; INT4 and host storage refused."""
+    import sqlite_vector_tpu_torch as svt
+    from sqlite_vector_tpu_torch.ops.distance import pairwise_distance
+    from sqlite_vector_tpu_torch.parallel import make_mesh_2d
+    from sqlite_vector_tpu_torch.types import DistanceMetric
+
+    parity = load_tests_module("parity")
+    opts = f"dimension={DIM_MAIN},type=FLOAT32,distance=L2"
+    mesh = make_mesh_2d(2, 2, devices=["cuda:0"] * 4)
+    one = svt.Dataset.from_arrays("one", rows, options=opts, device="cuda")
+    t0 = time.perf_counter()
+    ds = svt.Dataset.from_arrays("m22", rows, options=opts, mesh=mesh)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    ids_all = one.ids
+    qd = torch.from_numpy(Q).cuda()
+    oracle = pairwise_distance(qd, one._vectors[: len(one)], DistanceMetric.L2).cpu().numpy()
+    walls = {}
+    for b in (1, B_MAIN):
+        t0 = time.perf_counter()
+        got_ids, got_d = ds.search(Q[:b], K)
+        walls[b] = time.perf_counter() - t0
+        want_ids, want_d = one.search(Q[:b], K)
+        check(np.allclose(got_d, want_d, rtol=1e-4, atol=1e-5), f"2x2 exact B={b}: values differ from one device's")
+        for i in range(b):
+            parity.assert_topk_parity(*top_rows(ids_all, oracle[i]), got_ids[i], got_d[i], K,
+                                      rel_tol=1e-4, label=f"2x2 exact B={b} q{i}")
+    one.quantize()
+    ds.quantize()
+    check(ds.quant_params == one.quant_params, "2x2 int8 params differ from one device's")
+    check(torch.equal(ds._quant.codes.read(0, len(one)), one._quant.codes.cpu()), "2x2 int8 codes differ")
+    for b in (1, B_MAIN):
+        same_topk(f"2x2 int8 B={b}", *ds.search(Q[:b], K, exact=False), *one.search(Q[:b], K, exact=False))
+    for what, fn in (("qtype=INT4", lambda: ds.quantize(qtype="int4")),
+                     ("storage='host'", lambda: svt.Dataset("h", svt.parse_options(opts), mesh=mesh, storage="host"))):
+        try:
+            fn()
+            raise RuntimeError(f"chip_smoke check failed: {what} ran on the 2 x 2 mesh")
+        except svt.VectorConfigError:
+            pass
+    print(
+        f"[mesh] 2 x 2 (rows x dim) mesh on the card: built in {t_build:.1f} s; exact L2 B=1 "
+        f"({walls[1] * 1e3:.1f} ms) and B={B_MAIN} ({walls[B_MAIN] * 1e3:.1f} ms, first calls) match the "
+        f"plain-torch ground truth (tie-aware, rel_tol 1e-4) and one device's values (rtol 1e-4); int8 "
+        f"params, codes and results bit-equal to one device's; INT4 and host storage refused | {card}",
+        flush=True,
+    )
+
+
+def main_rows() -> tuple[np.ndarray, np.ndarray]:
+    """Phase 4's rows and queries, drawn again from its seed chunk by chunk."""
+    rng = np.random.default_rng(SEED)
+    chunk = min(100_000, N_MAIN)
+    rows = np.concatenate([rng.standard_normal((chunk, DIM_MAIN), dtype=np.float32) for _ in range(N_MAIN // chunk)])
+    picks = rng.choice(N_MAIN, B_MAIN // 2, replace=False)
+    Q = np.concatenate([rows[picks], rng.standard_normal((B_MAIN - B_MAIN // 2, DIM_MAIN), dtype=np.float32)])
+    return rows, Q
+
+
+def phase_mesh(card: str, Q) -> dict:
+    """Phase 11: the mesh on the card (parts 1 and 3; part 2 runs inside
+    phase 9, on its files): a 4-shard 1-D mesh over the main rows against
+    one device (every mode, mask and batch), its times, a 2 x 2 mesh, and
+    where there are several cards phase_cards. Returns the 4-shard mesh's
+    K1 and K2 launches and its times."""
+    rows, _ = main_rows()
+    zero_counts()
+    res = mesh_parity(card, rows, Q, ["cuda:0"] * MESH_SHARDS, f"{MESH_SHARDS} shards on cuda:0")
+    counted = counts()
+    check(counted["K1"][0] > 0 and counted["K2"][0] > 0, "the mesh searches launched no K1 or no K2")
+    times = mesh_times(card, res.pop("one"), res.pop("mesh"), Q)
+    res.pop("solo")
+    torch.cuda.empty_cache()
+    mesh_2d(card, rows, Q)
+    if torch.cuda.device_count() > 1:
+        phase_cards(card, rows, Q)
+    else:
+        print(f"[mesh] a mesh over several cards: not run (torch.cuda.device_count() == "
+              f"{torch.cuda.device_count()}) | {card}", flush=True)
+    return {"K1": res["K1"], "K2": res["K2"], "times": times}
+
+
+def phase_cards(card: str, rows: np.ndarray, Q) -> None:
+    """Phase 11 on a machine of several cards: part 1 on a mesh of one
+    shard a card and its times, then the same rows with storage="host"
+    streamed to every card at once (one pipeline a card), exact, int8 and
+    int4 at B=1 and B=64, streamed and then preloaded, against one device;
+    every search launching K1 or K2 once a shard and tile."""
+    import sqlite_vector_tpu_torch as svt
+    from sqlite_vector_tpu_torch.parallel import make_mesh
+
+    devs = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    res = mesh_parity(card, rows, Q, devs, f"{len(devs)} shards, one a card")
+    mesh_times(card, res["one"], res["mesh"], Q)
+    del res
+    torch.cuda.empty_cache()
+    opts = f"dimension={DIM_MAIN},type=FLOAT32,distance=L2"
+    host = svt.Dataset.from_arrays("h", rows, options=opts, mesh=make_mesh(devices=devs), storage="host")
+    ref = svt.Dataset.from_arrays("r", rows, options=opts, device="cuda")
+    own = {"K1": 0, "K2": 0}
+    for qtype in (None, "int8", "int4"):
+        mode, kernel = ("exact", "K1") if qtype is None else ("quantized", "K2" if qtype == "int4" else "K1")
+        if qtype:
+            host.quantize(qtype=qtype)
+            ref.quantize(qtype=qtype)
+        for b in (1, B_MAIN):
+            label = f"host storage on {len(devs)} cards, {qtype or 'exact'} B={b}"
+            t0 = time.perf_counter()
+            got, n = mesh_counted(label, host, mode, kernel, Q[:b])
+            wall = time.perf_counter() - t0
+            own[kernel] += n
+            want = ref.search(Q[:b], K, mode=mode)
+            if qtype is None:
+                close_topk(label, *got, *want, 3e-5)
+            else:
+                same_topk(label, *got, *want)
+            print(f"[mesh] {label} == one device, {kernel} {n} launches; first call {wall * 1e3:.1f} ms | {card}",
+                  flush=True)
+        if qtype:
+            host.preload()
+            label = f"host storage on {len(devs)} cards, {qtype} preloaded"
+            got, n = mesh_counted(label, host, mode, kernel, Q)
+            own[kernel] += n
+            same_topk(label, *got, *ref.search(Q, K, mode=mode))
+    print(f"[mesh] host storage streamed to {len(devs)} cards at once: exact, int8 and int4 (streamed and "
+          f"preloaded) == one device; its searches launched K1 {own['K1']}, K2 {own['K2']} times | {card}",
+          flush=True)
+    del host, ref
+    torch.cuda.empty_cache()
+
+
+def mesh_scan_launches(ds, mode: str) -> int:
+    """The K1 or K2 launches one search of the 1-D mesh dataset `ds` makes:
+    one a shard where the scanned rows lie on the devices, one a shard and
+    tile where they stream from host memory (ops/streaming.py's runs)."""
+    from sqlite_vector_tpu_torch.ops import streaming
+    from sqlite_vector_tpu_torch.parallel import RowShards
+
+    quant = ds._quant if mode == "quantized" else None
+    if quant is None:
+        arrays, n = ([ds._host_vectors], ds._count) if ds._storage == "host" else (None, 0)
+    elif isinstance(quant.codes, (torch.Tensor, RowShards)):
+        arrays, n = None, 0
+    else:
+        int4 = quant.qtype.value == "INT4"
+        arrays, n = ([quant.codes, quant.row_scale, quant.sq_norms] if int4 else [quant.codes]), quant.count
+    if arrays is None:
+        return ds._mesh.size
+    runs, tile = streaming._runs(n, streaming.default_tile_rows(arrays), torch.device("cuda"), ds._mesh)
+    return sum(-(-cnt // min(tile, cnt)) for _, _, cnt in runs if cnt)
+
+
+def mesh_counted(label: str, ds, mode: str, kernel: str, q) -> tuple:
+    """ds.search(q, K, mode=mode) on a 1-D mesh dataset, checked to launch
+    `kernel` as often as mesh_scan_launches says, each launch in its
+    tensor-core body. Returns the (ids, values) and those launches."""
+    want = mesh_scan_launches(ds, mode)
+    c0 = counts()
+    got = ds.search(q, K, mode=mode)
+    c1 = counts()
+    n, mma = (c1[kernel][i] - c0[kernel][i] for i in (0, 1))
+    check(n == mma == want, f"{label}: {kernel} launched {n} times ({mma} on tensor cores), not {want}")
+    return got, n
+
+
+def mesh_wide(card: str, d: str, hbm, Qh) -> dict:
+    """Phase 11 part 2, on phase 9's files: its 2,000,000 x 768 rows (BASELINE.json
+    config 5's width, its 10,000,000 rows cut to 2,000,000 for the smoke's
+    time) loaded onto the 4-shard mesh with storage="hbm" and with
+    storage="host", mmap=True (each shard's rows streamed to its device),
+    searched exact, int4 and int8 at B=64 against phase 9's one-device
+    hbm load `hbm`. Returns the K1 and K2 launches of the mesh datasets'
+    searches (each checked by mesh_counted), not those of `hbm`."""
+    import sqlite_vector_tpu_torch as svt
+    from sqlite_vector_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(devices=["cuda:0"] * MESH_SHARDS)
+    t0 = time.perf_counter()
+    m_hbm = svt.Dataset.load(d, mesh=mesh)
+    torch.cuda.synchronize()
+    t_hbm = time.perf_counter() - t0
+    m_host = svt.Dataset.load(d, mesh=mesh, storage="host", mmap=True)
+    launched = {"K1": 0, "K2": 0}
+    want = hbm.search(Qh, K)
+    walls = {}
+    for ds, name in ((m_hbm, "hbm"), (m_host, "host")):
+        t0 = time.perf_counter()
+        got, n = mesh_counted(f"768-wide mesh {name} exact", ds, "exact", "K1", Qh)
+        walls[name] = time.perf_counter() - t0
+        launched["K1"] += n
+        close_topk(f"768-wide mesh {name} exact", *got, *want, 3e-5)
+    built = {}
+    for qtype, kernel in (("int4", "K2"), ("int8", "K1")):
+        if qtype == "int8":
+            hbm.quantize()
+        want = hbm.search(Qh, K, mode="quantized")  # phase 9 left hbm's int4 build in place
+        for ds, name in ((m_hbm, "hbm"), (m_host, "host")):
+            t0 = time.perf_counter()
+            ds.quantize(qtype=qtype)
+            built[f"{name} {qtype}"] = time.perf_counter() - t0
+            got, n = mesh_counted(f"768-wide mesh {name} {qtype}", ds, "quantized", kernel, Qh)
+            launched[kernel] += n
+            same_topk(f"768-wide mesh {name} {qtype}", *got, *want)
+        m_host.preload()
+        got, n = mesh_counted(f"768-wide mesh host {qtype} preloaded", m_host, "quantized", kernel, Qh)
+        launched[kernel] += n
+        same_topk(f"768-wide mesh host {qtype} preloaded", *got, *want)
+    print(
+        f"[mesh] 768 wide (phase 9's {N_HOST:,} x {DIM_HOST} file, rows cut from BASELINE.json config 5's "
+        f"10,000,000): load onto {MESH_SHARDS} shards on cuda:0 storage='hbm' {t_hbm:.1f} s and "
+        f"storage='host', mmap=True; exact B={B_MAIN} == one device (rtol 3e-5; first call hbm "
+        f"{walls['hbm'] * 1e3:.1f} ms, host streamed {walls['host'] * 1e3:.1f} ms), int4 and int8 "
+        f"(streamed, preloaded, hbm) bit-equal to one device; quantize s {built!r}; K1 launches "
+        f"{launched['K1']}, K2 {launched['K2']}, all on tensor cores | {card}",
+        flush=True,
+    )
+    del m_hbm, m_host
+    torch.cuda.empty_cache()
+    return launched
 
 
 def p50_p99(walls) -> tuple[float, float]:
@@ -1974,10 +2426,36 @@ def serving(card: str, ref, rows, Q, path: str) -> dict:
     return out
 
 
+def main_cards(card: str) -> int:
+    """--cards: phase 11's several-card part alone, then the result line."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"chip_smoke --cards: needs two or more CUDA cards, found {n}", file=sys.stderr)
+        return 1
+    rows, Q = main_rows()
+    phase_cards(card, rows, Q)
+    return result_lines()
+
+
+def result_lines() -> int:
+    """The card line, then the result line last."""
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing run", file=sys.stderr)
         return 1
+    cards = sys.argv[1:] == ["--cards"]
+    if sys.argv[1:] and not cards:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}; takes none, or --cards", file=sys.stderr)
+        return 2
     from sqlite_vector_tpu_torch.ops._build import library_path, load_library, ptxas_report
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2002,6 +2480,8 @@ def main() -> int:
         if "mma_minima_kernel" in name or "l1_minima_kernel" in name:
             # K1's and K2's tensor-core bodies and K1's L1 body
             check(" 0 bytes spill stores" in f" {said}", f"{name} spills: {said}")
+    if cards:
+        return main_cards(card)
     max_err, masked_err, nonfinite_err = phase_kernel(card)
     k2_err, k2_masked_err = phase_kernel_int4(card)
     ds, Q, ids_e, launches = phase_main(card)
@@ -2012,6 +2492,7 @@ def main() -> int:
     masked = phase_mutate(card, ds, Q)["masked_launches"]
     host = phase_persist(card, ds, Q)
     fe = phase_frontends(card, Q)
+    mesh = phase_mesh(card, Q)
     k2_main = k2[f"B={B_MAIN}"]
 
     def k1_entry(name: str, source: str, shape: str, n_launches: int, family) -> dict:
@@ -2042,6 +2523,7 @@ def main() -> int:
             "masked_launches": masked["K1"],
             "streamed_launches": host["K1"],
             "sql_launches": fe["sql_launches"]["K1"]["launches"],
+            "mesh_launches": mesh["K1"] + host["mesh"]["K1"],
             "masked_max_abs_err": masked_err,
             "nonfinite_max_abs_err": nonfinite_err,
         },
@@ -2065,19 +2547,15 @@ def main() -> int:
             "masked_launches": masked["K2"],
             "streamed_launches": host["K2"],
             "sql_launches": fe["sql_launches"]["K2"]["launches"],
+            "mesh_launches": mesh["K2"] + host["mesh"]["K2"],
             "masked_max_abs_err": k2_masked_err,
             "cuda_core_body": "sqlite_vector_tpu_torch/csrc/int4_minima.cu",
             "by_shape": {k: v for k, v in k2.items() if k != "max_abs_err"},
         },
     ], "host_storage": {k: host[k] for k in ("pinned_gbps", "stream_pass_s", "tile_sweep_s", "thread_sweep_s")},
-        "frontends": {k: v for k, v in fe.items() if k != "sql_launches"}}))
-    print(card_line())
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu",
-        "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(),
-    }}))
-    return 0
+        "frontends": {k: v for k, v in fe.items() if k != "sql_launches"},
+        "mesh": mesh["times"]}))
+    return result_lines()
 
 
 if __name__ == "__main__":

@@ -2,10 +2,11 @@
 
 Same contract as the JAX package beside it (which stays the reference):
 the Dataset/VectorStore API, its option strings, enums and errors, on one
-device: every search mode, int8 and int4 quantization, host storage,
-persistence, the non-finite policies, the SQLite surface (sqlite.py),
-serving (BatchingSearcher, serve) and the CLI (python -m
-sqlite_vector_tpu_torch). Scans on CUDA tensors run the hand-written
+device or over a mesh of them (parallel/: row-sharded and rows x dim
+datasets, one process driving every device): every search mode, int8 and
+int4 quantization, host storage, persistence, the non-finite policies,
+the SQLite surface (sqlite.py), serving (BatchingSearcher, serve) and the
+CLI (python -m sqlite_vector_tpu_torch). Scans on CUDA tensors run the hand-written
 kernels K1 (csrc/block_minima_mma.cu, csrc/block_minima.cu) and K2
 (csrc/int4_minima_mma.cu, csrc/int4_minima.cu), built with nvcc at first
 use; on CPU tensors they run the kernels' plain PyTorch twins.

@@ -1,4 +1,4 @@
-"""Dataset and VectorStore on PyTorch, on one device.
+"""Dataset and VectorStore on PyTorch, on one device or over a mesh.
 
 Port of sqlite_vector_tpu/dataset.py with device storage: create, add,
 remove (tombstones), update, compact, get; search in its five modes
@@ -24,8 +24,18 @@ package loads in the other.
 Non-finite content takes the reference's policies (ops/nonfinite.py):
 exact and approx search over flagged float16/bfloat16 data or with a
 non-finite query, rerank and refine there (which fall back to exact), and
-exact distances where the raw values need them. Meshes raise
-VectorConfigError naming the ROADMAP item that will port them.
+exact distances where the raw values need them.
+
+mesh= (parallel.make_mesh, make_mesh_2d) or sharding= (parallel.
+row_sharding, block_sharding_2d) lays the rows out over several devices in
+the JAX package's layout: the capacity is a multiple of the row shards,
+shard i holds global rows [i * cap / D, (i + 1) * cap / D) (a
+parallel.RowShards, split by columns too on a 2-D mesh), and the codes
+shard the same way. Searches scan every shard (K1 or K2 on each, or the
+2-D mesh's summed partial components) and merge the candidates
+(parallel/ops.py); positions, ids, masks and files are the one-device
+ones. As in the JAX package, refine and a 2-D mesh's int4 and host storage
+raise, and approx runs the exact scan.
 """
 
 from __future__ import annotations
@@ -79,6 +89,19 @@ from sqlite_vector_tpu_torch.ops.streaming import (
     streaming_scan_topk,
     upload_rows,
 )
+from sqlite_vector_tpu_torch.parallel.mesh import Mesh, Placement
+from sqlite_vector_tpu_torch.parallel.ops import (
+    full_dim_sq_norms,
+    join_columns,
+    shard_valid,
+    sharded_int4_scan_distances,
+    sharded_int4_scan_topk,
+    sharded_scan_distances,
+    sharded_scan_distances_2d,
+    sharded_scan_topk,
+    sharded_scan_topk_2d,
+)
+from sqlite_vector_tpu_torch.parallel.shards import RowShards
 from sqlite_vector_tpu_torch.types import (
     DistanceMetric,
     QuantType,
@@ -110,24 +133,79 @@ _DTYPE_NAME = {
     VectorType.I8: "int8",
 }
 
-# What the port leaves out, by the ROADMAP.md queue-1 item that ports it.
-_ROADMAP_ITEM = {
-    "mesh": "8 (parallel/ -> torch.distributed)",
-}
+# quantized-code uploads (load, preload, interop) pad at most this many rows
+_UPLOAD_CAP_QUANTUM = 65536
+
+_REFINE_ON_MESH = (
+    "refine=True is a single-chip device-side path — on meshes use "
+    "mode='rerank' (sharded int4 prefilter + exact rescore)."
+)
+
+# the 4-bit pack runs along the features; a dim-sharded layout would pack
+# each slice apart (the JAX package's rule)
+_INT4_ON_2D_MESH = (
+    "qtype=INT4 is not supported on a 2-D (rows x dim) mesh — "
+    "use a 1-D rows mesh, or qtype=INT8."
+)
 
 
-def _unported(what: str, item: str) -> VectorConfigError:
-    return VectorConfigError(
-        f"{what} is not ported to sqlite_vector_tpu_torch yet "
-        f"(ROADMAP.md queue 1, item {_ROADMAP_ITEM[item]})."
-    )
-
-
-def _next_capacity(n: int) -> int:
+def _next_capacity(n: int, multiple_of: int = 1) -> int:
     cap = MIN_CAPACITY
     while cap < n:
         cap *= 2
+    if multiple_of > 1:
+        cap = -(-cap // multiple_of) * multiple_of
     return cap
+
+
+def _upload_capacity(n: int, multiple_of: int = 1) -> int:
+    """The JAX package's row capacity of uploaded codes on a mesh: the
+    growth capacity, but never more than one 64k quantum of padding."""
+    quantum = -(-max(n, 1) // _UPLOAD_CAP_QUANTUM) * _UPLOAD_CAP_QUANTUM
+    cap = min(_next_capacity(n), quantum)
+    if multiple_of > 1:
+        cap = -(-cap // multiple_of) * multiple_of
+    return cap
+
+
+def place_rows(arr: Any, count: int, device: Any, grid: list | None = None, rows: int | None = None):
+    """A host array's first `count` rows in device form: a tensor on
+    `device`, or with a mesh grid a RowShards of `rows` rows over it
+    (default: the JAX package's upload capacity, _upload_capacity)."""
+    if grid is None:
+        return upload_rows(arr, count, device)
+    rows = _upload_capacity(count, len(grid)) if rows is None else rows
+    return RowShards.from_host(arr, count, rows, grid)
+
+
+def mesh_layout(mesh: Any, sharding: Any) -> Mesh | None:
+    """The mesh a dataset's rows lie on, from its mesh= and sharding=
+    arguments (a row sharding lays rows out as its 1-D mesh does, a block
+    sharding as its 2-D mesh does); None for one device."""
+    if sharding is not None:
+        if not isinstance(sharding, Placement):
+            raise VectorConfigError(
+                "sharding= takes a placement of sqlite_vector_tpu_torch.parallel "
+                f"(row_sharding, block_sharding_2d), got {type(sharding).__name__}."
+            )
+        sm = sharding.mesh
+        if mesh is not None and mesh is not sm:
+            raise VectorConfigError("mesh= and sharding= name different meshes.")
+        if sharding.spec != tuple(sm.axis_names):
+            raise VectorConfigError(
+                "sharding= lays rows out by row_sharding(mesh) of a 1-D mesh or "
+                f"block_sharding_2d(mesh) of a 2-D mesh, got spec {sharding.spec}."
+            )
+        mesh = sm
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise VectorConfigError(
+            "mesh= takes a sqlite_vector_tpu_torch.parallel.Mesh (make_mesh, "
+            f"make_mesh_2d), got {type(mesh).__name__}."
+        )
+    if mesh is not None:
+        for dev in mesh.devices.reshape(-1):
+            resolve_device(dev)
+    return mesh
 
 
 def _unit_rows(q: np.ndarray) -> np.ndarray:
@@ -167,12 +245,23 @@ def _host_f32(rows: np.ndarray, vtype: VectorType) -> np.ndarray:
 
 
 def _on_device(x) -> bool:
-    return isinstance(x, torch.Tensor)
+    return isinstance(x, (torch.Tensor, RowShards))
+
+
+def _nbytes(x) -> int:
+    return x.nbytes if isinstance(x, RowShards) else x.numel() * x.element_size()
+
+
+def _device_rows(x, start: int, end: int) -> torch.Tensor:
+    """Rows [start, end) of a device tensor or RowShards (the latter on the
+    CPU, at the true width)."""
+    return x.read(start, end) if isinstance(x, RowShards) else x[start:end]
 
 
 def _to_numpy(x, count: int) -> np.ndarray:
-    """The first `count` rows of a device tensor or host array, on the host."""
-    return x[:count].cpu().numpy() if _on_device(x) else np.asarray(x[:count])
+    """The first `count` rows of a device tensor, RowShards or host array,
+    on the host."""
+    return _device_rows(x, 0, count).cpu().numpy() if _on_device(x) else np.asarray(x[:count])
 
 
 def _scan_nonfinite(vectors: Any, vtype: VectorType, count: int) -> bool:
@@ -233,6 +322,18 @@ def _fit_mask(mask: torch.Tensor | None, n: int) -> torch.Tensor | None:
     if mask.shape[0] > n:
         return mask[:n]
     return torch.cat([mask, mask.new_zeros(n - mask.shape[0])])
+
+
+def _cached_sq_norms(arr: RowShards, cache: tuple | None) -> tuple[RowShards, tuple]:
+    """(full_dim_sq_norms of arr, the cache entry to keep): a cache entry
+    (array, norms, version) serves only the array at that version. The
+    version is read BEFORE the norms are computed, so norms a concurrent
+    append raced with are kept under the older version and never reused."""
+    version = arr.version
+    if cache is not None and cache[0] is arr and cache[2] == version:
+        return cache[1], cache
+    norms = full_dim_sq_norms(arr)
+    return norms, (arr, norms, version)
 
 
 def _sync(device: torch.device) -> None:
@@ -372,8 +473,9 @@ class _HostBuild:
 
 class Dataset:
     """A named collection of fixed-dimension vectors with one distance
-    metric, on one torch device: resident there (storage="hbm") or held in
-    host RAM and streamed through it per scan (storage="host")."""
+    metric, on one torch device or a mesh of them: resident there
+    (storage="hbm") or held in host RAM and streamed through it per scan
+    (storage="host")."""
 
     def __init__(
         self,
@@ -394,11 +496,30 @@ class Dataset:
             raise VectorConfigError(
                 f"storage must be 'hbm' or 'host', got '{storage}'"
             )
-        if mesh is not None or sharding is not None:
-            raise _unported("Meshes and shardings", "mesh")
+        mesh = mesh_layout(mesh, sharding)
+        self._mesh = mesh
+        self._mesh_2d = mesh is not None and len(mesh.axis_names) == 2
+        if self._mesh_2d and storage == "host":
+            raise VectorConfigError(
+                "storage='host' is not supported with a 2-D mesh — host "
+                "streaming shards tiles over rows only (use a 1-D mesh, or "
+                "hbm storage). Streamed scans are transport-bound, so a "
+                "dim-sharded tile layout cannot help."
+            )
+        if mesh is None:
+            self._grid = None
+            self._mesh_size = self._dim_mult = 1
+            self.device = resolve_device(device)
+        else:
+            # the matrix's devices: one row a row shard, one column a dim
+            # shard (2-D); per-row arrays live on each row's first device,
+            # queries are made on the first device and replicated
+            self._grid = mesh.grid()
+            self._mesh_size = len(self._grid)
+            self._dim_mult = len(self._grid[0])
+            self.device = self._grid[0][0]
         self.name = name
         self.options = options
-        self.device = resolve_device(device)
         # "hbm" keeps the matrix on the device; "host" keeps it in host RAM
         # (in the host form: bfloat16 as uint16 bits) and streams tiles per
         # scan, for datasets larger than device memory
@@ -418,7 +539,11 @@ class Dataset:
         self._ids = np.zeros((0,), dtype=np.int64)
         self._id_pos_cache: dict[int, int] | None = None
         self._next_rowid = 1
-        self._vectors: torch.Tensor | None = None  # [capacity, dim]
+        self._vectors: torch.Tensor | RowShards | None = None  # [capacity, dim]
+        # a 2-D mesh's full-dim row norms, keyed by the matrix (and by the
+        # codes) they were computed from and its version (_cached_sq_norms)
+        self._sq_norms: tuple | None = None
+        self._code_norms: tuple | None = None
         self._quant: _QuantState | None = None
         # sticky: some ingested row held NaN/Inf
         self._has_nonfinite = False
@@ -495,19 +620,20 @@ class Dataset:
         return self._n_dead
 
     def memory_bytes(self) -> int:
-        """Device bytes held by the matrix (at its padded capacity; none
-        with host storage) and by the codes when they are on the device
-        (packed bytes for int4; alpha, csq and the refine sidecar are not
-        counted). This is the port's own layout, not the JAX package's
-        figure: the port keeps the codes at quant.count rows, where JAX
-        pads them to the matrix capacity, so JAX reports (capacity -
-        count) x code width bytes more."""
+        """Device bytes held by the matrix (at its padded capacity, summed
+        over a mesh's shards; none with host storage) and by the codes when
+        they are on the device (packed bytes for int4; alpha, csq and the
+        refine sidecar are not counted). This is the port's own layout,
+        not the JAX package's figure: on one device the port keeps the
+        codes at quant.count rows, where JAX pads them to the matrix
+        capacity, so JAX reports (capacity - count) x code width bytes
+        more; on a mesh both pad them alike."""
         total = 0
         vecs, quant = self._vectors, self._quant
         if vecs is not None:
-            total += vecs.numel() * vecs.element_size()
+            total += _nbytes(vecs)
         if quant is not None and _on_device(quant.codes):
-            total += quant.codes.numel()
+            total += _nbytes(quant.codes)
         return total
 
     # -- ingestion -----------------------------------------------------------
@@ -562,6 +688,18 @@ class Dataset:
         if self._storage == "host":
             self._note_nonfinite_host(arr)
             self._host_append(arr)
+        elif self._mesh is not None:
+            self._note_nonfinite_host(arr)
+            cap = _next_capacity(end, self._mesh_size)
+            if self._vectors is None:
+                self._vectors = RowShards.zeros(self._grid, cap, self.dimension, TORCH_DTYPE[self.dtype])
+            elif self._vectors.shape[0] < cap:
+                # growth moves the shard boundaries: one device-side copy
+                # of the live rows into the new layout per doubling
+                self._vectors = self._vectors.take(np.arange(start), cap)
+            # in place, as below: only the new rows move, each straight to
+            # its shard's device
+            self._vectors.write(start, self._rows_to_device(arr, "cpu"))
         else:
             rows = self._rows_to_device(arr)
             self._note_nonfinite(rows)
@@ -595,11 +733,36 @@ class Dataset:
         if self._quant is not None:
             self._quant.stale = True
 
-    def _rows_to_device(self, arr: np.ndarray) -> torch.Tensor:
-        """Host-form rows as a device tensor of the dataset dtype."""
+    def _rows_to_device(self, arr: np.ndarray, device: Any = None) -> torch.Tensor:
+        """Host-form rows as a tensor of the dataset dtype on `device`
+        (default: the dataset's, a mesh's first)."""
+        device = self.device if device is None else device
         if self.dtype is VectorType.BF16:
-            return bits_to_device(arr, self.device)
-        return from_numpy(arr, self.device)
+            return bits_to_device(arr, device)
+        return from_numpy(arr, device)
+
+    def _row_grid(self) -> list[list[torch.device]]:
+        """The devices of per-row arrays on the mesh: each row shard's first."""
+        return [[row[0]] for row in self._grid]
+
+    def _place(self, arr: np.ndarray, count: int, rows: int | None = None, per_row: bool = False):
+        """A host array's first `count` rows in this dataset's device form:
+        a tensor on the device, or on a mesh a RowShards of `rows` rows
+        (default: the JAX package's code capacity, _code_rows), a matrix
+        over the grid or with per_row a vector over the row shards."""
+        if self._mesh is None:
+            return place_rows(arr, count, self.device)
+        rows = self._code_rows(count) if rows is None else rows
+        return place_rows(arr, count, self.device, self._row_grid() if per_row else self._grid, rows)
+
+    def _code_rows(self, count: int) -> int:
+        """Rows of uploaded codes on a mesh (the JAX package's
+        _code_upload_capacity): the matrix's capacity where it holds them,
+        else the padding-bounded upload capacity."""
+        vecs = self._vectors
+        if vecs is not None and count <= vecs.shape[0]:
+            return int(vecs.shape[0])
+        return _upload_capacity(count, self._mesh_size)
 
     def _query_to_device(self, q: np.ndarray) -> torch.Tensor:
         """Coerced queries (float32 values for bfloat16) as a device tensor
@@ -745,12 +908,15 @@ class Dataset:
         def row_stream():
             for s in range(0, count, chunk_rows):
                 e = min(s + chunk_rows, count)
-                block = np.asarray(src[s:e]) if self._storage == "host" else _rows_to_host(src[s:e], self.dtype)
+                block = (
+                    np.asarray(src[s:e]) if self._storage == "host"
+                    else _rows_to_host(_device_rows(src, s, e), self.dtype)
+                )
                 for j in range(e - s):
                     if live is None or live[s + j]:
                         yield int(ids_arr[s + j]), np.ascontiguousarray(block[j]).tobytes()
 
-        conn = svs.connect(database, device=self.device)
+        conn = svs.connect(database, device=self.device, mesh=self._mesh)
         try:
             q = svs._quote(table)
             conn.execute(f"CREATE TABLE IF NOT EXISTS {q} ({svs._quote(column)} BLOB)")
@@ -776,7 +942,7 @@ class Dataset:
         (device=, storage=); the rows are read on the host and added."""
         import sqlite_vector_tpu_torch.sqlite as svs
 
-        conn = svs.connect(database, device=kwargs.get("device"))
+        conn = svs.connect(database, device=kwargs.get("device"), mesh=mesh_layout(kwargs.get("mesh"), kwargs.get("sharding")))
         try:
             conn.vector_init(table, column, options)
             ctx = conn._lookup(table, column, "from_sqlite")
@@ -801,6 +967,8 @@ class Dataset:
                 ) from None
             if self._storage == "host":
                 rows = np.array(self._host_vectors[np.asarray(pos, np.int64)])
+            elif self._mesh is not None:
+                rows = _rows_to_host(self._vectors.gather(np.asarray(pos, np.int64)), self.dtype)
             else:
                 index = torch.tensor(pos, dtype=torch.int64, device=self.device)
                 rows = _rows_to_host(self._vectors[index], self.dtype)
@@ -879,13 +1047,17 @@ class Dataset:
         keep = ~self._dead[:cnt]
         kept = np.flatnonzero(keep)
         n = len(kept)
-        cap = _next_capacity(n)
+        cap = _next_capacity(n, self._mesh_size)
         self._layout_gen += 1  # odd: positions moving
         try:
             if self._storage == "host":
                 rows = np.zeros((cap, self.dimension), self.dtype.host_dtype)
                 rows[:n] = self._host_vectors[kept]
                 self._host_vectors = rows
+            elif self._mesh is not None:
+                # each new shard gathers its rows from the old shards on
+                # their devices: the rows never visit the host
+                self._vectors = self._vectors.take(kept, cap)
             elif n:
                 index = np.zeros((cap,), np.int64)  # rows past n: copies of row 0
                 index[:n] = kept
@@ -939,6 +1111,11 @@ class Dataset:
                 self._host_vectors = np.array(self._host_vectors[0 : self._host_vectors.shape[0]])
             self._note_nonfinite_host(arr[sel])
             self._host_vectors[pos[sel]] = arr[sel]
+        elif self._mesh is not None:
+            # the touched shards are copied and written, the rest shared:
+            # a concurrent search sees old rows or new, never half
+            self._note_nonfinite_host(arr[sel])
+            self._vectors = self._vectors.scatter(pos[sel], self._rows_to_device(arr[sel], "cpu"))
         else:
             rows = self._rows_to_device(arr[sel])
             self._note_nonfinite(rows)
@@ -1276,12 +1453,40 @@ class Dataset:
         if self._storage == "host":
             return streaming_scan_topk(
                 qd, self._host_vectors, metric, k, valid_count=count, row_mask=mask,
+                policy_vtype=policy, mesh=self._mesh,
+            )
+        if self._mesh_2d:
+            vecs = self._vectors
+            return sharded_scan_topk_2d(
+                qd, vecs, metric, k, self._mesh, valid_count=count, row_mask=mask,
+                base_sq_norms=self._exact_sq_norms(vecs, metric), policy_vtype=policy,
+                rows_axis=self._mesh.axis_names[0], dim_axis=self._mesh.axis_names[1],
+            )
+        if self._mesh is not None:
+            return sharded_scan_topk(
+                qd, self._vectors, metric, k, self._mesh, valid_count=count, row_mask=mask,
                 policy_vtype=policy,
             )
         base = self._vectors[:count]
         return fused_scan_topk(
             qd, base, metric, k, row_mask=_fit_mask(mask, base.shape[0]), policy_vtype=policy
         )
+
+    def _exact_sq_norms(self, vecs: RowShards, metric: DistanceMetric) -> RowShards | None:
+        """A 2-D mesh's full-dim row norms of the GIVEN matrix snapshot for
+        the L2 and COSINE scans (ops.distance's components), cached by
+        matrix and its version (add() writes rows into the same matrix)."""
+        if metric not in (DistanceMetric.L2, DistanceMetric.SQUARED_L2, DistanceMetric.COSINE):
+            return None
+        norms, self._sq_norms = _cached_sq_norms(vecs, self._sq_norms)
+        return norms
+
+    def _quant_sq_norms(self, codes: RowShards) -> RowShards | None:
+        """_exact_sq_norms of a 2-D mesh's int8 codes (exact int32)."""
+        if self.metric not in (DistanceMetric.L2, DistanceMetric.SQUARED_L2, DistanceMetric.COSINE):
+            return None
+        norms, self._code_norms = _cached_sq_norms(codes, self._code_norms)
+        return norms
 
     def _search_quantized(self, q: np.ndarray, k: int, mask, quant: _QuantState | None):
         quant = self._require_quant("vector_quantize_scan", quant)
@@ -1292,12 +1497,15 @@ class Dataset:
             if quant.qtype is QuantType.I4:
                 return int4_streaming_scan_topk(
                     qf, quant.codes, quant.row_scale, quant.sq_norms, self.metric, k,
-                    dim=self.dimension, valid_count=quant.count, row_mask=mask,
+                    dim=self.dimension, valid_count=quant.count, row_mask=mask, mesh=self._mesh,
                 )
             qq = quantize_device(qf, quant.scale, quant.offset, quant.qtype)
             return streaming_scan_topk(
-                qq, quant.codes, self.metric, k, valid_count=quant.count, row_mask=mask
+                qq, quant.codes, self.metric, k, valid_count=quant.count, row_mask=mask,
+                mesh=self._mesh,
             )
+        if self._mesh is not None:
+            return self._search_quantized_mesh(qf, k, mask, quant)
         row_mask = _fit_mask(mask, quant.count)
         if quant.qtype is QuantType.I4:
             # per-query int8 codes are built inside the int4 scan
@@ -1308,6 +1516,26 @@ class Dataset:
         # query quantization with the stored params (src/sqlite-vector.c:2162-2177)
         qq = quantize_device(qf, quant.scale, quant.offset, quant.qtype)
         return fused_scan_topk(qq, quant.codes, self.metric, k, row_mask=row_mask)
+
+    def _search_quantized_mesh(self, qf: torch.Tensor, k: int, mask, quant: _QuantState):
+        """The code scans of a mesh: K2 on every shard for int4, K1 on
+        every shard for int8, the summed partial components on a 2-D mesh
+        (the query quantized before the zero column padding)."""
+        if quant.qtype is QuantType.I4:
+            return sharded_int4_scan_topk(
+                qf, quant.codes, quant.row_scale, quant.sq_norms, self.metric, k, self._mesh,
+                dim=self.dimension, valid_count=quant.count, row_mask=mask,
+            )
+        qq = quantize_device(qf, quant.scale, quant.offset, quant.qtype)
+        if self._mesh_2d:
+            return sharded_scan_topk_2d(
+                qq, quant.codes, self.metric, k, self._mesh, valid_count=quant.count,
+                row_mask=mask, base_sq_norms=self._quant_sq_norms(quant.codes),
+                rows_axis=self._mesh.axis_names[0], dim_axis=self._mesh.axis_names[1],
+            )
+        return sharded_scan_topk(
+            qq, quant.codes, self.metric, k, self._mesh, valid_count=quant.count, row_mask=mask
+        )
 
     def _search_refine(
         self, q: np.ndarray, k: int, mask, expand: int, quant: _QuantState | None
@@ -1359,6 +1587,7 @@ class Dataset:
         if (
             not quant.stale
             and mask is None
+            and self._mesh is None
             and quant.qtype is not QuantType.I4
             and quant.count == count
             and self._vectors is not None
@@ -1399,14 +1628,18 @@ class Dataset:
                 )
             pos = pos.reshape(b, ke)
             t2 = time.perf_counter()
-            if self._storage == "host":
-                # the ONE host gather for the batch, sorted-unique (page
-                # cache friendly on a memory map); positions become indices
-                # into the gathered rows
+            if self._storage == "host" or self._mesh is not None:
+                # the ONE gather for the batch, sorted-unique (page cache
+                # friendly on a memory map; on a mesh each shard's
+                # candidates come from its device); positions become
+                # indices into the gathered rows
                 keep = pos >= 0
                 uniq, inv = np.unique(pos[keep], return_inverse=True)
-                rows = np.asarray(self._host_vectors[uniq if len(uniq) else np.zeros(1, np.int64)])
-                vecs = self._rows_to_device(rows)
+                at = uniq if len(uniq) else np.zeros(1, np.int64)
+                if self._storage == "host":
+                    vecs = self._rows_to_device(np.asarray(self._host_vectors[at]))
+                else:
+                    vecs = self._vectors.gather(at)
                 local = np.full(pos.shape, -1, np.int64)
                 local[keep] = inv.reshape(-1)
             else:
@@ -1455,10 +1688,14 @@ class Dataset:
             def live_distances():
                 # the columns are the live rows of one layout
                 count = self._count
-                if self._storage == "host":
-                    d = streaming_scan_distances(
-                        qd, self._host_vectors, self.metric, valid_count=count, policy_vtype=policy
-                    )
+                if self._storage == "host" or self._mesh is not None:
+                    if self._storage == "host":
+                        d = streaming_scan_distances(
+                            qd, self._host_vectors, self.metric, valid_count=count,
+                            policy_vtype=policy, mesh=self._mesh,
+                        )
+                    else:
+                        d = join_columns(self._mesh_distances(qd, self._vectors, policy), count).numpy()
                     live = self._live_row_mask()
                     if live is not None and len(live) == count:
                         d = d[:, live]  # drop tombstoned columns
@@ -1479,18 +1716,35 @@ class Dataset:
                 args = (qf, quant.codes, quant.row_scale, quant.sq_norms, self.metric)
                 if host:
                     d = int4_streaming_scan_distances(
-                        *args, dim=self.dimension, valid_count=quant.count
+                        *args, dim=self.dimension, valid_count=quant.count, mesh=self._mesh
                     )
+                elif self._mesh is not None:
+                    d = join_columns(sharded_int4_scan_distances(*args, dim=self.dimension), quant.count)
                 else:
                     d = int4_scan_distances(*args, dim=self.dimension)
             else:
                 qq = quantize_device(qf, quant.scale, quant.offset, quant.qtype)
                 if host:
-                    d = streaming_scan_distances(qq, quant.codes, self.metric, valid_count=quant.count)
+                    d = streaming_scan_distances(
+                        qq, quant.codes, self.metric, valid_count=quant.count, mesh=self._mesh
+                    )
+                elif self._mesh is not None:
+                    d = join_columns(self._mesh_distances(qq, quant.codes, None, codes=True), quant.count)
                 else:
                     d = scan_distances(qq, quant.codes, self.metric)
         out = d if isinstance(d, np.ndarray) else d.cpu().numpy()
         return out[0] if single else out
+
+    def _mesh_distances(self, qd: torch.Tensor, base: RowShards, policy, codes: bool = False) -> list:
+        """The column shards of a mesh's full distance matrix (cached norms
+        of the matrix, or with `codes` of the int8 codes, on a 2-D mesh)."""
+        if self._mesh_2d:
+            norms = self._quant_sq_norms(base) if codes else self._exact_sq_norms(base, self.metric)
+            return sharded_scan_distances_2d(
+                qd, base, self.metric, self._mesh, base_sq_norms=norms, policy_vtype=policy,
+                rows_axis=self._mesh.axis_names[0], dim_axis=self._mesh.axis_names[1],
+            )
+        return sharded_scan_distances(qd, base, self.metric, self._mesh, policy_vtype=policy)
 
     # -- quantization ---------------------------------------------------------
 
@@ -1538,6 +1792,10 @@ class Dataset:
                 "refine=True requires qtype='int4' — the refine sidecar is "
                 "the int8 rescore stage of the int4 two-stage search."
             )
+        if refine and self._mesh is not None:
+            raise VectorConfigError(_REFINE_ON_MESH)
+        if opts.qtype is QuantType.I4 and self._mesh_2d:
+            raise VectorConfigError(_INT4_ON_2D_MESH)
         with self._mutate_lock:
             if self._can_compact():
                 self._compact_locked()
@@ -1546,11 +1804,15 @@ class Dataset:
             ids = self._ids[:count].copy()
             live = self._live_row_mask()
             host, token = self._host_vectors, self._data_token
-            vecs = None if count == 0 or host is not None else self._vectors[:count]
+            vecs = None
+            if count and host is None:
+                vecs = self._vectors if self._mesh is not None else self._vectors[:count]
         if host is not None:
             state = self._quantize_host(opts, checkpoint, refine, host, count, ids, live, token)
         elif count == 0:
             state = _empty_quant(opts.qtype)
+        elif self._mesh is not None:
+            state = self._quantize_mesh(opts.qtype, vecs, count, ids)
         elif opts.qtype is QuantType.I4:
             packed, alpha, csq = quantize4_device(vecs)
             state = _QuantState(
@@ -1575,11 +1837,46 @@ class Dataset:
             self._quant = state
         return state.count
 
+    def _quantize_mesh(self, qtype: QuantType, vecs: RowShards, count: int, ids: np.ndarray) -> _QuantState:
+        """The codes of a mesh's rows, shard by shard on each shard's
+        device, bit-equal to the one-device build: int4 is per row, so each
+        shard's packed rows, alpha and csq stay on it; int8's params come
+        from every block's (min, max, any-negative) over its valid rows and
+        real columns, combined, and a 2-D mesh's pad columns are zeroed
+        again after quantizing (a quantized 0 is a nonzero code)."""
+        if qtype is QuantType.I4:
+            built = [quantize4_device(b) for b in vecs.parts()]
+            shards = [RowShards([[b[j]] for b in built]) for j in range(3)]
+            return _QuantState(
+                QuantType.I4, np.float32(1.0), np.float32(0.0), shards[0], count, ids,
+                row_scale=shards[1], sq_norms=shards[2],
+            )
+        big = float(np.finfo(np.float32).max)
+        mn, mx, neg = big, -big, False
+        sr, bw = vecs.shard_rows, int(vecs.blocks[0][0].shape[1])
+        for i, shard in enumerate(vecs.blocks):
+            rows = shard_valid(count, i, sr)
+            for c, b in enumerate(shard):
+                cols = min(bw, self.dimension - c * bw)
+                if rows and cols > 0:
+                    bmn, bmx, bneg = minmax_and_negative(b[:rows, :cols])
+                    mn, mx, neg = min(mn, bmn), max(mx, bmx), neg or bneg
+        rqtype, scale, offset = resolve_quant_params(mn, mx, neg, qtype)
+        blocks = []
+        for shard in vecs.blocks:
+            row = []
+            for c, b in enumerate(shard):
+                codes = self._encode8(b, scale, offset, rqtype)
+                codes[:, max(self.dimension - c * bw, 0) :] = 0
+                row.append(codes)
+            blocks.append(row)
+        return _QuantState(rqtype, scale, offset, RowShards(blocks, self.dimension), count, ids)
+
     def _encode8(self, vecs: torch.Tensor, scale, offset, qtype: QuantType) -> torch.Tensor:
         """int8/uint8 codes of `vecs`, in row chunks that bound the float32
         temporaries."""
         codes = torch.empty(
-            vecs.shape, dtype=QUANT_TORCH_DTYPE[qtype], device=self.device
+            vecs.shape, dtype=QUANT_TORCH_DTYPE[qtype], device=vecs.device
         )
         rows = max(1, HOST_CHUNK_ELEMS // self.dimension)
         for s in range(0, vecs.shape[0], rows):
@@ -1754,10 +2051,11 @@ class Dataset:
         if _on_device(quant.codes):
             return
         n = quant.count
-        pinned = dataclasses.replace(quant, codes=upload_rows(quant.codes, n, self.device))
+        pinned = dataclasses.replace(quant, codes=self._place(quant.codes, n))
         if quant.qtype is QuantType.I4:
-            pinned.row_scale = from_numpy(np.asarray(quant.row_scale[:n], np.float32), self.device)
-            pinned.sq_norms = from_numpy(np.asarray(quant.sq_norms[:n], np.int32), self.device)
+            rows = pinned.codes.shape[0]
+            pinned.row_scale = self._place(np.asarray(quant.row_scale[:n], np.float32), n, rows, per_row=True)
+            pinned.sq_norms = self._place(np.asarray(quant.sq_norms[:n], np.int32), n, rows, per_row=True)
         if quant.codes8 is not None:
             pinned.codes8 = upload_rows(quant.codes8, n, self.device)
         with self._mutate_lock:
@@ -1786,7 +2084,7 @@ class Dataset:
             self._check_codes(codes, qtype, len(ids))
             self._quant = _QuantState(
                 qtype, np.float32(scale), np.float32(offset),
-                from_numpy(codes, self.device), len(ids), ids, stale=stale,
+                self._place(codes, len(ids)), len(ids), ids, stale=stale,
             )
 
     def _install_quant4(
@@ -1812,11 +2110,16 @@ class Dataset:
                 )
             if alpha.shape != (count,) or csq.shape != (count,):
                 raise VectorConfigError("alpha and csq must have one entry per row")
+            if self._mesh_2d:
+                raise VectorConfigError(_INT4_ON_2D_MESH)
+            if sidecar is not None and self._mesh is not None:
+                raise VectorConfigError(_REFINE_ON_MESH)
+            codes = self._place(packed, count)
+            rows = codes.shape[0]
             state = _QuantState(
-                QuantType.I4, np.float32(1.0), np.float32(0.0),
-                from_numpy(packed, self.device), count, ids, stale=stale,
-                row_scale=from_numpy(alpha.astype(np.float32), self.device),
-                sq_norms=from_numpy(csq.astype(np.int32), self.device),
+                QuantType.I4, np.float32(1.0), np.float32(0.0), codes, count, ids, stale=stale,
+                row_scale=self._place(alpha.astype(np.float32), count, rows, per_row=True),
+                sq_norms=self._place(csq.astype(np.int32), count, rows, per_row=True),
             )
             if sidecar is not None:
                 codes8, qtype8, scale8, offset8 = sidecar
@@ -1880,7 +2183,7 @@ class Dataset:
                 return np.zeros((0, dim), vtype.host_dtype)
             part = (
                 np.asarray(src[start:end]) if self._storage == "host"
-                else _rows_to_host(src[start:end], vtype)
+                else _rows_to_host(_device_rows(src, start, end), vtype)
             )
             return part[live[start:end]] if live is not None else part
 
@@ -2126,7 +2429,10 @@ class Dataset:
     def _install_rows(self, vecs: Any, ids: np.ndarray) -> None:
         """Upload host-form rows into an empty device-storage dataset."""
         n = len(ids)
-        self._vectors = upload_rows(vecs, n, self.device, _next_capacity(n))
+        if self._mesh is not None:
+            self._vectors = RowShards.from_host(vecs, n, _next_capacity(n, self._mesh_size), self._grid)
+        else:
+            self._vectors = upload_rows(vecs, n, self.device, _next_capacity(n))
         self._ids = np.asarray(ids, np.int64)
         self._dead = np.zeros((n,), bool)
         self._invalidate_row_caches()
@@ -2146,7 +2452,7 @@ class Dataset:
             arr = np.load(path, mmap_mode="r" if mmap else None)
             if self._storage == "host":
                 return arr
-            return upload_rows(arr, count, self.device)
+            return self._place(arr, count, per_row=arr.ndim == 1)
 
         qids_path = os.path.join(directory, "qids.npy")
         qids = np.load(qids_path) if os.path.exists(qids_path) else ids[:count].copy()
@@ -2158,7 +2464,9 @@ class Dataset:
             state.row_scale = array("qrow_scale.npy", mmap=False)
             state.sq_norms = array("qcsq.npy", mmap=False)
         r8 = q.get("refine")
-        if r8 and state.codes is not None:
+        # a mesh serves no refine (quantize refuses the sidecar there), so
+        # it leaves a saved sidecar on disk
+        if r8 and state.codes is not None and self._mesh is None:
             state.codes8 = array("qcodes8.npy")
             if state.codes8 is not None:
                 state.qtype8 = QuantType.from_name(r8["qtype8"])
@@ -2167,17 +2475,18 @@ class Dataset:
 
 
 class VectorStore:
-    """A named registry of Datasets on one device (the reference's
-    per-connection vector_context). Lookups are case-insensitive.
+    """A named registry of Datasets on one device or one mesh (the
+    reference's per-connection vector_context). Lookups are
+    case-insensitive.
 
     device=None means the first CUDA device; without one it raises
     VectorConfigError rather than run on the CPU. Pass device="cpu" to
-    run on the CPU."""
+    run on the CPU, or mesh= (or sharding=) to lay every dataset out over
+    a mesh (parallel.make_mesh)."""
 
     def __init__(self, *, device: Any = None, sharding: Any = None, mesh: Any = None):
-        if mesh is not None or sharding is not None:
-            raise _unported("Meshes and shardings", "mesh")
-        self._device = resolve_device(device)
+        self._mesh = mesh_layout(mesh, sharding)
+        self._device = None if self._mesh is not None else resolve_device(device)
         self._datasets: dict[str, Dataset] = {}
         self._lock = threading.Lock()
 
@@ -2228,7 +2537,7 @@ class VectorStore:
                     )
                 # re-init keeps the existing context untouched
                 return existing
-            ds = Dataset(name, opts, device=self._device)
+            ds = Dataset(name, opts, device=self._device, mesh=self._mesh)
             self._datasets[key] = ds
             return ds
 

@@ -23,6 +23,7 @@ def dataset_from_state(
     device: Any = None,
     *,
     name: str = "interop",
+    mesh: Any = None,
 ) -> Dataset:
     """Dataset from state arrays.
 
@@ -47,14 +48,18 @@ def dataset_from_state(
     A JAX dataset `jds` hands its state over as np.asarray of jds._vectors,
     jds._ids and jds._dead cut to jds._count, and of the jds._quant arrays
     cut to jds._quant.count, with jds._quant.ids and jds._quant.stale.
+    (A JAX mesh dataset's arrays are sharded jax.Arrays: np.asarray gathers
+    them.) With `mesh` (parallel.make_mesh) the rows and codes are laid out
+    over it as Dataset(mesh=) lays them, so a JAX mesh dataset's state
+    carries onto a port mesh dataset.
     """
     vectors = np.asarray(arrays["vectors"])
     ids = np.asarray(arrays["ids"], np.int64)
     dead = arrays.get("dead")
     if dead is None:
-        ds = Dataset.from_arrays(name, vectors, ids, options=options, device=device)
+        ds = Dataset.from_arrays(name, vectors, ids, options=options, device=device, mesh=mesh)
     else:
-        ds = Dataset.from_arrays(name, vectors[:0], ids[:0], options=options, device=device)
+        ds = Dataset.from_arrays(name, vectors[:0], ids[:0], options=options, device=device, mesh=mesh)
         ds._adopt_rows(vectors, ids, np.asarray(dead, bool))
     snapshot = {"ids": arrays.get("quant_ids"), "stale": bool(arrays.get("stale", False))}
     if arrays.get("codes") is not None:

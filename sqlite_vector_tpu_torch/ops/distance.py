@@ -183,3 +183,38 @@ def compose_int(
     pos = denom > 0.0
     cos = torch.where(pos, dot.float() / torch.where(pos, denom, 1.0), 0.0)
     return torch.where((q_sq == 0) | (b_sq == 0), 1.0, 1.0 - cos)
+
+
+def partial_components(
+    q: torch.Tensor,
+    b: torch.Tensor,
+    metric: DistanceMetric,
+    *,
+    with_b_sq: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor | None, torch.Tensor | None]:
+    """Partial sums over one feature slice, for the 2-D (rows x dim) mesh
+    scan (sqlite_vector_tpu/ops/distance.py:181). Every metric is
+    dim-separable: summed over the dim axis these are the full-dim
+    components, which compose_float / compose_int turn into distances.
+    Returns (main [B, N], q_sq [B] or None, b_sq [N] or None):
+      L1:         main = partial sum |q - b|  (no norms)
+      DOT:        main = partial dot          (no norms)
+      L2/COSINE:  main = partial dot, plus partial squared norms
+    Integer inputs give exact int64 partials (dots and norms int32-wrapped
+    as in the one-device path; the sums wrap again after the dim sum).
+    with_b_sq=False skips the base norms where the caller holds full-dim
+    norms."""
+    if is_int(q) or is_int(b):
+        if metric is DistanceMetric.L1:
+            return l1_distance(q.long(), b.long()), None, None
+        dot = int_dot(q, b)
+        if metric is DistanceMetric.DOT:
+            return dot, None, None
+        return dot, int_sq_norms(q), int_sq_norms(b) if with_b_sq else None
+    qf, bf = q.float(), b.float()
+    if metric is DistanceMetric.L1:
+        return l1_distance(qf, bf), None, None
+    dot = qf @ bf.T
+    if metric is DistanceMetric.DOT:
+        return dot, None, None
+    return dot, (qf * qf).sum(-1), (bf * bf).sum(-1) if with_b_sq else None

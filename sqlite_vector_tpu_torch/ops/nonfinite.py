@@ -19,8 +19,11 @@ This is element-wise code on [B, rows, d] cubes (the JAX package runs it
 through XLA, outside any Pallas kernel), so the port is torch ops on the
 card and on the CPU alike. It is a cold path: datasets flag non-finite
 content at ingest, and only a flagged dataset or a non-finite query routes
-here. The sharded variant (policy_pairwise_sharded) waits for the port of
-parallel/ (ROADMAP.md queue 1, item 8).
+here. Every policy is dim-separable (lane sums add, "any" flags combine,
+DOT's first infinite product is the one of least global lane index), so
+each is computed as per-slice parts (_policy_parts) and their combination
+(_policy_combine): one slice on one device, or the column blocks of a 2-D
+mesh (policy_pairwise_sharded).
 """
 
 from __future__ import annotations
@@ -73,11 +76,33 @@ def policy_pairwise(
     reference's non-finite policies, evaluated policy_tile_rows rows at a
     time, with the reference's near-zero snap on every output (NaN and
     +-Inf pass through it)."""
-    n = tile.shape[0]
-    out = torch.empty((q.shape[0], n), dtype=torch.float32, device=tile.device)
-    step = policy_tile_rows(q.shape[0], q.shape[1])
+    return policy_pairwise_sharded([q], [tile], metric, vtype, tile.device)
+
+
+def policy_pairwise_sharded(
+    q_blocks: list[torch.Tensor],
+    tile_blocks: list[torch.Tensor],
+    metric: DistanceMetric,
+    vtype: VectorType,
+    device: torch.device,
+) -> torch.Tensor:
+    """policy_pairwise over feature slices (sqlite_vector_tpu/ops/
+    nonfinite.py:120): q_blocks[c] [B, w] and tile_blocks[c] [N, w] are
+    the c-th column blocks of the queries and the rows, on one device each
+    (a 2-D mesh's row group); the result is the full-dim [B, N] policy
+    distance on `device`. Lane sums add over the blocks, "any" flags
+    combine, and DOT's short-circuit takes the first infinite product by
+    GLOBAL lane index (zero column padding is policy-neutral)."""
+    n = tile_blocks[0].shape[0]
+    out = torch.empty((q_blocks[0].shape[0], n), dtype=torch.float32, device=device)
+    step = policy_tile_rows(q_blocks[0].shape[0], sum(q.shape[1] for q in q_blocks))
     for s in range(0, n, step):
-        out[:, s : s + step] = _policy_impl(q, tile[s : s + step], metric, vtype)
+        parts, offset = [], 0
+        for q, t in zip(q_blocks, tile_blocks):
+            p = _policy_parts(q, t[s : s + step], metric, vtype, offset)
+            parts.append({k: v.to(device) for k, v in p.items()})
+            offset += q.shape[1]
+        out[:, s : s + step] = _policy_combine(parts, metric, vtype)
     return _snap(out)
 
 
@@ -87,6 +112,23 @@ def _policy_impl(
     metric: DistanceMetric,
     vtype: VectorType,
 ) -> torch.Tensor:
+    """The policy distances of q [B, d] to rows [N, d], one untiled slice
+    (unsnapped)."""
+    return _policy_combine([_policy_parts(q, tile, metric, vtype, 0)], metric, vtype)
+
+
+def _policy_parts(
+    q: torch.Tensor,
+    tile: torch.Tensor,
+    metric: DistanceMetric,
+    vtype: VectorType,
+    offset: int,
+) -> dict[str, torch.Tensor]:
+    """The dim-separable parts of the policy distances of q [B, w] to rows
+    [N, w], one feature slice whose first lane is global lane `offset`:
+    lane sums ("s", COSINE's "dot", "nx", "ny"), lane flags ("any") and
+    for DOT the first infinite product's global lane ("first", -1 for
+    none) and sign ("sign")."""
     x = q.float()[:, None, :]
     y = tile.float()[None, :, :]
 
@@ -94,8 +136,7 @@ def _policy_impl(
         # plain math, not LASSQ (src/distance-cpu.c:39-74): NaN propagates,
         # an unmatched Inf lane gives +Inf, matched Infs give inf-inf = NaN
         d = x - y
-        s = (d * d).sum(-1)
-        return sqrt_rn(s) if metric is DistanceMetric.L2 else s
+        return {"s": (d * d).sum(-1)}
 
     if metric in _LASSQ_METRICS:
         # LASSQ: NaN difference lanes and matched same-sign Inf lanes -> 0,
@@ -104,8 +145,7 @@ def _policy_impl(
         matched = torch.isinf(x) & torch.isinf(y) & (torch.sign(x) == torch.sign(y))
         any_inf = ((torch.isinf(x) | torch.isinf(y)) & ~matched).any(-1)
         d = torch.where(torch.isnan(d) | matched, 0.0, d)
-        s = torch.where(any_inf, torch.inf, (d * d).sum(-1))
-        return sqrt_rn(s) if metric is DistanceMetric.L2 else s
+        return {"s": (d * d).sum(-1), "any": any_inf}
 
     # the f16 lane-skip family (oracle.py `_distance_float`, F16 branch)
     lane_ok = ~(torch.isnan(x) | torch.isnan(y))
@@ -114,27 +154,70 @@ def _policy_impl(
         d = torch.where(lane_ok, (x - y).abs(), 0.0)
         matched = torch.isinf(x) & torch.isinf(y) & (torch.sign(x) == torch.sign(y))
         any_inf = ((torch.isinf(x) | torch.isinf(y)) & ~matched & lane_ok).any(-1)
-        return torch.where(any_inf, torch.inf, d.sum(-1))
+        return {"s": d.sum(-1), "any": any_inf}
 
     if metric is DistanceMetric.DOT:
         p = torch.where(lane_ok, x * y, 0.0)
         inf_p = torch.isinf(p)
-        s = torch.where(inf_p, 0.0, p).sum(-1)
         # the C kernel short-circuits on the FIRST infinite product and
         # returns -Inf of its sign (:414-421); argmax takes the first lane
-        any_inf = inf_p.any(-1)
         first = inf_p.to(torch.uint8).argmax(-1, keepdim=True)
         sign = torch.sign(torch.gather(p, -1, first)[..., 0])
-        return torch.where(any_inf, -sign * torch.inf, -s)
+        has = inf_p.any(-1)
+        return {
+            "s": torch.where(inf_p, 0.0, p).sum(-1),
+            "first": torch.where(has, first[..., 0] + offset, -1),
+            "sign": sign,
+        }
 
     # COSINE (:431-468): NaN lanes skipped, any Inf lane or a non-finite
-    # denominator -> 1.0; the cosine clamped to [-1, 1]
+    # denominator -> 1.0
     any_inf = ((torch.isinf(x) | torch.isinf(y)) & lane_ok).any(-1)
     xm = torch.where(lane_ok, x, 0.0)
     ym = torch.where(lane_ok, y, 0.0)
-    dot = (xm * ym).sum(-1)
-    denom = sqrt_rn((xm * xm).sum(-1)) * sqrt_rn((ym * ym).sum(-1))
+    return {"dot": (xm * ym).sum(-1), "nx": (xm * xm).sum(-1), "ny": (ym * ym).sum(-1), "any": any_inf}
+
+
+def _policy_combine(parts: list[dict], metric: DistanceMetric, vtype: VectorType) -> torch.Tensor:
+    """The policy distances from the parts of every feature slice, in lane
+    order (one slice: its parts as they are)."""
+
+    def total(key):
+        out = parts[0][key]
+        for p in parts[1:]:
+            out = out + p[key]
+        return out
+
+    def anylane():
+        out = parts[0]["any"]
+        for p in parts[1:]:
+            out = out | p["any"]
+        return out
+
+    if vtype is VectorType.F32 and metric in _LASSQ_METRICS:
+        s = total("s")
+        return sqrt_rn(s) if metric is DistanceMetric.L2 else s
+    if metric in _LASSQ_METRICS:
+        s = torch.where(anylane(), torch.inf, total("s"))
+        return sqrt_rn(s) if metric is DistanceMetric.L2 else s
+    if metric is DistanceMetric.L1:
+        return torch.where(anylane(), torch.inf, total("s"))
+    if metric is DistanceMetric.DOT:
+        # the first infinite product over every slice: the least global
+        # lane index among the slices that hold one
+        big = torch.iinfo(torch.int64).max
+        firsts = [torch.where(p["first"] >= 0, p["first"], big) for p in parts]
+        gfirst = firsts[0]
+        for f in firsts[1:]:
+            gfirst = torch.minimum(gfirst, f)
+        sign = torch.zeros_like(parts[0]["sign"])
+        for p, f in zip(parts, firsts):
+            sign = torch.where((f == gfirst) & (f < big), p["sign"], sign)
+        return torch.where(gfirst < big, -sign * torch.inf, -total("s"))
+    # COSINE: the cosine clamped to [-1, 1]
+    dot = total("dot")
+    denom = sqrt_rn(total("nx")) * sqrt_rn(total("ny"))
     safe = torch.where(denom > 0.0, denom, 1.0)
     cos = (dot / safe).clamp(-1.0, 1.0)
-    bad = ~(denom > 0.0) | ~torch.isfinite(denom) | ~torch.isfinite(dot) | any_inf
+    bad = ~(denom > 0.0) | ~torch.isfinite(denom) | ~torch.isfinite(dot) | anylane()
     return torch.where(bad, 1.0, 1.0 - cos)

@@ -31,6 +31,13 @@ last tile is not padded: the kernels take any row count. A row mask goes
 to the device with its tile. On CPU tensors the same loop stages each tile
 and scans it with the kernels' plain twins.
 
+With a 1-D mesh (mesh=; the JAX package's _placement,
+sqlite_vector_tpu/ops/streaming.py:44) the rows split into one contiguous run
+a shard, and each run streams through its own pipeline (its own side
+stream, pinned buffers and events) to its shard's device, one tile of
+each run in turn; the shards' running top-k merge as the resident mesh
+scan's do (parallel.ops.merge_candidates).
+
 bfloat16 rows are held on the host as their uint16 bits (the port's host
 form, device.bf16_bits) and reinterpreted on the device.
 """
@@ -121,16 +128,19 @@ def _read_rows(src, start: int, out: np.ndarray) -> None:
 
 
 class _Tiles:
-    """Iterate (start, rows, tensors, mask) over the row tiles of host
-    arrays sharing their leading dimension: `tensors` holds each array's
-    rows [start, start + rows) on `device` (uint16 bits as bfloat16), and
-    `mask` the row mask's slice as a bool tensor (rows past the given mask
-    are False), or None without a mask. A tile's tensors stay valid until
-    the loop advances; the work the caller enqueues on the current stream
-    in between is ordered after the tile's copy."""
+    """Iterate (start, rows, tensors, mask) over the row tiles of rows
+    [first, first + n) of host arrays sharing their leading dimension:
+    `tensors` holds each array's rows [start, start + rows) on `device`
+    (uint16 bits as bfloat16), and `mask` the row mask's slice as a bool
+    tensor (rows past the given mask are False), or None without a mask.
+    A tile's tensors stay valid until the loop advances; the work the
+    caller enqueues on the current stream in between is ordered after the
+    tile's copy. Each instance has its own side stream, buffers and
+    events, so instances on different devices never share one."""
 
-    def __init__(self, arrays, n: int, tile_rows: int, device: torch.device, row_mask=None):
+    def __init__(self, arrays, n: int, tile_rows: int, device: torch.device, row_mask=None, first: int = 0):
         self.arrays = [_bits(a) for a in arrays]
+        self.first = first
         self.n = n
         self.tile = max(1, min(int(tile_rows), n))
         self.ntiles = -(-n // self.tile)
@@ -170,8 +180,8 @@ class _Tiles:
         """Stage tile i on the host and, on CUDA, start its copy; returns
         its row count."""
         slot = i % len(self.host)
-        start = i * self.tile
-        rows = min(self.tile, self.n - start)
+        start = self.first + i * self.tile
+        rows = min(self.tile, self.first + self.n - start)
         reuse = i >= len(self.host)
         if self.cuda and reuse:
             self.copied[slot].synchronize()  # the last copy out of this buffer
@@ -214,7 +224,7 @@ class _Tiles:
                 tensors = [d[:rows] for d in self.dev[slot]]
                 mask = tensors.pop() if self.mask is not None else None
                 tensors = [t.view(torch.bfloat16) if bf else t for t, bf in zip(tensors, self.bf16)]
-                yield i * self.tile, rows, tensors, mask
+                yield self.first + i * self.tile, rows, tensors, mask
                 if self.cuda:
                     self.consumed[slot].record(compute)
                 if i + 1 < self.ntiles:
@@ -229,8 +239,10 @@ class _Tiles:
                 self.pool.shutdown()
 
 
-def upload_rows(arr, count: int, device: torch.device, cap: int | None = None) -> torch.Tensor:
-    """The first `count` rows of a host array (numpy, np.memmap or
+def upload_rows(
+    arr, count: int, device: torch.device, cap: int | None = None, first: int = 0
+) -> torch.Tensor:
+    """Rows [first, first + count) of a host array (numpy, np.memmap or
     ShardedRows; bfloat16 as uint16 bits, which arrive as bfloat16) as a
     [cap, ...] tensor on `device`, zero past count (cap defaults to count),
     carried through the streamed scans' tiles: a memory map is never read
@@ -240,24 +252,79 @@ def upload_rows(arr, count: int, device: torch.device, cap: int | None = None) -
     shape = (count if cap is None else cap, *arr.shape[1:])
     out = (torch.empty if cap is None else torch.zeros)(shape, dtype=dtype, device=device)
     if count:
-        for start, rows, (t,), _ in _Tiles([arr], count, default_tile_rows([arr]), device):
-            out[start : start + rows].copy_(t)
+        tiles = _Tiles([arr], count, default_tile_rows([arr]), device, first=first)
+        for start, rows, (t,), _ in tiles:
+            out[start - first : start - first + rows].copy_(t)
     return out
 
 
+def _runs(n: int, tile_rows: int, device: torch.device, mesh) -> tuple[list, int]:
+    """(device, first row, row count) of each pipeline and the rows per
+    tile: one pipeline over every row on `device`, or with a mesh one per
+    row shard, shard i over the i-th ceil(n / D) rows on its device, with
+    tiles of ceil(tile_rows / D) rows (the same bytes in flight)."""
+    if mesh is None:
+        return [(device, 0, n)], tile_rows
+    from sqlite_vector_tpu_torch.parallel.ops import row_devices
+
+    devices = row_devices(mesh)
+    per = -(-n // len(devices))
+    runs = [(d, i * per, min(per, max(n - i * per, 0))) for i, d in enumerate(devices)]
+    return runs, -(-tile_rows // len(devices))
+
+
+def _round_robin(arrays, runs, tile: int, row_mask, visit) -> None:
+    """Walk every run's tiles, one tile of each run in turn, calling
+    visit(run index, start, rows, tensors, mask): each pipeline has its
+    own side stream and buffers, and the host stages one run's next tile
+    while the devices scan the others'."""
+    iters = [
+        iter(_Tiles(arrays, cnt, tile, dev, row_mask, first=lo)) if cnt else iter(())
+        for dev, lo, cnt in runs
+    ]
+    try:
+        active = list(range(len(iters)))
+        while active:
+            for j in list(active):
+                step = next(iters[j], None)
+                if step is None:
+                    active.remove(j)
+                else:
+                    visit(j, *step)
+    finally:
+        for it in iters:
+            close = getattr(it, "close", None)
+            if close is not None:
+                close()
+
+
 def _streamed_topk(
-    scan, arrays, n: int, b: int, k: int, device: torch.device, row_mask, tile_rows
+    scan, queries: torch.Tensor, arrays, n: int, k: int, row_mask, tile_rows, mesh=None
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    vals = torch.full((b, k), torch.inf, device=device)
-    idx = torch.full((b, k), -1, dtype=torch.int64, device=device)
-    if n == 0 or k == 0:
-        return vals, idx
-    _check_stream_bounds(n)
-    tile_rows = tile_rows or default_tile_rows(arrays)
-    for start, rows, tensors, mask in _Tiles(arrays, n, tile_rows, device, row_mask):
-        v, i = scan(tensors, min(k, rows), mask)
-        vals, idx = merge_topk(vals, idx, v, torch.where(i >= 0, i + start, -1), k)
-    return vals, torch.where(torch.isposinf(vals), -1, idx)
+    """scan(queries, tensors, kk, mask) over the tiles of every run, a
+    running top-k a run (the earlier rows win ties), then with a mesh the
+    shards' merge (parallel.ops.merge_candidates) on the first device."""
+    b = queries.shape[0]
+    runs, tile = _runs(n, tile_rows or default_tile_rows(arrays), queries.device, mesh)
+    vals = [torch.full((b, k), torch.inf, device=dev) for dev, _, _ in runs]
+    idx = [torch.full((b, k), -1, dtype=torch.int64, device=dev) for dev, _, _ in runs]
+    if n and k:
+        _check_stream_bounds(n)
+        qs = {dev: queries.to(dev, non_blocking=True) for dev, _, _ in runs}
+
+        def visit(j, start, rows, tensors, mask):
+            v, i = scan(qs[runs[j][0]], tensors, min(k, rows), mask)
+            vals[j], idx[j] = merge_topk(vals[j], idx[j], v, torch.where(i >= 0, i + start, -1), k)
+
+        _round_robin(arrays, runs, tile, row_mask, visit)
+    if mesh is None:
+        return vals[0], torch.where(torch.isposinf(vals[0]), -1, idx[0])
+    from sqlite_vector_tpu_torch.parallel.ops import merge_candidates
+
+    return merge_candidates(
+        [(v, torch.where(torch.isposinf(v), -1, i).to(torch.int32)) for v, i in zip(vals, idx)],
+        k, runs[0][0],
+    )
 
 
 def streaming_scan_topk(
@@ -270,6 +337,7 @@ def streaming_scan_topk(
     row_mask: np.ndarray | None = None,
     tile_rows: int | None = None,
     policy_vtype: VectorType | None = None,
+    mesh=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused top-k over the first valid_count rows of a host [N, dim] array
     (numpy, np.memmap or ShardedRows; bfloat16 as uint16 bits), streamed
@@ -278,13 +346,14 @@ def streaming_scan_topk(
     float32, positions [B, k] int64) ascending, +inf / -1 padding. row_mask
     ([N] bool host array, optional) excludes rows where False; rows past
     its length are excluded. policy_vtype scans each tile under the
-    non-finite policies (ops.scan.fused_scan_topk)."""
+    non-finite policies (ops.scan.fused_scan_topk). With a 1-D `mesh`
+    the rows split into one contiguous run a shard, each streamed to its
+    shard's device and scanned there, and the shards' candidates merge on
+    the first (sqlite_vector_tpu/ops/streaming.py:_placement)."""
     n = host_vectors.shape[0] if valid_count is None else int(valid_count)
     return _streamed_topk(
-        lambda t, kk, m: fused_scan_topk(
-            queries, t[0], metric, kk, row_mask=m, policy_vtype=policy_vtype
-        ),
-        [host_vectors], n, queries.shape[0], k, queries.device, row_mask, tile_rows,
+        lambda q, t, kk, m: fused_scan_topk(q, t[0], metric, kk, row_mask=m, policy_vtype=policy_vtype),
+        queries, [host_vectors], n, k, row_mask, tile_rows, mesh,
     )
 
 
@@ -300,27 +369,32 @@ def int4_streaming_scan_topk(
     valid_count: int | None = None,
     row_mask: np.ndarray | None = None,
     tile_rows: int | None = None,
+    mesh=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The int4 scan over host-resident packed codes [N, ceil(dim/2)] u8
     with their alpha [N] f32 and csq [N] i32, streamed like
     streaming_scan_topk (each tile through ops.quantize4.int4_scan_topk:
-    K2 on CUDA). queries: float32 [B, dim] on the target device."""
+    K2 on CUDA). queries: float32 [B, dim] on the target device; `mesh` as
+    in streaming_scan_topk."""
     n = packed_host.shape[0] if valid_count is None else int(valid_count)
     return _streamed_topk(
-        lambda t, kk, m: int4_scan_topk(queries, *t, metric, kk, dim=dim, row_mask=m),
-        [packed_host, alpha_host, csq_host], n, queries.shape[0], k, queries.device,
-        row_mask, tile_rows,
+        lambda q, t, kk, m: int4_scan_topk(q, *t, metric, kk, dim=dim, row_mask=m),
+        queries, [packed_host, alpha_host, csq_host], n, k, row_mask, tile_rows, mesh,
     )
 
 
-def _streamed_distances(dists, arrays, n: int, b: int, device, tile_rows) -> np.ndarray:
-    out = np.empty((b, n), np.float32)
+def _streamed_distances(dists, queries: torch.Tensor, arrays, n: int, tile_rows, mesh=None) -> np.ndarray:
+    out = np.empty((queries.shape[0], n), np.float32)
     if n == 0:
         return out
     _check_stream_bounds(n)
-    tile_rows = tile_rows or default_tile_rows(arrays)
-    for start, rows, tensors, _ in _Tiles(arrays, n, tile_rows, device):
-        out[:, start : start + rows] = dists(tensors).cpu().numpy()
+    runs, tile = _runs(n, tile_rows or default_tile_rows(arrays), queries.device, mesh)
+    qs = {dev: queries.to(dev, non_blocking=True) for dev, _, _ in runs}
+
+    def visit(j, start, rows, tensors, mask):
+        out[:, start : start + rows] = dists(qs[runs[j][0]], tensors).cpu().numpy()
+
+    _round_robin(arrays, runs, tile, None, visit)
     return out
 
 
@@ -332,15 +406,16 @@ def streaming_scan_distances(
     valid_count: int | None = None,
     tile_rows: int | None = None,
     policy_vtype: VectorType | None = None,
+    mesh=None,
 ) -> np.ndarray:
     """Full [B, N] float32 distances over the first valid_count rows of a
-    host array, computed tile by tile on the queries' device (the *_stream
-    virtual tables for host-storage datasets); policy_vtype as in
-    ops.scan.scan_distances."""
+    host array, computed tile by tile on the queries' device, or with a
+    mesh on each shard's (the *_stream virtual tables for host-storage
+    datasets); policy_vtype as in ops.scan.scan_distances."""
     n = host_vectors.shape[0] if valid_count is None else int(valid_count)
     return _streamed_distances(
-        lambda t: scan_distances(queries, t[0], metric, policy_vtype=policy_vtype),
-        [host_vectors], n, queries.shape[0], queries.device, tile_rows,
+        lambda q, t: scan_distances(q, t[0], metric, policy_vtype=policy_vtype),
+        queries, [host_vectors], n, tile_rows, mesh,
     )
 
 
@@ -354,11 +429,12 @@ def int4_streaming_scan_distances(
     dim: int,
     valid_count: int | None = None,
     tile_rows: int | None = None,
+    mesh=None,
 ) -> np.ndarray:
     """Full [B, N] approximate int4 distances over host-resident codes,
     tile by tile (ops.quantize4.int4_scan_distances on each)."""
     n = packed_host.shape[0] if valid_count is None else int(valid_count)
     return _streamed_distances(
-        lambda t: int4_scan_distances(queries, *t, metric, dim=dim),
-        [packed_host, alpha_host, csq_host], n, queries.shape[0], queries.device, tile_rows,
+        lambda q, t: int4_scan_distances(q, *t, metric, dim=dim),
+        queries, [packed_host, alpha_host, csq_host], n, tile_rows, mesh,
     )

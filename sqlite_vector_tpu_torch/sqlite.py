@@ -32,6 +32,11 @@ through the Dataset (K1, or K2 for int4, on CUDA tensors); codes loaded
 from another connection's shadow table are scanned by the same routers
 (ops.scan.fused_scan_topk, ops.quantize4.int4_scan_topk) with the same
 arguments as the Dataset passes, so both return the same values.
+
+connect(mesh=) lays every dataset of the connection out over the mesh
+(Dataset(mesh=)); on a 1-D mesh the codes read from another connection's
+shadow table are row-sharded too and scanned by parallel/ops.py (on a 2-D
+mesh they stay whole on its first device, as the JAX package's do).
 """
 
 from __future__ import annotations
@@ -47,7 +52,7 @@ import numpy as np
 import torch
 
 from sqlite_vector_tpu_torch.codec import blob_to_array, vector_as_blob, vector_from_json
-from sqlite_vector_tpu_torch.dataset import Dataset, _to_numpy, _unported
+from sqlite_vector_tpu_torch.dataset import Dataset, _to_numpy, mesh_layout, place_rows
 from sqlite_vector_tpu_torch.device import bits_to_f32, from_numpy, resolve_device
 from sqlite_vector_tpu_torch.errors import (
     VectorCodecError,
@@ -57,6 +62,14 @@ from sqlite_vector_tpu_torch.errors import (
 from sqlite_vector_tpu_torch.native import load_blobs as native_load_blobs
 from sqlite_vector_tpu_torch.native import vtab_extension_path
 from sqlite_vector_tpu_torch.ops.quantize import quantize_device
+from sqlite_vector_tpu_torch.parallel.ops import (
+    join_columns,
+    sharded_int4_scan_distances,
+    sharded_int4_scan_topk,
+    sharded_scan_distances,
+    sharded_scan_topk,
+)
+from sqlite_vector_tpu_torch.parallel.shards import RowShards
 from sqlite_vector_tpu_torch.ops.quantize4 import (
     int4_scan_distances,
     int4_scan_topk,
@@ -151,14 +164,14 @@ class VectorConnection:
     (src/sqlite-vector.c:2555-2638): a per-connection registry, the
     metadata table and the scalar functions. Its datasets live on
     `device` (None: the first CUDA device; without one it raises, as
-    VectorStore does; pass device="cpu" to run on the CPU).
+    VectorStore does; pass device="cpu" to run on the CPU), or over `mesh`
+    (parallel.make_mesh), whose first device then plays `device`.
     """
 
     def __init__(self, conn: sqlite3.Connection, *, device: Any = None, mesh: Any = None):
-        if mesh is not None:
-            raise _unported("Meshes and shardings", "mesh")
+        self._mesh = mesh_layout(mesh, None)
         self._conn = conn
-        self._device = resolve_device(device)
+        self._device = self._mesh.grid()[0][0] if self._mesh is not None else resolve_device(device)
         self._contexts: dict[tuple[str, str], _TableContext] = {}
         self.vtab_loaded = False
         # which loader filled the datasets last: "native" or "python"
@@ -389,7 +402,8 @@ class VectorConnection:
             return ctx.dataset
         id_arr, arr = self._load_rows(ctx, min_pk=None)
         ds = Dataset(
-            f"{ctx.table}.{ctx.column}", dataclasses.replace(ctx.options), device=self._device
+            f"{ctx.table}.{ctx.column}", dataclasses.replace(ctx.options), device=self._device,
+            mesh=self._mesh,
         )
         if len(id_arr):
             ds._add_host_rows(arr, id_arr)
@@ -671,22 +685,28 @@ class VectorConnection:
         ids = np.ascontiguousarray(rec[:, :8]).view("<i8").reshape(-1).astype(np.int64)
         count = len(ids)
         ctx.quant_schema_ver = schema_ver
-        dev = self._device
         if is_i4:
             return _QuantCache(
                 qtype=QuantType.I4, scale=1.0, offset=0.0,
-                codes=from_numpy(np.ascontiguousarray(rec[:, 16:]), dev), ids=ids, count=count,
-                sq_norms=from_numpy(np.ascontiguousarray(rec[:, 12:16]).view("<i4").reshape(-1).astype(np.int32), dev),
-                row_scale=from_numpy(np.ascontiguousarray(rec[:, 8:12]).view("<f4").reshape(-1).astype(np.float32), dev),
+                codes=self._place(np.ascontiguousarray(rec[:, 16:])), ids=ids, count=count,
+                sq_norms=self._place(np.ascontiguousarray(rec[:, 12:16]).view("<i4").reshape(-1).astype(np.int32)),
+                row_scale=self._place(np.ascontiguousarray(rec[:, 8:12]).view("<f4").reshape(-1).astype(np.float32)),
             )
         codes = np.ascontiguousarray(rec[:, 8:])
         if ctx.stored_qtype is QuantType.I8:
             codes = codes.view(np.int8)
         return _QuantCache(
             qtype=ctx.stored_qtype, scale=float(ctx.stored_scale),
-            offset=float(ctx.stored_offset or 0.0), codes=from_numpy(codes, dev),
+            offset=float(ctx.stored_offset or 0.0), codes=self._place(codes),
             ids=ids, count=count,
         )
+
+    def _place(self, arr: np.ndarray):
+        """Shadow-table codes (or their per-row alpha/csq) on the device,
+        or row-sharded over a 1-D mesh, at the JAX package's upload
+        capacity."""
+        one_d = self._mesh is not None and len(self._mesh.axis_names) == 1
+        return place_rows(arr, len(arr), self._device, self._mesh.grid() if one_d else None)
 
     def _require_quant(self, ctx: _TableContext) -> _QuantCache:
         if ctx.quant is not None and ctx.quant_provisional and not self._conn.in_transaction:
@@ -809,14 +829,20 @@ class VectorConnection:
         # (Dataset._search_quantized), on the same float32 query
         qf = from_numpy(q[None, :].astype(np.float32), self._device)
         metric = ctx.options.distance
+        sharded = isinstance(quant.codes, RowShards)
         if quant.qtype is QuantType.I4:
-            vals, idx = int4_scan_topk(
-                qf, quant.codes, quant.row_scale, quant.sq_norms, metric, k,
-                dim=ctx.options.dimension, valid_count=quant.count,
-            )
+            args = (qf, quant.codes, quant.row_scale, quant.sq_norms, metric, k)
+            dim = ctx.options.dimension
+            if sharded:
+                vals, idx = sharded_int4_scan_topk(*args, self._mesh, dim=dim, valid_count=quant.count)
+            else:
+                vals, idx = int4_scan_topk(*args, dim=dim, valid_count=quant.count)
         else:
             qq = quantize_device(qf, quant.scale, quant.offset, quant.qtype)
-            vals, idx = fused_scan_topk(qq, quant.codes, metric, k)
+            if sharded:
+                vals, idx = sharded_scan_topk(qq, quant.codes, metric, k, self._mesh, valid_count=quant.count)
+            else:
+                vals, idx = fused_scan_topk(qq, quant.codes, metric, k)
         vals, idx = vals[0].cpu().numpy(), idx[0].cpu().numpy()
         keep = idx >= 0
         return list(zip(quant.ids[idx[keep]].tolist(), vals[keep].astype(np.float64).tolist()))
@@ -842,13 +868,20 @@ class VectorConnection:
         else:
             qf = from_numpy(q[None, :].astype(np.float32), self._device)
             metric = ctx.options.distance
+            dim = ctx.options.dimension
             if quant.qtype is QuantType.I4:
-                d = int4_scan_distances(
-                    qf, quant.codes, quant.row_scale, quant.sq_norms, metric, dim=ctx.options.dimension
-                )
+                args = (qf, quant.codes, quant.row_scale, quant.sq_norms, metric)
+                if isinstance(quant.codes, RowShards):
+                    d = join_columns(sharded_int4_scan_distances(*args, dim=dim))
+                else:
+                    d = int4_scan_distances(*args, dim=dim)
             else:
-                d = scan_distances(quantize_device(qf, quant.scale, quant.offset, quant.qtype), quant.codes, metric)
-            dist = d[0].cpu().numpy()
+                qq = quantize_device(qf, quant.scale, quant.offset, quant.qtype)
+                if isinstance(quant.codes, RowShards):
+                    d = join_columns(sharded_scan_distances(qq, quant.codes, metric, self._mesh))
+                else:
+                    d = scan_distances(qq, quant.codes, metric)
+            dist = d[0, : quant.count].cpu().numpy()
         yield from zip(quant.ids.tolist(), np.asarray(dist, np.float64).tolist())
 
     # -- JSON TVF shims ---------------------------------------------------------

@@ -180,12 +180,13 @@ def test_edge_results_and_errors_match_jax():
 
 def test_unported_paths_raise_config_error():
     base = np.random.default_rng(11).standard_normal((20, 8)).astype(np.float32)
-    # storage="host" and quantize(checkpoint=) are ported
-    # (tests/test_torch_persistence.py, tests/test_torch_streaming.py);
-    # meshes, host storage on a mesh included, are not
-    with pytest.raises(svt.VectorConfigError, match="ROADMAP"):
+    # storage="host", quantize(checkpoint=) and meshes are ported
+    # (tests/test_torch_persistence.py, tests/test_torch_streaming.py,
+    # tests/test_torch_sharded.py); mesh= takes a parallel.Mesh, and any
+    # other object raises a VectorConfigError that names what it takes
+    with pytest.raises(svt.VectorConfigError, match="mesh= takes a sqlite_vector_tpu_torch.parallel.Mesh"):
         svt.VectorStore(device="cpu", mesh=object())
-    with pytest.raises(svt.VectorConfigError, match="ROADMAP"):
+    with pytest.raises(svt.VectorConfigError, match="mesh= takes a sqlite_vector_tpu_torch.parallel.Mesh"):
         svt.Dataset("h", svt.parse_options("dimension=8"), device="cpu", storage="host", mesh=object())
     # the non-finite policy paths are ported (tests/test_torch_nonfinite.py):
     # they answer as the JAX package does instead of raising

@@ -130,7 +130,7 @@ def test_init_errors_match_jax(twin):
 
 
 def test_connect_defaults_to_the_card_and_refuses_meshes(tmp_path, monkeypatch):
-    with pytest.raises(svt.VectorConfigError, match="ROADMAP"):
+    with pytest.raises(svt.VectorConfigError, match="mesh= takes a sqlite_vector_tpu_torch.parallel.Mesh"):
         psql.connect(":memory:", device="cpu", mesh=object())
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(svt.VectorConfigError, match="CUDA"):
