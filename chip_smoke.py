@@ -171,6 +171,28 @@ Phases, each printing its own lines:
               rows, and the merge (CUDA events); the shards share one card,
               so these show the mesh's overhead, not a scaling. "launches"
               in phase 11 count the mesh datasets' own searches only.
+ 12. utils    utils/ on the card, over the main dataset as phase 8 left it
+              (its live rows, int8 codes): timed_search with a
+              StatsRecorder(capacity=256), 64 calls at B=1 and 10 at B=64,
+              exact and int8, each call's ids and distances equal bit for
+              bit to the same search, n_rows == len(ds), bytes_scanned
+              len(ds) * 384 * 4 exact and * 1 quantized, summary()["count"]
+              == the calls; its median and p99 printed beside phase 5's p50;
+              on phase 11's 4-shard mesh, collective_bytes == 8 * 4 * B * k
+              (40,960 at B=64) == the parallel.audit.GATHERED.merge delta;
+              then quantize(qtype="int4") and a profile_trace into
+              chip_smoke_trace/ beside this script (ignored by git; its
+              .pt.trace.json opens in Perfetto) of 10 warm exact and 10 int4
+              searches at B=64, each inside annotate("svt.search.exact") or
+              annotate("svt.search.int4"): the trace must hold CUDA kernel
+              events, as many K1 (mma_minima_kernel) and K2
+              (int4_mma_minima_kernel) events as the launch counters
+              counted, each launched inside its range (joined by
+              correlation id) and starting after the range does; each
+              range kind's device-busy share (the union of kernel, memcpy
+              and memset intervals over the range's span) printed beside
+              PERF.md §5's; then enable_persistent_cache(), which must be
+              the directory the kernel library lies in.
 
 Then one JSON line of kernel results, one entry a kernel body (each with
 its bound, the side that bounds it and the library yardstick): K1 on tensor
@@ -178,7 +200,8 @@ cores for f32 and codes (main-path numbers f32 B=64), K1 on tensor cores
 for 16-bit rows (L2 f16 B=64; launches from phase 5's FLOAT16 and FLOATB16
 searches), K1's L1 kernel (L1 f32 B=64; launches from the FLOAT32 L1
 search), K2 (B=64); the rest under "by_shape"; "sql_launches" counts phase 10's
-launches on the SQL path, "mesh_launches" phase 11's; phase 10's times under
+launches on the SQL path, "mesh_launches" phase 11's, "trace_launches" the
+kernel events in phase 12's trace; phase 10's times under
 "frontends", phase 11's under "mesh"), the card
 line again, and last the result line. Any failure raises, so the script exits non-zero and prints no
 result; so does a machine without CUDA.
@@ -193,6 +216,7 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -482,11 +506,12 @@ def phase_kernel(card: str) -> tuple[float, float, float]:
 
 
 @functools.cache
-def load_tests_module(name: str):
-    """The repo's tests/<name>.py, loaded once, by path: an installed
-    package named `tests` may shadow the repo's tests/ directory."""
+def load_tests_module(name: str, folder: str = "tests"):
+    """The repo's tests/<name>.py (or <folder>/<name>.py), loaded by path:
+    an installed package named `tests` or `tools` may shadow the repo's
+    directory."""
     spec = importlib.util.spec_from_file_location(
-        f"svt_{name}", Path(__file__).resolve().parent / "tests" / f"{name}.py"
+        f"svt_{name}", Path(__file__).resolve().parent / folder / f"{name}.py"
     )
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
@@ -769,8 +794,11 @@ def phase_times(card: str, ds, Q) -> dict:
         del base
     del u8_base
 
-    for mode in ("exact", "quantized"):
-        search_times(card, ds, Q, mode, shape, ((1, 500), (B_MAIN, 200)))
+    # end-to-end p50 by mode and B, beside which phase 12 prints timed_search's
+    out["search_p50"] = {
+        mode: search_times(card, ds, Q, mode, shape, ((1, 500), (B_MAIN, 200)))
+        for mode in ("exact", "quantized")
+    }
     body_latency(card, ds, Q, shape)
     return out
 
@@ -870,11 +898,12 @@ def phase_datasets(card: str, ds, Q) -> dict:
     return launches
 
 
-def search_times(card: str, ds, Q, mode: str, shape: str, plan, label: str = "") -> None:
+def search_times(card: str, ds, Q, mode: str, shape: str, plan, label: str = "") -> dict:
     """End-to-end search: for each (B, calls) in plan, QPS as all queries
     over the whole window of back-to-back calls, and the per-call latency
     p50, p99 and max (host clock; search returns host arrays, so each call
-    is synchronous)."""
+    is synchronous). Returns the p50 ms by B."""
+    p50s = {}
     for b, reps in plan:
         qs = Q[:b]
         for _ in range(3):  # warm-up
@@ -887,6 +916,7 @@ def search_times(card: str, ds, Q, mode: str, shape: str, plan, label: str = "")
             walls.append(time.perf_counter() - t0)
         window = time.perf_counter() - t_window
         p50, p99 = (float(np.percentile(walls, p)) * 1e3 for p in (50, 99))
+        p50s[b] = p50
         print(
             f"[times] search {label or mode} {shape} k={K} B={b}: QPS {b * reps / window!r} "
             f"({b * reps} queries in {reps} back-to-back calls, {window * 1e3!r} ms "
@@ -894,6 +924,7 @@ def search_times(card: str, ds, Q, mode: str, shape: str, plan, label: str = "")
             f"{max(walls) * 1e3!r} ms | {card}",
             flush=True,
         )
+    return p50s
 
 
 def same_topk(label: str, ids, vals, want_ids, want_vals) -> None:
@@ -1861,13 +1892,15 @@ def phase_mesh(card: str, Q) -> dict:
     phase 9, on its files): a 4-shard 1-D mesh over the main rows against
     one device (every mode, mask and batch), its times, a 2 x 2 mesh, and
     where there are several cards phase_cards. Returns the 4-shard mesh's
-    K1 and K2 launches and its times."""
+    K1 and K2 launches, its times and the 4-shard mesh dataset (phase 12
+reads its merge bytes)."""
     rows, _ = main_rows()
     zero_counts()
     res = mesh_parity(card, rows, Q, ["cuda:0"] * MESH_SHARDS, f"{MESH_SHARDS} shards on cuda:0")
     counted = counts()
     check(counted["K1"][0] > 0 and counted["K2"][0] > 0, "the mesh searches launched no K1 or no K2")
-    times = mesh_times(card, res.pop("one"), res.pop("mesh"), Q)
+    mesh_ds = res.pop("mesh")
+    times = mesh_times(card, res.pop("one"), mesh_ds, Q)
     res.pop("solo")
     torch.cuda.empty_cache()
     mesh_2d(card, rows, Q)
@@ -1876,7 +1909,7 @@ def phase_mesh(card: str, Q) -> dict:
     else:
         print(f"[mesh] a mesh over several cards: not run (torch.cuda.device_count() == "
               f"{torch.cuda.device_count()}) | {card}", flush=True)
-    return {"K1": res["K1"], "K2": res["K2"], "times": times}
+    return {"K1": res["K1"], "K2": res["K2"], "times": times, "dataset": mesh_ds}
 
 
 def phase_cards(card: str, rows: np.ndarray, Q) -> None:
@@ -2050,7 +2083,7 @@ def frontends(card: str, Q, root: Path) -> dict:
     loader_built, vtab = native.available(), native.vtab_extension_path()
     print(f"[build] csrc/svt_native.cpp {'built' if loader_built else 'not built (no Python headers?)'}, "
           f"csrc/svt_vtab.c {'built' if vtab else 'NOT built'} against csrc/third_party/ into "
-          f"{native.build_dir().relative_to(Path(__file__).resolve().parent)} in {time.perf_counter() - t0:.1f} s "
+          f"{native.build_dir()} in {time.perf_counter() - t0:.1f} s "
           f"| {card}", flush=True)
 
     # -- the connection: the card by default, the real virtual tables -------
@@ -2295,7 +2328,6 @@ def serving(card: str, ref, rows, Q, path: str) -> dict:
     fallback_exact (zero errors, device memory back), then serve() on
     localhost."""
     import gc
-    import threading
     import urllib.request
 
     import sqlite_vector_tpu_torch as svt
@@ -2426,6 +2458,195 @@ def serving(card: str, ref, rows, Q, path: str) -> dict:
     return out
 
 
+# phase 12: each traced search's annotate() name -> its mode, its scan
+# kernel and PERF.md §5's device-busy share for it at B=64
+# (tools/profile_torch_search.py), printed beside phase 12's
+TRACED = {"svt.search.exact": ("exact", "K1", 47.6), "svt.search.int4": ("quantized", "K2", 25.1)}
+# the substring of each scan kernel's device name in the trace (the tensor-core
+# bodies; "int4_mma_minima_kernel" also holds K1's, so K1 excludes it)
+TRACE_KERNELS = {"K1": ("mma_minima_kernel", "int4_mma_minima_kernel"), "K2": ("int4_mma_minima_kernel", None)}
+
+
+def kernel_of(name: str) -> str | None:
+    for kernel, (sub, not_sub) in TRACE_KERNELS.items():
+        if sub in name and not (not_sub and not_sub in name):
+            return kernel
+    return None
+
+
+def read_trace(log_dir: Path) -> dict:
+    """The trace profile_trace wrote into log_dir: each annotate() range
+    (its CPU span) with the device events it launched (kernels, copies,
+    memsets), an event joined to the range that holds its launch (the
+    CUDA runtime call of the same correlation id), or, unlinked, to the
+    range that holds its device start. Returns {"ranges": [...],
+    "outside": device events of no range, "unlinked": count}."""
+    files = sorted(log_dir.glob("*.pt.trace.json"))
+    check(len(files) == 1, f"profile_trace wrote {len(files)} trace files into {log_dir}")
+    events = [e for e in json.loads(files[0].read_text())["traceEvents"] if e.get("ph") == "X"]
+    ranges = sorted(
+        ({"name": e["name"], "start": float(e["ts"]), "cpu_end": float(e["ts"]) + float(e["dur"]), "device": []}
+         for e in events if e.get("cat") == "user_annotation" and e["name"] in TRACED),
+        key=lambda r: r["start"],
+    )
+    launch_ts = {  # correlation id -> the launching call's start
+        e["args"]["correlation"]: float(e["ts"])
+        for e in events
+        if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})
+    }
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    check(any(e["cat"] == "kernel" for e in device),
+          "the trace holds no CUDA kernel event (CUPTI recorded no device activity)")
+    outside, unlinked = [], 0
+    for e in device:
+        at = launch_ts.get(e.get("args", {}).get("correlation"))
+        if at is None:
+            unlinked += 1
+            at = float(e["ts"])
+        home = next((r for r in ranges if r["start"] <= at <= r["cpu_end"]), None)
+        (home["device"] if home else outside).append(e)
+    return {"ranges": ranges, "outside": outside, "unlinked": unlinked, "file": files[0]}
+
+
+def busy_share(r: dict) -> tuple[float, float]:
+    """(device-busy us, wall us) of a range: the union of its device
+    intervals (tools/profile_torch_search.py:busy_us) over its span, from
+    its CPU start to the later of its CPU end and its last device event's
+    end."""
+    spans = [(float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in r["device"]]
+    busy = load_tests_module("profile_torch_search", "tools").busy_us(spans)
+    return busy, max([r["cpu_end"]] + [b for _, b in spans]) - r["start"]
+
+
+def phase_utils(card: str, ds, Q, mesh_ds, p50: dict) -> dict:
+    """Phase 12: utils/ on the card. timed_search with a StatsRecorder on
+    the main dataset (exact and int8, B=1 and B=64, every call equal bit
+    for bit to the same search, the stats' rows and bytes as stated); the
+    4-shard mesh's merge bytes against parallel.audit.GATHERED; a
+    profile_trace of annotated exact and int4 searches, whose trace must
+    hold K1's and K2's kernel events in the launch counters' numbers, each
+    inside its range, with each range's device-busy share; the build cache.
+    Returns the kernels' events in the trace."""
+    from sqlite_vector_tpu_torch.ops._build import library_path
+    from sqlite_vector_tpu_torch.parallel import GATHERED, collective_bytes_per_query
+    from sqlite_vector_tpu_torch.utils import StatsRecorder, annotate, profile_trace, timed_search
+    from sqlite_vector_tpu_torch.utils.compile_cache import build_root, enable_persistent_cache
+
+    n = len(ds)
+    qt = ds.quant_params[0].value
+    check(qt == "INT8", f"phase 12 expects phase 8's int8 codes, found {qt}")
+    # -- timed_search and StatsRecorder ----------------------------------
+    for exact, mode in ((True, "exact"), (False, "quantized")):
+        for b, calls in ((1, B_MAIN), (B_MAIN, 10)):
+            for _ in range(3):  # warm-up, unrecorded
+                ds.search(Q[:b], K, exact=exact)
+            ds.stats_recorder = rec = StatsRecorder(capacity=256)
+            plain = []  # the host clock around each comparison search
+            for i in range(calls):
+                q = Q[i : i + 1] if b == 1 else Q
+                ids, dist, stats = timed_search(ds, q, K, exact=exact)
+                t0 = time.perf_counter()
+                want_ids, want_dist = ds.search(q, K, exact=exact)
+                plain.append(time.perf_counter() - t0)
+                check(np.array_equal(ids, want_ids) and np.array_equal(dist, want_dist),
+                      f"timed_search {mode} B={b} call {i}: result differs from search's")
+                check(stats.n_rows == n and stats.n_queries == b and stats.k == K and stats.exact == exact,
+                      f"timed_search {mode} B={b}: stats {stats}")
+                check(stats.bytes_scanned == n * DIM_MAIN * (4 if exact else 1),
+                      f"timed_search {mode} B={b}: bytes_scanned {stats.bytes_scanned}")
+                check(stats.collective_bytes == 0, "one device reported merge bytes")
+            summ = rec.summary()
+            check(summ["count"] == min(calls, 256) and summ["total_queries"] == calls * b,
+                  f"StatsRecorder summary {summ}")
+            gbs = n * DIM_MAIN * (4 if exact else 1) / (summ["median_ms"] / 1e3) / 1e9
+            print(
+                f"[utils] timed_search {mode}{' (' + qt + ')' if not exact else ''} {n}x{DIM_MAIN} k={K} "
+                f"B={b}: {calls} calls each == search bit for bit; StatsRecorder(256) count "
+                f"{summ['count']}, median {summ['median_ms']!r} ms, p99 {summ['p99_ms']!r} ms, "
+                f"{gbs!r} GB/s at the median; the comparison searches' median "
+                f"{float(np.median(plain)) * 1e3!r} ms (interleaved); phase 5's p50 {p50[mode][b]!r} "
+                f"ms ({N_MAIN} rows before phase 8); {threading.active_count()} Python threads | {card}",
+                flush=True,
+            )
+    ds.stats_recorder = None
+    # -- the mesh's merge bytes --------------------------------------------
+    shards = mesh_ds._vectors.n_shards
+    for b in (1, B_MAIN):
+        GATHERED.reset()
+        _, _, stats = timed_search(mesh_ds, Q[:b], K)
+        want = collective_bytes_per_query(shards, b, K)
+        check(stats.collective_bytes == want == 8 * shards * b * K == GATHERED.merge == GATHERED.total,
+              f"mesh B={b}: collective_bytes {stats.collective_bytes}, GATHERED {GATHERED.merge}, want {want}")
+        print(f"[utils] timed_search on the {shards}-shard mesh B={b} k={K}: collective_bytes "
+              f"{stats.collective_bytes} == 8*{shards}*{b}*{K} == the GATHERED.merge delta | {card}", flush=True)
+    check(collective_bytes_per_query(shards, B_MAIN, K) == 40_960, "merge bytes at B=64, k=20, 4 shards")
+    # -- profile_trace ------------------------------------------------------
+    ds.quantize(qtype="int4")
+    for mode, _, _ in TRACED.values():
+        for _ in range(3):  # warm-up, outside the trace
+            ds.search(Q, K, mode=mode)
+    torch.cuda.synchronize()
+    log_dir = Path(__file__).resolve().parent / "chip_smoke_trace"
+    shutil.rmtree(log_dir, ignore_errors=True)
+    zero_counts()
+    launched = {}
+    with profile_trace(str(log_dir)):
+        for name, (mode, _, _) in TRACED.items():
+            c0 = counts()
+            for _ in range(10):
+                with annotate(name):
+                    ds.search(Q, K, mode=mode)
+            c1 = counts()
+            launched[name] = {kn: (c1[kn][0] - c0[kn][0], c1[kn][1] - c0[kn][1]) for kn in c1}
+    tr = read_trace(log_dir)
+    check(len(tr["ranges"]) == 20, f"the trace holds {len(tr['ranges'])} annotate ranges, not 20")
+    in_trace = {"K1": 0, "K2": 0}
+    for kn in TRACE_KERNELS:
+        stray = [e["name"] for e in tr["outside"] if kernel_of(e["name"]) == kn]
+        check(not stray, f"{len(stray)} {kn} kernel events outside every annotate range")
+    for name, (mode, kn, pr5_busy) in TRACED.items():
+        rs = [r for r in tr["ranges"] if r["name"] == name]
+        own = sum(kernel_of(e["name"]) == kn for r in rs for e in r["device"])
+        other = sum(kernel_of(e["name"]) not in (None, kn) for r in rs for e in r["device"])
+        total, mma = launched[name][kn]
+        check(own == total == mma > 0, f"{name}: {own} {kn} kernel events in the trace, the counter {total} ({mma} mma)")
+        check(other == sum(launched[name][o][0] for o in launched[name] if o != kn),
+              f"{name}: {other} events of the other kernel")
+        # a scan kernel must start after its range does; any other device
+        # event that reads earlier shows the trace's device-to-host clock
+        # offset, printed
+        lead = [(e["name"], float(e["ts"]) - r["start"]) for r in rs for e in r["device"]]
+        early = {}  # name -> (events, the earliest start's lead, us)
+        for n, t in lead:
+            if t < 0:
+                c, m = early.get(n[:40], (0, 0.0))
+                early[n[:40]] = (c + 1, min(m, t))
+        check(not [n for n, t in lead if t < 0 and kernel_of(n)],
+              f"{name}: scan kernel events start before their range: {early}")
+        in_trace[kn] += own
+        busy, wall = (sum(x) for x in zip(*(busy_share(r) for r in rs)))
+        ops = sum(len(r["device"]) for r in rs) / len(rs)
+        print(
+            f"[utils] profile_trace {name} ({mode} B={B_MAIN} k={K}, {len(rs)} searches): {own} "
+            f"{kn} kernel events == its launch counter, each inside its range; device busy "
+            f"{busy / len(rs) / 1e3!r} of {wall / len(rs) / 1e3!r} ms a search ({100 * busy / wall:.1f}%; "
+            f"PERF.md §5: {pr5_busy}%), {ops:.0f} device ops a search; first device event "
+            f"{min(t for _, t in lead)!r} us after its range's start; device events starting before "
+            f"their range (name: (events, earliest us)): {early} | {card}",
+            flush=True,
+        )
+    print(f"[utils] trace {tr['file'].relative_to(Path(__file__).resolve().parent)}: "
+          f"{sum(len(r['device']) for r in tr['ranges'])} device events in the ranges, "
+          f"{len(tr['outside'])} outside, {tr['unlinked']} without a linked launch | {card}", flush=True)
+    # -- the build cache -------------------------------------------------------
+    cache = enable_persistent_cache()
+    check(library_path().parent == build_root() and (cache is None or build_root() == Path(cache)),
+          f"the kernel library {library_path()} is not in the build cache {cache}")
+    print(f"[utils] enable_persistent_cache() -> {cache}; the kernel library {library_path().name} "
+          f"lies there | {card}", flush=True)
+    return in_trace
+
+
 def main_cards(card: str) -> int:
     """--cards: phase 11's several-card part alone, then the result line."""
     n = torch.cuda.device_count()
@@ -2493,6 +2714,7 @@ def main() -> int:
     host = phase_persist(card, ds, Q)
     fe = phase_frontends(card, Q)
     mesh = phase_mesh(card, Q)
+    traced = phase_utils(card, ds, Q, mesh.pop("dataset"), k1.pop("search_p50"))
     k2_main = k2[f"B={B_MAIN}"]
 
     def k1_entry(name: str, source: str, shape: str, n_launches: int, family) -> dict:
@@ -2524,6 +2746,7 @@ def main() -> int:
             "streamed_launches": host["K1"],
             "sql_launches": fe["sql_launches"]["K1"]["launches"],
             "mesh_launches": mesh["K1"] + host["mesh"]["K1"],
+            "trace_launches": traced["K1"],
             "masked_max_abs_err": masked_err,
             "nonfinite_max_abs_err": nonfinite_err,
         },
@@ -2548,6 +2771,7 @@ def main() -> int:
             "streamed_launches": host["K2"],
             "sql_launches": fe["sql_launches"]["K2"]["launches"],
             "mesh_launches": mesh["K2"] + host["mesh"]["K2"],
+            "trace_launches": traced["K2"],
             "masked_max_abs_err": k2_masked_err,
             "cuda_core_body": "sqlite_vector_tpu_torch/csrc/int4_minima.cu",
             "by_shape": {k: v for k, v in k2.items() if k != "max_abs_err"},

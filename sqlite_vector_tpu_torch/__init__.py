@@ -6,19 +6,27 @@ device or over a mesh of them (parallel/: row-sharded and rows x dim
 datasets, one process driving every device): every search mode, int8 and
 int4 quantization, host storage, persistence, the non-finite policies,
 the SQLite surface (sqlite.py), serving (BatchingSearcher, serve) and the
-CLI (python -m sqlite_vector_tpu_torch). Scans on CUDA tensors run the hand-written
-kernels K1 (csrc/block_minima_mma.cu, csrc/block_minima.cu) and K2
-(csrc/int4_minima_mma.cu, csrc/int4_minima.cu), built with nvcc at first
-use; on CPU tensors they run the kernels' plain PyTorch twins.
+CLI (python -m sqlite_vector_tpu_torch), and utils/ (QueryStats,
+timed_search, torch.profiler traces, the build cache). Scans on CUDA
+tensors run the hand-written kernels K1 (csrc/block_minima_mma.cu,
+csrc/block_minima.cu) and K2 (csrc/int4_minima_mma.cu,
+csrc/int4_minima.cu), built with nvcc at first use; on CPU tensors they
+run the kernels' plain PyTorch twins.
 
 This package imports torch and numpy, never jax.
 """
 
+# the kernel build cache is resolved when a build looks for its file (see
+# utils.compile_cache), never at import: importing builds nothing
+from sqlite_vector_tpu_torch.utils.compile_cache import enable_persistent_cache
+
 from sqlite_vector_tpu_torch.types import (
+    DEFAULT_MAX_MEMORY,
     DistanceMetric,
     QuantType,
     VectorOptions,
     VectorType,
+    human_to_number,
     parse_options,
 )
 from sqlite_vector_tpu_torch.errors import (
@@ -27,7 +35,14 @@ from sqlite_vector_tpu_torch.errors import (
     VectorError,
     VectorStateError,
 )
+from sqlite_vector_tpu_torch.codec import (
+    array_to_blob,
+    blob_to_array,
+    vector_as_blob,
+    vector_from_json,
+)
 from sqlite_vector_tpu_torch.dataset import Dataset, VectorStore
+from sqlite_vector_tpu_torch.parallel import make_mesh
 from sqlite_vector_tpu_torch.serving import BatchingSearcher, serve
 from sqlite_vector_tpu_torch.version import __version__, backend, version
 
@@ -37,15 +52,23 @@ __all__ = [
     "QuantType",
     "VectorOptions",
     "parse_options",
+    "human_to_number",
+    "DEFAULT_MAX_MEMORY",
     "VectorError",
     "VectorConfigError",
     "VectorCodecError",
     "VectorStateError",
+    "vector_from_json",
+    "vector_as_blob",
+    "blob_to_array",
+    "array_to_blob",
     "Dataset",
     "VectorStore",
+    "make_mesh",
     "BatchingSearcher",
     "serve",
     "__version__",
     "version",
     "backend",
+    "enable_persistent_cache",
 ]

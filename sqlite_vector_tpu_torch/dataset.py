@@ -570,6 +570,8 @@ class Dataset:
         self._layout_gen = 0
         # per-stage timing of the most recent mode="rerank" call
         self.last_rerank_decomposition: dict | None = None
+        # optional observability hook (utils.profiling.timed_search)
+        self.stats_recorder = None
 
     # -- properties ---------------------------------------------------------
 

@@ -1,8 +1,7 @@
 """Lazy row-concatenated view over host-resident (mmap) shard arrays.
 
 A copy of sqlite_vector_tpu/hostarray.py (importing that module loads jax
-through its package __init__) without its `astype` and `iter_tiles`, which
-nothing in the port calls, plus `read_into`, which the streaming scan
+through its package __init__) plus `read_into`, which the streaming scan
 (ops/streaming.py) uses to copy a tile's rows straight into its pinned
 staging buffer.
 
@@ -126,3 +125,12 @@ class ShardedRows:
             sel = part_of == pi
             out[sel] = self._parts[pi][idx[sel] - self._starts[pi]]
         return out
+
+    def astype(self, dtype, copy: bool = True) -> np.ndarray:
+        # materializes — callers only use this on small candidate sets
+        return self._slice_rows(0, self.shape[0]).astype(dtype, copy=copy)
+
+    def iter_tiles(self, tile_rows: int):
+        """Yield (start_row, materialized_tile) pairs covering all rows."""
+        for start in range(0, self.shape[0], tile_rows):
+            yield start, self._slice_rows(start, start + tile_rows)

@@ -9,9 +9,10 @@ unchanged:
     table-valued scan modules (vector_full_scan and the rest), whose
     xFilter calls back into the connection's svt_scan_blob function.
 
-Both build with the host compiler (g++, gcc) into
-sqlite_vector_tpu_torch/_build/native-<hash>/, a directory named after a
-hash of the sources, the headers and the flags, so an edited source is
+Both build with the host compiler (g++, gcc) into native-<hash>/ in the
+build cache (utils/compile_cache.py: sqlite_vector_tpu_torch/_build/
+unless SVT_COMPILE_CACHE says otherwise), a directory named after a hash
+of the sources, the headers and the flags, so an edited source is
 rebuilt and an unchanged one reused. The vtab builds against the SQLite
 headers vendored in csrc/third_party/ (public domain), so it needs no
 system header. Its file stays svtvtab.so: SQLite derives the entry point
@@ -41,12 +42,13 @@ from pathlib import Path
 
 import numpy as np
 
+from sqlite_vector_tpu_torch.utils.compile_cache import build_root
+
 _PKG = Path(__file__).resolve().parent.parent
 _REPO = _PKG.parent
 NATIVE_SRC = _REPO / "csrc" / "svt_native.cpp"
 VTAB_SRC = _REPO / "csrc" / "svt_vtab.c"
 THIRD_PARTY = _PKG / "csrc" / "third_party"
-BUILD_DIR = _PKG / "_build"
 
 _NATIVE_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 _VTAB_FLAGS = ("-O2", "-shared", "-fPIC")
@@ -66,7 +68,7 @@ def build_dir() -> Path:
         h.update(src.name.encode())
         if src.exists():
             h.update(src.read_bytes())
-    return BUILD_DIR / f"native-{h.hexdigest()[:16]}"
+    return build_root() / f"native-{h.hexdigest()[:16]}"
 
 
 def _compile(cmd: list[str], out: Path) -> bool:

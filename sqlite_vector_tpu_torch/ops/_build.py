@@ -3,9 +3,10 @@
 Each `csrc/*.cu` source compiles with its own nvcc process, all started
 together, and the objects link into one shared library with a plain C
 interface, bound with ctypes (no PyTorch headers, so a build takes
-seconds). The library lands in `sqlite_vector_tpu_torch/_build/` (ignored
-by git) under a name hashed from the sources, the headers they share
-(`csrc/*.cuh`) and the flags, so an edited source
+seconds). The library lands in the build cache (utils/compile_cache.py:
+`sqlite_vector_tpu_torch/_build/`, ignored by git, unless
+SVT_COMPILE_CACHE says otherwise) under a name hashed from the sources,
+the headers they share (`csrc/*.cuh`) and the flags, so an edited source
 is rebuilt and an unchanged one is reused. Beside it lies what ptxas
 reported for each kernel (`-Xptxas -v`: registers, stack, spills), which
 `ptxas_report` reads.
@@ -24,9 +25,10 @@ import subprocess
 import threading
 from pathlib import Path
 
+from sqlite_vector_tpu_torch.utils.compile_cache import build_root
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG / "_build"
 
 # sm_90a keeps wgmma/setmaxnreg available to later kernels. No
 # --use_fast_math: it changes sqrtf, division and NaN/Inf handling.
@@ -78,7 +80,7 @@ def library_path() -> Path:
     for src in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"libsvt_kernels_{h.hexdigest()[:16]}.so"
+    return build_root() / f"libsvt_kernels_{h.hexdigest()[:16]}.so"
 
 
 def _nvcc_all(cmds: list[list[str]]) -> list[str]:
@@ -99,12 +101,12 @@ def _nvcc_all(cmds: list[list[str]]) -> list[str]:
 
 
 def _build(out: Path) -> None:
-    BUILD_DIR.mkdir(exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tag = f"{out.name}.{os.getpid()}"
     tmp = out.with_name(f"{tag}.tmp")
     nvcc = _nvcc()
     srcs = sorted(CSRC.glob("*.cu"))
-    objs = [str(BUILD_DIR / f"{tag}.{src.stem}.o") for src in srcs]
+    objs = [str(out.parent / f"{tag}.{src.stem}.o") for src in srcs]
     try:
         reports = _nvcc_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(s)] for s, o in zip(srcs, objs)])
         _nvcc_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *objs]])

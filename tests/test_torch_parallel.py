@@ -2,7 +2,8 @@
 (parallel.audit.GATHERED) against the JAX package's figures for the same
 shapes: its HLO audit of the compiled executors (parallel/audit.py,
 tests/test_collective_audit.py) and the QueryStats figure of a mesh
-search (utils/profiling.py). Counts are integers: they must be equal.
+search (utils/profiling.py), which the port's own timed_search reports
+too. Counts are integers: they must be equal.
 """
 
 import jax
@@ -33,6 +34,7 @@ from sqlite_vector_tpu_torch.parallel import (
     sharded_scan_topk_2d,
 )
 from sqlite_vector_tpu_torch.types import DistanceMetric
+from sqlite_vector_tpu_torch.utils import timed_search as port_timed_search
 
 pytestmark = pytest.mark.skipif(len(jax.devices()) < 8, reason="needs the 8 virtual JAX devices")
 
@@ -110,7 +112,8 @@ def test_2d_bytes_equal_the_jax_merge_and_dim_sum():
 def test_dataset_search_bytes_equal_the_jax_querystats():
     """JAX test_querystats_surfaces_collective_bytes: a mesh dataset's
     search gathers the QueryStats figure of the same search in the JAX
-    package, on a 1-D and a 2-D mesh; one device gathers nothing."""
+    package, on a 1-D and a 2-D mesh, and the port's own timed_search
+    reports that figure too; one device gathers nothing."""
     data = np.random.default_rng(0).standard_normal((256, 16)).astype(np.float32)
     for jmesh, pmesh in ((jax_make_mesh(), make_mesh(devices=CPU8)),
                          (jax_make_mesh_2d(4, 2), make_mesh_2d(4, 2, devices=CPU8))):
@@ -120,9 +123,13 @@ def test_dataset_search_bytes_equal_the_jax_querystats():
         pds.add(data)
         _, _, stats = timed_search(jds, data[:2], 5)
         assert gathered(pds.search, data[:2], 5) == stats.collective_bytes > 0
+        GATHERED.reset()
+        _, _, mine = port_timed_search(pds, data[:2], 5)
+        assert mine.collective_bytes == GATHERED.total == stats.collective_bytes
     solo = svt.VectorStore(device="cpu").create("s", "dimension=16,type=FLOAT32")
     solo.add(data)
     assert gathered(solo.search, data[:2], 5) == 0
+    assert port_timed_search(solo, data[:2], 5)[2].collective_bytes == 0
 
 
 def test_merge_bytes_scale_linearly_in_shards():

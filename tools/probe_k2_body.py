@@ -37,6 +37,7 @@ from sqlite_vector_tpu_torch.ops import _build  # noqa: E402
 from sqlite_vector_tpu_torch.ops.int4_scan import _launch_k2, k2_query_tile  # noqa: E402
 from sqlite_vector_tpu_torch.ops.quantize4 import quantize4_device, quantize_query_int8  # noqa: E402
 from sqlite_vector_tpu_torch.types import DistanceMetric  # noqa: E402
+from sqlite_vector_tpu_torch.utils.compile_cache import build_root  # noqa: E402
 
 NCOUNTERS = 6  # ring wait, MMA loop, epilogue, combine (cycles), prologue (cycles), blocks
 
@@ -138,7 +139,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    out = _build.BUILD_DIR / "probe_k2_body"
+    out = build_root() / "probe_k2_body"
     shutil.rmtree(out, ignore_errors=True)
     libs = build(out)
     for name, (_, regs) in libs.items():

@@ -45,11 +45,11 @@ def device_ops(prof) -> list:
     return [e for e in prof.events() if e.device_type == cuda]
 
 
-def busy_us(events) -> float:
-    """Length of the union of the events' device intervals, microseconds."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+def busy_us(spans) -> float:
+    """Length of the union of (start, end) intervals: the device's busy
+    time, microseconds, over its events' intervals."""
     total, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:
+    for s, e in sorted(spans):
         if cur_e is None or s > cur_e:
             if cur_e is not None:
                 total += cur_e - cur_s
@@ -84,7 +84,7 @@ def profile_search(
     ops = device_ops(prof)
     if not ops:
         raise RuntimeError("the profiler recorded no device operations")
-    busy_ms = busy_us(ops) / 1e3 / reps
+    busy_ms = busy_us((e.time_range.start, e.time_range.end) for e in ops) / 1e3 / reps
     per_name = collections.Counter()
     for e in ops:
         per_name[e.name] += e.time_range.elapsed_us() / 1e3 / reps
