@@ -23,7 +23,7 @@ Phases, each printing its own lines:
               routes it to (the dot family on tensor cores, L1 on K1's L1
               kernel), and the 16-bit dot family also on the CUDA-core body,
               N = 100003 (ragged last group), d in {100, 384} (16-bit also
-              6848, the widest row of the tensor-core body),
+              6848, the widest row of the resident query tile),
               B in {1, 8, 33, 64, 65, 200} (query-tile edges), valid < N,
               with a NaN row, two duplicate rows and a zero row; then f32,
               f16 and bf16 rows and queries with +Inf, -Inf, values whose
@@ -193,12 +193,31 @@ Phases, each printing its own lines:
               and memset intervals over the range's span) printed beside
               PERF.md §5's; then enable_persistent_cache(), which must be
               the directory the kernel library lies in.
+ 13. wide     rows past the widths whose query tile K1's tensor-core body
+              keeps resident (ops/block_scan.py:mma_streams_queries):
+              1,000,000 x 4,096 FLOAT32 N(0, 1) rows from SEED (the width
+              of Qwen3-Embedding-8B, NV-Embed-v2 and e5-mistral-7b-instruct;
+              no model loaded), added 100,000 at a time, and 64 queries,
+              half from the base: exact search at B=1 and B=64 against the
+              plain-torch ground truth (tie-aware), self-matches first at 0,
+              K1 launched once a search, each on the tensor-core body with
+              the query tile streamed; K1 alone for L2, COSINE and DOT at
+              B=1 and B=64 against the twin and the CUDA-core body, timed
+              in turns with them and torch.matmul beside k1_bound; K1
+              against the finish (CUDA-event windows); exact search at B=1
+              and B=64 (p50, and QPS) with K1 in each body, in turns
+              (body_latency); int8 quantized
+              and rerank search (printed only); then L2 over 200,000 x
+              8,192 float16 rows (B=1, B=64) as K1 above, and u8 codes
+              20,000 x 16,384 for L2, COSINE and DOT, both bodies equal to
+              the twin bit for bit. Prints the peak device memory.
 
-Then one JSON line of kernel results, one entry a kernel body (each with
+Each phase ends with a line of its seconds. Then one JSON line of kernel results, one entry a kernel body (each with
 its bound, the side that bounds it and the library yardstick): K1 on tensor
 cores for f32 and codes (main-path numbers f32 B=64), K1 on tensor cores
 for 16-bit rows (L2 f16 B=64; launches from phase 5's FLOAT16 and FLOATB16
-searches), K1's L1 kernel (L1 f32 B=64; launches from the FLOAT32 L1
+searches), K1 on tensor cores with the query tile streamed (f32 d=4096
+B=64; launches from phase 13's two searches), K1's L1 kernel (L1 f32 B=64; launches from the FLOAT32 L1
 search), K2 (B=64); the rest under "by_shape"; "sql_launches" counts phase 10's
 launches on the SQL path, "mesh_launches" phase 11's, "trace_launches" the
 kernel events in phase 12's trace; phase 10's times under
@@ -468,7 +487,7 @@ def phase_kernel(card: str) -> tuple[float, float, float]:
     t0 = time.perf_counter()
     for dtype in (torch.float32, torch.float16, torch.bfloat16, torch.uint8, torch.int8):
         half = dtype in (torch.float16, torch.bfloat16)
-        # 6,848: the widest 16-bit row of the tensor-core body
+        # 6,848: the widest 16-bit row of the resident query tile
         for d in (100, 384, 6848) if half else (100, 384):
             base = make_rows(gen, n, d, dtype)
             if dtype.is_floating_point:
@@ -642,7 +661,7 @@ def phase_main(card: str):
     oracle = pairwise_distance(Qd, vecs, svt.DistanceMetric.L2).cpu().numpy()
     for i in range(B_MAIN):
         assert_topk_parity(
-            ids_all, oracle[i], ids_e[i], d_e[i], K,
+            *top_rows(ids_all, oracle[i]), ids_e[i], d_e[i], K,
             rel_tol=REL_TOL_BY_TYPE["FLOAT32"], label=f"exact q{i}",
         )
     for i, p in enumerate(picks):
@@ -682,6 +701,16 @@ def phase_main(card: str):
         flush=True,
     )
     return ds, Q, ids_e, launches
+
+
+# K1's times at the main path's shapes as PERF.md §6 records them (ms, on
+# an NVIDIA H100 80GB HBM3 at 700.00 W), printed beside phase 5's
+PERF6_K1_MS = {
+    "f32 B=1": 0.5928152, "f32 B=64": 1.0837248, "INT8 codes B=1": 0.1503424,
+    "INT8 codes B=64": 0.2157312, "u8 B=1": 0.1520720, "u8 B=64": 0.2123024,
+    "L2 f16 B=1": 0.2771200, "L2 f16 B=64": 0.4219920, "L2 bf16 B=1": 0.2768064,
+    "L2 bf16 B=64": 0.4227136,
+}
 
 
 def phase_times(card: str, ds, Q) -> dict:
@@ -736,7 +765,8 @@ def phase_times(card: str, ds, Q) -> dict:
             f"[times] K1 {shape} {label} L2 (both bodies == twin; {k1_body(base.dtype, L2, DIM_MAIN)} "
             f"body): kernel {ms[1]!r} ms, bound {lim!r} ms ({by}), {100 * lim / ms[1]:.1f}% "
             f"of bound; CUDA-core body {ms[2]!r} ms; twin {ms[0]!r} ms; library "
-            f"{'none' if not lib else repr(ms[3]) + ' ms'} | {card}",
+            f"{'none' if not lib else repr(ms[3]) + ' ms'}; PERF.md §6: {PERF6_K1_MS.get(label)} ms "
+            f"| {card}",
             flush=True,
         )
 
@@ -762,7 +792,7 @@ def phase_times(card: str, ds, Q) -> dict:
                 f"[times] K1 {shape} {label} (both bodies == twin; mma body): kernel {ms[1]!r} ms, "
                 f"bound {lim!r} ms ({by}), {100 * lim / ms[1]:.1f}% of bound; CUDA-core body "
                 f"{ms[2]!r} ms ({ms[2] / ms[1]:.2f}x); twin {ms[0]!r} ms; library torch.matmul in "
-                f"{name} {ms[3]!r} ms | {card}",
+                f"{name} {ms[3]!r} ms; PERF.md §6: {PERF6_K1_MS[label]} ms | {card}",
                 flush=True,
             )
         del base
@@ -805,12 +835,13 @@ def phase_times(card: str, ds, Q) -> dict:
 
 def body_latency(
     card: str, ds, Q, shape: str, modes=("exact", "quantized"), label: str = "",
-    rounds: int = 10, calls: int = 100,
+    rounds: int = 10, calls: int = 100, b: int = 1,
 ) -> None:
-    """Search at B=1 in each of `modes` with K1 in its routed (tensor-core)
+    """Search at B=b in each of `modes` with K1 in its routed (tensor-core)
     body and forced onto the CUDA-core body, in one process on the same
-    data: p50 call latency of `calls` back-to-back calls per round, the two
-    bodies in turns (ABBA), `rounds` rounds each."""
+    data: p50 call latency of `calls` back-to-back calls per round (and
+    for b > 1 the QPS it gives, b / p50), the two bodies in turns (ABBA),
+    `rounds` rounds each."""
     from sqlite_vector_tpu_torch.ops import block_scan
 
     routed = block_scan.k1_body
@@ -821,22 +852,23 @@ def body_latency(
                 block_scan.k1_body = routed if body == "mma" else (lambda *_: "simt")
                 try:
                     for _ in range(3):
-                        ds.search(Q[:1], K, mode=mode)
+                        ds.search(Q[:b], K, mode=mode)
                     walls = []
                     for _ in range(calls):
                         t0 = time.perf_counter()
-                        ds.search(Q[:1], K, mode=mode)
+                        ds.search(Q[:b], K, mode=mode)
                         walls.append(time.perf_counter() - t0)
                 finally:
                     block_scan.k1_body = routed
                 p50[body].append(float(np.median(walls)) * 1e3)
-        wins = sum(a < b for a, b in zip(p50["mma"], p50["simt"]))
+        wins = sum(x < y for x, y in zip(p50["mma"], p50["simt"]))
+        mid = {body: float(np.median(v)) for body, v in p50.items()}
+        qps = f" (QPS {b * 1e3 / mid['mma']!r} / {b * 1e3 / mid['simt']!r})" if b > 1 else ""
         print(
-            f"[times] search {mode}{label} {shape} k={K} B=1, K1 body in turns ({rounds} rounds of "
+            f"[times] search {mode}{label} {shape} k={K} B={b}, K1 body in turns ({rounds} rounds of "
             f"{calls} calls): p50 per round, tensor-core body {p50['mma']!r} ms, CUDA-core body "
-            f"{p50['simt']!r} ms; medians {float(np.median(p50['mma']))!r} / "
-            f"{float(np.median(p50['simt']))!r} ms; tensor-core body faster in {wins}/{rounds} "
-            f"rounds | {card}",
+            f"{p50['simt']!r} ms; medians {mid['mma']!r} / {mid['simt']!r} ms{qps}; tensor-core "
+            f"body faster in {wins}/{rounds} rounds | {card}",
             flush=True,
         )
 
@@ -880,7 +912,7 @@ def phase_datasets(card: str, ds, Q) -> dict:
         ids_all = other.ids
         for i in range(B_MAIN):
             parity.assert_topk_parity(
-                ids_all, oracle[i], got_ids[i], got_d[i], K,
+                *top_rows(ids_all, oracle[i]), got_ids[i], got_d[i], K,
                 rel_tol=parity.REL_TOL_BY_TYPE[vtype], label=f"{label} q{i}",
             )
         print(
@@ -1330,6 +1362,7 @@ def zero_counts() -> None:
     for fn in (block_minima, int4_block_minima):
         fn.launches = 0
         fn.body_launches = {"mma": 0, "simt": 0}
+    block_minima.streamed_launches = 0
 
 
 def phase_persist(card: str, ds, Q) -> dict:
@@ -2647,6 +2680,208 @@ def phase_utils(card: str, ds, Q, mesh_ds, p50: dict) -> dict:
     return in_trace
 
 
+# phase 13's wide rows: 1,000,000 x 4,096 FLOAT32 (the 4,096 columns of
+# Qwen3-Embedding-8B, NV-Embed-v2 and e5-mistral-7b-instruct; no model is
+# loaded), drawn in chunks of WIDE_CHUNK rows, each in WIDE_THREADS pieces;
+# then 16-bit rows past 6,848 columns and u8 codes past 13,696
+N_WIDE, DIM_WIDE = 1_000_000, 4096
+WIDE_CHUNK, WIDE_THREADS = 100_000, 8
+N_WIDE16, DIM_WIDE16 = 200_000, 8192
+N_WIDE8, DIM_WIDE8 = 20_000, 16384
+
+
+def wide_dataset(card: str):
+    """Phase 13's dataset: N_WIDE x DIM_WIDE N(0, 1) float32 rows from
+    SEED, added WIDE_CHUNK rows at a time; piece j of chunk i comes from
+    child i * WIDE_THREADS + j of SEED's SeedSequence (drawn on
+    WIDE_THREADS threads), the queries from the last child: 32 rows of the
+    base and 32 new ones. Returns the dataset, the queries and the picked
+    rows' positions."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import sqlite_vector_tpu_torch as svt
+
+    n_chunks = N_WIDE // WIDE_CHUNK
+    seeds = np.random.SeedSequence(SEED).spawn(n_chunks * WIDE_THREADS + 1)
+    piece = WIDE_CHUNK // WIDE_THREADS
+    t0 = time.perf_counter()
+    ds = svt.VectorStore(device="cuda").create("wide", f"dimension={DIM_WIDE},type=FLOAT32,distance=L2")
+    buf = np.empty((WIDE_CHUNK, DIM_WIDE), np.float32)
+
+    def draw(job):
+        j, seed = job
+        np.random.default_rng(seed).standard_normal(out=buf[j * piece : (j + 1) * piece], dtype=np.float32)
+
+    with ThreadPoolExecutor(WIDE_THREADS) as ex:
+        for c in range(n_chunks):
+            list(ex.map(draw, enumerate(seeds[c * WIDE_THREADS : (c + 1) * WIDE_THREADS])))
+            ds.add(buf)
+    torch.cuda.synchronize()
+    check(len(ds) == N_WIDE, f"the wide dataset holds {len(ds)} rows")
+    rng = np.random.default_rng(seeds[-1])
+    picks = rng.choice(N_WIDE, B_MAIN // 2, replace=False)
+    Q = np.concatenate(
+        [ds.get(ds.ids[picks]), rng.standard_normal((B_MAIN - B_MAIN // 2, DIM_WIDE), dtype=np.float32)]
+    )
+    print(
+        f"[wide] added {len(ds)} x {DIM_WIDE} FLOAT32 rows ({ds.memory_bytes()} device bytes) in "
+        f"{time.perf_counter() - t0:.1f} s (host data generation included) | {card}",
+        flush=True,
+    )
+    return ds, Q, picks
+
+
+def wide_kernel(card: str, label: str, q, base, metric, iters: int, out: dict) -> None:
+    """K1 on the streamed tensor-core body against its twin and the
+    CUDA-core body (compare_minima), then timed in turns with them and
+    torch.matmul of the same product, beside k1_bound; into out[label]."""
+    from sqlite_vector_tpu_torch.ops.block_scan import _launch_k1, block_minima, block_minima_reference
+
+    n = base.shape[0]
+    out["max_abs_err"] = max(out["max_abs_err"], compare_minima(q, base, metric, n, label))
+    compare_minima(q, base, metric, n, f"{label}, CUDA-core body", body="simt")
+    ms = in_turns(
+        [lambda: block_minima_reference(q, base, metric, n), lambda: block_minima(q, base, metric, n),
+         lambda: _launch_k1(q, base, metric, n, None, "simt"), lambda: torch.matmul(q, base.T)],
+        iters,
+    )
+    lim, by = k1_bound(q.shape[0], n, base.shape[1], base.element_size())
+    out[label] = {"ms": ms[1], "plain_ms": ms[0], "simt_ms": ms[2], "library_ms": ms[3],
+                  "bound_ms": lim, "bound_by": by}
+    what = label if label.startswith(metric.value) else f"{metric.value} {label}"
+    print(
+        f"[times] K1 {n}x{base.shape[1]} {what} (streamed tensor-core body and CUDA-core body == "
+        f"twin): kernel {ms[1]!r} ms, bound {lim!r} ms ({by}), {100 * lim / ms[1]:.1f}% of bound; "
+        f"CUDA-core body {ms[2]!r} ms ({ms[2] / ms[1]:.2f}x); twin {ms[0]!r} ms; library "
+        f"torch.matmul {ms[3]!r} ms | {card}",
+        flush=True,
+    )
+
+
+def phase_wide(card: str) -> dict:
+    """Phase 13: the exact path at DIM_WIDE columns, where K1's tensor-core
+    body streams its query tile (ops/block_scan.py:mma_streams_queries).
+    Returns the launches of its checked searches, the largest |kernel -
+    twin| and, by shape, the kernel's times beside its bound."""
+    from sqlite_vector_tpu_torch.ops.block_scan import (
+        _finish_from_minima,
+        _launch_k1,
+        block_minima,
+        k1_body,
+        mma_query_tile,
+        mma_streams_queries,
+    )
+    from sqlite_vector_tpu_torch.ops.distance import pairwise_distance
+    from sqlite_vector_tpu_torch.types import DistanceMetric
+
+    parity = load_tests_module("parity")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    L2 = DistanceMetric.L2
+    ds, Q, picks = wide_dataset(card)
+    shape = f"{N_WIDE}x{DIM_WIDE}"
+    vecs = ds._vectors[: len(ds)]
+    Qd = torch.from_numpy(Q).cuda()
+    check(k1_body(torch.float32, L2, DIM_WIDE) == "mma" and mma_streams_queries(torch.float32, DIM_WIDE),
+          "f32 at the wide rows does not take the streamed tensor-core body")
+
+    # -- the main path at this width: exact search at B=1 and B=64 ----------
+    zero_counts()
+    ids1, d1 = ds.search(Q[:1], K)
+    ids64, d64 = ds.search(Q, K)
+    launches = block_minima.launches
+    check(launches == 2 and block_minima.body_launches == {"mma": 2, "simt": 0}
+          and block_minima.streamed_launches == 2,
+          f"the wide searches launched K1 {launches} times, {block_minima.body_launches}, "
+          f"{block_minima.streamed_launches} streamed, not 2 on the streamed tensor-core body")
+    oracle = pairwise_distance(Qd, vecs, L2).cpu().numpy()
+    ids_all = ds.ids
+    rel = parity.REL_TOL_BY_TYPE["FLOAT32"]
+    for label, got_ids, got_d in (("B=1", ids1, d1), (f"B={B_MAIN}", ids64, d64)):
+        for i in range(got_ids.shape[0]):
+            parity.assert_topk_parity(*top_rows(ids_all, oracle[i]), got_ids[i], got_d[i], K,
+                                      rel_tol=rel, label=f"wide exact {label} q{i}")
+    for i, p in enumerate(picks):
+        check(ids64[i, 0] == ids_all[p] and d64[i, 0] == 0.0, f"wide q{i}: self-match not first at 0")
+    del oracle
+    print(
+        f"[wide] exact search(Q[1], {K}) and search(Q[{B_MAIN}], {K}) over {shape}: ids match the "
+        f"plain-torch ground truth (tie-aware, rel_tol {rel}), {len(picks)}/{len(picks)} self-matches "
+        f"first at 0.0; K1 launches {launches}, all on the tensor-core body with the query tile "
+        f"streamed (tiles {mma_query_tile(torch.float32, DIM_WIDE, 1)} and "
+        f"{mma_query_tile(torch.float32, DIM_WIDE, B_MAIN)}) | {card}",
+        flush=True,
+    )
+
+    # -- K1 alone: the streamed body against the twin, the CUDA-core body and
+    # torch.matmul, beside its bound ----------------------------------------
+    out = {"max_abs_err": 0.0}
+    for metric in (L2, DistanceMetric.COSINE, DistanceMetric.DOT):
+        for b in (1, B_MAIN):
+            name = "f32" if metric is L2 else f"{metric.value} f32"
+            wide_kernel(card, f"{name} d={DIM_WIDE} B={b}", Qd[:b].contiguous(), vecs, metric,
+                        10 if b == 1 else 5, out)
+    # K1 against the finish (select k groups, gather and rescore their rows,
+    # top-k) at this width; the finish's window holds its ~80 launches, so
+    # at B=1 the host's launch rate, not the device, sets it
+    # (tools/profile_torch_search.py --dim 4096 splits the device time)
+    for b in (1, B_MAIN):
+        q = Qd[:b].contiguous()
+        minima = block_minima(q, vecs, L2, len(ds))
+        k1_ms, fin_ms = in_turns(
+            [lambda: block_minima(q, vecs, L2, len(ds)),
+             lambda: _finish_from_minima(minima, q, vecs, len(ds), L2, K)], 5,
+        )
+        print(
+            f"[times] exact {shape} B={b} (CUDA-event windows, in turns): K1 {k1_ms!r} ms, the "
+            f"finish {fin_ms!r} ms, launch gaps included ({100 * fin_ms / (k1_ms + fin_ms):.1f}% of the "
+            f"two; its gather moves {b * K * 128 * DIM_WIDE * 4} bytes) | {card}",
+            flush=True,
+        )
+    for b, calls in ((1, 30), (B_MAIN, 10)):
+        body_latency(card, ds, Q, shape, modes=("exact",), rounds=4, calls=calls, b=b)
+    # optional, printed only: the int8 searches at this width (K1 over codes
+    # on the resident tile: 4,096 one-byte columns fit)
+    ds.quantize()
+    for mode in ("quantized", "rerank"):
+        search_times(card, ds, Q, mode, shape, ((1, 20), (B_MAIN, 10)), label=f"{mode} int8")
+    del ds, vecs
+    torch.cuda.empty_cache()
+
+    # -- 16-bit rows past 6,848 columns and u8 codes past 13,696 -------------
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    base = make_rows(gen, N_WIDE16, DIM_WIDE16, torch.float16)
+    q16 = make_rows(gen, B_MAIN, DIM_WIDE16, torch.float16)
+    q16[0] = base[10]  # a self-match
+    check(mma_streams_queries(torch.float16, DIM_WIDE16), "f16 d=8192 does not stream its query tile")
+    for b in (1, B_MAIN):
+        wide_kernel(card, f"L2 f16 d={DIM_WIDE16} B={b}", q16[:b].contiguous(), base, L2, 10, out)
+    del base, q16
+    base = make_rows(gen, N_WIDE8, DIM_WIDE8, torch.uint8)
+    q8 = make_rows(gen, B_MAIN, DIM_WIDE8, torch.uint8)
+    q8[0] = base[10]
+    check(k1_body(torch.uint8, L2, DIM_WIDE8) == "mma" and mma_streams_queries(torch.uint8, DIM_WIDE8),
+          "u8 d=16384 does not take the streamed tensor-core body")
+    for metric in (L2, DistanceMetric.COSINE, DistanceMetric.DOT):
+        for b in (1, B_MAIN):
+            q = q8[:b].contiguous()
+            label = f"wide u8 d={DIM_WIDE8} B={b} {metric.value}"
+            compare_minima(q, base, metric, N_WIDE8, label)
+            got = block_minima(q, base, metric, N_WIDE8)
+            simt = _launch_k1(q, base, metric, N_WIDE8, None, "simt")
+            check(torch.equal(got, simt), f"{label}: the two bodies differ")
+    del base, q8
+    print(
+        f"[wide] u8 {N_WIDE8}x{DIM_WIDE8} (past 13,696 columns, streamed) L2, COSINE, DOT at B=1 and "
+        f"B={B_MAIN}: tensor-core body == twin == CUDA-core body bit for bit; peak device memory "
+        f"{torch.cuda.max_memory_allocated()} bytes (torch.cuda.max_memory_allocated) | {card}",
+        flush=True,
+    )
+    torch.cuda.empty_cache()
+    out["launches"] = launches
+    return out
+
+
 def main_cards(card: str) -> int:
     """--cards: phase 11's several-card part alone, then the result line."""
     n = torch.cuda.device_count()
@@ -2667,6 +2902,14 @@ def result_lines() -> int:
         "count": torch.cuda.device_count(),
     }}))
     return 0
+
+
+def phase(fn, *args):
+    """fn(*args), then a line with its seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"[phase] {fn.__name__} in {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
 
 
 def main() -> int:
@@ -2703,18 +2946,23 @@ def main() -> int:
             check(" 0 bytes spill stores" in f" {said}", f"{name} spills: {said}")
     if cards:
         return main_cards(card)
-    max_err, masked_err, nonfinite_err = phase_kernel(card)
-    k2_err, k2_masked_err = phase_kernel_int4(card)
-    ds, Q, ids_e, launches = phase_main(card)
-    k1 = phase_times(card, ds, Q)  # reads the int8 state
-    other_launches = phase_datasets(card, ds, Q)
-    k2_launches = phase_int4(card, ds, Q, ids_e)
-    k2 = phase_int4_times(card, ds, Q)
-    masked = phase_mutate(card, ds, Q)["masked_launches"]
-    host = phase_persist(card, ds, Q)
-    fe = phase_frontends(card, Q)
-    mesh = phase_mesh(card, Q)
-    traced = phase_utils(card, ds, Q, mesh.pop("dataset"), k1.pop("search_p50"))
+    max_err, masked_err, nonfinite_err = phase(phase_kernel, card)
+    k2_err, k2_masked_err = phase(phase_kernel_int4, card)
+    ds, Q, ids_e, launches = phase(phase_main, card)
+    k1 = phase(phase_times, card, ds, Q)  # reads the int8 state
+    other_launches = phase(phase_datasets, card, ds, Q)
+    k2_launches = phase(phase_int4, card, ds, Q, ids_e)
+    k2 = phase(phase_int4_times, card, ds, Q)
+    masked = phase(phase_mutate, card, ds, Q)["masked_launches"]
+    host = phase(phase_persist, card, ds, Q)
+    fe = phase(phase_frontends, card, Q)
+    mesh = phase(phase_mesh, card, Q)
+    traced = phase(phase_utils, card, ds, Q, mesh.pop("dataset"), k1.pop("search_p50"))
+    del ds
+    wide_k1 = phase(phase_wide, card)
+    k1["max_abs_err"] = max(k1["max_abs_err"], wide_k1.pop("max_abs_err"))
+    wide_launches = wide_k1.pop("launches")
+    k1.update(wide_k1)
     k2_main = k2[f"B={B_MAIN}"]
 
     def k1_entry(name: str, source: str, shape: str, n_launches: int, family) -> dict:
@@ -2741,7 +2989,7 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {
             **k1_entry("block_minima", mma_src, f"f32 B={B_MAIN}", launches,
-                       lambda k: not k.startswith(("L1", "L2 f16", "L2 bf16"))),
+                       lambda k: not k.startswith(("L1", "L2 f16", "L2 bf16")) and " d=" not in k),
             "masked_launches": masked["K1"],
             "streamed_launches": host["K1"],
             "sql_launches": fe["sql_launches"]["K1"]["launches"],
@@ -2752,7 +3000,9 @@ def main() -> int:
         },
         k1_entry("block_minima_16bit", mma_src, f"L2 f16 B={B_MAIN}",
                  other_launches["FLOAT16 L2"] + other_launches["FLOATB16 DOT"],
-                 lambda k: k.startswith(("L2 f16", "L2 bf16"))),
+                 lambda k: k.startswith(("L2 f16", "L2 bf16")) and " d=" not in k),
+        k1_entry("block_minima_wide", mma_src, f"f32 d={DIM_WIDE} B={B_MAIN}", wide_launches,
+                 lambda k: " d=" in k),
         k1_entry("block_minima_l1", "sqlite_vector_tpu_torch/csrc/block_minima.cu", f"L1 f32 B={B_MAIN}",
                  other_launches["FLOAT32 L1"], lambda k: k.startswith("L1")),
         {

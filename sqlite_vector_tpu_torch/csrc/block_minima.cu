@@ -1,9 +1,9 @@
 // K1: fused distance + per-128-row block minima, for NVIDIA Hopper (sm_90a):
 // the CUDA-core body. The dot-family metrics over float32, float16 and
 // bfloat16 rows and u8/i8 codes run on tensor cores in
-// csrc/block_minima_mma.cu; this body serves L1 for every dtype, and the
-// dot family at d past the tensor-core body's bounds
-// (ops/block_scan.py:k1_body routes).
+// csrc/block_minima_mma.cu; this body serves L1 for every dtype, the dot
+// family over codes past the tensor-core body's int32 bounds, and any scan
+// forced onto it (ops/block_scan.py:k1_body routes, _launch_k1 forces).
 //
 // Replaces the TPU kernel in sqlite_vector_tpu/ops/pallas_scan.py, all three
 // of its schedules: _pallas_block_minima (_make_kernel), the manual-DMA

@@ -40,7 +40,11 @@
 // What bounds it on an H100 (1M x 384): f32 is bandwidth-bound at B=1 (1.54 GB)
 // and bound by tensor-core issue at B=64 (3 x 49 GFLOP of TF32); 16-bit rows
 // (768 MB) and 8-bit codes (384 MB) are bandwidth-bound at every batch up to
-// 64. The design:
+// 64. At 1M x 4,096 f32 the same holds: B=1 reads 16.4 GB at 82% of the
+// card's rate; at B=64 each SM partition pays ~10 cycles per extra TF32
+// mma.sync as the query tile grows (tools/probe_k1_tiles.py), so the
+// streamed body runs 3 x 537 GFLOP at ~126 TFLOP/s, and a deeper ring did
+// not move it. The design:
 //   - persistent blocks of 8 warps walk 256-row tiles (two 128-row groups);
 //     each warp owns 32 rows (two m16 tiles) against every query of its tile;
 //   - the block's query tile (up to 64 queries, zero-padded to a multiple of
@@ -48,16 +52,32 @@
 //     the matrix is read in one pass for B <= 64; larger batches take
 //     several query tiles, whose blocks are adjacent in launch order and
 //     walk the same row tiles at once (the base's re-reads are L2 hits);
+//   - rows too wide for that (not even 8 padded query rows fit the shared
+//     budget of ops/block_scan.py: f32 past d = 3,424, 16-bit past 6,848,
+//     codes past 13,696) take the streamed instances (kStream): each ring
+//     stage holds the tile's 128-byte column chunk of the queries beside the
+//     rows' (re-read from L2 once a row tile: QT / 256 of the rows' bytes),
+//     so shared memory no longer grows with d (3 x (256 + QT) x 144 bytes);
+//     the query norms are summed from the staged chunks during the block's
+//     first row tile. A wide row needs the per-chunk sums below at every
+//     width, so every streamed float tile keeps them, up to 64 queries: the
+//     64 running totals then take a register each beside the 64
+//     accumulators (f32: 255 registers, no spill, on an H100), and one pass
+//     over the matrix for B <= 64 beat two or four (f32, 1M x 4,096, B=64:
+//     13.8 ms at 64 queries, 17.4 at 32, 25.0 at 16;
+//     tools/probe_k1_tiles.py);
 //   - base tiles of 256 rows x 128 bytes stream through a 3-stage ring of
 //     cp.async copies (16-byte when the row pitch and pointer allow, 4-byte
 //     or plain byte loads otherwise, zero-filled past d and N), so the loads
 //     of the next chunk or row tile overlap the MMAs of the current one;
 //   - shared rows are padded to 144 bytes: fragment loads, 16-byte row reads
 //     and cp.async stores are conflict-free;
-//   - float tiles of 8 and 16 queries (16-bit ones also of 32) add each
-//     128-byte chunk's products, and its norms, to running totals with one
-//     rounded add (the tensor cores' truncating accumulation over all of a
-//     wide row drifts past the tolerance);
+//   - float tiles of 8 and 16 queries (16-bit ones also of 32) and every
+//     streamed float tile add each 128-byte chunk's products, and its
+//     norms, to running totals with one rounded add (the tensor cores'
+//     truncating accumulation over all of a wide row drifts past the
+//     tolerance); a minimum is then summed in the same order whatever the
+//     tile, so such tiles give equal minima bit for bit;
 //   - row norms come from the staged tile (one lane a row), the group
 //     minimum from warp shuffles and shared memory;
 //   - the row tile's epilogue runs while no MMA does (every warp reaches it
@@ -220,6 +240,76 @@ __device__ __forceinline__ uint32_t sq4(uint32_t w) {
 
 // ---- the kernel ------------------------------------------------------------
 
+// The sum of squares of one staged 128-byte chunk of a row, continued from
+// `part`: an fmaf chain in column order over the values widened to f32 for
+// float rows (zeros past d leave it as it is), the exact sum for codes.
+template <typename T>
+__device__ __forceinline__ Acc<T> chunk_sq(const unsigned char* row, Acc<T> part) {
+  const float4* rp = reinterpret_cast<const float4*>(row);
+#pragma unroll
+  for (int v = 0; v < kChunk / 16; ++v) {
+    const float4 x = rp[v];
+    if constexpr (kIsF32<T>) {
+      part = fmaf(x.x, x.x, part);
+      part = fmaf(x.y, x.y, part);
+      part = fmaf(x.z, x.z, part);
+      part = fmaf(x.w, x.w, part);
+    } else if constexpr (kIsFloat<T>) {
+      const uint32_t w[4] = {__float_as_uint(x.x), __float_as_uint(x.y), __float_as_uint(x.z),
+                             __float_as_uint(x.w)};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 f = widen2<T>(w[i]);
+        part = fmaf(f.x, f.x, part);
+        part = fmaf(f.y, f.y, part);
+      }
+    } else {
+      part += sq4<T>(__float_as_uint(x.x)) + sq4<T>(__float_as_uint(x.y)) +
+              sq4<T>(__float_as_uint(x.z)) + sq4<T>(__float_as_uint(x.w));
+    }
+  }
+  return part;
+}
+
+// kStream: stage the 128-byte column chunk `ch` of query rows [q0, q0 + QT)
+// (rows >= B and bytes past the row zero) at dst, kPitch bytes a row, as
+// stage_chunk stages the rows' (vec: load_width of the queries).
+template <int QT>
+__device__ __forceinline__ void stage_queries(unsigned char* dst, const unsigned char* q, int q0,
+                                              int B, int row_bytes, int ch, int vec, int tid) {
+  const int c0 = ch * kChunk;
+  if (vec == 16 || vec == 4) {
+    const int per_row = kChunk / vec;
+    for (int p = tid; p < QT * per_row; p += kThreads) {
+      const int r = p / per_row;
+      const int c = c0 + (p % per_row) * vec;
+      const bool in = q0 + r < B && c < row_bytes;
+      const unsigned char* src = in ? q + static_cast<long long>(q0 + r) * row_bytes + c : q;
+      const uint32_t to = smem_addr(dst + r * kPitch + (c - c0));
+      if (vec == 16) {
+        cp_async16(to, src, in ? 16 : 0);
+      } else {
+        cp_async4(to, src, in ? 4 : 0);
+      }
+    }
+  } else {
+    for (int p = tid; p < QT * (kChunk / 4); p += kThreads) {
+      const int r = p / (kChunk / 4);
+      const int c = c0 + (p % (kChunk / 4)) * 4;
+      uint32_t w = 0;
+      if (q0 + r < B) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (c + e < row_bytes) {
+            w |= static_cast<uint32_t>(q[static_cast<long long>(q0 + r) * row_bytes + c + e]) << (8 * e);
+          }
+        }
+      }
+      *reinterpret_cast<uint32_t*>(dst + r * kPitch + (c - c0)) = w;
+    }
+  }
+}
+
 // An ordered float minimum on shared memory (v is never NaN).
 __device__ __forceinline__ void smem_fmin(float* p, float v) {
   int* ip = reinterpret_cast<int*>(p);
@@ -370,12 +460,14 @@ __device__ __noinline__ void nonfinite_pass(const T* queries, const T* base,
 }
 
 // T: float, __half, __nv_bfloat16, uint8_t or int8_t. NT: 8-query column
-// tiles per block (QT = 8 NT).
-template <typename T, int NT>
+// tiles per block (QT = 8 NT). kStream: the query tile is staged chunk by
+// chunk beside the rows in each ring stage (qvec: load_width of the
+// queries) instead of resident in shared memory.
+template <typename T, int NT, bool kStream>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 mma_minima_kernel(const T* __restrict__ queries, const T* __restrict__ base,
                   const uint8_t* __restrict__ mask, float* __restrict__ out, int B, int N, int d,
-                  int valid, int metric, int nqt, int vec) {
+                  int valid, int metric, int nqt, int vec, int qvec) {
   constexpr int QT = 8 * NT;
   using A = Acc<T>;
   // The tensor cores accumulate f32 with truncation, so the error of a dot
@@ -384,22 +476,27 @@ mma_minima_kernel(const T* __restrict__ queries, const T* __restrict__ base,
   // tiles of 8 and 16 queries (every d past 26 chunks of 128 bytes takes
   // one: 832 f32 or 1,664 16-bit columns), and 16-bit tiles of 32, therefore
   // start each chunk's MMAs from zero and add them to a running total in
-  // one rounded add; f32 tiles of 32 and 64 queries hold at most 26 chunks
-  // and have no registers to spare, 16-bit tiles of 64 at most 13. Such
+  // one rounded add; resident f32 tiles of 32 and 64 queries hold at most
+  // 26 chunks, 16-bit tiles of 64 at most 13, and skip it. Such
   // tiles sum the row and query norms chunk by chunk the same way (an fmaf
   // chain in column order over each chunk, one rounded add a chunk): one
   // chain over all of a wide row sits ~sqrt(d) roundings off the dot, so a
   // self-match's L2 missed the snap and its COSINE read ~1e-5 (d = 6,848,
   // bfloat16, on an H100).
-  constexpr bool kPromote = kIsFloat<T> && (NT <= 2 || (!kIsF32<T> && NT <= 4));
+  // A streamed tile serves rows of any width, so every streamed float tile
+  // keeps the sums.
+  constexpr bool kPromote = kIsFloat<T> && (kStream || NT <= 2 || (!kIsF32<T> && NT <= 4));
+  // a ring stage: the rows' chunk, then (kStream) the queries'
+  constexpr int kSB = kStream ? (kTileRows + QT) * kPitch : kStageBytes;
   extern __shared__ __align__(16) unsigned char smem[];
 
   const int row_bytes = d * static_cast<int>(sizeof(T));
   const int nchunks = (row_bytes + kChunk - 1) / kChunk;
-  const int qpitch = nchunks * kChunk + 16;  // bytes
+  // the query rows' pitch, bytes: the resident tile's rows, or a stage's
+  const int qpitch = kStream ? kPitch : nchunks * kChunk + 16;
   unsigned char* ring = smem;
-  unsigned char* qs = ring + kStages * kStageBytes;
-  A* qnorm = reinterpret_cast<A*>(qs + QT * qpitch);
+  unsigned char* qs = ring + kStages * kSB;  // the resident tile (not kStream)
+  A* qnorm = reinterpret_cast<A*>(qs + (kStream ? 0 : QT * qpitch));
   float* wmin = reinterpret_cast<float*>(qnorm + QT);  // [kWarps][QT]
   A* rowsq = reinterpret_cast<A*>(wmin + kWarps * QT);  // [kTileRows] row norms
 
@@ -416,7 +513,7 @@ mma_minima_kernel(const T* __restrict__ queries, const T* __restrict__ base,
   const int ntiles = (N + kTileRows - 1) / kTileRows;
 
   // the query tile, once: zero past d and past B
-  for (int i = tid; i < QT * nchunks * kChunk / static_cast<int>(sizeof(T)); i += kThreads) {
+  for (int i = tid; !kStream && i < QT * nchunks * kChunk / static_cast<int>(sizeof(T)); i += kThreads) {
     const int per_row = nchunks * kChunk / static_cast<int>(sizeof(T));
     const int j = i / per_row;
     const int c = i % per_row;
@@ -425,7 +522,7 @@ mma_minima_kernel(const T* __restrict__ queries, const T* __restrict__ base,
     reinterpret_cast<T*>(qs + j * qpitch)[c] = v;
   }
   __syncthreads();
-  if (tid < QT) {
+  if (!kStream && tid < QT) {
     A s = A(0);
     if constexpr (kIsFloat<T>) {
       // in column order, chunk by chunk as the rows' norms (kPromote)
@@ -442,16 +539,22 @@ mma_minima_kernel(const T* __restrict__ queries, const T* __restrict__ base,
     }
     qnorm[tid] = s;
   }
-  // (qnorm is read after the ring loop's first __syncthreads)
+  // (qnorm is read after the ring loop's first __syncthreads; kStream: summed
+  // in the first row tile's steps, read after the barrier before its
+  // epilogue)
 
   const int my_tiles = slot < ntiles ? (ntiles - slot + nslots - 1) / nslots : 0;
   const int steps = my_tiles * nchunks;
   const unsigned char* bbytes = reinterpret_cast<const unsigned char*>(base);
   auto issue = [&](int s) {
     const int tile = slot + (s / nchunks) * nslots;
-    stage_chunk<kTileRows, kThreads>(ring + (s % kStages) * kStageBytes, bbytes,
-                                     static_cast<long long>(tile) * kTileRows, N, row_bytes,
-                                     s % nchunks, kChunk, kPitch, vec, tid);
+    unsigned char* stage = ring + (s % kStages) * kSB;
+    stage_chunk<kTileRows, kThreads>(stage, bbytes, static_cast<long long>(tile) * kTileRows, N,
+                                     row_bytes, s % nchunks, kChunk, kPitch, vec, tid);
+    if constexpr (kStream) {
+      stage_queries<QT>(stage + kTileRows * kPitch, reinterpret_cast<const unsigned char*>(queries),
+                        q0, B, row_bytes, s % nchunks, qvec, tid);
+    }
   };
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
@@ -483,41 +586,29 @@ mma_minima_kernel(const T* __restrict__ queries, const T* __restrict__ base,
           }
     }
     if (ch == 0) bsq = A(0);
-    const unsigned char* stage = ring + (s % kStages) * kStageBytes;
+    const unsigned char* stage = ring + (s % kStages) * kSB;
     const unsigned char* wrows = stage + warp * 32 * kPitch;
-    const unsigned char* qchunk = qs + ch * kChunk;
+    const unsigned char* qchunk = kStream ? stage + kTileRows * kPitch : qs + ch * kChunk;
 
     // the lane's row norm, in column order (kPromote: this chunk's sum,
     // then one rounded add)
     {
-      A part = kPromote ? A(0) : bsq;
-      const float4* rp = reinterpret_cast<const float4*>(wrows + lane * kPitch);
-#pragma unroll
-      for (int v = 0; v < kChunk / 16; ++v) {
-        const float4 x = rp[v];
-        if constexpr (kIsF32<T>) {
-          part = fmaf(x.x, x.x, part);
-          part = fmaf(x.y, x.y, part);
-          part = fmaf(x.z, x.z, part);
-          part = fmaf(x.w, x.w, part);
-        } else if constexpr (kIsFloat<T>) {
-          const uint32_t w[4] = {__float_as_uint(x.x), __float_as_uint(x.y), __float_as_uint(x.z),
-                                 __float_as_uint(x.w)};
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float2 f = widen2<T>(w[i]);
-            part = fmaf(f.x, f.x, part);
-            part = fmaf(f.y, f.y, part);
-          }
-        } else {
-          part += sq4<T>(__float_as_uint(x.x)) + sq4<T>(__float_as_uint(x.y)) +
-                 sq4<T>(__float_as_uint(x.z)) + sq4<T>(__float_as_uint(x.w));
-        }
-      }
+      const A part = chunk_sq<T>(wrows + lane * kPitch, kPromote ? A(0) : bsq);
       if constexpr (kPromote) {
         bsq = __fadd_rn(bsq, part);
       } else {
         bsq = part;
+      }
+    }
+    if constexpr (kStream) {
+      // the query norms, summed as the rows' during the block's first tile
+      if (s < nchunks && tid < QT) {
+        const A part = chunk_sq<T>(qchunk + tid * kPitch, kPromote || ch == 0 ? A(0) : qnorm[tid]);
+        if constexpr (kPromote) {
+          qnorm[tid] = ch == 0 ? part : __fadd_rn(qnorm[tid], part);
+        } else {
+          qnorm[tid] = part;
+        }
       }
     }
 
@@ -590,6 +681,9 @@ mma_minima_kernel(const T* __restrict__ queries, const T* __restrict__ base,
           }
     }
     if (ch != nchunks - 1) continue;
+    if constexpr (kStream) {
+      if (s == nchunks - 1) __syncthreads();  // the query norms are complete
+    }
 
     // ---- epilogue of the row tile: distances, group minima ----------------
     // one specialised copy of the unrolled epilogue per composition, so the
@@ -630,20 +724,23 @@ mma_minima_kernel(const T* __restrict__ queries, const T* __restrict__ base,
   }
 }
 
-long long shared_bytes(int qt, long long qpitch) {
-  return kStages * kStageBytes + qt * qpitch + qt * 4 + kWarps * qt * 4 + kTileRows * 4;
+// the ring (kStream: with the queries' chunks), the resident query tile
+// (not kStream), the query norms, the warp minima and the row norms
+long long shared_bytes(int qt, long long qpitch, bool streamed) {
+  const long long ring = kStages * (streamed ? static_cast<long long>(kTileRows + qt) * kPitch : kStageBytes);
+  return ring + (streamed ? 0 : qt * qpitch) + qt * 4 + kWarps * qt * 4 + kTileRows * 4;
 }
 
-template <typename T, int NT>
+template <typename T, int NT, bool kStream>
 int launch_tile(const void* q, const void* base, const uint8_t* mask, float* out, int B, int N,
                 int d, int valid, int metric, cudaStream_t stream) {
   constexpr int QT = 8 * NT;
   const long long row_bytes = static_cast<long long>(d) * sizeof(T);
   const long long qpitch = (row_bytes + kChunk - 1) / kChunk * kChunk + 16;
   const int nqt = (B + QT - 1) / QT;
-  auto kernel = mma_minima_kernel<T, NT>;
+  auto kernel = mma_minima_kernel<T, NT, kStream>;
   static std::atomic<long long> fit[kMaxDevices];
-  const long long smem = shared_bytes(QT, qpitch);
+  const long long smem = shared_bytes(QT, qpitch, kStream);
   int dev = 0, sms = 0, smem_limit = 0, per_sm = 0;
   cudaError_t err = current_device(dev, sms, smem_limit);
   if (err == cudaSuccess) {
@@ -658,55 +755,68 @@ int launch_tile(const void* q, const void* base, const uint8_t* mask, float* out
   if (nslots < 1) nslots = 1;
   if (nslots * nqt > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
   const int vec = load_width(base, row_bytes);
+  const int qvec = load_width(q, row_bytes);
   kernel<<<static_cast<unsigned>(nslots * nqt), kThreads, static_cast<int>(smem), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(base), mask, out, B, N, d, valid, metric,
-      nqt, vec);
+      nqt, vec, qvec);
   return static_cast<int>(cudaGetLastError());
 }
 
 // query_tile queries per block (8, 16, 32 or 64; ops/block_scan.py:
-// mma_query_tile picks it); B past one tile takes several tiles
+// mma_query_tile picks it, and mma_streams_queries whether the tile is
+// streamed); B past one tile takes several tiles
 template <typename T>
 int launch(const void* q, const void* base, const uint8_t* mask, float* out, int B, int N, int d,
-           int valid, int metric, int query_tile, cudaStream_t stream) {
+           int valid, int metric, int query_tile, int stream_queries, cudaStream_t stream) {
+  if (stream_queries) {
+    switch (query_tile) {
+      case 8: return launch_tile<T, 1, true>(q, base, mask, out, B, N, d, valid, metric, stream);
+      case 16: return launch_tile<T, 2, true>(q, base, mask, out, B, N, d, valid, metric, stream);
+      case 32: return launch_tile<T, 4, true>(q, base, mask, out, B, N, d, valid, metric, stream);
+      case 64: return launch_tile<T, 8, true>(q, base, mask, out, B, N, d, valid, metric, stream);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   switch (query_tile) {
-    case 8: return launch_tile<T, 1>(q, base, mask, out, B, N, d, valid, metric, stream);
-    case 16: return launch_tile<T, 2>(q, base, mask, out, B, N, d, valid, metric, stream);
-    case 32: return launch_tile<T, 4>(q, base, mask, out, B, N, d, valid, metric, stream);
-    case 64: return launch_tile<T, 8>(q, base, mask, out, B, N, d, valid, metric, stream);
+    case 8: return launch_tile<T, 1, false>(q, base, mask, out, B, N, d, valid, metric, stream);
+    case 16: return launch_tile<T, 2, false>(q, base, mask, out, B, N, d, valid, metric, stream);
+    case 32: return launch_tile<T, 4, false>(q, base, mask, out, B, N, d, valid, metric, stream);
+    case 64: return launch_tile<T, 8, false>(q, base, mask, out, B, N, d, valid, metric, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-// The arguments of svt_block_minima (csrc/block_minima.cu), and query_tile.
-// Takes the dot-family metrics over float32, float16, bfloat16, uint8 and
-// int8 only, u8/i8 only
-// while no int32 partial sum can reach 2^31, and a query tile whose shared
-// bytes fit the device; anything else returns cudaErrorInvalidValue without
-// launching (ops/block_scan.py:k1_body routes such scans to
-// svt_block_minima). Launches on `stream` and does not synchronise.
+// The arguments of svt_block_minima (csrc/block_minima.cu), query_tile and
+// stream_queries (0: the query tile resident in shared memory; 1: streamed
+// beside the rows, for rows of any width). Takes the dot-family metrics
+// over float32, float16, bfloat16, uint8 and int8 only, u8/i8 only while no
+// int32 partial sum can reach 2^31, and a query tile whose shared bytes fit
+// the device; anything else returns cudaErrorInvalidValue without launching
+// (ops/block_scan.py:k1_body routes L1 and such codes to svt_block_minima).
+// Launches on `stream` and does not synchronise.
 extern "C" int svt_block_minima_mma(const void* queries, const void* base, const void* mask,
                                     void* out, int B, int N, int d, int valid, int dtype,
-                                    int metric, int query_tile, void* stream) {
+                                    int metric, int query_tile, int stream_queries, void* stream) {
   if (B <= 0 || N <= 0 || d <= 0 || valid < 0 || valid > N || metric < kL2 || metric > kDot) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int qt = query_tile;
+  const int sq = stream_queries;
   switch (dtype) {
-    case kF32: return launch<float>(queries, base, m, o, B, N, d, valid, metric, query_tile, s);
-    case kF16: return launch<__half>(queries, base, m, o, B, N, d, valid, metric, query_tile, s);
-    case kBF16:
-      return launch<__nv_bfloat16>(queries, base, m, o, B, N, d, valid, metric, query_tile, s);
+    case kF32: return launch<float>(queries, base, m, o, B, N, d, valid, metric, qt, sq, s);
+    case kF16: return launch<__half>(queries, base, m, o, B, N, d, valid, metric, qt, sq, s);
+    case kBF16: return launch<__nv_bfloat16>(queries, base, m, o, B, N, d, valid, metric, qt, sq, s);
     case kU8:
       if (d > 33025) return static_cast<int>(cudaErrorInvalidValue);
-      return launch<uint8_t>(queries, base, m, o, B, N, d, valid, metric, query_tile, s);
+      return launch<uint8_t>(queries, base, m, o, B, N, d, valid, metric, qt, sq, s);
     case kI8:
       if (d > 131071) return static_cast<int>(cudaErrorInvalidValue);
-      return launch<int8_t>(queries, base, m, o, B, N, d, valid, metric, query_tile, s);
+      return launch<int8_t>(queries, base, m, o, B, N, d, valid, metric, qt, sq, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -44,8 +44,9 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # queries, base, mask (or None), out, B, N, d, valid, dtype, metric, stream
     "svt_block_minima": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # the same arguments and the query tile (K1's tensor-core body)
-    "svt_block_minima_mma": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # the same arguments, the query tile and whether it is streamed (K1's
+    # tensor-core body)
+    "svt_block_minima_mma": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # qc, qscale, packed, alpha, csq, mask (or None), out, B, N, d, valid,
     # metric, stream
     "svt_int4_block_minima": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),

@@ -10,10 +10,10 @@ them exactly and takes the final top-k, ties going to the earliest row.
 Stage 1 has two implementations of one contract:
   - block_minima_reference: plain PyTorch, the definition of the output;
   - the CUDA kernel K1, hand-written for Hopper, in two bodies:
-    csrc/block_minima_mma.cu (tensor cores, the dot-family metrics: integer
-    MMA for u8/i8 codes, 3xTF32 for float32, f16/bf16 MMA with f32 sums for
-    float16 and bfloat16) and csrc/block_minima.cu (CUDA cores: L1 for
-    every dtype, and the dot family at d past the MMA body's bounds).
+    csrc/block_minima_mma.cu (tensor cores, the dot-family metrics at every
+    d: integer MMA for u8/i8 codes, 3xTF32 for float32, f16/bf16 MMA with
+    f32 sums for float16 and bfloat16) and csrc/block_minima.cu (CUDA
+    cores: L1 for every dtype, and codes past the int32 bound).
     k1_body says which body a call takes.
 `block_minima` picks by where the tensors live: the twin for CPU tensors,
 the kernel for CUDA tensors (it raises rather than fall back).
@@ -65,6 +65,9 @@ _DTYPE_CODE = {
 # many bytes (the kernel takes the tile width from mma_query_tile).
 _MMA_QUERY_BYTES = 110592
 _MMA_QUERY_TILES = (8, 16, 32, 64)
+# Past that budget the body streams the query tile instead: each 128-byte
+# column chunk of the queries rides beside the rows' in the ring, so every
+# tile fits at any d.
 # Integer codes take the MMA body only while no int32 partial sum can reach
 # 2^31 (d * 255^2 and d * 128^2 < 2^31): there its exact int32 sums equal the
 # CUDA-core body's uint32-wrap sums. Float rows have no such bound.
@@ -132,31 +135,39 @@ def block_minima_reference(
     return dist.view(b, groups, BLOCK).amin(-1)
 
 
+def _resident_tiles(dtype: torch.dtype, d: int) -> list[int]:
+    pitch = -(-d * dtype.itemsize // 128) * 128 + 16
+    return [t for t in _MMA_QUERY_TILES if t * pitch <= _MMA_QUERY_BYTES]
+
+
+def mma_streams_queries(dtype: torch.dtype, d: int) -> bool:
+    """Whether K1's MMA body streams its query tile beside the rows: when
+    not even 8 padded query rows fit the shared budget (d past 3,424 for
+    float32, 6,848 for 16-bit floats, 13,696 for codes)."""
+    return not _resident_tiles(dtype, d)
+
+
 def mma_query_tile(dtype: torch.dtype, d: int, b: int) -> int:
     """Queries per block of K1's MMA body: the narrowest of 8, 16, 32 and 64
-    that covers b among the tiles whose padded query rows fit the shared
-    budget, else the widest that fits (a larger batch takes several tiles);
-    0 when not even 8 rows fit."""
-    row_bytes = d * dtype.itemsize
-    pitch = -(-row_bytes // 128) * 128 + 16
-    fitting = [t for t in _MMA_QUERY_TILES if t * pitch <= _MMA_QUERY_BYTES]
-    return next((t for t in fitting if t >= b), fitting[-1] if fitting else 0)
+    that covers b, else the widest (a larger batch takes several tiles),
+    among the tiles whose padded query rows fit the shared budget or, where
+    not even 8 do, among all four, streamed (mma_streams_queries)."""
+    tiles = _resident_tiles(dtype, d) or _MMA_QUERY_TILES
+    return next((t for t in tiles if t >= b), tiles[-1])
 
 
 def k1_body(dtype: torch.dtype, metric: DistanceMetric, d: int) -> str:
     """Which body of K1 serves a scan: "mma" (tensor cores) for the
-    dot-family metrics over float32, float16 and bfloat16 rows and u8/i8
-    codes while a tile of 8 padded query rows fits the shared budget
-    (d <= 3,424 for float32, 6,848 for 16-bit floats, 13,696 for codes)
-    and, for codes, no int32 partial sum can overflow; "simt" (CUDA cores)
-    otherwise, L1 always. The batch does not route: both bodies serve
-    every B."""
+    dot-family metrics over float32, float16 and bfloat16 rows at every d
+    (the query tile resident in shared memory, or streamed beside the rows
+    where it does not fit: mma_streams_queries) and over u8/i8 codes while
+    no int32 partial sum can overflow (_MMA_MAX_DIM: d <= 33,025 for u8,
+    131,071 for i8); "simt" (CUDA cores) otherwise, L1 always. The batch
+    does not route: both bodies serve every B."""
     if metric not in _MMA_METRICS or dtype not in _MMA_MAX_DIM:
         return "simt"
     bound = _MMA_MAX_DIM[dtype]
-    if bound is not None and d > bound:
-        return "simt"
-    return "mma" if mma_query_tile(dtype, d, 1) else "simt"
+    return "simt" if bound is not None and d > bound else "mma"
 
 
 def check_row_mask(row_mask: torch.Tensor | None, n: int, device: torch.device, who: str) -> None:
@@ -201,7 +212,9 @@ def block_minima(
 
     CPU tensors run block_minima_reference; CUDA tensors launch the K1
     kernel in the body k1_body picks and count the launch in
-    `block_minima.launches` and by body in `block_minima.body_launches`.
+    `block_minima.launches`, by body in `block_minima.body_launches` and,
+    where the MMA body streams its query tile, in
+    `block_minima.streamed_launches`.
     """
     _check(queries, base, valid)
     dev = base.device
@@ -254,9 +267,10 @@ def _launch_k1(
         _DTYPE_CODE[base.dtype],
         _METRIC_CODE[metric],
     ]
+    streamed = body == "mma" and mma_streams_queries(base.dtype, d)
     if body == "mma":
         launch = lib.svt_block_minima_mma
-        args.append(mma_query_tile(base.dtype, d, b))
+        args += [mma_query_tile(base.dtype, d, b), int(streamed)]
     else:
         launch = lib.svt_block_minima
     with torch.cuda.device(dev):
@@ -265,11 +279,13 @@ def _launch_k1(
         raise RuntimeError(f"block_minima kernel launch failed: cudaError {rc}")
     block_minima.launches += 1
     block_minima.body_launches[body] += 1
+    block_minima.streamed_launches += streamed
     return out
 
 
 block_minima.launches = 0
 block_minima.body_launches = {"mma": 0, "simt": 0}
+block_minima.streamed_launches = 0
 
 
 def finish_groups(

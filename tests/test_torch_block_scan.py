@@ -370,17 +370,21 @@ def test_row_mask_rejects_wrong_shape_and_dtype():
         (torch.float32, 833, {64: 16}),
         # 1,024 f32 columns: 4,240-byte rows, 16 fit (67,840 bytes), 32 do not
         (torch.float32, 1024, {1: 8, 9: 16, 16: 16, 17: 16, 64: 16, 200: 16}),
-        # the widest f32 row of the MMA body: 13,840 bytes, only 8 fit
+        # the widest f32 row of the resident tile: 13,840 bytes, only 8 fit;
+        # past it the tile is streamed, and every tile fits again
         (torch.float32, 3424, {1: 8, 9: 8, 64: 8}),
-        (torch.float32, 3425, {1: 0, 64: 0}),
+        (torch.float32, 3425, {1: 8, 64: 64}),
+        (torch.float32, 4096, {1: 8, 8: 8, 9: 16, 16: 16, 17: 32, 33: 64, 64: 64, 200: 64}),
         # 384 codes: 400-byte rows, every tile fits
         (torch.int8, 384, {1: 8, 8: 8, 9: 16, 32: 32, 33: 64, 65: 64}),
         (torch.uint8, 13696, {1: 8, 64: 8}),
-        (torch.uint8, 13697, {1: 0}),
+        # streamed codes, up to the int32 bound
+        (torch.uint8, 13697, {1: 8, 9: 16, 64: 64}),
+        (torch.int8, 131071, {17: 32, 65: 64}),
         # 384 16-bit columns: 784-byte rows, every tile fits
         (torch.float16, 384, {1: 8, 9: 16, 17: 32, 33: 64, 200: 64}),
         # the 16-bit tile edges: 64 queries to d = 832, 32 to 1,664, 16 to
-        # 3,392, 8 to 6,848 (13,696 bytes a row), none past
+        # 3,392, 8 to 6,848 (13,696 bytes a row); streamed past
         (torch.bfloat16, 832, {64: 64}),
         (torch.bfloat16, 833, {64: 32}),
         (torch.float16, 1664, {64: 32}),
@@ -389,34 +393,47 @@ def test_row_mask_rejects_wrong_shape_and_dtype():
         (torch.bfloat16, 3393, {64: 8}),
         (torch.float16, 6848, {1: 8, 64: 8}),
         (torch.bfloat16, 6848, {1: 8, 64: 8}),
-        (torch.float16, 6849, {1: 0, 64: 0}),
-        (torch.bfloat16, 6849, {1: 0}),
+        (torch.float16, 6849, {1: 8, 9: 16, 33: 64}),
+        (torch.bfloat16, 6849, {1: 8}),
+        (torch.float16, 8192, {1: 8, 16: 16, 17: 32, 200: 64}),
     ],
     ids=str,
 )
 def test_mma_query_tile_is_the_narrowest_that_covers_b_and_fits(dtype, d, tiles):
+    """A resident tile fits the shared budget; where not even 8 padded
+    query rows do, the tile is streamed."""
+    pitch = -(-d * dtype.itemsize // 128) * 128 + 16
+    streamed = block_scan.mma_streams_queries(dtype, d)
+    assert streamed == (8 * pitch > block_scan._MMA_QUERY_BYTES)
     for b, want in tiles.items():
         assert block_scan.mma_query_tile(dtype, d, b) == want, b
-        if want:
-            pitch = -(-d * dtype.itemsize // 128) * 128 + 16
+        if not streamed:
             assert want * pitch <= block_scan._MMA_QUERY_BYTES
 
 
 @pytest.mark.parametrize(
     "dtype,last_mma_d",
     # the widest d whose 8 padded query rows (row bytes rounded up to 128,
-    # plus 16) fit the 110,592-byte budget: 13,696 bytes a row
+    # plus 16) fit the 110,592-byte budget (13,696 bytes a row): the last
+    # resident tile, past which the tile is streamed and the route stays
     [(torch.float32, 3424), (torch.float16, 6848), (torch.bfloat16, 6848), (torch.uint8, 13696),
      (torch.int8, 13696)],
     ids=str,
 )
 @pytest.mark.parametrize("metric", METRICS)
 def test_k1_body_routes_by_metric_dtype_and_d(dtype, last_mma_d, metric):
+    """The dot family takes the tensor-core body at every width the int32
+    bound allows (floats have none), L1 the CUDA-core body at every d; the
+    query tile streams exactly past the resident edge."""
     m = DistanceMetric(metric)
     want = "simt" if m is DistanceMetric.L1 else "mma"
-    for d in (1, 95, 100, 384, 768, last_mma_d):
+    for d in (1, 95, 100, 384, 768, last_mma_d, last_mma_d + 1, 4096, 8192, 33025):
         assert block_scan.k1_body(dtype, m, d) == want, d
-    assert block_scan.k1_body(dtype, m, last_mma_d + 1) == "simt"
+    assert not block_scan.mma_streams_queries(dtype, last_mma_d)
+    assert block_scan.mma_streams_queries(dtype, last_mma_d + 1)
+    # floats have no bound; codes leave the tensor cores past the int32 one
+    past = 10**6 if dtype.is_floating_point else block_scan._MMA_MAX_DIM[dtype] + 1
+    assert block_scan.k1_body(dtype, m, past) == (want if dtype.is_floating_point else "simt")
 
 
 @pytest.mark.parametrize(

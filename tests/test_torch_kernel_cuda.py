@@ -389,19 +389,23 @@ def minima_tolerance(q, base, metric, valid, ref):
     the largest over its group's rows: sum |q_i b_i| for DOT, and with the
     norms, ||q||^2 + ||b||^2 + 2 sum |q_i b_i|, for L2; 1 for COSINE and
     |minimum| + 1 for L1. Rows with a non-finite value give no finite
-    distance and count 0; a non-finite magnitude leaves no room."""
+    distance and count 0; a non-finite magnitude leaves no room. Computed
+    over slices of 65,536 rows, so no float64 copy of a large matrix is
+    made."""
     if metric is DistanceMetric.COSINE:
         return torch.full_like(ref, 1e-5, dtype=torch.float64)
     if metric is DistanceMetric.L1:
         return 1e-5 * (ref.double().abs() + 1.0)
-    qf, bf = q.double(), base[:valid].double()
-    bf = torch.where(torch.isfinite(bf).all(-1, keepdim=True), bf, 0.0)
-    mag = qf.abs() @ bf.abs().T
-    if metric is not DistanceMetric.DOT:
-        mag = (qf * qf).sum(-1)[:, None] + (bf * bf).sum(-1)[None, :] + 2.0 * mag
+    qf = q.double()
     groups = ref.shape[1]
     full = torch.zeros((q.shape[0], groups * 128), dtype=torch.float64, device=q.device)
-    full[:, :valid] = mag
+    for s in range(0, valid, 1 << 16):
+        bf = base[s : min(valid, s + (1 << 16))].double()
+        bf = torch.where(torch.isfinite(bf).all(-1, keepdim=True), bf, 0.0)
+        mag = qf.abs() @ bf.abs().T
+        if metric is not DistanceMetric.DOT:
+            mag = (qf * qf).sum(-1)[:, None] + (bf * bf).sum(-1)[None, :] + 2.0 * mag
+        full[:, s : s + bf.shape[0]] = mag
     tol = 1e-5 * full.view(q.shape[0], groups, 128).amax(-1)
     return torch.where(torch.isfinite(tol), tol, 0.0)
 
@@ -505,19 +509,28 @@ def test_mma_body_rows_past_valid_and_masked_groups_read_inf(cuda, dtype, kind):
 
 @pytest.mark.cuda
 def test_mma_body_is_refused_where_it_does_not_apply(cuda):
+    """The wrapper refuses L1 and codes past the int32 bound in the MMA
+    body (the CUDA-core body takes them), and the kernel refuses a query
+    tile it has no instance for, resident or streamed: the launch returns
+    an error (the wrapper raises on it), nothing falls back."""
+    from sqlite_vector_tpu_torch.ops._build import load_library
     from sqlite_vector_tpu_torch.ops.block_scan import _launch_k1
 
-    q, base = case(torch.float16, 300, 6849, 2, cuda)  # 8 query rows pass the budget
+    q, base = case(torch.uint8, 300, 33026, 2, cuda)  # an int32 sum could overflow
     with pytest.raises(ValueError, match="body"):
         _launch_k1(q, base, DistanceMetric.L2, 300, None, "mma")
     assert_k1_matches_twin(q, base, DistanceMetric.L2, 300)  # the CUDA-core body takes it
     q, base = case(torch.bfloat16, 300, 16, 2, cuda)
     with pytest.raises(ValueError, match="body"):
         _launch_k1(q, base, DistanceMetric.L1, 300, None, "mma")
-    q, base = case(torch.float32, 300, 3425, 2, cuda)  # 8 query rows pass the budget
-    with pytest.raises(ValueError, match="body"):
-        _launch_k1(q, base, DistanceMetric.L2, 300, None, "mma")
-    assert_k1_matches_twin(q, base, DistanceMetric.L2, 300)  # the CUDA-core body takes it
+    q, base = case(torch.float32, 300, 3425, 2, cuda)
+    out = torch.empty((2, 3), device=cuda)
+    lib = load_library()
+    stream = torch.cuda.current_stream().cuda_stream
+    args = [q.data_ptr(), base.data_ptr(), None, out.data_ptr(), 2, 300, 3425, 300, 0, 0]
+    for tile in (0, 12, 128):  # no instance: 8, 16, 32 and 64 only
+        assert lib.svt_block_minima_mma(*args, tile, 1, stream) != 0
+        assert lib.svt_block_minima_mma(*args, tile, 0, stream) != 0
 
 
 @pytest.mark.cuda
@@ -525,12 +538,13 @@ def test_mma_body_is_refused_where_it_does_not_apply(cuda):
     "d,b,tile",
     # the widest f32 rows each query tile holds, and one column past them
     [(416, 64, 64), (417, 64, 32), (832, 32, 32), (833, 32, 16), (1024, 65, 16),
-     (1696, 16, 16), (1697, 16, 8), (3424, 1, 8), (3424, 65, 8)],
+     (1696, 16, 16), (1697, 16, 8), (3424, 1, 8), (3424, 65, 8), (3425, 1, 8), (3425, 65, 64)],
 )
 def test_mma_body_at_the_widest_rows_of_each_query_tile(cuda, d, b, tile):
-    """f32 rows up to d = 3,424 (several query tiles for B past the tile):
-    the minima, a self-match's included, stay within tolerance of the twin,
-    which needs the narrow tiles' per-chunk sums at large d."""
+    """f32 rows up to d = 3,424 on resident tiles and one column past on
+    streamed ones (several query tiles for B past the tile): the minima, a
+    self-match's included, stay within tolerance of the twin, which needs
+    the narrow tiles' per-chunk sums at large d."""
     from sqlite_vector_tpu_torch.ops.block_scan import mma_query_tile
 
     assert mma_query_tile(torch.float32, d, b) == tile
@@ -539,6 +553,52 @@ def test_mma_body_at_the_widest_rows_of_each_query_tile(cuda, d, b, tile):
     for metric in DOT_FAMILY:
         assert_k1_matches_twin(q, base, metric, 690)
     assert block_minima.body_launches["mma"] == before + len(DOT_FAMILY)
+
+
+# rows past the resident query tile's widths (f32 3,424, 16-bit 6,848,
+# codes 13,696): the streamed tiles
+STREAMED = [(torch.float32, 3425), (torch.float32, 4096), (torch.float32, 8192),
+            (torch.float16, 6849), (torch.bfloat16, 6849), (torch.float16, 8192),
+            (torch.bfloat16, 8192), (torch.uint8, 13697), (torch.int8, 13697)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", STREAMED, ids=str)
+@pytest.mark.parametrize("b", [1, 9, 64, 65])  # tiles of 8, 16 and 64, and two of 64
+def test_streamed_mma_body_matches_twin_and_cuda_core_body(cuda, dtype, d, b):
+    """The tensor-core body with its query tile streamed beside the rows:
+    every dot-family metric, unmasked and with each row mask, rows >= valid,
+    a NaN row and (floats) a row with +Inf (the non-finite recompute), a
+    self-match, over 34,003 rows (more row tiles than SMs: a block's later
+    tiles reuse the query norms summed in its first). Codes equal the twin
+    and the CUDA-core body bit for bit; floats within minima_tolerance of
+    the twin (1e-5 of the magnitude each minimum accumulates, as at the
+    resident widths: no band widens with d) and within twice it of the
+    CUDA-core body."""
+    from sqlite_vector_tpu_torch.ops.block_scan import _launch_k1, k1_body, mma_streams_queries
+
+    n, valid = 34_003, 34_003 - 300
+    q, base = case(dtype, n, d, b, cuda, seed=d + b)
+    if dtype.is_floating_point:
+        base[300, 7] = float("inf")
+    masks = [None] + [mask_case(kind, n, cuda, seed=d) for kind in MASK_KINDS]
+    for metric in DOT_FAMILY:
+        assert k1_body(dtype, metric, d) == "mma" and mma_streams_queries(dtype, d)
+        for mask in masks:
+            before = block_minima.body_launches["mma"]
+            got = assert_k1_matches_twin(q, base, metric, valid, mask)
+            assert block_minima.body_launches["mma"] == before + 1
+            assert bool(torch.isinf(got[:, valid // 128 + 1 :]).all())
+            simt = _launch_k1(q, base, metric, valid, mask, "simt")
+            torch.cuda.synchronize()
+            if not dtype.is_floating_point:
+                assert torch.equal(got, simt)
+                continue
+            want = block_minima_reference(q, base, metric, valid, mask)
+            tol = minima_tolerance(q, base, metric, valid, want)
+            fin = torch.isfinite(want)
+            assert torch.equal(torch.isinf(simt), torch.isinf(got))
+            assert bool(((got.double() - simt.double()).abs()[fin] <= 2 * tol[fin]).all())
 
 
 def assert_close_to_twin(got, want):
@@ -554,7 +614,7 @@ def assert_close_to_twin(got, want):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16], ids=str)
-@pytest.mark.parametrize("d", [100, 384, 3424, 6848])  # 6,848: the widest 16-bit row
+@pytest.mark.parametrize("d", [100, 384, 3424, 6848])  # 6,848: the widest resident 16-bit row
 @pytest.mark.parametrize("b", [1, 8, 9, 33, 64, 65, 200])  # the query tiles' edges
 def test_16bit_mma_body_matches_twin_and_cuda_core_body(cuda, dtype, d, b):
     """float16 and bfloat16 rows on the tensor-core body (f16/bf16 MMA, f32

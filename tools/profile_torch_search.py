@@ -15,7 +15,10 @@ per search (K1, the block-minima kernel, or K2, the packed-int4 kernel),
 and the three next largest device operations.
 The profiler inflates wall times; chip_smoke.py reports unprofiled ones.
 
-    python3 tools/profile_torch_search.py [--n 1000000] [--reps 10]
+    python3 tools/profile_torch_search.py [--n 1000000] [--reps 10] [--dim 384] [--exact-only]
+
+--dim sets the row width (384 by default); --exact-only profiles the
+exact searches alone (no quantize, tombstones or filter).
 
 Run from the repository root, on a machine with a CUDA device.
 """
@@ -34,7 +37,6 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-DIM = 384
 K = 20
 B_MAX = 64
 
@@ -108,7 +110,10 @@ def main() -> int:
     ap.add_argument("--n", type=int, default=1_000_000, help="rows in the dataset")
     ap.add_argument("--reps", type=int, default=10, help="profiled searches per line")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dim", type=int, default=384, help="row width")
+    ap.add_argument("--exact-only", action="store_true", help="profile exact search alone")
     args = ap.parse_args()
+    dim = args.dim
     if not torch.cuda.is_available():
         print("profile_torch_search: no CUDA device", file=sys.stderr)
         return 1
@@ -121,20 +126,23 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     rng = np.random.default_rng(args.seed)
-    ds = svt.VectorStore(device="cuda").create("profile", f"dimension={DIM},type=FLOAT32,distance=L2")
+    ds = svt.VectorStore(device="cuda").create("profile", f"dimension={dim},type=FLOAT32,distance=L2")
     chunk = 100_000
     for s in range(0, args.n, chunk):
-        ds.add(rng.standard_normal((min(chunk, args.n - s), DIM), dtype=np.float32))
+        ds.add(rng.standard_normal((min(chunk, args.n - s), dim), dtype=np.float32))
     picks = rng.choice(args.n, B_MAX // 2, replace=False)
     q = np.concatenate(
-        [ds.get(ds.ids[picks]), rng.standard_normal((B_MAX - B_MAX // 2, DIM), dtype=np.float32)]
+        [ds.get(ds.ids[picks]), rng.standard_normal((B_MAX - B_MAX // 2, dim), dtype=np.float32)]
     )
 
     def report(label: str, mode: str, kernel: tuple[str, str], ids_filter=None) -> None:
         for b in (1, B_MAX):
             line = profile_search(ds, q[:b], mode, kernel, args.reps, ids_filter)
-            print(f"[profile] {label} {args.n}x{DIM} k={K} B={b}: {line} | {card}", flush=True)
+            print(f"[profile] {label} {args.n}x{dim} k={K} B={b}: {line} | {card}", flush=True)
 
+    if args.exact_only:
+        report("exact", "exact", K1)
+        return 0
     ds.quantize()
     report("exact", "exact", K1)
     report("int8 quantized", "quantized", K1)

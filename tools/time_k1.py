@@ -28,7 +28,8 @@ from pathlib import Path
 SHAPES = [
     ("L1", "float32", 1), ("L1", "float32", 64), ("L1", "float16", 64), ("L1", "uint8", 1),
     ("L1", "uint8", 64), ("L2", "float16", 1), ("L2", "float16", 64), ("L2", "bfloat16", 1),
-    ("L2", "bfloat16", 64),
+    ("L2", "bfloat16", 64), ("L2", "float32", 1), ("L2", "float32", 64), ("L2", "uint8", 1),
+    ("L2", "uint8", 64),
 ]
 
 
