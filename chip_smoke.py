@@ -31,7 +31,9 @@ Phases, each printing its own lines:
               nonfinite_case) under every metric, the 16-bit dot family in
               both bodies; then K2 against its twin
               for its four metrics, d in {95, 384}, B in {1, 8, 33, 64, 65,
-              200}, with a zero row, duplicate rows and rows scaled by 1e25
+              200}, and d = 16,385 (the query tile streamed; its
+              streamed_launches printed), B in {1, 65},
+              with a zero row, duplicate rows and rows scaled by 1e25
               (overflowing surrogates, one group entirely); each case also
               with the four row masks of tests/test_torch_kernel_cuda.py:
               mask_case (a random half, a group with no live row, every row
@@ -76,7 +78,8 @@ Phases, each printing its own lines:
               five rounds of turns (medians), beside its bound (k2_bound);
               then end-to-end int4-quantized and refine search at B=1 and
               B=64, measured as in phase 5, every K2 launch in its
-              tensor-core body;
+              tensor-core body, the query tile resident (streamed_launches
+              printed, 0);
   8. mutate   on the same rows: remove 10,000 random ids (tombstones, below
               the compaction threshold); exact search at B=1 and B=64 and
               distances on 4 queries against the plain masked scan; an
@@ -210,7 +213,29 @@ Phases, each printing its own lines:
               and rerank search (printed only); then L2 over 200,000 x
               8,192 float16 rows (B=1, B=64) as K1 above, and u8 codes
               20,000 x 16,384 for L2, COSINE and DOT, both bodies equal to
-              the twin bit for bit. Prints the peak device memory.
+              the twin bit for bit. Prints the peak device memory. The
+              1M x 4,096 dataset goes on to phase 14.
+ 14. wide4    int4 where K2's tensor-core body streams its query tile
+              (ops/int4_scan.py:k2_streams_queries): phase 13's 1M x 4,096
+              rows quantize(qtype="int4", refine=True), then int4-quantized
+              and refine search at B=1 and B=64, k=20, against the plain
+              int4 tile loop and the refine rescore of its candidates (as
+              phase 6), recall@20 against phase 13's exact ids printed, K2's
+              counters (zeroed before, read after) showing each launch on
+              the tensor-core body, streamed where the route says; K2 alone
+              there and over 2 GB of codes at 8,192 and 16,384 columns: both
+              bodies bit-equal to the twin, timed in turns (CUDA events)
+              with the CUDA-core body, torch._int_mm on the unpacked codes
+              (B=64) and, where a resident tile fits, the resident and the
+              streamed tile side by side, beside k2_bound; then a kNN-LM
+              datastore shard keyed by Nemotron-4-340B's final hidden
+              states: 500,000 x 18,432 FLOATB16 L2 N(0, 1) rows drawn on the
+              card (18.4 GB), 64 queries, half from the base, exact search
+              (self-matches first; their distances printed), the same int4
+              and refine checks, every K2 launch streamed, the CUDA-core
+              body forced once and bit-equal, K2 alone as above and beside
+              the finish (CUDA-event windows). Prints the peak device
+              memory.
 
 Each phase ends with a line of its seconds. Then one JSON line of kernel results, one entry a kernel body (each with
 its bound, the side that bounds it and the library yardstick): K1 on tensor
@@ -218,7 +243,8 @@ cores for f32 and codes (main-path numbers f32 B=64), K1 on tensor cores
 for 16-bit rows (L2 f16 B=64; launches from phase 5's FLOAT16 and FLOATB16
 searches), K1 on tensor cores with the query tile streamed (f32 d=4096
 B=64; launches from phase 13's two searches), K1's L1 kernel (L1 f32 B=64; launches from the FLOAT32 L1
-search), K2 (B=64); the rest under "by_shape"; "sql_launches" counts phase 10's
+search), K2 (B=64), K2 past the resident query tile (int4_block_minima_wide:
+bf16 d=18432 B=64; launches from phase 14's eight searches); the rest under "by_shape"; "sql_launches" counts phase 10's
 launches on the SQL path, "mesh_launches" phase 11's, "trace_launches" the
 kernel events in phase 12's trace; phase 10's times under
 "frontends", phase 11's under "mesh"), the card
@@ -576,9 +602,10 @@ def compare_int4_minima(args, metric, valid: int, label: str, mask=None) -> floa
 
 def phase_kernel_int4(card: str) -> tuple[float, float]:
     """K2 (both bodies) vs twin for its 4 metrics x d in {95, 384} x B in
-    {1, 8, 33, 64, 65, 200}, unmasked and with each row mask; returns the
-    largest |kernel - twin| over finite minima, unmasked and masked."""
-    from sqlite_vector_tpu_torch.ops.int4_scan import int4_block_minima, k2_body
+    {1, 8, 33, 64, 65, 200}, and d = 16,385 (the query tile streamed) x B
+    in {1, 65}, unmasked and with each row mask; returns the largest
+    |kernel - twin| over finite minima, unmasked and masked."""
+    from sqlite_vector_tpu_torch.ops.int4_scan import int4_block_minima, k2_body, k2_streams_queries
     from sqlite_vector_tpu_torch.types import DistanceMetric
 
     # the card tests' edge cases: zero row, duplicates, 1e25-scaled rows
@@ -590,9 +617,10 @@ def phase_kernel_int4(card: str) -> tuple[float, float]:
     worst = masked_worst = 0.0
     t0 = time.perf_counter()
     batches = (1, 8, 33, 64, 65, 200)
-    for d in (95, 384):
+    int4_block_minima.streamed_launches = 0
+    for d, bs in ((95, batches), (384, batches), (16385, (1, 65))):
         check(k2_body(d) == "mma", f"K2 at d={d} routes to its {k2_body(d)} body")
-        for b in batches:
+        for b in bs:
             args, _ = int4_case(n, d, b, "cuda", seed=SEED + 2 + d + b)
             for metric in metrics:
                 label = f"K2 {metric.value}/d={d}/B={b}"
@@ -606,13 +634,17 @@ def phase_kernel_int4(card: str) -> tuple[float, float]:
                     m = int4_block_minima(*args, metric, valid)
                     check(float(m[-1, 1]) == float("inf"), f"{label}: overflowing group not +inf")
             del args
+    want = sum(4 * (1 + len(masks)) + (b > 1) for b in (1, 65) if k2_streams_queries(16385, b))
+    check(int4_block_minima.streamed_launches == want,
+          f"K2 at d=16385 streamed {int4_block_minima.streamed_launches} launches, not {want}")
     print(
         f"[kernel] K2 == twin for {len(metrics)} metrics x d in (95, 384) x B in "
-        f"{batches} (N={n}, valid={valid}, zero/duplicate/1e25-scaled rows; "
-        f"+inf positions equal, finite minima equal), the tensor-core body (routed) "
+        f"{batches} and d=16385 x B in (1, 65) (N={n}, valid={valid}, zero/duplicate/1e25-scaled "
+        f"rows; +inf positions equal, finite minima equal), the tensor-core body (routed) "
         f"and the CUDA-core body each, equal bit for bit; max |kernel - twin| = "
         f"{worst!r}; masked ({len(masks)} row masks each): max |kernel - twin| = "
-        f"{masked_worst!r}; in {time.perf_counter() - t0:.1f} s | {card}",
+        f"{masked_worst!r}; streamed_launches {int4_block_minima.streamed_launches} (all at "
+        f"d=16385); in {time.perf_counter() - t0:.1f} s | {card}",
         flush=True,
     )
     return worst, masked_worst
@@ -1082,10 +1114,15 @@ def phase_int4_times(card: str, ds, Q) -> dict:
         )
     del codes8
     int4_block_minima.body_launches = {"mma": 0, "simt": 0}
+    int4_block_minima.streamed_launches = 0
     for mode, label in (("quantized", "int4 quantized"), ("refine", "refine expand=4")):
         search_times(card, ds, Q, mode, shape, ((1, 200), (B_MAIN, 100)), label)
     used = int4_block_minima.body_launches
     check(used["mma"] > 0 and used["simt"] == 0, f"timed int4 searches left K2's tensor-core body: {used}")
+    check(int4_block_minima.streamed_launches == 0, "K2 streamed its query tile at d=384")
+    print(f"[times] the timed int4 searches' K2 launches: {used}, streamed_launches "
+          f"{int4_block_minima.streamed_launches} (the query tile resident at d={DIM_MAIN}) | {card}",
+          flush=True)
     return out
 
 
@@ -1362,7 +1399,7 @@ def zero_counts() -> None:
     for fn in (block_minima, int4_block_minima):
         fn.launches = 0
         fn.body_launches = {"mma": 0, "simt": 0}
-    block_minima.streamed_launches = 0
+        fn.streamed_launches = 0
 
 
 def phase_persist(card: str, ds, Q) -> dict:
@@ -2845,8 +2882,9 @@ def phase_wide(card: str) -> dict:
     ds.quantize()
     for mode in ("quantized", "rerank"):
         search_times(card, ds, Q, mode, shape, ((1, 20), (B_MAIN, 10)), label=f"{mode} int8")
-    del ds, vecs
-    torch.cuda.empty_cache()
+    del vecs
+    # the dataset, its queries and their exact ids go on to phase 14
+    out["dataset"] = (ds, Q, ids64)
 
     # -- 16-bit rows past 6,848 columns and u8 codes past 13,696 -------------
     gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
@@ -2879,6 +2917,282 @@ def phase_wide(card: str) -> dict:
     )
     torch.cuda.empty_cache()
     out["launches"] = launches
+    return out
+
+
+# phase 14's configuration: a kNN-LM datastore shard (Khandelwal et al.,
+# ICLR 2020, arXiv:1911.00172 section 3) keyed by Nemotron-4-340B's final
+# hidden states (18,432 wide, arXiv:2406.11704 Table 1), FLOATB16 L2,
+# 500,000 N(0, 1) rows from SEED drawn on the card WIDE4_CHUNK rows at a
+# time; and K2 alone over codes of K2_WIDE_SHAPES (d, rows), 2 GB of packed
+# codes each, beside phase 13's 4,096 and the datastore's 18,432
+N_WIDE4, DIM_WIDE4, WIDE4_CHUNK = 500_000, 18432, 25_000
+K2_WIDE_SHAPES = ((8192, 500_000), (16384, 250_000))
+
+
+def int4_searches(card: str, ds, Q, ids_e, dim: int, label: str) -> int:
+    """int4-quantized and refine Dataset.search at B=1 and B=B_MAIN, k=K,
+    each held against its plain counterpart on the same codes (as phase 6:
+    the plain int4 tile loop, and the refine rescore of its candidates),
+    recall@K against the exact ids `ids_e` printed, and K2's launch
+    counters (set to 0 just before the four searches, read just after):
+    each on the tensor-core body, streamed where k2_streams_queries says.
+    Returns the launches."""
+    from sqlite_vector_tpu_torch.ops.block_scan import block_minima
+    from sqlite_vector_tpu_torch.ops.int4_scan import int4_block_minima, k2_query_tile, k2_streams_queries
+    from sqlite_vector_tpu_torch.ops.quantize4 import int4_scan_topk_plain
+    from sqlite_vector_tpu_torch.ops.refine import refine_candidates
+    from sqlite_vector_tpu_torch.types import DistanceMetric
+
+    L2 = DistanceMetric.L2
+    quant = ds._quant
+    n = quant.count
+    zero_counts()
+    got = {(mode, b): ds.search(Q[:b], K, mode=mode) for b in (1, B_MAIN) for mode in ("quantized", "refine")}
+    launches, used, streamed = (int4_block_minima.launches, dict(int4_block_minima.body_launches),
+                                int4_block_minima.streamed_launches)
+    want_streamed = 2 * sum(k2_streams_queries(dim, b) for b in (1, B_MAIN))
+    check(launches == 4 and used == {"mma": 4, "simt": 0} and streamed == want_streamed
+          and block_minima.launches == 0,
+          f"{label}: K2 launches {launches} {used}, {streamed} streamed (want 4 on the tensor-core "
+          f"body, {want_streamed} streamed), K1 {block_minima.launches}")
+    ids_all = quant.ids
+    recalls = {}
+    for b in (1, B_MAIN):
+        Qd = torch.from_numpy(Q[:b]).cuda()
+        pv, pi = int4_scan_topk_plain(Qd, quant.codes, quant.row_scale, quant.sq_norms, L2, K, dim=dim,
+                                      valid_count=n)
+        pi = pi.cpu().numpy()
+        same_topk(f"{label} int4 B={b}", *got[("quantized", b)], np.where(pi >= 0, ids_all[pi], -1),
+                  pv.cpu().numpy())
+        _, cand = int4_scan_topk_plain(Qd, quant.codes, quant.row_scale, quant.sq_norms, L2, 4 * K,
+                                       dim=dim, valid_count=n)
+        rv, ri = refine_candidates(Qd, cand, quant.codes8, quant.scale8, quant.offset8, L2, K)
+        ri = ri.cpu().numpy()
+        same_topk(f"{label} refine B={b}", *got[("refine", b)], np.where(ri >= 0, ids_all[ri], -1),
+                  rv.cpu().numpy())
+        for mode in ("quantized", "refine"):
+            ids = got[(mode, b)][0]
+            recalls[(mode, b)] = float(np.mean([len(set(ids[i]) & set(ids_e[i])) / K for i in range(b)]))
+
+    def tile(b):
+        return f"{k2_query_tile(dim, b)} {'streamed' if k2_streams_queries(dim, b) else 'resident'}"
+
+    print(
+        f"[wide4] {label}: search(Q[b], {K}, mode='quantized') == the plain int4 tile loop and "
+        f"mode='refine' == the refine rescore of its candidates at B=1 and B={B_MAIN} (distances "
+        f"equal, ids tie-aware); recall@{K} vs exact: "
+        + ", ".join(f"{m} B={b} {r!r}" for (m, b), r in recalls.items())
+        + f"; K2 launches {launches} {used}, streamed_launches {streamed} (query tile B=1 "
+        f"{tile(1)}, B={B_MAIN} {tile(B_MAIN)}) | {card}",
+        flush=True,
+    )
+    return launches
+
+
+def wide_k2(card: str, label: str, Q, packed, alpha, csq, dim: int, out: dict) -> None:
+    """K2 alone at B=1 and B=B_MAIN over these codes: the routed body and
+    the CUDA-core body against the twin (compare_int4_minima: bit-equal),
+    then timed in turns (CUDA events; the twin apart) with the CUDA-core
+    body, torch._int_mm on the codes unpacked once to int8 where it takes
+    the shape, and, where a resident query tile fits, the resident and the
+    streamed tile side by side; beside k2_bound. Into out[label B=b]."""
+    from sqlite_vector_tpu_torch.ops.int4_scan import (
+        _launch_k2,
+        int4_block_minima,
+        int4_block_minima_reference,
+        k2_query_tile,
+        k2_streams_queries,
+    )
+    from sqlite_vector_tpu_torch.ops.quantize4 import quantize_query_int8, unpack4
+    from sqlite_vector_tpu_torch.types import DistanceMetric
+
+    L2 = DistanceMetric.L2
+    n = packed.shape[0]
+    codes8 = torch.empty((n, dim), dtype=torch.int8, device="cuda")
+    for s in range(0, n, 50_000):  # no whole-matrix temporaries beside it
+        codes8[s : s + 50_000] = unpack4(packed[s : s + 50_000], dim)
+    for b in (1, B_MAIN):
+        qc, qs, _ = quantize_query_int8(torch.from_numpy(Q[:b]).cuda())
+        args = (qc, qs, packed, alpha, csq)
+        key = f"{label} B={b}"
+        out["max_abs_err"] = max(out["max_abs_err"], compare_int4_minima(args, L2, n, f"wide K2 {key}"))
+        (plain_ms,) = in_turns([lambda: int4_block_minima_reference(*args, L2, n)], 3)
+        fns = {"kernel": lambda: int4_block_minima(*args, L2, n),
+               "simt": lambda: _launch_k2(*args, L2, n, None, "simt")}
+        lib = library_call_k2(qc, codes8)
+        if lib:
+            fns["library"] = lib
+        resident = k2_query_tile(dim, b, False)
+        if resident:
+            fns["resident"] = lambda: _launch_k2(*args, L2, n, None, "mma", False)
+            fns["streamed"] = lambda: _launch_k2(*args, L2, n, None, "mma", True)
+        ms = dict(zip(fns, in_turns(list(fns.values()), 10 if b == 1 else 5, rounds=2)))
+        lim, by = k2_bound(b, n, dim)
+        routed = f"{k2_query_tile(dim, b)} {'streamed' if k2_streams_queries(dim, b) else 'resident'}"
+        out[key] = {"ms": ms["kernel"], "plain_ms": plain_ms, "simt_ms": ms["simt"],
+                    "library_ms": ms.get("library"), "bound_ms": lim, "bound_by": by,
+                    "query_tile": routed}
+        side = ""
+        if resident:
+            out[key].update(resident_ms=ms["resident"], streamed_ms=ms["streamed"])
+            side = (f"; resident tile {resident} (x{-(-b // resident)}) {ms['resident']!r} ms against "
+                    f"streamed tile {k2_query_tile(dim, b, True)} {ms['streamed']!r} ms")
+        print(
+            f"[times] K2 {n}x{dim} {key} L2 (both bodies == twin; routed: the tensor-core body, query "
+            f"tile {routed}): kernel {ms['kernel']!r} ms, bound {lim!r} ms ({by}), "
+            f"{100 * lim / ms['kernel']:.1f}% of bound; CUDA-core body {ms['simt']!r} ms "
+            f"({ms['simt'] / ms['kernel']:.2f}x); twin {plain_ms!r} ms; library (torch._int_mm) "
+            f"{'none' if not lib else repr(ms['library']) + ' ms'}{side} | {card}",
+            flush=True,
+        )
+    del codes8
+
+
+def random_int4_codes(gen: torch.Generator, n: int, dim: int):
+    """int4 codes of n N(0, 1) rows drawn on the card, quantized 50,000 rows
+    at a time (quantize4_device)."""
+    from sqlite_vector_tpu_torch.ops.quantize4 import packed_width, quantize4_device
+
+    packed = torch.empty((n, packed_width(dim)), dtype=torch.uint8, device="cuda")
+    alpha = torch.empty(n, device="cuda")
+    csq = torch.empty(n, dtype=torch.int32, device="cuda")
+    for s in range(0, n, 50_000):
+        e = min(n, s + 50_000)
+        packed[s:e], alpha[s:e], csq[s:e] = quantize4_device(
+            torch.randn((e - s, dim), generator=gen, device="cuda"))
+    return packed, alpha, csq
+
+
+def datastore(card: str):
+    """Phase 14's N_WIDE4 x DIM_WIDE4 FLOATB16 L2 dataset: N(0, 1) rows
+    drawn on the card from SEED + 14, WIDE4_CHUNK rows at a time, rounded
+    to bfloat16 there and added in the host form the SQL loader adds
+    (bfloat16 bits, Dataset._add_host_rows); 64 queries, 32 rows of the
+    base and 32 new bfloat16 values. Returns the dataset, the queries
+    (float32) and the picked rows' positions."""
+    import sqlite_vector_tpu_torch as svt
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    ds = svt.VectorStore(device="cuda").create(
+        "datastore", f"dimension={DIM_WIDE4},type=FLOATB16,distance=L2")
+    for _ in range(N_WIDE4 // WIDE4_CHUNK):
+        rows = torch.randn((WIDE4_CHUNK, DIM_WIDE4), generator=gen, device="cuda").to(torch.bfloat16)
+        ds._add_host_rows(rows.view(torch.int16).cpu().numpy().view(np.uint16), None)
+        del rows
+    torch.cuda.synchronize()
+    check(len(ds) == N_WIDE4, f"the datastore holds {len(ds)} rows")
+    picks = torch.randperm(N_WIDE4, generator=gen, device="cuda")[: B_MAIN // 2]
+    new = torch.randn((B_MAIN - B_MAIN // 2, DIM_WIDE4), generator=gen, device="cuda").to(torch.bfloat16)
+    Q = torch.cat([ds._vectors[picks], new]).float().cpu().numpy()
+    print(
+        f"[wide4] added {len(ds)} x {DIM_WIDE4} FLOATB16 rows ({ds.memory_bytes()} device bytes) in "
+        f"{time.perf_counter() - t0:.1f} s (drawn on the card); peak device memory "
+        f"{torch.cuda.max_memory_allocated()} bytes | {card}",
+        flush=True,
+    )
+    return ds, Q, picks.cpu().numpy()
+
+
+def phase_wide_int4(card: str, wide: dict) -> dict:
+    """Phase 14: int4 and refine where K2's tensor-core body streams its
+    query tile (ops/int4_scan.py:k2_streams_queries). Phase 13's 1,000,000
+    x 4,096 f32 dataset (popped from phase 13's result `wide`, so that it
+    is freed here: the dataset, its queries and their exact ids), then the kNN-LM datastore shard (datastore()): each
+    quantize(qtype="int4", refine=True) and searched by int4_searches, K2
+    alone over its codes (wide_k2; on the datastore also beside the
+    finish), and K2 alone over codes at 8,192 and 16,384 columns. Returns the launches of the checked searches, the
+    largest |kernel - twin| and, by shape, K2's times beside its bound."""
+    from sqlite_vector_tpu_torch.ops.int4_scan import _finish_int4, _launch_k2, int4_block_minima
+    from sqlite_vector_tpu_torch.ops.quantize4 import quantize_query_int8, sanitize_queries
+    from sqlite_vector_tpu_torch.types import DistanceMetric
+
+    L2 = DistanceMetric.L2
+    out = {"max_abs_err": 0.0, "launches": 0}
+    # -- phase 13's 1M x 4,096 f32 rows --------------------------------------
+    ds, Q, ids_e = wide.pop("dataset")
+    t0 = time.perf_counter()
+    ds.quantize(qtype="int4", refine=True)
+    torch.cuda.synchronize()
+    print(f"[wide4] quantize(qtype='int4', refine=True) of {len(ds)} x {DIM_WIDE} FLOAT32 rows in "
+          f"{time.perf_counter() - t0:.2f} s | {card}", flush=True)
+    out["launches"] += int4_searches(card, ds, Q, ids_e, DIM_WIDE, f"{N_WIDE}x{DIM_WIDE} f32")
+    quant = ds._quant
+    wide_k2(card, f"d={DIM_WIDE}", Q, quant.codes, quant.row_scale, quant.sq_norms, DIM_WIDE, out)
+    del ds, quant
+    torch.cuda.empty_cache()
+
+    # -- K2 alone over codes at 8,192 and 16,384 columns ----------------------
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    for dim, n in K2_WIDE_SHAPES:
+        codes = random_int4_codes(gen, n, dim)
+        q = torch.randn((B_MAIN, dim), generator=gen, device="cuda").cpu().numpy()
+        wide_k2(card, f"d={dim}", q, *codes, dim, out)
+        del codes
+        torch.cuda.empty_cache()
+
+    # -- the datastore: 500,000 x 18,432 FLOATB16 ------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    ds, Q, picks = datastore(card)
+    t0 = time.perf_counter()
+    ids_e, d_e = ds.search(Q, K)  # exact, for recall (K1, its query tile streamed)
+    t_exact = time.perf_counter() - t0
+    check(all(ids_e[i, 0] == ds.ids[p] for i, p in enumerate(picks)),
+          "datastore: a self-match is not first in exact search")
+    # their distances are printed, not held to 0: on the card the exact
+    # finish's float32 decomposition leaves residuals past its clamp at this
+    # width (ROADMAP queue 3)
+    self_d = d_e[: len(picks), 0]
+    t0 = time.perf_counter()
+    ds.quantize(qtype="int4", refine=True)
+    torch.cuda.synchronize()
+    print(f"[wide4] datastore: exact search(Q[{B_MAIN}], {K}) in {t_exact:.2f} s, {len(picks)} "
+          f"self-matches first, at L2 {float(self_d.min())!r}-{float(self_d.max())!r} "
+          f"({int((self_d == 0).sum())} at 0; the next row at {float(d_e[: len(picks), 1].min())!r} "
+          f"or more); quantize(qtype='int4', refine=True) in {time.perf_counter() - t0:.2f} s; peak "
+          f"device memory so far {torch.cuda.max_memory_allocated()} bytes | {card}",
+          flush=True)
+    out["launches"] += int4_searches(card, ds, Q, ids_e, DIM_WIDE4, f"{N_WIDE4}x{DIM_WIDE4} bf16")
+    print(f"[wide4] datastore: peak device memory after the int4 searches and their plain "
+          f"counterparts {torch.cuda.max_memory_allocated()} bytes | {card}", flush=True)
+    quant = ds._quant
+    # the CUDA-core body forced once more, at B=B_MAIN: bit-equal
+    qc, qs, _ = quantize_query_int8(torch.from_numpy(Q).cuda())
+    args = (qc, qs, quant.codes, quant.row_scale, quant.sq_norms)
+    mma = _launch_k2(*args, L2, quant.count, None, "mma")
+    simt = _launch_k2(*args, L2, quant.count, None, "simt")
+    torch.cuda.synchronize()
+    check(torch.equal(mma.view(torch.int32), simt.view(torch.int32)),
+          "datastore: the streamed tensor-core body and the CUDA-core body differ")
+    del mma, simt, args
+    wide_k2(card, f"bf16 d={DIM_WIDE4}", Q, quant.codes, quant.row_scale, quant.sq_norms, DIM_WIDE4, out)
+    # K2 against the finish (select k groups, gather, unpack and rescore
+    # their packed rows in float64 past d = 16,513, top-k), as phase 13
+    # times K1 against its finish
+    for b in (1, B_MAIN):
+        qd = torch.from_numpy(Q[:b]).cuda()
+        codes, qf = quantize_query_int8(qd), sanitize_queries(qd)
+        k2_args = (codes[0], codes[1], quant.codes, quant.row_scale, quant.sq_norms, L2, quant.count)
+        minima = int4_block_minima(*k2_args)
+        k2_ms, fin_ms = in_turns(
+            [lambda: int4_block_minima(*k2_args),
+             lambda: _finish_int4(minima, codes, qf, quant.codes, quant.row_scale, quant.sq_norms, L2,
+                                  K, DIM_WIDE4, quant.count, None)], 5,
+        )
+        out[f"bf16 d={DIM_WIDE4} B={b}"]["finish_ms"] = fin_ms
+        print(
+            f"[times] int4 {N_WIDE4}x{DIM_WIDE4} B={b} (CUDA-event windows, in turns): K2 {k2_ms!r} ms "
+            f"(with the streamed tile's layout), the finish {fin_ms!r} ms, launch gaps included "
+            f"({100 * fin_ms / (k2_ms + fin_ms):.1f}% of the two; it gathers {b * K * 128} packed rows, "
+            f"{b * K * 128 * quant.codes.shape[1]} bytes) | {card}",
+            flush=True,
+        )
+    print(f"[wide4] datastore peak device memory {torch.cuda.max_memory_allocated()} bytes "
+          f"(torch.cuda.max_memory_allocated, the library call's unpacked int8 codes included) | {card}",
+          flush=True)
+    del ds, quant
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2960,10 +3274,12 @@ def main() -> int:
     traced = phase(phase_utils, card, ds, Q, mesh.pop("dataset"), k1.pop("search_p50"))
     del ds
     wide_k1 = phase(phase_wide, card)
+    wide_k2 = phase(phase_wide_int4, card, wide_k1)  # takes its "dataset"
     k1["max_abs_err"] = max(k1["max_abs_err"], wide_k1.pop("max_abs_err"))
     wide_launches = wide_k1.pop("launches")
     k1.update(wide_k1)
     k2_main = k2[f"B={B_MAIN}"]
+    k2_wide = wide_k2[f"bf16 d={DIM_WIDE4} B={B_MAIN}"]
 
     def k1_entry(name: str, source: str, shape: str, n_launches: int, family) -> dict:
         # one body (or type family) of K1: its times at `shape`, and those
@@ -3025,6 +3341,24 @@ def main() -> int:
             "masked_max_abs_err": k2_masked_err,
             "cuda_core_body": "sqlite_vector_tpu_torch/csrc/int4_minima.cu",
             "by_shape": {k: v for k, v in k2.items() if k != "max_abs_err"},
+        },
+        {
+            # K2 past the resident query tile: the tile streamed beside the
+            # codes; launches from phase 14's eight checked searches
+            "name": "int4_block_minima_wide",
+            "route": "cuda",
+            "source": "sqlite_vector_tpu_torch/csrc/int4_minima_mma.cu",
+            "replaces": "sqlite_vector_tpu/ops/pallas_int4.py:408",
+            "launches": wide_k2["launches"],
+            "max_abs_err": wide_k2["max_abs_err"],
+            "ms": k2_wide["ms"],
+            "plain_ms": k2_wide["plain_ms"],
+            "bound_ms": k2_wide["bound_ms"],
+            "bound_by": k2_wide["bound_by"],
+            "library_ms": k2_wide["library_ms"],
+            "main_shape": f"bf16 d={DIM_WIDE4} B={B_MAIN}",
+            "cuda_core_body": "sqlite_vector_tpu_torch/csrc/int4_minima.cu",
+            "by_shape": {k: v for k, v in wide_k2.items() if k not in ("max_abs_err", "launches")},
         },
     ], "host_storage": {k: host[k] for k in ("pinned_gbps", "stream_pass_s", "tile_sweep_s", "thread_sweep_s")},
         "frontends": {k: v for k, v in fe.items() if k != "sql_launches"},

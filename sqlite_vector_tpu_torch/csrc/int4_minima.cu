@@ -23,9 +23,9 @@
 // the last high nibble is the pad code 0), each as nibble = code + 8.
 //
 // This is K2's CUDA-core body. The tensor-core body, csrc/int4_minima_mma.cu,
-// computes the same minima bit for bit and serves every d whose query tile
-// fits its shared memory (d <= 16,384); ops/int4_scan.py:k2_body sends wider
-// rows here.
+// computes the same minima bit for bit and serves every d < 2^21
+// (ops/int4_scan.py:k2_body); this body runs only where a caller forces it
+// (ops/int4_scan.py:_launch_k2), as the cross-check.
 //
 // What bounds it on an H100: at B=1 the bytes (192 MB of packed codes at
 // 1M x 384, 0.06 ms at 3.35 TB/s); at large batches the CUDA-core integer

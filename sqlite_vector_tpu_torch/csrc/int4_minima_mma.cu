@@ -7,8 +7,8 @@
 // states the contract: per 128-row group, the minimum of _surrogate_block's
 // surrogate over the exact integer dot of the int8 query codes with the
 // row's int4 codes; rows >= valid, masked rows and NaN surrogates at +inf).
-// ops/int4_scan.py:k2_body routes between the two: this body wherever its
-// shared budget holds the query tile (d <= 16,384), int4_minima.cu past it.
+// ops/int4_scan.py:k2_body sends every scan here (d < 2^21);
+// int4_minima.cu runs only where a caller forces it, as the cross-check.
 //
 // The plane dots run where the TPU kernel runs them (_plane_dot and its i8dot
 // path), on the matrix unit: mma.sync m16n8k32 with u8 row nibbles and s8
@@ -16,28 +16,48 @@
 // high, each + 8) gives two A operands per 4-byte word read from shared
 // memory: x & 0x0F0F0F0F holds columns [c, c + 32) and (x >> 4) & 0x0F0F0F0F
 // columns [h + c, h + c + 32), against the low and the high query plane. The
-// +8 comes off at the end as 8 * sum(qc), as _unpack_planes/_plane_dot do.
-// No sum wraps: every partial sum is at most 15 * 128 * d < 2^26 in size for
-// any d whose query tile fits shared memory (d < 24,000), so the int32
-// accumulation (no .satfinite) is exact and equals the CUDA-core body's.
+// +8 comes off as 8 * sum(qc), riding in the accumulators' start value, as
+// _unpack_planes/_plane_dot take it off. No sum wraps: after the MMAs over
+// any set P of columns an accumulator holds
+//   sum over c in P of (nibble_c - 8) qc_c  -  8 * sum over c not in P of qc_c,
+// whose every term is at most 8 * 127 in size, so |partial| <= 1,016 d <
+// 2^31 for every d < 2^21 (the launcher's limit) in any order of the MMAs:
+// the int32 accumulation is exact and equals the CUDA-core body's (which
+// sums the unbiased nibbles, past 2^31 at d ~ 1.1M, and relies on __dp4a's
+// wrap mod 2^32; mma.sync without .satfinite wraps alike, PTX ISA).
 //
 // What bounds it on an H100 (1M x 384): the bytes, at every B <= 64 (192 MB
 // of packed codes and 8 MB of alpha and csq, 0.060 ms at 3.35 TB/s; the
-// 2 B N d int8 operations take 0.025 ms at 1,979 TOP/s even at B = 64). The
+// 2 B N d int8 operations take 0.025 ms at 1,979 TOP/s even at B = 64).
+// At 500,000 x 18,432, B=1 is bound by the bytes too (4.6 GB, 1.38 ms), but
+// B=64 by mma.sync's issue rate: tools/probe_k2_body.py --streamed read ~25
+// cycles per MMA of a warp in the loop (an NVIDIA H100 80GB HBM3 at 700 W),
+// where the 1.2 P int8 operations would take 0.6 ms at wgmma's peak. The
 // design reads the codes once per batch and keeps the tensor cores fed:
 //   - persistent blocks of 8 warps walk 256-row tiles (two 128-row groups);
 //     each warp owns 32 rows (two m16 tiles) against every query of its tile;
-//   - the query tile (8, 16, 32 or 64 queries) stays in shared memory for the
-//     whole launch, both planes zero-padded and stored in fragment order (one
-//     16-byte load gives a lane its four B registers of a k-step), beside
-//     8 * sum(qc) and qscale, so the codes are read once for B <= 64; larger
-//     batches take several query tiles, whose blocks are adjacent in launch
-//     order and walk the same row tiles at once (the re-reads hit L2). It is
-//     loaded before the first row tiles are asked for: behind their copies
-//     its loads waited microseconds;
+//   - the query tile (8, 16, 32 or 64 queries), both planes zero-padded and
+//     stored in fragment order (one 16-byte load gives a lane its four B
+//     registers of a k-step), either stays in shared memory for the whole
+//     launch (resident: where ops/int4_scan.py:k2_streams_queries keeps it,
+//     its planes within 64 KB: d <= 8,192 for 8 queries, 1,024 for 64),
+//     loaded before the first row tiles are asked for (behind their copies
+//     its loads waited microseconds); or (kStream, the rest) is laid out in
+//     fragment order once per call by ops/int4_scan.py:
+//     k2_query_planes and streamed beside the codes: each ring stage carries,
+//     after its rows, the tile's 2 * QT * chunk bytes of the same k-steps,
+//     one contiguous run copied with 16-byte cp.async whatever d (the high
+//     plane starts at h, odd for d = 1, 2 mod 4, and qc's rows at j * d, so
+//     the raw codes allow no such copy), so shared memory does not grow with
+//     d, at the price of QT / 128 more bytes read (from L2) per row byte.
+//     8 * sum(qc) and qscale sit beside it. The codes are read once for
+//     B <= 64; larger batches take several query tiles, whose blocks are
+//     adjacent in launch order and walk the same row tiles at once (the
+//     re-reads hit L2);
 //   - packed row tiles stream through a double-buffered ring of cp.async
 //     copies, 256 rows of the widest multiple of 64 bytes of a row that fits
-//     beside the query tile: whole rows where they fit (d = 384: 192 bytes,
+//     beside the query tile (streamed: with its planes in every stage):
+//     whole rows where they fit (d = 384: 192 bytes,
 //     one contiguous 48 KB run of the matrix a step; 64-byte column chunks,
 //     a strided read, were slower at B=1), padded 16 bytes a row
 //     (conflict-free fragment reads); two stages let two blocks share an SM
@@ -118,7 +138,8 @@ constexpr float kMagic = 12582912.0f;
 // NaN, never takes one: the minimum equals the minimum with NaN read as
 // +inf, bit for bit, and +inf when no surrogate of the group is a number.
 // kSmallDot: every dot is in [-2^22, 2^22] (d <= 4,096: |code * qc| <= 8 *
-// 128), so the magic conversion is exact.
+// 128), so the magic conversion is exact; otherwise the conversion rounds to
+// nearest, as the twin's float32 cast of its exact dot does.
 template <int M, int NT, bool kSmallDot>
 __device__ __forceinline__ void warp_minima(const int (&acc)[2][NT][4], float a, float rowv,
                                             bool pos, bool ok, const float* qs, float* wmin,
@@ -205,17 +226,23 @@ __device__ __forceinline__ void warp_minima(const int (&acc)[2][NT][4], float a,
 }
 
 // NT: 8-query column tiles per block (QT = 8 NT). chunk: the ring's row
-// chunk in bytes, a multiple of kChunkUnit.
-template <int NT>
+// chunk in bytes, a multiple of kChunkUnit. kStream: the query tile is
+// streamed from qplanes ([nqt][ksteps][NT][32] fragment entries,
+// ops/int4_scan.py:k2_query_planes) beside the rows, with qbias_in [B]
+// holding 8 * sum(qc); otherwise it is built from qc, resident.
+template <int NT, bool kStream>
 __global__ void __launch_bounds__(kThreads, 1)
 int4_mma_minima_kernel(const int8_t* __restrict__ qc, const float* __restrict__ qscale,
+                       const uint4* __restrict__ qplanes, const int* __restrict__ qbias_in,
                        const uint8_t* __restrict__ packed, const float* __restrict__ alpha,
                        const int32_t* __restrict__ csq, const uint8_t* __restrict__ mask,
                        float* __restrict__ out, int B, int N, int d, int valid, int metric,
                        int nqt, int chunk, int vec) {
   constexpr int QT = 8 * NT;
-  // tiles of 32 and 64 queries take d <= 4,096 only (the launcher checks)
-  constexpr bool kSmallDot = NT >= 4;
+  // resident tiles of 32 and 64 queries hold d <= 4,096 only (their planes
+  // fill the budget past it; the launcher checks); a streamed tile may take
+  // any d, so it converts exactly, not by the magic
+  constexpr bool kSmallDot = !kStream && NT >= 4;
   extern __shared__ __align__(16) unsigned char smem[];
 
   const int h = (d + 1) / 2;    // bytes per packed row
@@ -223,10 +250,13 @@ int4_mma_minima_kernel(const int8_t* __restrict__ qc, const float* __restrict__ 
   const int nchunks = (h + chunk - 1) / chunk;
   const int ksteps = (h + 31) / 32;  // 32-byte MMA k-steps of a row
   const int pitch = chunk + kPad;
-  const int stage_bytes = kTileRows * pitch;
+  // a ring stage: the rows' chunk, then (kStream) the query tile's entries
+  // of the chunk's chunk / 32 k-steps
+  const int stage_bytes = kTileRows * pitch + (kStream ? chunk / 32 * NT * 32 * 16 : 0);
   unsigned char* ring = smem;
-  uint4* qfrag = reinterpret_cast<uint4*>(ring + kStages * stage_bytes);  // [ksteps][NT][32]
-  int* qbias = reinterpret_cast<int*>(qfrag + ksteps * NT * 32);          // [QT] 8 sum(qc)
+  // the resident tile (not kStream): [ksteps][NT][32]
+  uint4* qfrag = reinterpret_cast<uint4*>(ring + kStages * stage_bytes);
+  int* qbias = reinterpret_cast<int*>(qfrag + (kStream ? 0 : ksteps * NT * 32));  // [QT] 8 sum(qc)
   float* qs = reinterpret_cast<float*>(qbias + QT);                      // [QT] qscale
   float* wmin = qs + QT;                                                 // [kWarps][QT]
 
@@ -248,7 +278,7 @@ int4_mma_minima_kernel(const int8_t* __restrict__ qc, const float* __restrict__ 
   // first, in batches, ahead of the row tiles' copies (behind those they
   // wait microseconds)
 #pragma unroll 4
-  for (int i = tid; i < ksteps * NT * 32; i += kThreads) {
+  for (int i = tid; !kStream && i < ksteps * NT * 32; i += kThreads) {
     const int l = i & 31;
     const int n = (i >> 5) % NT;
     const int ks = (i >> 5) / NT;
@@ -269,9 +299,18 @@ int4_mma_minima_kernel(const int8_t* __restrict__ qc, const float* __restrict__ 
   const int steps = my_tiles * nchunks;
   auto issue = [&](int s) {
     const int tile = slot + (s / nchunks) * nslots;
-    stage_chunk<kTileRows, kThreads>(ring + (s % kStages) * stage_bytes, packed,
-                                     static_cast<long long>(tile) * kTileRows, N, h, s % nchunks,
-                                     chunk, pitch, vec, tid);
+    unsigned char* stage = ring + (s % kStages) * stage_bytes;
+    stage_chunk<kTileRows, kThreads>(stage, packed, static_cast<long long>(tile) * kTileRows, N,
+                                     h, s % nchunks, chunk, pitch, vec, tid);
+    if constexpr (kStream) {
+      // the tile's entries of the chunk's k-steps up to the row's end: one
+      // contiguous run of qplanes
+      const int ks0 = (s % nchunks) * (chunk / 32);
+      const int entries = (min(ks0 + chunk / 32, ksteps) - ks0) * NT * 32;
+      const uint4* src = qplanes + (static_cast<long long>(qt) * ksteps + ks0) * NT * 32;
+      const uint32_t dst = smem_addr(stage + kTileRows * pitch);
+      for (int i = tid; i < entries; i += kThreads) cp_async16(dst + 16 * i, src + i, 16);
+    }
   };
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
@@ -279,12 +318,13 @@ int4_mma_minima_kernel(const int8_t* __restrict__ qc, const float* __restrict__ 
     cp_async_commit();
   }
 
-  // 8 * sum(qc) and qscale of each query, from the query tile: query j's
-  // entries are lanes 4 (j % 8) + t of column tile j / 8 in every k-step
+  // 8 * sum(qc) and qscale of each query; the resident tile sums it from its
+  // entries: query j's are lanes 4 (j % 8) + t of column tile j / 8 in every
+  // k-step
   __syncthreads();
   if (tid < QT) {
     int sum = 0;
-    for (int ks = 0; ks < ksteps; ++ks) {
+    for (int ks = 0; !kStream && ks < ksteps; ++ks) {
 #pragma unroll
       for (int t4 = 0; t4 < 4; ++t4) {
         const uint4 v = qfrag[(ks * NT + tid / 8) * 32 + (tid % 8) * 4 + t4];
@@ -294,7 +334,7 @@ int4_mma_minima_kernel(const int8_t* __restrict__ qc, const float* __restrict__ 
         sum = __dp4a(static_cast<int>(v.w), 0x01010101, sum);
       }
     }
-    qbias[tid] = 8 * sum;
+    qbias[tid] = kStream ? (q0 + tid < B ? qbias_in[q0 + tid] : 0) : 8 * sum;
     qs[tid] = q0 + tid < B ? qscale[q0 + tid] : 0.0f;
   }
   // (qbias and qs are read after the ring loop's first __syncthreads)
@@ -334,7 +374,8 @@ int4_mma_minima_kernel(const int8_t* __restrict__ qc, const float* __restrict__ 
             acc[m][n][e] = (kSmallDot ? kMagicBits : 0) - qbias[n * 8 + 2 * t + (e & 1)];
           }
     }
-    const unsigned char* wrows = ring + (s % kStages) * stage_bytes + warp * 32 * pitch;
+    const unsigned char* stage = ring + (s % kStages) * stage_bytes;
+    const unsigned char* wrows = stage + warp * 32 * pitch;
     // the chunk's k-steps up to the row's end (the chunk's bytes past it
     // are zero in the ring; the query planes are zero there too)
     const int ks0 = ch * (chunk / 32);
@@ -354,7 +395,9 @@ int4_mma_minima_kernel(const int8_t* __restrict__ qc, const float* __restrict__ 
           hi[m][e] = (x[e] >> 4) & 0x0F0F0F0Fu;
         }
       }
-      const uint4* qf = qfrag + ks * NT * 32 + lane;
+      const uint4* qf = (kStream ? reinterpret_cast<const uint4*>(stage + kTileRows * pitch) +
+                                       (ks - ks0) * NT * 32
+                                 : qfrag + ks * NT * 32) + lane;
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
         const uint4 b = qf[n * 32];
@@ -396,28 +439,30 @@ int4_mma_minima_kernel(const int8_t* __restrict__ qc, const float* __restrict__ 
   }
 }
 
-template <int NT>
-int launch_tile(const int8_t* qc, const float* qscale, const uint8_t* packed, const float* alpha,
-                const int32_t* csq, const uint8_t* mask, float* out, int B, int N, int d,
-                int valid, int metric, cudaStream_t stream) {
+template <int NT, bool kStream>
+int launch_tile(const int8_t* qc, const float* qscale, const uint4* qplanes, const int* qbias,
+                const uint8_t* packed, const float* alpha, const int32_t* csq,
+                const uint8_t* mask, float* out, int B, int N, int d, int valid, int metric,
+                cudaStream_t stream) {
   constexpr int QT = 8 * NT;
   const int h = (d + 1) / 2;
   const int nqt = (B + QT - 1) / QT;
-  auto kernel = int4_mma_minima_kernel<NT>;
+  auto kernel = int4_mma_minima_kernel<NT, kStream>;
   static std::atomic<long long> fit[kMaxDevices];
   int dev = 0, sms = 0, smem_limit = 0, per_sm = 0;
   cudaError_t err = current_device(dev, sms, smem_limit);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // dynamic shared bytes: the query tile's fragments (64 bytes a query and
-  // k-step), biases and scales and the warps' minima, then the ring, of the
-  // widest row chunk that fits beside them (whole rows where they fit, so a
-  // ring step reads one contiguous run of the matrix)
-  const long long fixed = static_cast<long long>((h + 31) / 32) * QT * 64 + QT * 8 + kWarps * QT * 4;
+  // dynamic shared bytes: the resident query tile's fragments (64 bytes a
+  // query and k-step), biases and scales and the warps' minima, then the
+  // ring, of the widest row chunk that fits beside them (whole rows where
+  // they fit, so a ring step reads one contiguous run of the matrix); a
+  // streamed tile rides in the ring, 2 QT bytes a stage per byte of chunk
+  const long long fixed =
+      (kStream ? 0LL : static_cast<long long>((h + 31) / 32) * QT * 64) + QT * 8 + kWarps * QT * 4;
+  auto ring = [](long long c) { return kStages * (kTileRows * (c + kPad) + (kStream ? 2 * QT * c : 0)); };
   int chunk = (h + kChunkUnit - 1) / kChunkUnit * kChunkUnit;
-  while (chunk > kChunkUnit && fixed + kStages * kTileRows * (chunk + kPad) > smem_limit) {
-    chunk -= kChunkUnit;
-  }
-  const long long smem = fixed + kStages * kTileRows * (chunk + kPad);
+  while (chunk > kChunkUnit && fixed + ring(chunk) > smem_limit) chunk -= kChunkUnit;
+  const long long smem = fixed + ring(chunk);
   err = blocks_per_sm(reinterpret_cast<const void*>(kernel), kThreads, smem, dev, smem_limit, fit,
                       per_sm);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -428,41 +473,68 @@ int launch_tile(const int8_t* qc, const float* qscale, const uint8_t* packed, co
   if (nslots < 1) nslots = 1;
   if (nslots * nqt > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
   kernel<<<static_cast<unsigned>(nslots * nqt), kThreads, static_cast<int>(smem), stream>>>(
-      qc, qscale, packed, alpha, csq, mask, out, B, N, d, valid, metric, nqt, chunk,
-      load_width(packed, h));
+      qc, qscale, qplanes, qbias, packed, alpha, csq, mask, out, B, N, d, valid, metric, nqt,
+      chunk, load_width(packed, h));
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kStream>
+int launch(int query_tile, const int8_t* qc, const float* qscale, const uint4* qplanes,
+           const int* qbias, const uint8_t* packed, const float* alpha, const int32_t* csq,
+           const uint8_t* mask, float* out, int B, int N, int d, int valid, int metric,
+           cudaStream_t s) {
+  switch (query_tile) {
+    case 8:
+      return launch_tile<1, kStream>(qc, qscale, qplanes, qbias, packed, alpha, csq, mask, out, B,
+                                     N, d, valid, metric, s);
+    case 16:
+      return launch_tile<2, kStream>(qc, qscale, qplanes, qbias, packed, alpha, csq, mask, out, B,
+                                     N, d, valid, metric, s);
+    case 32:
+      return launch_tile<4, kStream>(qc, qscale, qplanes, qbias, packed, alpha, csq, mask, out, B,
+                                     N, d, valid, metric, s);
+    case 64:
+      return launch_tile<8, kStream>(qc, qscale, qplanes, qbias, packed, alpha, csq, mask, out, B,
+                                     N, d, valid, metric, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
 // The arguments of svt_int4_block_minima (csrc/int4_minima.cu), and
 // query_tile: queries per block, 8, 16, 32 or 64 (ops/int4_scan.py:
-// k2_query_tile picks it; B past one tile takes several tiles; tiles of 32
-// and 64 only for d <= 4,096). A query tile
-// whose shared bytes do not fit the device returns cudaErrorInvalidValue
-// without launching (ops/int4_scan.py:k2_body routes such scans to
-// svt_int4_block_minima). Launches on `stream` and does not synchronise.
+// k2_query_tile picks it; B past one tile takes several tiles); qplanes and
+// qbias: null for a query tile resident in shared memory (tiles of 32 and
+// 64 only for d <= 4,096), or, to stream it, the query codes in fragment
+// order (int8 [ceil(B / query_tile), ceil(ceil(d/2) / 32), query_tile / 8,
+// 32, 16], 16-byte aligned, ops/int4_scan.py:k2_query_planes) and 8 *
+// sum(qc) of each query (int32 [B]). A resident query tile whose shared
+// bytes do not fit the device returns cudaErrorInvalidValue without
+// launching (ops/int4_scan.py:k2_streams_queries streams such tiles).
+// Launches on `stream` and does not synchronise.
 extern "C" int svt_int4_block_minima_mma(const void* qc, const void* qscale, const void* packed,
                                          const void* alpha, const void* csq, const void* mask,
                                          void* out, int B, int N, int d, int valid, int metric,
-                                         int query_tile, void* stream) {
-  if (B <= 0 || N <= 0 || d <= 0 || valid < 0 || valid > N || metric < kL2 || metric > kDot ||
-      (query_tile >= 32 && d > 4096)) {
+                                         int query_tile, const void* qplanes, const void* qbias,
+                                         void* stream) {
+  const bool streamed = qplanes != nullptr;
+  if (B <= 0 || N <= 0 || d <= 0 || d >= (1 << 21) || valid < 0 || valid > N || metric < kL2 ||
+      metric > kDot || (!streamed && query_tile >= 32 && d > 4096) ||
+      (streamed && (qbias == nullptr || reinterpret_cast<uintptr_t>(qplanes) % 16 != 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int8_t* q = static_cast<const int8_t*>(qc);
   const float* qs = static_cast<const float*>(qscale);
+  const uint4* qp = static_cast<const uint4*>(qplanes);
+  const int* qb = static_cast<const int*>(qbias);
   const uint8_t* pk = static_cast<const uint8_t*>(packed);
   const float* al = static_cast<const float*>(alpha);
   const int32_t* cs = static_cast<const int32_t*>(csq);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (query_tile) {
-    case 8: return launch_tile<1>(q, qs, pk, al, cs, m, o, B, N, d, valid, metric, s);
-    case 16: return launch_tile<2>(q, qs, pk, al, cs, m, o, B, N, d, valid, metric, s);
-    case 32: return launch_tile<4>(q, qs, pk, al, cs, m, o, B, N, d, valid, metric, s);
-    case 64: return launch_tile<8>(q, qs, pk, al, cs, m, o, B, N, d, valid, metric, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (streamed) return launch<true>(query_tile, q, qs, qp, qb, pk, al, cs, m, o, B, N, d, valid, metric, s);
+  return launch<false>(query_tile, q, qs, qp, qb, pk, al, cs, m, o, B, N, d, valid, metric, s);
 }

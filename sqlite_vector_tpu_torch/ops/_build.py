@@ -50,8 +50,9 @@ _SIGNATURES = {
     # qc, qscale, packed, alpha, csq, mask (or None), out, B, N, d, valid,
     # metric, stream
     "svt_int4_block_minima": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # the same arguments and the query tile (K2's tensor-core body)
-    "svt_int4_block_minima_mma": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # the same arguments, the query tile, and the streamed tile's planes and
+    # biases (or None twice: resident; K2's tensor-core body)
+    "svt_int4_block_minima_mma": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
 }
 
 _lock = threading.Lock()

@@ -21,9 +21,11 @@ Stage 1 has two implementations of one contract:
   - int4_block_minima_reference: plain PyTorch, the definition of the output;
   - the CUDA kernel K2, hand-written for Hopper, in two bodies that agree bit
     for bit: csrc/int4_minima_mma.cu (int8 tensor cores over the nibble
-    planes) and csrc/int4_minima.cu (CUDA cores: __dp4a, for rows too wide
-    for the tensor-core body's shared budget). k2_body says which body a
-    call takes.
+    planes, every d < 2^21; its query tile resident in shared memory or
+    streamed beside the codes, as k2_streams_queries says) and
+    csrc/int4_minima.cu (CUDA cores: __dp4a), which runs only where a
+    caller forces it as the cross-check (_launch_k2). k2_body says which
+    body a call takes.
 `int4_block_minima` picks by where the tensors live: the twin for CPU
 tensors, the kernel for CUDA tensors (it raises rather than fall back).
 L1 has no surrogate of this form and is rejected (it runs the plain tile
@@ -54,15 +56,25 @@ from sqlite_vector_tpu_torch.types import DistanceMetric
 # bound on the twin's unpacked [rows, d] codes and [B, rows] dots (elements)
 _TWIN_CHUNK_ELEMS = 1 << 25
 
-# The tensor-core body (csrc/int4_minima_mma.cu) keeps a tile of 8, 16, 32
-# or 64 queries in shared memory beside its 81,920-byte ring of packed row
-# tiles: per query both code planes, each padded to a multiple of 128 codes
-# (64 packed bytes), so 128 bytes per 64 packed bytes of a row. The query
-# tile may take this many bytes (the kernel takes the tile from
-# k2_query_tile); it admits d <= 2,048 / 4,096 / 8,192 / 16,384 for tiles of
-# 64 / 32 / 16 / 8 queries.
+# The tensor-core body (csrc/int4_minima_mma.cu) can keep a tile of 8, 16,
+# 32 or 64 queries in shared memory beside its 81,920-byte ring of packed
+# row tiles: per query both code planes, each padded to a multiple of 128
+# codes (64 packed bytes), so 128 bytes per 64 packed bytes of a row. A
+# resident query tile may take this many bytes (the kernel takes the tile
+# from k2_query_tile); it admits d <= 2,048 / 4,096 / 8,192 / 16,384 for
+# tiles of 64 / 32 / 16 / 8 queries. Or it streams the tile
+# (k2_streams_queries): each ring stage carries the tile's planes of the
+# stage's columns beside the codes (k2_query_planes), so every tile fits at
+# any d.
 _K2_QUERY_BYTES = 131072
 _K2_QUERY_TILES = (8, 16, 32, 64)
+# The route keeps a tile resident only while its planes take at most this
+# many bytes: past it the streamed tile was faster at every width and batch
+# measured, up to it the resident one (2 GB of codes, d = 2,048-16,384, B =
+# 1-64: tools/probe_k2_routes.py on an NVIDIA H100 80GB HBM3 at 700 W,
+# PERF.md section 6): the resident tile's planes leave the ring its
+# narrowest row chunks, and several tiles re-run the MMAs' A side.
+_K2_RESIDENT_BYTES = 65536
 
 
 def _surrogate(
@@ -121,22 +133,68 @@ def int4_block_minima_reference(
     return s_all.view(b, groups, BLOCK).amin(-1)
 
 
-def k2_query_tile(d: int, b: int) -> int:
+def _plane_bytes(d: int) -> int:
+    """Shared bytes of one query's two code planes in a resident tile."""
+    return 128 * -(-packed_width(d) // 64)
+
+
+def _resident_tiles(d: int) -> list[int]:
+    return [t for t in _K2_QUERY_TILES if t * _plane_bytes(d) <= _K2_QUERY_BYTES]
+
+
+def k2_streams_queries(d: int, b: int) -> bool:
+    """Whether K2's tensor-core body streams its query tile beside the
+    codes: where the tile the batch takes (the narrowest of 8, 16, 32 and
+    64 that covers b, else 64) would hold more than _K2_RESIDENT_BYTES of
+    planes resident: every B past d = 8,192 (16,384 for the shared budget
+    alone), B > 8 past 4,096, B > 16 past 2,048, B > 32 past 1,024."""
+    tile = next((t for t in _K2_QUERY_TILES if t >= b), _K2_QUERY_TILES[-1])
+    return tile * _plane_bytes(d) > _K2_RESIDENT_BYTES
+
+
+def k2_query_tile(d: int, b: int, streamed: bool | None = None) -> int:
     """Queries per block of K2's tensor-core body: the narrowest of 8, 16,
-    32 and 64 that covers b among the tiles whose query planes fit the
-    shared budget, else the widest that fits (a larger batch takes several
-    tiles); 0 when not even 8 queries fit."""
-    per_query = 128 * -(-packed_width(d) // 64)
-    fitting = [t for t in _K2_QUERY_TILES if t * per_query <= _K2_QUERY_BYTES]
-    return next((t for t in fitting if t >= b), fitting[-1] if fitting else 0)
+    32 and 64 that covers b, else the widest (a larger batch takes several
+    tiles), among the tiles whose query planes fit the shared budget or,
+    where the tile is streamed (k2_streams_queries, or `streamed` when
+    given), among all four; 0 for a resident tile where none fits."""
+    if streamed is None:
+        streamed = k2_streams_queries(d, b)
+    tiles = list(_K2_QUERY_TILES) if streamed else _resident_tiles(d)
+    return next((t for t in tiles if t >= b), tiles[-1] if tiles else 0)
 
 
 def k2_body(d: int) -> str:
     """Which body of K2 serves a scan of d-column codes: "mma" (tensor
-    cores) while a tile of 8 queries fits the shared budget, "simt" (CUDA
-    cores) past it. Every metric K2 takes runs in both bodies, and the
-    batch does not route: the tensor-core body serves every B."""
-    return "mma" if k2_query_tile(d, 1) else "simt"
+    cores) at every d (the launcher takes d < 2^21), its query tile
+    resident or streamed. The CUDA-core body ("simt") runs only where a
+    caller forces it (_launch_k2), as the cross-check. Every metric K2
+    takes runs in both bodies, and the batch does not route."""
+    return "mma"
+
+
+def k2_query_planes(qc: torch.Tensor, tile: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The streamed query tiles of K2's tensor-core body, laid out once a
+    call in the kernel's fragment order (as the JAX kernel's _permute_query
+    lays out its queries): int8 [ceil(B / tile), ceil(h / 32), tile / 8,
+    32, 16] with h = ceil(d / 2). Entry (i, ks, n, l), l = 4 g + t, holds
+    lane l's four B registers of k-step ks of column tile n of query tile
+    i: bytes [32 ks + 4 t, + 4) and [32 ks + 16 + 4 t, + 4) of query
+    tile * i + 8 n + g's low plane (codes [0, h)), then the same of its high
+    plane (codes [h, d)); zero past each plane's end and past B. So a ring
+    stage's k-steps are one contiguous 16-byte-aligned run whatever d.
+    Also 8 * sum(qc) of each query, int32 [B] (the -8 bias of the nibbles)."""
+    b, d = qc.shape
+    h = packed_width(d)
+    ks = -(-h // 32)
+    nqt = -(-b // tile)
+    planes = torch.zeros((nqt * tile, 2, ks * 32), dtype=torch.int8, device=qc.device)
+    planes[:b, 0, :h] = qc[:, :h]
+    planes[:b, 1, : d - h] = qc[:, h:]
+    # query i * tile + 8 n + g, plane, k-step, half, t, byte ->
+    # i, k-step, n, g, t, plane, half, byte
+    frag = planes.view(nqt, tile // 8, 8, 2, ks, 2, 4, 4).permute(0, 4, 1, 2, 6, 3, 5, 7)
+    return frag.reshape(nqt, ks, tile // 8, 32, 16), 8 * qc.sum(1, dtype=torch.int32)
 
 
 def _check(qc, qscale, packed, alpha, csq, metric, valid) -> None:
@@ -182,8 +240,9 @@ def int4_block_minima(
     [N, ceil(d/2)] uint8, alpha [N] float32, csq [N] int32 from
     quantize4_device. CPU tensors run int4_block_minima_reference; CUDA
     tensors launch the K2 kernel in the body k2_body picks and count the
-    launch in `int4_block_minima.launches` and by body in
-    `int4_block_minima.body_launches`.
+    launch in `int4_block_minima.launches`, by body in
+    `int4_block_minima.body_launches` and, where the tensor-core body
+    streams its query tile, in `int4_block_minima.streamed_launches`.
     """
     _check(qc, qscale, packed, alpha, csq, metric, valid)
     dev = packed.device
@@ -205,11 +264,14 @@ def _launch_k2(
     valid: int,
     row_mask: torch.Tensor | None,
     body: str,
+    streamed: bool | None = None,
 ) -> torch.Tensor:
     """K2 in `body` ("mma" or "simt") on checked CUDA tensors.
     int4_block_minima passes k2_body's choice; chip_smoke.py forces "simt"
-    to hold and time the CUDA-core body beside the tensor-core one. Raises
-    where the tensor-core body does not take the scan."""
+    to hold and time the CUDA-core body beside the tensor-core one, and
+    `streamed` (tensor-core body only; default k2_streams_queries) to time
+    the resident and the streamed query tile side by side. Raises where a
+    resident tile does not fit."""
     dev = packed.device
     if dev.type != "cuda":
         raise ValueError(f"int4_block_minima: unsupported device {dev}")
@@ -220,8 +282,10 @@ def _launch_k2(
     n = packed.shape[0]
     if n >= 2**31 or b >= 2**31 or dim >= 2**21:
         raise ValueError("int4_block_minima: B, N must fit int32 and d < 2^21")
-    if body == "mma" and k2_body(dim) != "mma":
-        raise ValueError("int4_block_minima: the tensor-core body does not take this scan")
+    streamed = body == "mma" and (k2_streams_queries(dim, b) if streamed is None else streamed)
+    tile = k2_query_tile(dim, b, streamed)
+    if body == "mma" and not tile:
+        raise ValueError("int4_block_minima: no resident query tile fits these rows")
     out = torch.empty((b, -(-n // BLOCK)), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
@@ -242,22 +306,31 @@ def _launch_k2(
         valid,
         _METRIC_CODE[metric],
     ]
-    if body == "mma":
-        launch = lib.svt_int4_block_minima_mma
-        args.append(k2_query_tile(dim, b))
-    else:
-        launch = lib.svt_int4_block_minima
     with torch.cuda.device(dev):
+        if body == "mma":
+            launch = lib.svt_int4_block_minima_mma
+            args.append(tile)
+            if streamed:
+                # made on the current stream, which the launch queues on:
+                # their memory is not reused before the kernel ran
+                planes, bias = k2_query_planes(qc, tile)
+                args += [planes.data_ptr(), bias.data_ptr()]
+            else:
+                args += [None, None]
+        else:
+            launch = lib.svt_int4_block_minima
         rc = launch(*args, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"int4_block_minima kernel launch failed: cudaError {rc}")
     int4_block_minima.launches += 1
     int4_block_minima.body_launches[body] += 1
+    int4_block_minima.streamed_launches += streamed
     return out
 
 
 int4_block_minima.launches = 0
 int4_block_minima.body_launches = {"mma": 0, "simt": 0}
+int4_block_minima.streamed_launches = 0
 
 
 def int4_block_scan_topk(
@@ -279,9 +352,29 @@ def int4_block_scan_topk(
     rescoring the gathered packed rows with the int4 composition (NaN ->
     +inf); the query codes are made once for both stages."""
     valid = packed.shape[0] if valid_count is None else int(valid_count)
-    qc, qscale, qsq = quantize_query_int8(queries)
-    qf = sanitize_queries(queries)
-    minima = int4_block_minima(qc, qscale, packed, alpha, csq, metric, valid, row_mask)
+    codes = quantize_query_int8(queries)
+    minima = int4_block_minima(*codes[:2], packed, alpha, csq, metric, valid, row_mask)
+    return _finish_int4(minima, codes, sanitize_queries(queries), packed, alpha, csq, metric, k,
+                        dim, valid, row_mask)
+
+
+def _finish_int4(
+    minima: torch.Tensor,
+    codes: tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+    qf: torch.Tensor,
+    packed: torch.Tensor,
+    alpha: torch.Tensor,
+    csq: torch.Tensor,
+    metric: DistanceMetric,
+    k: int,
+    dim: int,
+    valid: int,
+    row_mask: torch.Tensor | None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stage 2 of int4_block_scan_topk over K2's minima: `codes` is
+    quantize_query_int8's (qc, qscale, qsq), qf the sanitized float32
+    queries. chip_smoke.py times it beside K2."""
+    qc, qscale, qsq = codes
 
     def rescore(s: int, e: int, rows: torch.Tensor) -> torch.Tensor:
         d = int4_distances(

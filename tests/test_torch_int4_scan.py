@@ -267,45 +267,95 @@ def test_twin_chunks_match_one_pass(monkeypatch):
         # 384 codes: 192 packed bytes, 3 chunks of 64, 384 bytes a query
         (384, {1: 8, 8: 8, 9: 16, 16: 16, 17: 32, 33: 64, 64: 64, 65: 64, 200: 64}),
         (9, {1: 8, 200: 64}),
-        # the widest rows of each tile (64 queries x 2,048 plane bytes =
-        # 131,072), and one code past them (one more 64-byte chunk)
-        (2048, {1: 8, 64: 64, 200: 64}),
-        (2049, {33: 32, 64: 32}),
-        (4096, {32: 32, 64: 32}),
-        (4097, {17: 16, 32: 16}),
-        (8192, {1: 8, 16: 16, 64: 16}),
-        (8193, {9: 8, 16: 8}),
-        (16384, {1: 8, 65: 8}),
-        (16385, {1: 0, 64: 0}),
+        # the widest rows each tile keeps resident on the route (its planes
+        # within 65,536 bytes: 64 / 32 / 16 / 8 queries up to d = 1,024 /
+        # 2,048 / 4,096 / 8,192), and one code past them: that tile streamed
+        (1024, {64: 64, 200: 64}),
+        (1025, {32: 32, 33: 64}),
+        (2048, {1: 8, 32: 32, 64: 64, 200: 64}),
+        (2049, {16: 16, 17: 32, 64: 64}),
+        (4096, {16: 16, 32: 32, 64: 64}),
+        (4097, {8: 8, 9: 16}),
+        (8192, {1: 8, 8: 8, 16: 16, 64: 64}),
+        (8193, {1: 8, 9: 16}),
+        (16384, {1: 8, 65: 64}),
+        # past every tile the shared budget holds: streamed, every width
+        (16385, {1: 8, 9: 16, 64: 64}),
+        (2**21 - 1, {1: 8, 200: 64}),
     ],
     ids=str,
 )
 def test_k2_query_tile_is_the_narrowest_that_covers_b_and_fits(d, tiles):
     for b, want in tiles.items():
         assert int4_scan.k2_query_tile(d, b) == want, b
-        if want:
-            per_query = 2 * 64 * -(-q4.packed_width(d) // 64)
-            assert want * per_query <= int4_scan._K2_QUERY_BYTES
+        plane_bytes = want * 2 * 64 * -(-q4.packed_width(d) // 64)
+        streamed = int4_scan.k2_streams_queries(d, b)
+        # resident only while the tile's planes take at most the route's
+        # bytes, which the shared budget holds
+        assert streamed == (plane_bytes > int4_scan._K2_RESIDENT_BYTES), b
+        assert streamed or plane_bytes <= int4_scan._K2_QUERY_BYTES, b
 
 
 def test_k2_wide_query_tiles_stay_within_the_exact_float_conversion():
-    """The tensor-core body converts the dots of 32- and 64-query tiles to
-    float32 by adding them to 1.5 * 2^23, exact while |dot| <= 8 * 128 * d
-    <= 2^22, so d <= 4,096; its launcher refuses those tiles past that, so
-    k2_query_tile must never pick them there."""
+    """The tensor-core body converts the dots of resident 32- and 64-query
+    tiles to float32 by adding them to 1.5 * 2^23, exact while |dot| <=
+    8 * 128 * d <= 2^22, so d <= 4,096; its launcher refuses those resident
+    tiles past that, so k2_query_tile must never pick them there, routed or
+    forced resident. Streamed tiles convert exactly (int -> float, rounded
+    as the twin's cast) at every d, 64 queries included."""
     for d in range(1, 16385):
-        if int4_scan.k2_query_tile(d, 200) >= 32:
-            assert d <= 4096, d
-    assert int4_scan.k2_query_tile(4096, 200) == 32
+        for b in (17, 33, 200):
+            if int4_scan.k2_query_tile(d, b) >= 32 and not int4_scan.k2_streams_queries(d, b):
+                assert d <= 4096, d
+            if int4_scan.k2_query_tile(d, b, False) >= 32:
+                assert d <= 4096, d
+    assert int4_scan.k2_query_tile(4096, 32, False) == 32
+    assert int4_scan.k2_query_tile(2048, 32) == 32 and not int4_scan.k2_streams_queries(2048, 32)
+    assert int4_scan.k2_query_tile(4096, 200) == 64 and int4_scan.k2_streams_queries(4096, 200)
+    assert int4_scan.k2_query_tile(18432, 200) == 64 and int4_scan.k2_streams_queries(18432, 200)
 
 
 def test_k2_body_routes_by_d_alone():
-    """The tensor-core body up to d = 16,384 (8 queries of 16,384 plane
-    bytes fill the 131,072-byte budget), the CUDA-core body past it."""
-    for d in (1, 9, 16, 95, 384, 768, 2049, 16383, 16384):
+    """The tensor-core body at every d the launcher takes (d < 2^21). A
+    single query's tile stays resident up to d = 8,192 (8 queries of 8,192
+    plane bytes fill the route's 65,536) and is streamed past it; past
+    16,384 no tile fits the shared budget at all (forcing one raises on
+    the card). The CUDA-core body runs only where a caller forces it."""
+    for d in (1, 9, 16, 95, 384, 768, 2049, 8192, 8193, 16384, 16385, 18432, 20000, 2**21 - 1):
         assert int4_scan.k2_body(d) == "mma", d
-    for d in (16385, 20000, 2**21 - 1):
-        assert int4_scan.k2_body(d) == "simt", d
+        assert int4_scan.k2_streams_queries(d, 1) == (d > 8192), d
+        assert (int4_scan.k2_query_tile(d, 1, False) == 8) == (d <= 16384), d
+
+
+@pytest.mark.parametrize("d,b,tile", [(75, 11, 8), (74, 3, 16), (129, 70, 64), (16, 1, 8), (2, 9, 32)])
+def test_k2_query_planes_hold_each_lanes_fragments(d, b, tile):
+    """The streamed query tile's layout (k2_query_planes), entry by entry,
+    against the fragment contract of mma.sync m16n8k32's B operand that the
+    kernel reads it with: entry (i, ks, n, l) holds lane l = 4 g + t's
+    registers b0, b1 of query tile * i + 8 n + g's low plane (codes [0, h))
+    at k-step ks, then b0, b1 of its high plane (codes [h, d)): bytes
+    [32 ks + 4 t, + 4) and [32 ks + 16 + 4 t, + 4), zero past each plane's
+    end and past B; odd and even h, B past one tile. And 8 * sum(qc)."""
+    rng = np.random.default_rng(d + b)
+    q = rng.integers(-127, 128, (b, d)).astype(np.int8)
+    frag, bias = int4_scan.k2_query_planes(torch.from_numpy(q), tile)
+    h = q4.packed_width(d)
+    nqt, ks = -(-b // tile), -(-h // 32)
+    assert frag.dtype == torch.int8 and frag.shape == (nqt, ks, tile // 8, 32, 16)
+    assert frag.is_contiguous()
+    planes = np.zeros((nqt * tile, 2, ks * 32 + 32), np.int8)
+    planes[:b, 0, :h] = q[:, :h]
+    planes[:b, 1, : d - h] = q[:, h:]
+    f = frag.numpy()
+    for i in range(nqt):
+        for k in range(ks):
+            for n in range(tile // 8):
+                for lane in range(32):
+                    j, c = i * tile + n * 8 + lane // 4, 32 * k + 4 * (lane % 4)
+                    want = np.concatenate([planes[j, p, c + o : c + o + 4] for p in (0, 1) for o in (0, 16)])
+                    np.testing.assert_array_equal(f[i, k, n, lane], want)
+    assert bias.dtype == torch.int32
+    np.testing.assert_array_equal(bias.numpy(), 8 * q.astype(np.int64).sum(1))
 
 
 def test_launch_k2_takes_only_cuda_tensors():

@@ -721,33 +721,115 @@ def test_k2_bodies_match_twin_and_each_other(cuda, d, b):
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "d,b,tile",
-    # the widest rows each query tile holds, and one column past them
+    # the widest rows each resident query tile holds in the shared budget,
+    # and one column past them (the next narrower tile)
     [(2048, 64, 64), (2049, 64, 32), (4096, 32, 32), (4097, 32, 16), (8192, 16, 16),
      (8193, 16, 8), (16384, 1, 8), (16384, 65, 8)],
 )
 def test_k2_tensor_core_body_at_the_widest_rows_of_each_query_tile(cuda, d, b, tile):
-    from sqlite_vector_tpu_torch.ops.int4_scan import k2_query_tile
+    """The resident tile forced at its widest rows, and the routed call
+    (the tile streamed at each of these shapes: its planes would pass the
+    route's 65,536 bytes), equal to the twin and to the CUDA-core body bit
+    for bit."""
+    from sqlite_vector_tpu_torch.ops.int4_scan import _launch_k2, k2_query_tile
 
-    assert k2_query_tile(d, b) == tile
+    assert k2_query_tile(d, b, False) == tile
     tensors, _ = int4_case(700, d, b, cuda, seed=d + b)
     for metric in K2_METRICS:
-        assert_k2_bodies_match_twin(tensors, metric, 690)
+        want = assert_k2_bodies_match_twin(tensors, metric, 690)
+        got = _launch_k2(*tensors, metric, 690, None, "mma", False)
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), metric
 
 
 @pytest.mark.cuda
 def test_k2_tensor_core_body_is_refused_where_it_does_not_apply(cuda):
     """Past d = 16,384 not even 8 queries fit the tensor-core body's shared
-    budget: forcing it raises, and the routed call takes the CUDA-core body
-    and equals the twin."""
+    budget: forcing the resident tile raises, and the routed call takes
+    the tensor-core body with the query tile streamed, equal to the twin
+    and to the CUDA-core body."""
     from sqlite_vector_tpu_torch.ops.int4_scan import _launch_k2
 
     tensors, _ = int4_case(400, 16385, 2, cuda)
-    with pytest.raises(ValueError, match="body"):
-        _launch_k2(*tensors, DistanceMetric.L2, 400, None, "mma")
+    with pytest.raises(ValueError, match="resident"):
+        _launch_k2(*tensors, DistanceMetric.L2, 400, None, "mma", False)
     before = dict(int4_block_minima.body_launches)
+    streamed = int4_block_minima.streamed_launches
     got = int4_block_minima(*tensors, DistanceMetric.L2, 400)
-    assert int4_block_minima.body_launches == {**before, "simt": before["simt"] + 1}
+    assert int4_block_minima.body_launches == {**before, "mma": before["mma"] + 1}
+    assert int4_block_minima.streamed_launches == streamed + 1
     assert_k2_matches_twin(got, int4_block_minima_reference(*tensors, DistanceMetric.L2, 400))
+    assert torch.equal(got, assert_k2_bodies_match_twin(tensors, DistanceMetric.L2, 400))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16385, 16400, 18432, 18433, 32768])  # odd and even h, 16-byte rows
+@pytest.mark.parametrize("b", [1, 8, 64, 65])  # streamed tiles of 8 and 64, and two of 64
+def test_streamed_k2_body_matches_twin_and_cuda_core_body(cuda, d, b):
+    """K2's tensor-core body with its query tile streamed beside the codes
+    (every d past 16,384): its 4 metrics, rows >= valid, unmasked and with
+    each row mask, over 3,003 rows (more ring steps than one row tile's),
+    valid 2,900: equal to the twin (tolerance 0) and to the CUDA-core body
+    bit for bit, each routed call counted as streamed."""
+    from sqlite_vector_tpu_torch.ops.int4_scan import k2_streams_queries
+
+    assert k2_streams_queries(d, b)
+    tensors, _ = int4_case(3003, d, b, cuda, seed=d + b)
+    masks = [None] + [mask_case(kind, 3003, cuda, seed=d) for kind in MASK_KINDS]
+    for metric in K2_METRICS:
+        for mask in masks:
+            before = int4_block_minima.streamed_launches
+            got = assert_k2_bodies_match_twin(tensors, metric, 2900, mask)
+            assert int4_block_minima.streamed_launches == before + 1
+            assert bool(torch.isinf(got[:, -1]).all())  # rows >= valid only
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [4096, 8192, 16384])
+@pytest.mark.parametrize("b", [1, 64])
+def test_k2_resident_and_streamed_tiles_agree(cuda, d, b):
+    """Where both fit, the resident query tile (at B=64 several narrow
+    tiles) and the streamed one give the same minima bit for bit, equal to
+    the twin and to the CUDA-core body, for the 4 metrics with a row mask."""
+    from sqlite_vector_tpu_torch.ops.int4_scan import _launch_k2
+
+    tensors, _ = int4_case(1500, d, b, cuda, seed=d + b)
+    mask = mask_case("half", 1500, cuda, seed=d)
+    for metric in K2_METRICS:
+        want = assert_k2_bodies_match_twin(tensors, metric, 1490, mask)
+        for streamed in (False, True):
+            got = _launch_k2(*tensors, metric, 1490, mask, "mma", streamed)
+            torch.cuda.synchronize()
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32)), (metric, streamed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 65])
+def test_k2_exact_where_unbiased_sums_pass_int32(cuda, b):
+    """d = 1,200,000: rows of int4 code +7 (nibble 15) in most columns and
+    a query of code +127 in every column (N = 300), so the unbiased nibble sums the
+    CUDA-core body accumulates reach ~15 * 127 * d > 2^31 and wrap mod 2^32
+    (__dp4a), while the tensor-core body's partial sums, the -8 bias in
+    their start, stay within 1,016 d < 2^31; both must equal the twin's
+    exact dot (float64) bit for bit, streamed."""
+    from sqlite_vector_tpu_torch.ops.int4_scan import k2_streams_queries
+
+    n, d = 300, 1_200_000
+    gen = torch.Generator(device=cuda).manual_seed(b)
+    x = torch.ones((n, d), device=cuda)  # code +7 where 1.0 is the row's largest value
+    x[:, :50_000] = torch.rand((n, 50_000), generator=gen, device=cuda)  # rows differ here
+    x[::7] = torch.randn((n // 7 + 1, d), generator=gen, device=cuda)  # and some N(0, 1) rows
+    packed, alpha, csq = quantize4_device(x)
+    del x
+    q = torch.randn((b, d), generator=gen, device=cuda)
+    q[0] = 1.0
+    qc, qs, _ = quantize_query_int8(q)
+    assert bool((qc[0] == 127).all())
+    nib = (packed[1].to(torch.int64) & 15).sum() + (packed[1].to(torch.int64) >> 4).sum()
+    assert int(nib) * 127 > 2**31  # row 1's unbiased sum against query 0
+    assert k2_streams_queries(d, b)
+    for metric in K2_METRICS:
+        assert_k2_bodies_match_twin((qc, qs, packed, alpha, csq), metric, n)
 
 
 # -- host storage: scans streamed through pinned tiles (ops/streaming.py) ----
@@ -793,6 +875,42 @@ def test_streamed_search_equals_the_device_search_bit_for_bit(cuda, tmp_path, mo
                 np.testing.assert_array_equal(got, want)
     assert block_minima.launches > 0 and block_minima.body_launches["simt"] == 0
     assert int4_block_minima.launches > 0
+
+
+@pytest.mark.cuda
+def test_wide_int4_host_storage_and_mesh_take_the_streamed_body(cuda, tmp_path, monkeypatch):
+    """int4-quantized search of 2,000 x 16,400 rows (past every resident
+    query tile) streamed from host storage in tiles of 257 rows, and on a
+    4-shard 1-D mesh on the card: each equal bit for bit to the one-device
+    search of the same directory, every K2 launch on the tensor-core body
+    with its query tile streamed."""
+    from sqlite_vector_tpu_torch.parallel import make_mesh
+
+    d = 16400
+    rng = np.random.default_rng(25)
+    base = rng.standard_normal((2000, d)).astype(np.float32)
+    q = np.concatenate([base[[5, 1500]], rng.standard_normal((7, d)).astype(np.float32)])
+    path = str(tmp_path / "w")
+    svt.Dataset.from_arrays("w", base, options=f"dimension={d},distance=L2", device="cpu").save(path, shard_rows=700)
+    dev = svt.Dataset.load(path, device="cuda")
+    host = svt.Dataset.load(path, device="cuda", storage="host", mmap=True)
+    mesh = svt.Dataset.load(path, mesh=make_mesh(devices=["cuda"] * 4))
+    for ds in (dev, host, mesh):
+        ds.quantize(qtype="int4")
+    _tiny_tiles(monkeypatch, d // 2 + 8)
+    for b in (1, 9):
+        want = dev.search(q[:b], 10, mode="quantized")
+        for ds in (host, mesh):
+            before = (int4_block_minima.launches, int4_block_minima.streamed_launches,
+                      int4_block_minima.body_launches["mma"])
+            got = ds.search(q[:b], 10, mode="quantized")
+            launched = int4_block_minima.launches - before[0]
+            assert launched > 1  # a tile or a shard each
+            assert int4_block_minima.streamed_launches - before[1] == launched
+            assert int4_block_minima.body_launches["mma"] - before[2] == launched
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g, w)
+    assert want[0][0, 0] == 6  # row 5's id, found first
 
 
 @pytest.mark.cuda

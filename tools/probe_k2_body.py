@@ -11,9 +11,12 @@ int4 codes of N(0, 1) rows from --seed, for each batch it checks the body
 and `phases` bit for bit against the CUDA-core body (csrc/int4_minima.cu)
 and times all of them and the CUDA-core body in turns (CUDA events), and
 prints the phases in cycles per row tile (thread 0 of each block, summed
-over blocks, over the tiles) and per block.
+over blocks, over the tiles) and per block. Each batch takes the query tile
+ops/int4_scan.py routes it to (resident in shared memory, or streamed
+beside the codes: k2_streams_queries); --streamed takes the streamed tile
+at every batch, so the split reads those instances at any d.
 
-    python3 tools/probe_k2_body.py [--n 1000000] [--d 384] [--iters 30]
+    python3 tools/probe_k2_body.py [--n 1000000] [--d 384] [--iters 30] [--streamed]
 
 Run from the repository root, on a machine with a CUDA device and nvcc.
 The patches match the source's text; the script stops if one no longer
@@ -34,7 +37,12 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from sqlite_vector_tpu_torch.ops import _build  # noqa: E402
-from sqlite_vector_tpu_torch.ops.int4_scan import _launch_k2, k2_query_tile  # noqa: E402
+from sqlite_vector_tpu_torch.ops.int4_scan import (  # noqa: E402
+    _launch_k2,
+    k2_query_planes,
+    k2_query_tile,
+    k2_streams_queries,
+)
 from sqlite_vector_tpu_torch.ops.quantize4 import quantize4_device, quantize_query_int8  # noqa: E402
 from sqlite_vector_tpu_torch.types import DistanceMetric  # noqa: E402
 from sqlite_vector_tpu_torch.utils.compile_cache import build_root  # noqa: E402
@@ -131,6 +139,7 @@ def main() -> int:
     ap.add_argument("--batches", default="1,8,64,128")
     ap.add_argument("--iters", type=int, default=30, help="launches per timing")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--streamed", action="store_true", help="stream the query tile at every batch")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("probe_k2_body: no CUDA device", file=sys.stderr)
@@ -143,7 +152,7 @@ def main() -> int:
     shutil.rmtree(out, ignore_errors=True)
     libs = build(out)
     for name, (_, regs) in libs.items():
-        print(f"[probe] {name}: registers by query tile (64, 32, 16, 8): {regs}", flush=True)
+        print(f"[probe] {name}: registers of each instance, as ptxas lists them: {regs}", flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     x = torch.randn((args.n, args.d), generator=gen, device="cuda")
@@ -152,10 +161,11 @@ def main() -> int:
     n, d, L2 = args.n, args.d, DistanceMetric.L2
     groups = -(-n // 128)
 
-    def run(lib, qc, qs, out_t, tile):
+    def run(lib, qc, qs, out_t, tile, planes):
         rc = lib.svt_int4_block_minima_mma(
             qc.data_ptr(), qs.data_ptr(), packed.data_ptr(), alpha.data_ptr(), csq.data_ptr(),
             None, out_t.data_ptr(), qc.shape[0], n, d, n, 0, tile,
+            *((None, None) if planes is None else (planes[0].data_ptr(), planes[1].data_ptr())),
             torch.cuda.current_stream().cuda_stream,
         )
         if rc:
@@ -174,10 +184,15 @@ def main() -> int:
 
     for b in (int(v) for v in args.batches.split(",")):
         qc, qs, _ = quantize_query_int8(torch.randn((b, d), generator=gen, device="cuda"))
-        tile = k2_query_tile(d, b)
+        streamed = args.streamed or k2_streams_queries(d, b)
+        tile = k2_query_tile(d, b, streamed)
+        # made once, outside the timed launches (the routed call makes them
+        # at every call)
+        planes = k2_query_planes(qc, tile) if streamed else None
         want = _launch_k2(qc, qs, packed, alpha, csq, L2, n, None, "simt")
         outs = {name: torch.empty((b, groups), device="cuda") for name in libs}
-        fns = {name: (lambda lib=lib, o=outs[name]: run(lib, qc, qs, o, tile)) for name, (lib, _) in libs.items()}
+        fns = {name: (lambda lib=lib, o=outs[name]: run(lib, qc, qs, o, tile, planes))
+               for name, (lib, _) in libs.items()}
         fns["cuda-core body"] = lambda: _launch_k2(qc, qs, packed, alpha, csq, L2, n, None, "simt")
         for name in EXACT:
             fns[name]()
@@ -195,7 +210,8 @@ def main() -> int:
         phases_lib.svt_probe_read(buf)
         tiles = -(-n // 256)
         print(
-            f"[probe] K2 {n}x{d} B={b} (query tile {tile}; kernel and phases == the CUDA-core "
+            f"[probe] K2 {n}x{d} B={b} ({'streamed' if streamed else 'resident'} query tile {tile}; "
+            f"kernel and phases == the CUDA-core "
             f"body bit for bit): {times}; cycles per row tile: ring wait {buf[0] / tiles:.0f}, "
             f"MMA loop {buf[1] / tiles:.0f}, epilogue {buf[2] / tiles:.0f}, combine "
             f"{buf[3] / tiles:.0f}; prologue {buf[4] / buf[5]:.0f} cycles per block over "

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Time K1 (ops/block_scan.py:block_minima, routed as the checkout routes
-it) in two or more checkouts of this repository on one CUDA card, in turns
-(A B B A per round), at the main path's size: 1,000,000 x 384 rows from
-N(0, 1) (seed 0) and 64 queries, cast for the 16-bit and u8 shapes (u8:
-the rows scaled by 32 and offset by 128, clamped).
+it), and K2 (ops/int4_scan.py:int4_block_minima, L2 over the rows' int4
+codes) in two or more checkouts of this repository on one CUDA card, in
+turns (A B B A per round), at the main path's size: 1,000,000 x 384 rows
+from N(0, 1) (seed 0) and 64 queries, cast for the 16-bit and u8 shapes
+(u8: the rows scaled by 32 and offset by 128, clamped).
 
     python3 tools/time_k1.py CHECKOUT_A CHECKOUT_B [--rounds 2] [--out FILE]
 
@@ -37,6 +38,8 @@ def worker() -> None:
     import torch
 
     from sqlite_vector_tpu_torch.ops.block_scan import block_minima
+    from sqlite_vector_tpu_torch.ops.int4_scan import int4_block_minima
+    from sqlite_vector_tpu_torch.ops.quantize4 import quantize4_device, quantize_query_int8
     from sqlite_vector_tpu_torch.types import DistanceMetric
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -51,20 +54,34 @@ def worker() -> None:
         else:
             base, q = rows.to(dt), queries[:b].to(dt).contiguous()
         m = DistanceMetric(metric)
-        n = base.shape[0]
-        for _ in range(3):
-            block_minima(q, base, m, n)
-        torch.cuda.synchronize()
-        iters = 20 if b == 1 else 10
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            block_minima(q, base, m, n)
-        end.record()
-        torch.cuda.synchronize()
-        out[f"{metric} {dtype} B={b}"] = start.elapsed_time(end) / iters
+        out[f"{metric} {dtype} B={b}"] = window_ms(
+            lambda: block_minima(q, base, m, base.shape[0]), 20 if b == 1 else 10)
         del base
+    packed, alpha, csq = quantize4_device(rows)
+    for b in (1, 64):
+        qc, qs, _ = quantize_query_int8(queries[:b])
+
+        def k2():
+            return int4_block_minima(qc, qs, packed, alpha, csq, DistanceMetric.L2, packed.shape[0])
+
+        out[f"K2 L2 int4 B={b}"] = window_ms(k2, 20 if b == 1 else 10)
     print(json.dumps(out))
+
+
+def window_ms(fn, iters: int) -> float:
+    """Mean ms per call over one CUDA-event window, after three warm-up calls."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def main() -> int:
