@@ -11,25 +11,29 @@ the kernels and runs only phase 11's several-card part (phase_cards).
 Phases, each printing its own lines:
   1. device   the card (nvidia-smi name and power limit), torch/CUDA versions
               and the TF32 flags, which are pinned off;
-  2. build    compile K1's two bodies (csrc/block_minima_mma.cu on tensor
-              cores, csrc/block_minima.cu on CUDA cores) and the packed-int4
+  2. build    compile K1's three bodies (csrc/block_minima_wgmma.cu on
+              warpgroup MMA fed by TMA, csrc/block_minima_mma.cu on mma.sync,
+              csrc/block_minima.cu on CUDA cores) and the packed-int4
               kernel K2's two bodies (csrc/int4_minima_mma.cu on tensor
               cores, csrc/int4_minima.cu on CUDA cores) from csrc/ with nvcc,
               one process per source, and print what ptxas reported of each
-              function (registers, stack, spills); no instance of either
+              function (registers, stack, spills); no instance of a
               tensor-core body or of K1's L1 kernel may spill;
   3. kernel   K1 against its plain PyTorch twin on the card for every
               (metric x dtype) pair, in the body ops/block_scan.py:k1_body
-              routes it to (the dot family on tensor cores, L1 on K1's L1
-              kernel), and the 16-bit dot family also on the CUDA-core body,
+              routes it to (the float dot family on the wgmma body where TMA
+              takes the rows, else and for codes on the mma.sync body, L1 on
+              K1's L1 kernel), the float dot family also on the mma.sync body
+              and the 16-bit dot family also on the CUDA-core body,
               N = 100003 (ragged last group), d in {100, 384} (16-bit also
               6848, the widest row of the resident query tile),
               B in {1, 8, 33, 64, 65, 200} (query-tile edges), valid < N,
               with a NaN row, two duplicate rows and a zero row; then f32,
               f16 and bf16 rows and queries with +Inf, -Inf, values whose
               squared norms overflow, and 0 x Inf (tests/test_torch_kernel_cuda.py:
-              nonfinite_case) under every metric, the 16-bit dot family in
-              both bodies; then K2 against its twin
+              nonfinite_case) under every metric, the float dot family also
+              on the mma.sync body, the 16-bit one also on the CUDA-core
+              body; then K2 against its twin
               for its four metrics, d in {95, 384}, B in {1, 8, 33, 64, 65,
               200}, and d = 16,385 (the query tile streamed; its
               streamed_launches printed), B in {1, 65},
@@ -45,13 +49,14 @@ Phases, each printing its own lines:
               from the base) against a plain-torch ground truth, then
               quantize() and search(Q, 20, exact=False) against the plain
               integer-domain scan of the same codes; K1's launch count over
-              these searches must be above 0, every launch in its
-              tensor-core body;
+              these searches must be above 0, every exact launch in its
+              wgmma body and every quantized one in its mma.sync body;
   5. times    K1 at the main path's shapes (f32, the int8 codes and u8 codes,
               and L2 over the rows cast to float16 and bfloat16, each at B=1
-              and B=64), both bodies held against the twin and timed in
-              turns (CUDA events, after warm-up) with the twin, the
-              CUDA-core body and the library yardstick (library_call;
+              and B=64), the routed body (floats: wgmma; codes: mma.sync),
+              the mma.sync body (floats) and the CUDA-core body held against
+              the twin and timed in turns (CUDA events, after warm-up) with
+              the twin and the library yardstick (library_call;
               torch.matmul in 16 bits), beside its bound (k1_bound) and its
               share of it; then L1 over the f32 rows, the rows in float16
               and u8 codes on K1's L1 kernel, against the twin, its bound
@@ -203,10 +208,11 @@ Phases, each printing its own lines:
               no model loaded), added 100,000 at a time, and 64 queries,
               half from the base: exact search at B=1 and B=64 against the
               plain-torch ground truth (tie-aware), self-matches first at 0,
-              K1 launched once a search, each on the tensor-core body with
-              the query tile streamed; K1 alone for L2, COSINE and DOT at
-              B=1 and B=64 against the twin and the CUDA-core body, timed
-              in turns with them and torch.matmul beside k1_bound; K1
+              K1 launched once a search, each on the wgmma body with the
+              query tile streamed; K1 alone for L2, COSINE and DOT at B=1
+              and B=64 against the twin, the mma.sync body and the
+              CUDA-core body, timed in turns with them and torch.matmul
+              beside k1_bound; K1
               against the finish (CUDA-event windows); exact search at B=1
               and B=64 (p50, and QPS) with K1 in each body, in turns
               (body_latency); int8 quantized
@@ -231,18 +237,21 @@ Phases, each printing its own lines:
               datastore shard keyed by Nemotron-4-340B's final hidden
               states: 500,000 x 18,432 FLOATB16 L2 N(0, 1) rows drawn on the
               card (18.4 GB), 64 queries, half from the base, exact search
-              (self-matches first; their distances printed), the same int4
+              (self-matches first, each at exactly 0), the same int4
               and refine checks, every K2 launch streamed, the CUDA-core
               body forced once and bit-equal, K2 alone as above and beside
               the finish (CUDA-event windows). Prints the peak device
               memory.
 
 Each phase ends with a line of its seconds. Then one JSON line of kernel results, one entry a kernel body (each with
-its bound, the side that bounds it and the library yardstick): K1 on tensor
-cores for f32 and codes (main-path numbers f32 B=64), K1 on tensor cores
-for 16-bit rows (L2 f16 B=64; launches from phase 5's FLOAT16 and FLOATB16
-searches), K1 on tensor cores with the query tile streamed (f32 d=4096
-B=64; launches from phase 13's two searches), K1's L1 kernel (L1 f32 B=64; launches from the FLOAT32 L1
+its bound, the side that bounds it and the library yardstick; the three
+float entries also the mma.sync body's ms as "mma_sync_ms"): K1's wgmma
+body for f32 rows (main-path numbers f32 B=64; launches from phase 4's exact
+search), K1's mma.sync body over the int8 codes (INT8 codes B=64; launches
+from phase 4's quantized search), K1's wgmma body for 16-bit rows (L2 f16
+B=64; launches from phase 5's FLOAT16 and FLOATB16 searches), K1's wgmma
+body with the query tile streamed (f32 d=4096 B=64; launches from phase
+13's two searches), K1's L1 kernel (L1 f32 B=64; launches from the FLOAT32 L1
 search), K2 (B=64), K2 past the resident query tile (int4_block_minima_wide:
 bf16 d=18432 B=64; launches from phase 14's eight searches); the rest under "by_shape"; "sql_launches" counts phase 10's
 launches on the SQL path, "mesh_launches" phase 11's, "trace_launches" the
@@ -491,6 +500,9 @@ def check_nonfinite(n: int, masks=None) -> float:
             if dtype is not torch.float32 and metric is not DistanceMetric.L1:
                 label = f"non-finite {dtype} {metric.value}, CUDA-core body"
                 worst = max(worst, compare_minima(q, base, metric, valid, label, body="simt"))
+            if metric is not DistanceMetric.L1:
+                label = f"non-finite {dtype} {metric.value}, mma.sync body"
+                worst = max(worst, compare_minima(q, base, metric, valid, label, body="mma"))
         dot = block_minima(q, base, DistanceMetric.DOT, valid)
         check(float(dot[2, 30]) == float("-inf"), f"{dtype}: DOT over a +Inf column does not read -inf")
         check(float(dot[6, 31]) == float("-inf"), f"{dtype}: DOT of -Inf against -Inf does not read -inf")
@@ -526,8 +538,11 @@ def phase_kernel(card: str) -> tuple[float, float, float]:
                 for metric in DistanceMetric:
                     label = f"{metric.value}/{dtype}/d={d}/B={b}"
                     worst = max(worst, compare_minima(q, base, metric, valid, label))
-                    if half and metric is not DistanceMetric.L1:  # the other body
-                        worst = max(worst, compare_minima(q, base, metric, valid, f"{label}/simt", body="simt"))
+                    if dtype.is_floating_point and metric is not DistanceMetric.L1:  # the other bodies
+                        worst = max(worst, compare_minima(q, base, metric, valid, f"{label}/mma", body="mma"))
+                        if half:
+                            worst = max(worst, compare_minima(q, base, metric, valid, f"{label}/simt",
+                                                              body="simt"))
                     for kind, mask in masks.items():
                         masked_worst = max(masked_worst, compare_minima(
                             q, base, metric, valid, f"{label}/mask={kind}", mask
@@ -538,7 +553,9 @@ def phase_kernel(card: str) -> tuple[float, float, float]:
     print(
         f"[kernel] K1 == twin on all 25 metric x dtype pairs ({cases} dtype/d/B "
         f"cases, d in 100, 384 and for 16-bit 6848, B in 1, 8, 33, 64, 65, 200, x 5 "
-        f"metrics, the 16-bit dot family in both bodies, N={n}, valid={valid}; ints "
+        f"metrics, routed (floats at TMA-legal widths on the wgmma body), the float dot family "
+        f"also on the mma.sync body, the 16-bit one also on the CUDA-core body, N={n}, "
+        f"valid={valid}; ints "
         f"equal, floats within 1e-5 of the accumulated magnitude); max |kernel - twin| "
         f"= {worst!r}; masked ({len(masks)} row masks each: {', '.join(masks)}): max "
         f"|kernel - twin| = {masked_worst!r}, +inf groups equal; non-finite f32, f16 and "
@@ -682,12 +699,12 @@ def phase_main(card: str):
     )
 
     # -- exact -----------------------------------------------------------
-    block_minima.launches = 0
-    block_minima.body_launches = {"mma": 0, "simt": 0}
+    zero_counts()
     ids_e, d_e = ds.search(Q, K)
-    launches = block_minima.launches
-    check(launches > 0, "exact search did not launch K1")
-    check(block_minima.body_launches["mma"] == launches, "exact search left K1's tensor-core body")
+    launches = {"wgmma": block_minima.launches}
+    check(launches["wgmma"] > 0, "exact search did not launch K1")
+    check(block_minima.body_launches == {"wgmma": launches["wgmma"], "mma": 0, "simt": 0},
+          f"exact search left K1's wgmma body: {block_minima.body_launches}")
     vecs = ds._vectors[: len(ds)]
     Qd = torch.from_numpy(Q).cuda()
     oracle = pairwise_distance(Qd, vecs, svt.DistanceMetric.L2).cpu().numpy()
@@ -701,7 +718,8 @@ def phase_main(card: str):
     print(
         f"[main] exact search(Q[{B_MAIN}], {K}): ids match the plain-torch ground "
         f"truth (tie-aware, rel_tol {REL_TOL_BY_TYPE['FLOAT32']}), {len(picks)}/"
-        f"{len(picks)} self-matches first at 0.0, K1 launches {launches} | {card}",
+        f"{len(picks)} self-matches first at 0.0, K1 launches {launches['wgmma']}, all on its wgmma "
+        f"body | {card}",
         flush=True,
     )
 
@@ -711,12 +729,12 @@ def phase_main(card: str):
     torch.cuda.synchronize()
     t_quant = time.perf_counter() - t0
     qt, scale, offset = ds.quant_params
-    before = block_minima.launches
+    zero_counts()
     ids_q, d_q = ds.search(Q, K, exact=False)
-    check(block_minima.launches > before, "quantized search did not launch K1")
-    check(block_minima.body_launches == {"mma": block_minima.launches, "simt": 0},
-          "quantized search left K1's tensor-core body")
-    launches = block_minima.launches
+    launches["mma"] = block_minima.launches
+    check(launches["mma"] > 0, "quantized search did not launch K1")
+    check(block_minima.body_launches == {"wgmma": 0, "mma": launches["mma"], "simt": 0},
+          f"quantized search left K1's mma.sync body: {block_minima.body_launches}")
     codes = ds._quant.codes
     qq = quantize_device(Qd, scale, offset, qt)
     gv, gi = scan_topk(qq, codes, svt.DistanceMetric.L2, K)
@@ -729,7 +747,7 @@ def phase_main(card: str):
         f"[main] quantize() -> {qt.value} scale={float(scale)!r} offset={float(offset)!r} "
         f"in {t_quant:.2f} s; search(Q[{B_MAIN}], {K}, exact=False) ids and distances "
         f"equal to the plain integer-domain scan of the same codes; recall@{K} vs exact = "
-        f"{recall!r}; K1 launches (exact + quantized) {launches} | {card}",
+        f"{recall!r}; K1 launches {launches['mma']}, all on its mma.sync body | {card}",
         flush=True,
     )
     return ds, Q, ids_e, launches
@@ -738,20 +756,21 @@ def phase_main(card: str):
 # K1's times at the main path's shapes as PERF.md §6 records them (ms, on
 # an NVIDIA H100 80GB HBM3 at 700.00 W), printed beside phase 5's
 PERF6_K1_MS = {
-    "f32 B=1": 0.5928152, "f32 B=64": 1.0837248, "INT8 codes B=1": 0.1503424,
+    "f32 B=1": 0.5212168, "f32 B=64": 0.7365184, "INT8 codes B=1": 0.1503424,
     "INT8 codes B=64": 0.2157312, "u8 B=1": 0.1520720, "u8 B=64": 0.2123024,
-    "L2 f16 B=1": 0.2771200, "L2 f16 B=64": 0.4219920, "L2 bf16 B=1": 0.2768064,
-    "L2 bf16 B=64": 0.4227136,
+    "L2 f16 B=1": 0.2591296, "L2 f16 B=64": 0.2954480, "L2 bf16 B=1": 0.2576496,
+    "L2 bf16 B=64": 0.2948592,
 }
 
 
 def phase_times(card: str, ds, Q) -> dict:
     """K1 at the main path's shapes (f32, the int8 codes and u8 codes, each
-    at B=1 and B=B_MAIN), both bodies held against the twin, then timed in
-    turns with the twin, the CUDA-core body and the library yardstick,
-    beside its bound; then end-to-end search. Returns, by label, the
-    kernel's, the twin's, the CUDA-core body's and the library's ms with the
-    bound, and the largest |kernel - twin| seen here under "max_abs_err"."""
+    at B=1 and B=B_MAIN), every body that takes the shape held against the
+    twin, then timed in turns with the twin, the other bodies and the
+    library yardstick, beside its bound; then end-to-end search. Returns, by
+    label, the kernel's (routed), the twin's, the mma.sync body's (floats),
+    the CUDA-core body's and the library's ms with the bound, and the
+    largest |kernel - twin| seen here under "max_abs_err"."""
     from sqlite_vector_tpu_torch.ops.block_scan import (
         _launch_k1,
         block_minima,
@@ -781,6 +800,9 @@ def phase_times(card: str, ds, Q) -> dict:
         (f"u8 B={B_MAIN}", u8_q, u8_base),
     ):
         b = q.shape[0]
+        routed = k1_body(base.dtype, L2, DIM_MAIN)
+        check(routed == ("wgmma" if base.dtype is torch.float32 else "mma"),
+              f"{label} routes to K1's {routed} body")
         out["max_abs_err"] = max(out["max_abs_err"], compare_minima(q, base, L2, n, f"main-path {label}"))
         compare_minima(q, base, L2, n, f"main-path {label}, CUDA-core body", body="simt")
         fns = [
@@ -788,43 +810,52 @@ def phase_times(card: str, ds, Q) -> dict:
             lambda: block_minima(q, base, L2, n),
             lambda: _launch_k1(q, base, L2, n, None, "simt"),
         ]
+        if routed == "wgmma":
+            compare_minima(q, base, L2, n, f"main-path {label}, mma.sync body", body="mma")
+            fns.append(lambda: _launch_k1(q, base, L2, n, None, "mma"))
         lib = library_call(q, base)
         ms = in_turns(fns + ([lib] if lib else []), 20 if b == 1 else 10)
+        mma_ms = ms[3] if routed == "wgmma" else None
+        lib_ms = ms[-1] if lib else None
         lim, by = k1_bound(b, n, DIM_MAIN, base.element_size())
-        out[label] = {"ms": ms[1], "plain_ms": ms[0], "simt_ms": ms[2],
-                      "library_ms": ms[3] if lib else None, "bound_ms": lim, "bound_by": by}
+        out[label] = {"ms": ms[1], "plain_ms": ms[0], "mma_sync_ms": mma_ms, "simt_ms": ms[2],
+                      "library_ms": lib_ms, "bound_ms": lim, "bound_by": by}
         print(
-            f"[times] K1 {shape} {label} L2 (both bodies == twin; {k1_body(base.dtype, L2, DIM_MAIN)} "
-            f"body): kernel {ms[1]!r} ms, bound {lim!r} ms ({by}), {100 * lim / ms[1]:.1f}% "
-            f"of bound; CUDA-core body {ms[2]!r} ms; twin {ms[0]!r} ms; library "
-            f"{'none' if not lib else repr(ms[3]) + ' ms'}; PERF.md §6: {PERF6_K1_MS.get(label)} ms "
-            f"| {card}",
+            f"[times] K1 {shape} {label} L2 (every body == twin; {routed} body): kernel {ms[1]!r} ms, "
+            f"bound {lim!r} ms ({by}), {100 * lim / ms[1]:.1f}% of bound; mma.sync body "
+            f"{'(routed)' if mma_ms is None else repr(mma_ms) + ' ms'}; CUDA-core body {ms[2]!r} ms; "
+            f"twin {ms[0]!r} ms; library {'none' if not lib else repr(lib_ms) + ' ms'}; PERF.md §6: "
+            f"{PERF6_K1_MS.get(label)} ms | {card}",
             flush=True,
         )
 
-    # 16-bit rows (the f32 rows cast) on the tensor-core body and forced
-    # onto the CUDA-core body, in turns, beside torch.matmul in 16 bits
+    # 16-bit rows (the f32 rows cast) on the wgmma body and forced onto
+    # the mma.sync and CUDA-core bodies, in turns, beside torch.matmul in
+    # 16 bits
     for name, dt in (("f16", torch.float16), ("bf16", torch.bfloat16)):
         base = vecs.to(dt)
-        check(k1_body(dt, L2, DIM_MAIN) == "mma", f"L2 {name} does not route to the tensor-core body")
+        check(k1_body(dt, L2, DIM_MAIN) == "wgmma", f"L2 {name} does not route to the wgmma body")
         for b in (1, B_MAIN):
             q = Qd[:b].to(dt)
             label = f"L2 {name} B={b}"
             out["max_abs_err"] = max(out["max_abs_err"], compare_minima(q, base, L2, n, f"main-path {label}"))
+            compare_minima(q, base, L2, n, f"main-path {label}, mma.sync body", body="mma")
             compare_minima(q, base, L2, n, f"main-path {label}, CUDA-core body", body="simt")
             ms = in_turns(
                 [lambda: block_minima_reference(q, base, L2, n), lambda: block_minima(q, base, L2, n),
-                 lambda: _launch_k1(q, base, L2, n, None, "simt"), lambda: torch.matmul(q, base.T)],
+                 lambda: _launch_k1(q, base, L2, n, None, "simt"), lambda: _launch_k1(q, base, L2, n, None, "mma"),
+                 lambda: torch.matmul(q, base.T)],
                 20 if b == 1 else 10,
             )
             lim, by = k1_bound(b, n, DIM_MAIN, 2)
-            out[label] = {"ms": ms[1], "plain_ms": ms[0], "simt_ms": ms[2], "library_ms": ms[3],
-                          "bound_ms": lim, "bound_by": by}
+            out[label] = {"ms": ms[1], "plain_ms": ms[0], "mma_sync_ms": ms[3], "simt_ms": ms[2],
+                          "library_ms": ms[4], "bound_ms": lim, "bound_by": by}
             print(
-                f"[times] K1 {shape} {label} (both bodies == twin; mma body): kernel {ms[1]!r} ms, "
-                f"bound {lim!r} ms ({by}), {100 * lim / ms[1]:.1f}% of bound; CUDA-core body "
-                f"{ms[2]!r} ms ({ms[2] / ms[1]:.2f}x); twin {ms[0]!r} ms; library torch.matmul in "
-                f"{name} {ms[3]!r} ms; PERF.md §6: {PERF6_K1_MS[label]} ms | {card}",
+                f"[times] K1 {shape} {label} (every body == twin; wgmma body): kernel {ms[1]!r} ms, "
+                f"bound {lim!r} ms ({by}), {100 * lim / ms[1]:.1f}% of bound; mma.sync body {ms[3]!r} ms "
+                f"({ms[3] / ms[1]:.2f}x); CUDA-core body {ms[2]!r} ms ({ms[2] / ms[1]:.2f}x); twin "
+                f"{ms[0]!r} ms; library torch.matmul in {name} {ms[4]!r} ms; PERF.md §6: "
+                f"{PERF6_K1_MS[label]} ms | {card}",
                 flush=True,
             )
         del base
@@ -869,8 +900,9 @@ def body_latency(
     card: str, ds, Q, shape: str, modes=("exact", "quantized"), label: str = "",
     rounds: int = 10, calls: int = 100, b: int = 1,
 ) -> None:
-    """Search at B=b in each of `modes` with K1 in its routed (tensor-core)
-    body and forced onto the CUDA-core body, in one process on the same
+    """Search at B=b in each of `modes` with K1 in its routed (tensor-core:
+    wgmma for float rows, mma.sync for codes) body and forced onto the
+    CUDA-core body, in one process on the same
     data: p50 call latency of `calls` back-to-back calls per round (and
     for b > 1 the QPS it gives, b / p50), the two bodies in turns (ABBA),
     `rounds` rounds each."""
@@ -878,10 +910,10 @@ def body_latency(
 
     routed = block_scan.k1_body
     for mode in modes:
-        p50 = {"mma": [], "simt": []}
+        p50 = {"routed": [], "simt": []}
         for r in range(rounds):
-            for body in ("mma", "simt") if r % 2 == 0 else ("simt", "mma"):
-                block_scan.k1_body = routed if body == "mma" else (lambda *_: "simt")
+            for body in ("routed", "simt") if r % 2 == 0 else ("simt", "routed"):
+                block_scan.k1_body = routed if body == "routed" else (lambda *_: "simt")
                 try:
                     for _ in range(3):
                         ds.search(Q[:b], K, mode=mode)
@@ -893,13 +925,13 @@ def body_latency(
                 finally:
                     block_scan.k1_body = routed
                 p50[body].append(float(np.median(walls)) * 1e3)
-        wins = sum(x < y for x, y in zip(p50["mma"], p50["simt"]))
+        wins = sum(x < y for x, y in zip(p50["routed"], p50["simt"]))
         mid = {body: float(np.median(v)) for body, v in p50.items()}
-        qps = f" (QPS {b * 1e3 / mid['mma']!r} / {b * 1e3 / mid['simt']!r})" if b > 1 else ""
+        qps = f" (QPS {b * 1e3 / mid['routed']!r} / {b * 1e3 / mid['simt']!r})" if b > 1 else ""
         print(
             f"[times] search {mode}{label} {shape} k={K} B={b}, K1 body in turns ({rounds} rounds of "
-            f"{calls} calls): p50 per round, tensor-core body {p50['mma']!r} ms, CUDA-core body "
-            f"{p50['simt']!r} ms; medians {mid['mma']!r} / {mid['simt']!r} ms{qps}; tensor-core "
+            f"{calls} calls): p50 per round, tensor-core body {p50['routed']!r} ms, CUDA-core body "
+            f"{p50['simt']!r} ms; medians {mid['routed']!r} / {mid['simt']!r} ms{qps}; tensor-core "
             f"body faster in {wins}/{rounds} rounds | {card}",
             flush=True,
         )
@@ -908,7 +940,7 @@ def body_latency(
 def phase_datasets(card: str, ds, Q) -> dict:
     """End-to-end exact search over datasets of the main rows in other
     types and metrics: FLOAT16 L2 and FLOATB16 DOT (the rows cast, all
-    finite: K1's 16-bit tensor-core body) and FLOAT32 L1 (its CUDA-core L1
+    finite: K1's wgmma body) and FLOAT32 L1 (its CUDA-core L1
     body), each against the plain-torch ground truth (tie-aware); then B=1
     and B=64 search times and, for the 16-bit ones, B=1 latency with K1 in
     each body. Returns, by dataset, the K1 launches of its checked search,
@@ -922,7 +954,7 @@ def phase_datasets(card: str, ds, Q) -> dict:
     rows = ds._vectors[: len(ds)].cpu().numpy()
     shape = f"{len(rows)}x{DIM_MAIN}"
     launches = {}
-    for vtype, metric, body in (("FLOAT16", "L2", "mma"), ("FLOATB16", "DOT", "mma"), ("FLOAT32", "L1", "simt")):
+    for vtype, metric, body in (("FLOAT16", "L2", "wgmma"), ("FLOATB16", "DOT", "wgmma"), ("FLOAT32", "L1", "simt")):
         label = f"{vtype} {metric}"
         t0 = time.perf_counter()
         other = svt.VectorStore(device="cuda").create(
@@ -955,7 +987,7 @@ def phase_datasets(card: str, ds, Q) -> dict:
             flush=True,
         )
         search_times(card, other, Q, "exact", shape, ((1, 500), (B_MAIN, 200)), label=f"exact {label}")
-        if body == "mma":
+        if body == "wgmma":
             body_latency(card, other, Q, shape, modes=("exact",), label=f" {label}")
         del other
         torch.cuda.empty_cache()
@@ -1328,13 +1360,13 @@ def phase_mutate(card: str, ds, Q) -> dict:
                  "exact, unmasked after compact")
     vecs = ds._vectors[: ds._count]
     q1 = Qd[:1]
-    k1_mma, k1_simt = in_turns(
+    k1_tc, k1_simt = in_turns(
         [lambda: block_minima(q1, vecs, L2, len(ds)), lambda: _launch_k1(q1, vecs, L2, len(ds), None, "simt")],
         20,
     )
     print(
         f"[times] K1 alone {len(ds)}x{DIM_MAIN} B=1 L2 after compact: tensor-core body "
-        f"{k1_mma!r} ms, CUDA-core body {k1_simt!r} ms | {card}",
+        f"{k1_tc!r} ms, CUDA-core body {k1_simt!r} ms | {card}",
         flush=True,
     )
     body_latency(card, ds, Q, f"{len(ds)}x{DIM_MAIN}", ("exact",), " after compact")
@@ -1388,7 +1420,9 @@ def counts():
     from sqlite_vector_tpu_torch.ops.block_scan import block_minima
     from sqlite_vector_tpu_torch.ops.int4_scan import int4_block_minima
 
-    return {"K1": (block_minima.launches, block_minima.body_launches["mma"]),
+    # (launches, launches on a tensor-core body)
+    k1 = block_minima.body_launches
+    return {"K1": (block_minima.launches, k1["wgmma"] + k1["mma"]),
             "K2": (int4_block_minima.launches, int4_block_minima.body_launches["mma"])}
 
 
@@ -1398,7 +1432,7 @@ def zero_counts() -> None:
 
     for fn in (block_minima, int4_block_minima):
         fn.launches = 0
-        fn.body_launches = {"mma": 0, "simt": 0}
+        fn.body_launches = {body: 0 for body in fn.body_launches}
         fn.streamed_launches = 0
 
 
@@ -2769,35 +2803,38 @@ def wide_dataset(card: str):
 
 
 def wide_kernel(card: str, label: str, q, base, metric, iters: int, out: dict) -> None:
-    """K1 on the streamed tensor-core body against its twin and the
-    CUDA-core body (compare_minima), then timed in turns with them and
-    torch.matmul of the same product, beside k1_bound; into out[label]."""
+    """K1 on the wgmma body, its query tile streamed, against its twin, the
+    mma.sync body and the CUDA-core body (compare_minima), then timed in
+    turns with them and torch.matmul of the same product, beside k1_bound;
+    into out[label]."""
     from sqlite_vector_tpu_torch.ops.block_scan import _launch_k1, block_minima, block_minima_reference
 
     n = base.shape[0]
     out["max_abs_err"] = max(out["max_abs_err"], compare_minima(q, base, metric, n, label))
+    compare_minima(q, base, metric, n, f"{label}, mma.sync body", body="mma")
     compare_minima(q, base, metric, n, f"{label}, CUDA-core body", body="simt")
     ms = in_turns(
         [lambda: block_minima_reference(q, base, metric, n), lambda: block_minima(q, base, metric, n),
-         lambda: _launch_k1(q, base, metric, n, None, "simt"), lambda: torch.matmul(q, base.T)],
+         lambda: _launch_k1(q, base, metric, n, None, "simt"), lambda: _launch_k1(q, base, metric, n, None, "mma"),
+         lambda: torch.matmul(q, base.T)],
         iters,
     )
     lim, by = k1_bound(q.shape[0], n, base.shape[1], base.element_size())
-    out[label] = {"ms": ms[1], "plain_ms": ms[0], "simt_ms": ms[2], "library_ms": ms[3],
-                  "bound_ms": lim, "bound_by": by}
+    out[label] = {"ms": ms[1], "plain_ms": ms[0], "mma_sync_ms": ms[3], "simt_ms": ms[2],
+                  "library_ms": ms[4], "bound_ms": lim, "bound_by": by}
     what = label if label.startswith(metric.value) else f"{metric.value} {label}"
     print(
-        f"[times] K1 {n}x{base.shape[1]} {what} (streamed tensor-core body and CUDA-core body == "
-        f"twin): kernel {ms[1]!r} ms, bound {lim!r} ms ({by}), {100 * lim / ms[1]:.1f}% of bound; "
-        f"CUDA-core body {ms[2]!r} ms ({ms[2] / ms[1]:.2f}x); twin {ms[0]!r} ms; library "
-        f"torch.matmul {ms[3]!r} ms | {card}",
+        f"[times] K1 {n}x{base.shape[1]} {what} (wgmma, mma.sync and CUDA-core bodies == twin, query "
+        f"tiles streamed): kernel {ms[1]!r} ms, bound {lim!r} ms ({by}), {100 * lim / ms[1]:.1f}% of "
+        f"bound; mma.sync body {ms[3]!r} ms ({ms[3] / ms[1]:.2f}x); CUDA-core body {ms[2]!r} ms "
+        f"({ms[2] / ms[1]:.2f}x); twin {ms[0]!r} ms; library torch.matmul {ms[4]!r} ms | {card}",
         flush=True,
     )
 
 
 def phase_wide(card: str) -> dict:
-    """Phase 13: the exact path at DIM_WIDE columns, where K1's tensor-core
-    body streams its query tile (ops/block_scan.py:mma_streams_queries).
+    """Phase 13: the exact path at DIM_WIDE columns, where K1's wgmma body
+    streams its query tile (ops/block_scan.py:wgmma_plan).
     Returns the launches of its checked searches, the largest |kernel -
     twin| and, by shape, the kernel's times beside its bound."""
     from sqlite_vector_tpu_torch.ops.block_scan import (
@@ -2805,8 +2842,8 @@ def phase_wide(card: str) -> dict:
         _launch_k1,
         block_minima,
         k1_body,
-        mma_query_tile,
         mma_streams_queries,
+        wgmma_plan,
     )
     from sqlite_vector_tpu_torch.ops.distance import pairwise_distance
     from sqlite_vector_tpu_torch.types import DistanceMetric
@@ -2819,18 +2856,18 @@ def phase_wide(card: str) -> dict:
     shape = f"{N_WIDE}x{DIM_WIDE}"
     vecs = ds._vectors[: len(ds)]
     Qd = torch.from_numpy(Q).cuda()
-    check(k1_body(torch.float32, L2, DIM_WIDE) == "mma" and mma_streams_queries(torch.float32, DIM_WIDE),
-          "f32 at the wide rows does not take the streamed tensor-core body")
+    check(k1_body(torch.float32, L2, DIM_WIDE) == "wgmma" and wgmma_plan(torch.float32, DIM_WIDE, 1)[1],
+          "f32 at the wide rows does not take the wgmma body's streamed tile")
 
     # -- the main path at this width: exact search at B=1 and B=64 ----------
     zero_counts()
     ids1, d1 = ds.search(Q[:1], K)
     ids64, d64 = ds.search(Q, K)
     launches = block_minima.launches
-    check(launches == 2 and block_minima.body_launches == {"mma": 2, "simt": 0}
+    check(launches == 2 and block_minima.body_launches == {"wgmma": 2, "mma": 0, "simt": 0}
           and block_minima.streamed_launches == 2,
           f"the wide searches launched K1 {launches} times, {block_minima.body_launches}, "
-          f"{block_minima.streamed_launches} streamed, not 2 on the streamed tensor-core body")
+          f"{block_minima.streamed_launches} streamed, not 2 on the wgmma body's streamed tile")
     oracle = pairwise_distance(Qd, vecs, L2).cpu().numpy()
     ids_all = ds.ids
     rel = parity.REL_TOL_BY_TYPE["FLOAT32"]
@@ -2844,14 +2881,14 @@ def phase_wide(card: str) -> dict:
     print(
         f"[wide] exact search(Q[1], {K}) and search(Q[{B_MAIN}], {K}) over {shape}: ids match the "
         f"plain-torch ground truth (tie-aware, rel_tol {rel}), {len(picks)}/{len(picks)} self-matches "
-        f"first at 0.0; K1 launches {launches}, all on the tensor-core body with the query tile "
-        f"streamed (tiles {mma_query_tile(torch.float32, DIM_WIDE, 1)} and "
-        f"{mma_query_tile(torch.float32, DIM_WIDE, B_MAIN)}) | {card}",
+        f"first at 0.0; K1 launches {launches}, all on the wgmma body with the query tile "
+        f"streamed (tiles {wgmma_plan(torch.float32, DIM_WIDE, 1)[0]} and "
+        f"{wgmma_plan(torch.float32, DIM_WIDE, B_MAIN)[0]}) | {card}",
         flush=True,
     )
 
-    # -- K1 alone: the streamed body against the twin, the CUDA-core body and
-    # torch.matmul, beside its bound ----------------------------------------
+    # -- K1 alone: the streamed wgmma body against the twin, the mma.sync and
+    # CUDA-core bodies and torch.matmul, beside its bound ------------------
     out = {"max_abs_err": 0.0}
     for metric in (L2, DistanceMetric.COSINE, DistanceMetric.DOT):
         for b in (1, B_MAIN):
@@ -2891,7 +2928,8 @@ def phase_wide(card: str) -> dict:
     base = make_rows(gen, N_WIDE16, DIM_WIDE16, torch.float16)
     q16 = make_rows(gen, B_MAIN, DIM_WIDE16, torch.float16)
     q16[0] = base[10]  # a self-match
-    check(mma_streams_queries(torch.float16, DIM_WIDE16), "f16 d=8192 does not stream its query tile")
+    check(k1_body(torch.float16, L2, DIM_WIDE16) == "wgmma" and wgmma_plan(torch.float16, DIM_WIDE16, 1)[1],
+          "f16 d=8192 does not take the wgmma body's streamed tile")
     for b in (1, B_MAIN):
         wide_kernel(card, f"L2 f16 d={DIM_WIDE16} B={b}", q16[:b].contiguous(), base, L2, 10, out)
     del base, q16
@@ -3140,10 +3178,10 @@ def phase_wide_int4(card: str, wide: dict) -> dict:
     t_exact = time.perf_counter() - t0
     check(all(ids_e[i, 0] == ds.ids[p] for i, p in enumerate(picks)),
           "datastore: a self-match is not first in exact search")
-    # their distances are printed, not held to 0: on the card the exact
-    # finish's float32 decomposition leaves residuals past its clamp at this
-    # width (ROADMAP queue 3)
+    # each self-match at exactly 0: the exact finish rescores L2 as the
+    # direct sum((x - q)^2) (its float32 decomposition left 0.265-0.280 here)
     self_d = d_e[: len(picks), 0]
+    check(bool((self_d == 0).all()), f"datastore: exact self-matches at L2 {self_d.tolist()}, not all 0")
     t0 = time.perf_counter()
     ds.quantize(qtype="int4", refine=True)
     torch.cuda.synchronize()
@@ -3249,14 +3287,15 @@ def main() -> int:
     t0 = time.perf_counter()
     load_library()
     print(
-        f"[build] K1 and K2 (two bodies each) built from csrc/ and loaded in {time.perf_counter() - t0:.1f} s "
+        f"[build] K1 (three bodies) and K2 (two) built from csrc/ and loaded in {time.perf_counter() - t0:.1f} s "
         f"-> {library_path().name}",
         flush=True,
     )
     for name, said in ptxas_report().items():
         print(f"[build] ptxas {name}: {said}", flush=True)
         if "mma_minima_kernel" in name or "l1_minima_kernel" in name:
-            # K1's and K2's tensor-core bodies and K1's L1 body
+            # K1's and K2's tensor-core bodies (wgmma_minima_kernel too) and
+            # K1's L1 body
             check(" 0 bytes spill stores" in f" {said}", f"{name} spills: {said}")
     if cards:
         return main_cards(card)
@@ -3282,8 +3321,9 @@ def main() -> int:
     k2_wide = wide_k2[f"bf16 d={DIM_WIDE4} B={B_MAIN}"]
 
     def k1_entry(name: str, source: str, shape: str, n_launches: int, family) -> dict:
-        # one body (or type family) of K1: its times at `shape`, and those
-        # of every shape `family` takes under by_shape
+        # one body (or type family) of K1: its times at `shape` (for float
+        # rows the mma.sync body's beside them), and those of every shape
+        # `family` takes under by_shape
         main = k1[shape]
         return {
             "name": name,
@@ -3297,15 +3337,17 @@ def main() -> int:
             "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"],
             "library_ms": main["library_ms"],
+            **({"mma_sync_ms": main["mma_sync_ms"]} if main.get("mma_sync_ms") is not None else {}),
             "main_shape": shape,
             "by_shape": {k: v for k, v in k1.items() if k != "max_abs_err" and family(k)},
         }
 
     mma_src = "sqlite_vector_tpu_torch/csrc/block_minima_mma.cu"
+    wgmma_src = "sqlite_vector_tpu_torch/csrc/block_minima_wgmma.cu"
     print(json.dumps({"kernels": [
         {
-            **k1_entry("block_minima", mma_src, f"f32 B={B_MAIN}", launches,
-                       lambda k: not k.startswith(("L1", "L2 f16", "L2 bf16")) and " d=" not in k),
+            **k1_entry("block_minima", wgmma_src, f"f32 B={B_MAIN}", launches["wgmma"],
+                       lambda k: k.startswith("f32") and " d=" not in k),
             "masked_launches": masked["K1"],
             "streamed_launches": host["K1"],
             "sql_launches": fe["sql_launches"]["K1"]["launches"],
@@ -3314,10 +3356,13 @@ def main() -> int:
             "masked_max_abs_err": masked_err,
             "nonfinite_max_abs_err": nonfinite_err,
         },
-        k1_entry("block_minima_16bit", mma_src, f"L2 f16 B={B_MAIN}",
+        k1_entry("block_minima_codes", mma_src, next(k for k in k1 if k.endswith(f"codes B={B_MAIN}")),
+                 launches["mma"],
+                 lambda k: "codes" in k or k.startswith("u8")),
+        k1_entry("block_minima_16bit", wgmma_src, f"L2 f16 B={B_MAIN}",
                  other_launches["FLOAT16 L2"] + other_launches["FLOATB16 DOT"],
                  lambda k: k.startswith(("L2 f16", "L2 bf16")) and " d=" not in k),
-        k1_entry("block_minima_wide", mma_src, f"f32 d={DIM_WIDE} B={B_MAIN}", wide_launches,
+        k1_entry("block_minima_wide", wgmma_src, f"f32 d={DIM_WIDE} B={B_MAIN}", wide_launches,
                  lambda k: " d=" in k),
         k1_entry("block_minima_l1", "sqlite_vector_tpu_torch/csrc/block_minima.cu", f"L1 f32 B={B_MAIN}",
                  other_launches["FLOAT32 L1"], lambda k: k.startswith("L1")),

@@ -1,5 +1,5 @@
-// K1 on tensor cores: the dot-family block minima for float rows (f32, f16,
-// bf16) and 8-bit codes, for NVIDIA Hopper (sm_90a).
+// K1 on tensor cores with mma.sync: the dot-family block minima for float
+// rows (f32, f16, bf16) and 8-bit codes, for NVIDIA Hopper (sm_90a).
 //
 // Computes what csrc/block_minima.cu computes (its header states the contract,
 // replacing the three TPU schedules of sqlite_vector_tpu/ops/pallas_scan.py):
@@ -9,7 +9,9 @@
 // for L2 (squared), SQUARED_L2, COSINE and DOT over float32, float16 and
 // bfloat16 rows and u8/i8 codes, with the same snap, NaN -> +inf, rows >=
 // valid -> +inf and optional row mask. L1 stays on the CUDA-core body of
-// block_minima.cu; ops/block_scan.py:k1_body routes between the two.
+// block_minima.cu, and float rows TMA can copy go to the wgmma body of
+// block_minima_wgmma.cu (this body stays launchable for them, as its
+// cross-check); ops/block_scan.py:k1_body routes between the three.
 //
 // The products run where the TPU kernel runs them, on the matrix unit:
 //   - u8/i8: mma.sync m16n8k32 with .u8/.s8 operands and exact int32
@@ -90,107 +92,26 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 (as
 // ops/_build.py does; no --use_fast_math).
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
-#include <limits.h>
-#include <math.h>
 #include <stdint.h>
 
 #include <atomic>
 #include <type_traits>
 
+#include "k1_common.cuh"
 #include "sm90_common.cuh"
 
 namespace {
 
-constexpr int kGroup = 128;          // rows per minima group
 constexpr int kTileRows = 256;       // rows per block iteration: two groups
 constexpr int kWarps = kTileRows / 32;  // 32 rows each
 constexpr int kThreads = kWarps * 32;
 constexpr int kBlocksPerSM = 1;
-constexpr int kChunk = 128;          // bytes of a row staged per ring step
 constexpr int kPitch = kChunk + 16;  // padded shared row pitch, bytes
 constexpr int kStages = 3;
 constexpr int kStageBytes = kTileRows * kPitch;
 
-constexpr float kNearlyZero = 0x1p-20f;
-constexpr float kNearlyZeroSq = 0x1p-40f;
-constexpr float kResidScale = 0x1p-19f;
-
-// codes shared with ops/block_scan.py (_METRIC_CODE, _DTYPE_CODE)
-enum Metric : int { kL2 = 0, kSquaredL2 = 1, kCosine = 2, kDot = 3, kL1 = 4 };
-enum DType : int { kF32 = 0, kF16 = 1, kBF16 = 2, kU8 = 3, kI8 = 4 };
-
-// float rows (f32 in the 3xTF32 split, f16 and bf16 as they are) accumulate
-// in f32; 8-bit codes in int32
-template <typename T>
-constexpr bool kIsF32 = std::is_same<T, float>::value;
-template <typename T>
-constexpr bool kIsFloat = !std::is_integral<T>::value;
-template <typename T>
-using Acc = typename std::conditional<kIsFloat<T>, float, uint32_t>::type;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-// the two 16-bit floats of a word, widened, in column order
-template <typename T>
-__device__ __forceinline__ float2 widen2(uint32_t w) {
-  if constexpr (std::is_same<T, __half>::value) {
-    return __half22float2(*reinterpret_cast<const __half2*>(&w));
-  } else {  // bfloat16: the high half of an f32
-    return make_float2(__uint_as_float(w << 16), __uint_as_float(w & 0xffff0000u));
-  }
-}
-
-__device__ __forceinline__ float as_float(uint32_t v) {
-  return static_cast<float>(static_cast<int32_t>(v));
-}
-
-// the compositions of block_minima.cu, op for op
-__device__ __forceinline__ float compose(float dot, float qsq, float bsq, int metric) {
-  if (metric == kDot) return -dot;
-  if (metric == kL2 || metric == kSquaredL2) {
-    const float s = __fadd_rn(qsq, bsq);
-    const float d = __fsub_rn(s, __fmul_rn(2.0f, dot));
-    const float resid = __fmul_rn(kResidScale, s);
-    return (d <= resid && isfinite(resid)) ? 0.0f : d;
-  }
-  const float denom = __fmul_rn(__fsqrt_rn(qsq), __fsqrt_rn(bsq));
-  const float cosv = denom > 0.0f ? __fdiv_rn(dot, denom) : 0.0f;
-  float d = __fsub_rn(1.0f, cosv);
-  if (isnan(dot) || isnan(denom)) d = NAN;
-  if (qsq == 0.0f || bsq == 0.0f) d = 1.0f;
-  return d;
-}
-
-__device__ __forceinline__ float compose(uint32_t dot, uint32_t qsq, uint32_t bsq, int metric) {
-  if (metric == kDot) return as_float(0u - dot);
-  if (metric == kL2 || metric == kSquaredL2) return as_float(qsq + bsq - 2u * dot);
-  const float qf = as_float(qsq);
-  const float bf = as_float(bsq);
-  const float denom = __fmul_rn(__fsqrt_rn(qf), __fsqrt_rn(bf));
-  const float cosv = denom > 0.0f ? __fdiv_rn(as_float(dot), denom) : 0.0f;
-  return (qf == 0.0f || bf == 0.0f) ? 1.0f : __fsub_rn(1.0f, cosv);
-}
-
 // ---- PTX wrappers (cp.async ones in sm90_common.cuh) ---------------------
-
-// cvt.rna.tf32.f32 for finite x, in two full-rate integer ops (the
-// conversion unit runs at a quarter of their rate): add half a TF32 ulp to
-// the magnitude's bits, drop the 13 low mantissa bits (ties away from zero)
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x = hi + lo, both TF32, for finite x (a pair whose row or query norm is
-// not finite is scored by nonfinite_pass instead)
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(__fsub_rn(x, __uint_as_float(hi)));
-}
 
 __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
@@ -226,49 +147,6 @@ __device__ __forceinline__ void mma_narrow(C (&c)[4], const uint32_t (&a)[4], ui
         : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
   }
-}
-
-// squared norm of 4 packed codes (exact)
-template <typename T>
-__device__ __forceinline__ uint32_t sq4(uint32_t w) {
-  if constexpr (std::is_same<T, uint8_t>::value) {
-    return __dp4a(w, w, 0u);
-  } else {
-    return static_cast<uint32_t>(__dp4a(static_cast<int>(w), static_cast<int>(w), 0));
-  }
-}
-
-// ---- the kernel ------------------------------------------------------------
-
-// The sum of squares of one staged 128-byte chunk of a row, continued from
-// `part`: an fmaf chain in column order over the values widened to f32 for
-// float rows (zeros past d leave it as it is), the exact sum for codes.
-template <typename T>
-__device__ __forceinline__ Acc<T> chunk_sq(const unsigned char* row, Acc<T> part) {
-  const float4* rp = reinterpret_cast<const float4*>(row);
-#pragma unroll
-  for (int v = 0; v < kChunk / 16; ++v) {
-    const float4 x = rp[v];
-    if constexpr (kIsF32<T>) {
-      part = fmaf(x.x, x.x, part);
-      part = fmaf(x.y, x.y, part);
-      part = fmaf(x.z, x.z, part);
-      part = fmaf(x.w, x.w, part);
-    } else if constexpr (kIsFloat<T>) {
-      const uint32_t w[4] = {__float_as_uint(x.x), __float_as_uint(x.y), __float_as_uint(x.z),
-                             __float_as_uint(x.w)};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float2 f = widen2<T>(w[i]);
-        part = fmaf(f.x, f.x, part);
-        part = fmaf(f.y, f.y, part);
-      }
-    } else {
-      part += sq4<T>(__float_as_uint(x.x)) + sq4<T>(__float_as_uint(x.y)) +
-              sq4<T>(__float_as_uint(x.z)) + sq4<T>(__float_as_uint(x.w));
-    }
-  }
-  return part;
 }
 
 // kStream: stage the 128-byte column chunk `ch` of query rows [q0, q0 + QT)
@@ -307,155 +185,6 @@ __device__ __forceinline__ void stage_queries(unsigned char* dst, const unsigned
       }
       *reinterpret_cast<uint32_t*>(dst + r * kPitch + (c - c0)) = w;
     }
-  }
-}
-
-// An ordered float minimum on shared memory (v is never NaN).
-__device__ __forceinline__ void smem_fmin(float* p, float v) {
-  int* ip = reinterpret_cast<int*>(p);
-  int old = *ip;
-  while (v < __int_as_float(old)) {
-    const int prev = atomicCAS(ip, old, __float_as_int(v));
-    if (prev == old) break;
-    old = prev;
-  }
-}
-
-// The warp's part of a row tile's epilogue under composition M: distances of
-// its 32 rows (base rows row0 ...) to the QT queries from the accumulators,
-// snapped, NaN and dead rows -> +inf, and each query's warp minimum into
-// wmin[warp][.]. A float pair whose row or query norm is not finite reads
-// +inf here; the return value says the warp holds such a live pair, which
-// nonfinite_pass then scores.
-template <int M, typename T, int NT>
-__device__ __forceinline__ bool warp_minima(const Acc<T> (&acc)[2][NT][4], Acc<T> bsq,
-                                            const Acc<T>* qnorm, float* wmin, long long row0,
-                                            int valid, const uint8_t* mask, int q0, int B,
-                                            float thresh, int warp, int lane) {
-  constexpr int QT = 8 * NT;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  Acc<T> rsq[2][2];
-  bool row_ok[2][2], row_fin[2][2];
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = m * 16 + h * 8 + g;
-      rsq[m][h] = __shfl_sync(0xffffffffu, bsq, r);
-      // mask is read only below valid (<= N)
-      row_ok[m][h] = row0 + r < valid && (mask == nullptr || mask[row0 + r] != 0);
-      if constexpr (kIsFloat<T>) {
-        row_fin[m][h] = isfinite(rsq[m][h]);
-      } else {
-        row_fin[m][h] = true;
-      }
-    }
-  if constexpr (!kIsFloat<T> && M != kCosine) {
-    // integer L2 and DOT: exact int32 values, never NaN, and never within
-    // the snap of 0 unless 0, so the minimum over the ints, converted once
-    // (int -> float is monotone), equals the minimum of the converted
-    // values bit for bit. INT_MAX marks no live row: under the router's d
-    // bound no value reaches it.
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int j = n * 8 + 2 * t + e;
-        const uint32_t qsq = qnorm[j];
-        int best = INT_MAX;
-#pragma unroll
-        for (int m = 0; m < 2; ++m)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const uint32_t dot = acc[m][n][h * 2 + e];
-            const int v = static_cast<int>(M == kDot ? 0u - dot : qsq + rsq[m][h] - 2u * dot);
-            if (row_ok[m][h]) best = min(best, v);
-          }
-#pragma unroll
-        for (int off = 4; off < 32; off <<= 1) {
-          best = min(best, __shfl_xor_sync(0xffffffffu, best, off));
-        }
-        if (g == 0) wmin[warp * QT + j] = best == INT_MAX ? INFINITY : static_cast<float>(best);
-      }
-    }
-    return false;
-  }
-  // the common case, every row of the warp and every query of the tile
-  // finite, skips the non-finite tests (a padded query is a zero row,
-  // finite, and its minima are never read)
-  bool clean = true;
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) clean = clean && row_fin[m][h];
-  if constexpr (kIsFloat<T>) {
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) clean = clean && isfinite(qnorm[n * 8 + 2 * t + e]);
-  }
-  clean = __all_sync(0xffffffffu, clean);
-  bool bad = false;
-#pragma unroll
-  for (int n = 0; n < NT; ++n) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int j = n * 8 + 2 * t + e;  // query of the tile
-      const Acc<T> qsq = qnorm[j];
-      bool q_fin = true;
-      if constexpr (kIsFloat<T>) q_fin = isfinite(qsq);
-      float best = INFINITY;
-#pragma unroll
-      for (int m = 0; m < 2; ++m)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float dist = compose(acc[m][n][h * 2 + e], qsq, rsq[m][h], M);
-          if (fabsf(dist) <= thresh) dist = 0.0f;
-          if (clean) {
-            if (isnan(dist) || !row_ok[m][h]) dist = INFINITY;
-          } else {
-            const bool fin = row_fin[m][h] && q_fin;
-            if (isnan(dist) || !row_ok[m][h] || !fin) dist = INFINITY;
-            bad |= row_ok[m][h] && !fin && q0 + j < B;
-          }
-          best = fminf(best, dist);
-        }
-#pragma unroll
-      for (int off = 4; off < 32; off <<= 1) {
-        best = fminf(best, __shfl_xor_sync(0xffffffffu, best, off));
-      }
-      if (g == 0) wmin[warp * QT + j] = best;
-    }
-  }
-  return bad;
-}
-
-// The float pairs of a row tile whose row or query norm is not finite: the
-// dot by the CUDA-core body's fmaf chain (one chain in column order over the
-// values widened to f32, which keeps its Inf/NaN semantics), composed as
-// there, and folded into wmin. Runs only when warp_minima flagged such a
-// pair.
-template <typename T>
-__device__ __noinline__ void nonfinite_pass(const T* queries, const T* base,
-                                            const uint8_t* mask, const float* qnorm,
-                                            const float* rowsq, float* wmin, long long row0,
-                                            int QT, int q0, int B, int d, int valid, int metric,
-                                            float thresh, int tid) {
-  for (int p = tid; p < kTileRows * QT; p += kThreads) {
-    const int r = p / QT;
-    const int j = p % QT;
-    const long long row = row0 + r;
-    if (q0 + j >= B || row >= valid || (mask != nullptr && mask[row] == 0)) continue;
-    if (isfinite(rowsq[r]) && isfinite(qnorm[j])) continue;
-    const T* qr = queries + static_cast<long long>(q0 + j) * d;
-    const T* br = base + row * d;
-    float dot = 0.0f;
-    for (int c = 0; c < d; ++c) dot = fmaf(to_f32(qr[c]), to_f32(br[c]), dot);
-    float dist = compose(dot, qnorm[j], rowsq[r], metric);
-    if (fabsf(dist) <= thresh) dist = 0.0f;
-    if (isnan(dist)) dist = INFINITY;
-    smem_fmin(&wmin[(r / 32) * QT + j], dist);
   }
 }
 
@@ -693,19 +422,19 @@ mma_minima_kernel(const T* __restrict__ queries, const T* __restrict__ base,
     if constexpr (kIsFloat<T>) rowsq[tid] = bsq;
     bool bad;
     if (metric == kDot) {
-      bad = warp_minima<kDot, T, NT>(acc, bsq, qnorm, wmin, row0 + warp * 32, valid, mask, q0, B,
+      bad = warp_minima<kDot, T, NT, 16>(acc, bsq, qnorm, wmin, row0 + warp * 32, valid, mask, q0, B,
                                      thresh, warp, lane);
     } else if (metric == kCosine) {
-      bad = warp_minima<kCosine, T, NT>(acc, bsq, qnorm, wmin, row0 + warp * 32, valid, mask, q0,
+      bad = warp_minima<kCosine, T, NT, 16>(acc, bsq, qnorm, wmin, row0 + warp * 32, valid, mask, q0,
                                         B, thresh, warp, lane);
     } else {
-      bad = warp_minima<kL2, T, NT>(acc, bsq, qnorm, wmin, row0 + warp * 32, valid, mask, q0, B,
+      bad = warp_minima<kL2, T, NT, 16>(acc, bsq, qnorm, wmin, row0 + warp * 32, valid, mask, q0, B,
                                     thresh, warp, lane);
     }
     if (__syncthreads_or(bad)) {
       if constexpr (kIsFloat<T>) {
-        nonfinite_pass<T>(queries, base, mask, qnorm, rowsq, wmin, row0, QT, q0, B, d, valid,
-                          metric, thresh, tid);
+        nonfinite_pass<T, kTileRows, kThreads, 16>(queries, base, mask, qnorm, rowsq, wmin, row0,
+                                                   QT, q0, B, d, valid, metric, thresh, tid);
       }
       __syncthreads();
     }

@@ -47,6 +47,9 @@ _SIGNATURES = {
     # the same arguments, the query tile and whether it is streamed (K1's
     # tensor-core body)
     "svt_block_minima_mma": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # queries, the query planes (tf32_planes for float32, else the queries),
+    # then the tensor-core body's arguments and pingpong (K1's wgmma body)
+    "svt_block_minima_wgmma": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # qc, qscale, packed, alpha, csq, mask (or None), out, B, N, d, valid,
     # metric, stream
     "svt_int4_block_minima": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),

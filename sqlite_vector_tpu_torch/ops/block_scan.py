@@ -9,10 +9,11 @@ them exactly and takes the final top-k, ties going to the earliest row.
 
 Stage 1 has two implementations of one contract:
   - block_minima_reference: plain PyTorch, the definition of the output;
-  - the CUDA kernel K1, hand-written for Hopper, in two bodies:
-    csrc/block_minima_mma.cu (tensor cores, the dot-family metrics at every
-    d: integer MMA for u8/i8 codes, 3xTF32 for float32, f16/bf16 MMA with
-    f32 sums for float16 and bfloat16) and csrc/block_minima.cu (CUDA
+  - the CUDA kernel K1, hand-written for Hopper, in three bodies:
+    csrc/block_minima_wgmma.cu (warpgroup MMA fed by TMA: the dot-family
+    metrics over float32 (3xTF32), float16 and bfloat16 rows TMA can copy),
+    csrc/block_minima_mma.cu (mma.sync: u8/i8 codes with integer MMA, and
+    float rows the wgmma body does not take) and csrc/block_minima.cu (CUDA
     cores: L1 for every dtype, and codes past the int32 bound).
     k1_body says which body a call takes.
 `block_minima` picks by where the tensors live: the twin for CPU tensors,
@@ -78,6 +79,13 @@ _MMA_MAX_DIM = {
     torch.uint8: 33025,
     torch.int8: 131071,
 }
+# The wgmma body (csrc/block_minima_wgmma.cu) keeps the query tile's planes
+# (float32: q_hi and q_lo, tf32_planes; 16-bit: the queries), each row
+# padded to a multiple of 128 bytes, resident in shared memory beside its
+# two rings of 16 KB stages while they take at most this many bytes (the
+# rings then keep 3 stages each); past it the tile is streamed beside the
+# rows (wgmma_plan).
+_WGMMA_QUERY_BYTES = 98304
 _MMA_METRICS = (
     DistanceMetric.L2,
     DistanceMetric.SQUARED_L2,
@@ -156,18 +164,80 @@ def mma_query_tile(dtype: torch.dtype, d: int, b: int) -> int:
     return next((t for t in tiles if t >= b), tiles[-1])
 
 
-def k1_body(dtype: torch.dtype, metric: DistanceMetric, d: int) -> str:
-    """Which body of K1 serves a scan: "mma" (tensor cores) for the
-    dot-family metrics over float32, float16 and bfloat16 rows at every d
-    (the query tile resident in shared memory, or streamed beside the rows
-    where it does not fit: mma_streams_queries) and over u8/i8 codes while
+def _wgmma_resident_tiles(dtype: torch.dtype, d: int) -> list[int]:
+    planes = 2 if dtype is torch.float32 else 1
+    chunked = -(-d * dtype.itemsize // 128) * 128
+    return [t for t in _MMA_QUERY_TILES if t * chunked * planes <= _WGMMA_QUERY_BYTES]
+
+
+def wgmma_plan(dtype: torch.dtype, d: int, b: int) -> tuple[int, bool]:
+    """(query tile, streamed) of K1's wgmma body for b queries: the
+    narrowest tile of 8, 16, 32 and 64 that covers min(b, 64) among those
+    whose planes fit _WGMMA_QUERY_BYTES, resident; where none does, the
+    narrowest that covers it, streamed beside the rows (a larger batch takes
+    several tiles)."""
+    want = min(b, _MMA_QUERY_TILES[-1])
+    for t in _wgmma_resident_tiles(dtype, d):
+        if t >= want:
+            return t, False
+    return next(t for t in _MMA_QUERY_TILES if t >= want), True
+
+
+def wgmma_pingpong(dtype: torch.dtype, tile: int, streamed: bool) -> bool:
+    """Whether the wgmma body's two consumer warpgroups take the tensor
+    cores one row tile at a time in turn (ping-pong: one's epilogue beside
+    the other's MMAs) rather than each when its data is in: only for
+    16-bit rows with a resident tile of 64 queries, where the epilogue
+    outweighs the MMAs. Elsewhere free-running read faster on an H100
+    (tools/probe_k1_wgmma.py, PERF.md: float32 B=64 at 1M x 384 by 8%, at
+    1M x 4,096 by 33%): each consumer waits for a chunk's MMAs before the
+    next, and the other fills that gap only when it may issue."""
+    return dtype is not torch.float32 and tile == 64 and not streamed
+
+
+def tma_ready(t: torch.Tensor) -> bool:
+    """Whether TMA can copy the rows of a contiguous 2-D tensor: a 16-byte
+    aligned start and a row pitch that is a multiple of 16 bytes."""
+    return t.data_ptr() % 16 == 0 and t.shape[-1] * t.element_size() % 16 == 0
+
+
+def k1_body(dtype: torch.dtype, metric: DistanceMetric, d: int, aligned: bool = True) -> str:
+    """Which body of K1 serves a scan: for the dot-family metrics, "wgmma"
+    (warpgroup MMA fed by TMA) over float32, float16 and bfloat16 rows
+    whose pitch TMA takes (d * itemsize a multiple of 16, and `aligned`:
+    the queries and rows start 16-byte aligned, tma_ready), "mma"
+    (mma.sync) over other float rows at every d and over u8/i8 codes while
     no int32 partial sum can overflow (_MMA_MAX_DIM: d <= 33,025 for u8,
     131,071 for i8); "simt" (CUDA cores) otherwise, L1 always. The batch
-    does not route: both bodies serve every B."""
+    does not route: every body serves every B."""
     if metric not in _MMA_METRICS or dtype not in _MMA_MAX_DIM:
         return "simt"
     bound = _MMA_MAX_DIM[dtype]
-    return "simt" if bound is not None and d > bound else "mma"
+    if bound is not None and d > bound:
+        return "simt"
+    if dtype.is_floating_point and aligned and d * dtype.itemsize % 16 == 0:
+        return "wgmma"
+    return "mma"
+
+
+def tf32_planes(q: torch.Tensor) -> torch.Tensor:
+    """The wgmma body's float32 query planes, [2, B, d]: q_hi = q rounded
+    to TF32 as cvt.rna does (to nearest, ties away from zero; the 13 low
+    mantissa bits zero, so the tensor cores read it exactly) and q_lo =
+    q - q_hi, exact, so q_hi + q_lo == q for finite q (the tensor cores
+    read q_lo truncated to TF32). The rounding is the kernel's to_tf32
+    (csrc/k1_common.cuh) on the bits."""
+    planes = torch.empty((2, *q.shape), dtype=torch.float32, device=q.device)
+    hi = planes[0].view(torch.int32)
+    torch.add(q.view(torch.int32), 0x1000, out=hi)
+    hi.bitwise_and_(-0x2000)
+    torch.sub(q, planes[0], out=planes[1])
+    return planes
+
+
+# the bodies that take a scan k1_body routes to a body (the CUDA-core body
+# takes every scan)
+_K1_TAKES = {"wgmma": ("wgmma", "mma", "simt"), "mma": ("mma", "simt")}
 
 
 def check_row_mask(row_mask: torch.Tensor | None, n: int, device: torch.device, who: str) -> None:
@@ -213,7 +283,7 @@ def block_minima(
     CPU tensors run block_minima_reference; CUDA tensors launch the K1
     kernel in the body k1_body picks and count the launch in
     `block_minima.launches`, by body in `block_minima.body_launches` and,
-    where the MMA body streams its query tile, in
+    where a tensor-core body streams its query tile, in
     `block_minima.streamed_launches`.
     """
     _check(queries, base, valid)
@@ -221,7 +291,8 @@ def block_minima(
     check_row_mask(row_mask, base.shape[0], dev, "block_minima")
     if dev.type == "cpu":
         return block_minima_reference(queries, base, metric, valid, row_mask)
-    return _launch_k1(queries, base, metric, valid, row_mask, k1_body(base.dtype, metric, base.shape[1]))
+    aligned = tma_ready(queries) and tma_ready(base)
+    return _launch_k1(queries, base, metric, valid, row_mask, k1_body(base.dtype, metric, base.shape[1], aligned))
 
 
 def _launch_k1(
@@ -232,9 +303,10 @@ def _launch_k1(
     row_mask: torch.Tensor | None,
     body: str,
 ) -> torch.Tensor:
-    """K1 in `body` ("mma" or "simt") on checked CUDA tensors. block_minima
-    passes k1_body's choice; chip_smoke.py forces "simt" to hold and time
-    the CUDA-core body beside the tensor-core one. Raises where the MMA body
+    """K1 in `body` ("wgmma", "mma" or "simt") on checked CUDA tensors.
+    block_minima passes k1_body's choice; chip_smoke.py and the card tests
+    force the other bodies to hold and time them beside it ("mma" takes
+    every scan "wgmma" does, and "simt" every scan). Raises where the body
     does not take the scan."""
     dev = base.device
     if dev.type != "cuda":
@@ -247,17 +319,16 @@ def _launch_k1(
     n = base.shape[0]
     if n >= 2**31 or b >= 2**31:
         raise ValueError("block_minima: B and N must fit int32")
-    if body == "mma" and k1_body(base.dtype, metric, d) != "mma":
-        raise ValueError("block_minima: the MMA body does not take this scan")
+    route = k1_body(base.dtype, metric, d, tma_ready(queries) and tma_ready(base))
+    if body not in _K1_TAKES.get(route, ("simt",)):
+        raise ValueError(f"block_minima: the {body} body does not take this scan")
     out = torch.empty((b, -(-n // BLOCK)), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
     from sqlite_vector_tpu_torch.ops._build import load_library
 
     lib = load_library()
-    args = [
-        queries.data_ptr(),
-        base.data_ptr(),
+    tail = [
         None if row_mask is None else row_mask.data_ptr(),
         out.data_ptr(),
         b,
@@ -267,16 +338,25 @@ def _launch_k1(
         _DTYPE_CODE[base.dtype],
         _METRIC_CODE[metric],
     ]
-    streamed = body == "mma" and mma_streams_queries(base.dtype, d)
-    if body == "mma":
+    planes = None
+    if body == "wgmma":
+        tile, streamed = wgmma_plan(base.dtype, d, b)
+        planes = tf32_planes(queries) if base.dtype is torch.float32 else queries
+        launch = lib.svt_block_minima_wgmma
+        args = [queries.data_ptr(), planes.data_ptr(), base.data_ptr(), *tail, tile, int(streamed),
+                int(wgmma_pingpong(base.dtype, tile, streamed))]
+    elif body == "mma":
+        streamed = mma_streams_queries(base.dtype, d)
         launch = lib.svt_block_minima_mma
-        args += [mma_query_tile(base.dtype, d, b), int(streamed)]
+        args = [queries.data_ptr(), base.data_ptr(), *tail, mma_query_tile(base.dtype, d, b), int(streamed)]
     else:
+        streamed = False
         launch = lib.svt_block_minima
+        args = [queries.data_ptr(), base.data_ptr(), *tail]
     with torch.cuda.device(dev):
         rc = launch(*args, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"block_minima kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"block_minima kernel launch failed: error {rc}")
     block_minima.launches += 1
     block_minima.body_launches[body] += 1
     block_minima.streamed_launches += streamed
@@ -284,7 +364,7 @@ def _launch_k1(
 
 
 block_minima.launches = 0
-block_minima.body_launches = {"mma": 0, "simt": 0}
+block_minima.body_launches = {"wgmma": 0, "mma": 0, "simt": 0}
 block_minima.streamed_launches = 0
 
 

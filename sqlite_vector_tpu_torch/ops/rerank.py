@@ -18,6 +18,7 @@ from typing import Callable
 import torch
 
 from sqlite_vector_tpu_torch.ops.distance import (
+    FLT_EPSILON,
     NEARLY_ZERO,
     compose_float,
     compose_int,
@@ -40,9 +41,10 @@ def candidate_distances(
     [B, C, d].
 
     Integer inputs use exact integer arithmetic with int32 wrap semantics
-    (the quantized-domain distances); float L2 applies the residual clamp
-    of the scan paths. L2 is returned SQUARED: callers sqrt after their
-    final top-k (monotonic). No near-zero snap is applied here.
+    (the quantized-domain distances); float L2 is the direct squared sum
+    under the residual clamp of the scan paths (0 for a self-match at any
+    width). L2 is returned SQUARED: callers sqrt after their final top-k
+    (monotonic). No near-zero snap is applied here.
     """
     sq_metric = (
         DistanceMetric.SQUARED_L2 if metric is DistanceMetric.L2 else metric
@@ -65,10 +67,29 @@ def candidate_distances(
         )
     qf = q.float()
     cf = cand.float()
-    dot = torch.bmm(cf, qf[:, :, None])[..., 0]  # [B, C]
     q_sq = (qf * qf).sum(-1, keepdim=True)  # [B, 1]
-    c_sq = (cf * cf).sum(-1)  # [B, C]
-    return compose_float(sq_metric, dot, q_sq, c_sq, snap=False)
+    if sq_metric is not DistanceMetric.SQUARED_L2:
+        dot = torch.bmm(cf, qf[:, :, None])[..., 0]  # [B, C]
+        c_sq = (cf * cf).sum(-1)  # [B, C]
+        return compose_float(sq_metric, dot, q_sq, c_sq, snap=False)
+    # L2 as the direct sum((x - q)^2), which reads 0 for a candidate equal
+    # to its query whatever order the device sums in: the decomposition
+    # q_sq + c_sq - 2 dot sums its three terms in three orders (cuBLAS's
+    # dot against the norms' reductions), and left 0.27 for self-matches of
+    # 18,432-wide bfloat16 rows on an H100, past the residual clamp. JAX's
+    # clamp still applies to it (near-duplicates read 0 as in JAX). Where
+    # the norms are not finite, JAX's decomposition reads +Inf or NaN, so
+    # this reads NaN, which every caller ranks +inf as it ranks those. The
+    # sums are norms squared (one reduction pass each, within an ulp of the
+    # plain sum; 0 stays 0), so the rescore reads the candidates as often
+    # as the decomposition did and makes no [B, C, d] temporary beyond the
+    # difference.
+    c_sq = torch.linalg.vector_norm(cf, dim=-1).square()
+    diff = cf - qf[:, None, :]
+    direct = torch.linalg.vector_norm(diff, dim=-1).square()
+    del diff
+    resid = FLT_EPSILON * 16.0 * (q_sq + c_sq)
+    return torch.where(torch.isfinite(resid), torch.where(direct <= resid, 0.0, direct), torch.nan)
 
 
 def _snap(d: torch.Tensor) -> torch.Tensor:

@@ -422,18 +422,25 @@ def test_mma_query_tile_is_the_narrowest_that_covers_b_and_fits(dtype, d, tiles)
 )
 @pytest.mark.parametrize("metric", METRICS)
 def test_k1_body_routes_by_metric_dtype_and_d(dtype, last_mma_d, metric):
-    """The dot family takes the tensor-core body at every width the int32
-    bound allows (floats have none), L1 the CUDA-core body at every d; the
-    query tile streams exactly past the resident edge."""
+    """The dot family takes a tensor-core body at every width the int32
+    bound allows (floats have none): the wgmma body where TMA takes the
+    float rows' pitch, the mma.sync body otherwise; L1 the CUDA-core body
+    at every d; the mma.sync body's query tile streams exactly past the
+    resident edge."""
     m = DistanceMetric(metric)
-    want = "simt" if m is DistanceMetric.L1 else "mma"
+
+    def want(d):
+        if m is DistanceMetric.L1:
+            return "simt"
+        return "wgmma" if dtype.is_floating_point and d * dtype.itemsize % 16 == 0 else "mma"
+
     for d in (1, 95, 100, 384, 768, last_mma_d, last_mma_d + 1, 4096, 8192, 33025):
-        assert block_scan.k1_body(dtype, m, d) == want, d
+        assert block_scan.k1_body(dtype, m, d) == want(d), d
     assert not block_scan.mma_streams_queries(dtype, last_mma_d)
     assert block_scan.mma_streams_queries(dtype, last_mma_d + 1)
     # floats have no bound; codes leave the tensor cores past the int32 one
     past = 10**6 if dtype.is_floating_point else block_scan._MMA_MAX_DIM[dtype] + 1
-    assert block_scan.k1_body(dtype, m, past) == (want if dtype.is_floating_point else "simt")
+    assert block_scan.k1_body(dtype, m, past) == (want(past) if dtype.is_floating_point else "simt")
 
 
 @pytest.mark.parametrize(
@@ -459,7 +466,99 @@ def test_k1_body_keeps_codes_off_mma_where_int32_could_overflow(monkeypatch, dty
     for metric in (DistanceMetric.L2, DistanceMetric.COSINE, DistanceMetric.DOT):
         assert block_scan.k1_body(dtype, metric, bound) == "mma"
         assert block_scan.k1_body(dtype, metric, bound + 1) == "simt"
-    assert block_scan.k1_body(torch.float32, DistanceMetric.L2, 10**6) == "mma"
+    assert block_scan.k1_body(torch.float32, DistanceMetric.L2, 10**6) == "wgmma"
+    assert block_scan.k1_body(torch.float32, DistanceMetric.L2, 10**6 + 1) == "mma"
+
+
+FLOATS = [torch.float32, torch.float16, torch.bfloat16]
+
+
+@pytest.mark.parametrize("dtype", FLOATS, ids=str)
+@pytest.mark.parametrize("d", [1, 4, 8, 100, 383, 384, 385, 4096, 8193, 18432])
+@pytest.mark.parametrize("metric", METRICS)
+def test_k1_body_sends_tma_ready_float_rows_to_wgmma(dtype, d, metric):
+    """Float dot-family rows take the wgmma body exactly where TMA copies
+    them (a row pitch that is a multiple of 16 bytes: f32 d % 4 == 0,
+    16-bit d % 8 == 0, and both starts 16-byte aligned); other widths and
+    unaligned tensors keep the mma.sync body; L1 stays on CUDA cores."""
+    m = DistanceMetric(metric)
+    if m is DistanceMetric.L1:
+        assert block_scan.k1_body(dtype, m, d) == "simt"
+        assert block_scan.k1_body(dtype, m, d, aligned=False) == "simt"
+        return
+    pitch_ok = d * dtype.itemsize % 16 == 0
+    assert block_scan.k1_body(dtype, m, d) == ("wgmma" if pitch_ok else "mma")
+    assert block_scan.k1_body(dtype, m, d, aligned=False) == "mma"
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int8], ids=str)
+def test_k1_body_keeps_codes_on_mma_sync(dtype):
+    """u8/i8 codes have no wgmma instance: TMA-ready code rows stay on the
+    mma.sync body up to the int32 bound."""
+    for d in (16, 384, 4096, 13697):
+        for metric in (DistanceMetric.L2, DistanceMetric.COSINE, DistanceMetric.DOT):
+            assert block_scan.k1_body(dtype, metric, d) == "mma"
+
+
+def test_tma_ready_needs_a_16_byte_start_and_pitch():
+    t = torch.zeros((10, 384))
+    assert block_scan.tma_ready(t) and block_scan.tma_ready(t.half())
+    assert not block_scan.tma_ready(torch.zeros((10, 383)))  # 1,532-byte rows
+    assert not block_scan.tma_ready(torch.zeros((10, 100), dtype=torch.float16))  # 200 bytes
+    assert block_scan.tma_ready(torch.zeros((10, 104), dtype=torch.bfloat16))
+    flat = torch.zeros(3841)
+    assert flat.data_ptr() % 16 == 0
+    assert not block_scan.tma_ready(flat[1:].view(10, 384))  # starts 4 bytes in
+
+
+@pytest.mark.parametrize(
+    "dtype,d,plans",
+    [
+        # 384 f32 columns, two planes (q_hi, q_lo): 3,072 bytes a query, 32
+        # queries fit the 98,304-byte budget; wider tiles stream
+        (torch.float32, 384, {1: (8, False), 8: (8, False), 9: (16, False), 17: (32, False),
+                              33: (64, True), 64: (64, True), 200: (64, True)}),
+        # 384 16-bit columns, one plane: 768 bytes a query, every tile fits
+        (torch.float16, 384, {1: (8, False), 9: (16, False), 33: (64, False), 200: (64, False)}),
+        (torch.bfloat16, 768, {64: (64, False)}),
+        (torch.bfloat16, 776, {33: (64, True), 32: (32, False)}),
+        # f32 1,536 columns: 12,288 bytes a query, 8 fit, 9 do not
+        (torch.float32, 1536, {1: (8, False), 8: (8, False), 9: (16, True), 64: (64, True)}),
+        (torch.float32, 4096, {1: (8, True), 64: (64, True)}),
+        (torch.float16, 6144, {1: (8, False), 9: (16, True)}),
+        (torch.bfloat16, 18432, {1: (8, True), 64: (64, True)}),
+    ],
+    ids=str,
+)
+def test_wgmma_plan_keeps_the_planes_resident_while_they_fit(dtype, d, plans):
+    """The wgmma body's query tile: the narrowest of 8/16/32/64 covering
+    min(B, 64), resident while its planes (two for f32) fit the budget,
+    else streamed."""
+    planes = 2 if dtype is torch.float32 else 1
+    per_query = -(-d * dtype.itemsize // 128) * 128 * planes
+    for b, (tile, streamed) in plans.items():
+        assert block_scan.wgmma_plan(dtype, d, b) == (tile, streamed), b
+        assert tile >= min(b, 64)
+        assert streamed == (tile * per_query > block_scan._WGMMA_QUERY_BYTES)
+
+
+def test_tf32_planes_are_tf32_exact_and_sum_to_the_queries():
+    """q_hi is q rounded to TF32 to nearest with ties away from zero (the
+    kernel's to_tf32: its 13 low mantissa bits zero, so the tensor cores
+    read it exactly), q_lo = q - q_hi, and q_hi + q_lo == q bit for bit."""
+    rng = np.random.default_rng(13)
+    q = (rng.standard_normal((6, 384)) * 10.0 ** rng.integers(-30, 30, (6, 384))).astype(np.float32)
+    bits = q.view(np.uint32)
+    bits[0, :4] = [0x3F801000, 0xBF801000, 0x3F801FFF, 0x3FFFF000]  # ties, a round up, a carry
+    bits[1, :3] = [0, 0x80000000, 0x00001234]  # +-0 and a denormal
+    planes = block_scan.tf32_planes(torch.from_numpy(q))
+    assert planes.shape == (2, 6, 384) and planes.dtype == torch.float32
+    hi, lo = planes[0], planes[1]
+    assert int((hi.view(torch.int32) & 0x1FFF).abs().sum()) == 0
+    assert torch.equal(hi + lo, torch.from_numpy(q))
+    want = ((bits.astype(np.uint64) + 0x1000) & 0xFFFFE000).astype(np.uint32).view(np.float32)
+    np.testing.assert_array_equal(hi.numpy(), want)
+    assert hi[0, :4].tolist() == [1.0009765625, -1.0009765625, 1.0009765625, 2.0]
 
 
 # -- the bound arithmetic chip_smoke.py reports beside each kernel time -------

@@ -120,3 +120,56 @@ def test_candidate_distances_matches_jax(vtype, metric):
         from_numpy(q), from_numpy(cand), DistanceMetric(metric)
     ).numpy()
     assert_matches(got, want, vtype)
+
+
+@pytest.mark.parametrize("metric", ["L2", "SQUARED_L2"])
+def test_candidate_distances_self_match_is_zero_at_wide_bfloat16(metric):
+    """A candidate equal to its query reads exactly 0 at d = 18,432
+    bfloat16 (a kNN-LM datastore's width): the port sums L2 directly as
+    sum((x - q)^2), which is 0 for identical rows in any summation order
+    (the decomposition ||q||^2 + ||x||^2 - 2 q.x left 0.27 on an H100). The
+    JAX package keeps the decomposition, which on the CPU leaves ~0.14 here
+    (4e-6 of ||q||^2 + ||x||^2, past its 16-eps clamp): its self-matches are
+    held within 1e-5 of that sum, every other candidate to the port's
+    within the type's tolerance."""
+    rng = np.random.default_rng(18432)
+    dim = 18432
+    q = rows(rng, ml_dtypes.bfloat16, (2, dim))
+    cand = rows(rng, ml_dtypes.bfloat16, (2, 6, dim))
+    cand[0, 2] = q[0]
+    cand[1, 5] = q[1]
+    want = np.asarray(jax_candidates(q, cand, JaxMetric(metric)))
+    got = candidate_distances(from_numpy(q), from_numpy(cand), DistanceMetric(metric)).numpy()
+    selfs = (np.array([0, 1]), np.array([2, 5]))
+    np.testing.assert_array_equal(got[selfs], 0.0)
+    norms = 2 * (q.astype(np.float32) ** 2).sum(-1)
+    assert (np.abs(want[selfs]) <= 1e-5 * norms).all()
+    others = np.ones(got.shape, dtype=bool)
+    others[selfs] = False
+    assert_matches(got[others], want[others], "FLOATB16")
+
+
+def test_candidate_distances_l2_keeps_jax_clamp_and_nonfinite_semantics():
+    """The direct L2 keeps JAX's residual clamp (a near-duplicate reads 0),
+    and where the norms are not finite (+-Inf or NaN lanes, squared norms
+    past float32's range) it reads NaN where JAX's decomposition reads +Inf
+    or NaN: no finite distance either way (every caller ranks both +inf), a
+    self-match of overflowing rows included, which the direct sum alone
+    would read 0. Elsewhere the values match JAX's."""
+    rng = np.random.default_rng(5)
+    q = rows(rng, np.float32, (3, 64))
+    cand = rows(rng, np.float32, (3, 8, 64))
+    cand[0, 1] = q[0] * np.float32(1 + 2**-22)  # a near-duplicate
+    cand[0, 4, 9] = np.inf
+    cand[1, 2, 3] = -np.inf
+    q[2] = 3e19  # squared norm past float32's range ...
+    cand[2, 6] = q[2]  # ... against itself: NaN in JAX, not 0
+    cand[2, 7, 0] = np.nan
+    for metric in ("L2", "SQUARED_L2"):
+        want = np.asarray(jax_candidates(q, cand, JaxMetric(metric)))
+        got = candidate_distances(from_numpy(q), from_numpy(cand), DistanceMetric(metric)).numpy()
+        assert want[0, 1] == 0.0 and got[0, 1] == 0.0
+        np.testing.assert_array_equal(np.isfinite(got), np.isfinite(want))
+        assert np.isnan(got[~np.isfinite(want)]).all()
+        fin = np.isfinite(want)
+        np.testing.assert_allclose(got[fin], want[fin], rtol=1e-5, atol=1e-5)

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels on the card: K1 (csrc/block_minima_mma.cu and
-csrc/block_minima.cu) and K2 (csrc/int4_minima_mma.cu and
+"""The port's CUDA kernels on the card: K1 (csrc/block_minima_wgmma.cu,
+csrc/block_minima_mma.cu and csrc/block_minima.cu) and K2
+(csrc/int4_minima_mma.cu and
 csrc/int4_minima.cu), unmasked and with row masks, and the searches that
 launch them.
 
@@ -444,10 +445,15 @@ def nonfinite_case(n, device, b=8, d=384, seed=0, dtype=torch.float32):
     return q.to(dtype), base.to(dtype)
 
 
-def assert_k1_matches_twin(q, base, metric, valid, mask=None):
-    """+inf and -inf positions equal, no NaN; integer minima equal, float
-    minima within minima_tolerance."""
-    got = block_minima(q, base, metric, valid, mask)
+def assert_k1_matches_twin(q, base, metric, valid, mask=None, body=None):
+    """K1, routed or in `body`: +inf and -inf positions equal, no NaN;
+    integer minima equal, float minima within minima_tolerance."""
+    from sqlite_vector_tpu_torch.ops.block_scan import _launch_k1
+
+    if body is None:
+        got = block_minima(q, base, metric, valid, mask)
+    else:
+        got = _launch_k1(q, base, metric, valid, mask, body)
     want = block_minima_reference(q, base, metric, valid, mask)
     assert not bool(torch.isnan(got).any())
     assert torch.equal(torch.isposinf(got), torch.isposinf(want)), metric
@@ -473,38 +479,50 @@ def test_mma_body_integer_minima_are_bit_equal(cuda, dtype, d, b):
     assert block_minima.body_launches["mma"] == before + len(DOT_FAMILY)
 
 
+# K1's two tensor-core bodies: the wgmma body takes float rows TMA copies,
+# the mma.sync body every float dot-family scan (the cross-check)
+FLOAT_BODIES = ["mma", "wgmma"]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("body", FLOAT_BODIES)
 @pytest.mark.parametrize("metric", list(DistanceMetric), ids=lambda m: m.value)
-def test_nonfinite_f32_keeps_the_twin_semantics(cuda, metric):
+def test_nonfinite_f32_keeps_the_twin_semantics(cuda, metric, body):
     """Inf, -Inf, NaN-making 0 x Inf and overflowing norms, unmasked and
-    with each row mask: the same +inf and -inf groups as the twin, finite
-    minima within tolerance; DOT over a +Inf column reads -inf."""
+    with each row mask, in each tensor-core body (L1 in its own): the same
+    +inf and -inf groups as the twin, finite minima within tolerance; DOT
+    over a +Inf column reads -inf."""
     q, base = nonfinite_case(7001, cuda)
+    forced = None if metric is DistanceMetric.L1 else body
     for kind in [None, *MASK_KINDS]:
         mask = None if kind is None else mask_case(kind, 7001, cuda, seed=3)
-        got = assert_k1_matches_twin(q, base, metric, 6990, mask)
+        got = assert_k1_matches_twin(q, base, metric, 6990, mask, forced)
         if metric is DistanceMetric.DOT and kind is None:
             assert float(got[2, 30]) == float("-inf") and float(got[6, 31]) == float("-inf")
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.uint8, torch.int8], ids=str)
+@pytest.mark.parametrize(
+    "dtype,body",
+    [(torch.float32, "mma"), (torch.float32, "wgmma"), (torch.uint8, "mma"), (torch.int8, "mma")],
+    ids=str,
+)
 @pytest.mark.parametrize("kind", ["dead-group", "all-masked"])
-def test_mma_body_rows_past_valid_and_masked_groups_read_inf(cuda, dtype, kind):
+def test_mma_body_rows_past_valid_and_masked_groups_read_inf(cuda, dtype, kind, body):
     """Rows >= valid (the last two groups and part of a third) and a group
-    with no live row read +inf in the tensor-core body, at B = 8 and 65."""
+    with no live row read +inf in each tensor-core body, at B = 8 and 65."""
     n, valid = 5003, 5003 - 300
     mask = mask_case(kind, n, cuda, seed=4)
     for b in (8, 65):
         q, base = case(dtype, n, 100, b, cuda, seed=b)
-        before = block_minima.body_launches["mma"]
+        before = block_minima.body_launches[body]
         for metric in DOT_FAMILY:
             for m in (None, mask):
-                got = assert_k1_matches_twin(q, base, metric, valid, m)
+                got = assert_k1_matches_twin(q, base, metric, valid, m, body)
                 assert bool(torch.isinf(got[:, valid // 128 + 1 :]).all())
                 if m is not None:
                     assert bool(torch.isinf(got[:, 1]).all())
-        assert block_minima.body_launches["mma"] == before + 2 * len(DOT_FAMILY)
+        assert block_minima.body_launches[body] == before + 2 * len(DOT_FAMILY)
 
 
 @pytest.mark.cuda
@@ -531,28 +549,79 @@ def test_mma_body_is_refused_where_it_does_not_apply(cuda):
     for tile in (0, 12, 128):  # no instance: 8, 16, 32 and 64 only
         assert lib.svt_block_minima_mma(*args, tile, 1, stream) != 0
         assert lib.svt_block_minima_mma(*args, tile, 0, stream) != 0
+    # the wgmma body: codes, rows whose pitch TMA does not take, and
+    # unaligned starts are refused by the wrapper and by the kernel
+    with pytest.raises(ValueError, match="body"):
+        _launch_k1(q, base, DistanceMetric.L2, 300, None, "wgmma")
+    q, base = case(torch.uint8, 300, 384, 2, cuda)
+    with pytest.raises(ValueError, match="body"):
+        _launch_k1(q, base, DistanceMetric.L2, 300, None, "wgmma")
+    q, base = case(torch.float32, 301, 384, 2, cuda)
+    shifted = base.view(-1)[1 : 1 + 300 * 384].view(300, 384)
+    with pytest.raises(ValueError, match="body"):
+        _launch_k1(q, shifted, DistanceMetric.L2, 300, None, "wgmma")
+    wargs = [q.data_ptr(), q.data_ptr(), shifted.data_ptr(), None, out.data_ptr(), 2, 300, 384, 300, 0, 0]
+    assert lib.svt_block_minima_wgmma(*wargs, 8, 0, 0, stream) != 0
+    wargs[2] = base.data_ptr()
+    for tile in (0, 12, 128):
+        assert lib.svt_block_minima_wgmma(*wargs, tile, 0, 0, stream) != 0
+        assert lib.svt_block_minima_wgmma(*wargs, tile, 1, 0, stream) != 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 383), (torch.float16, 385), (torch.bfloat16, 100)], ids=str)
+def test_rows_tma_cannot_copy_route_to_the_mma_sync_body(cuda, dtype, d):
+    """Float rows whose pitch is not a multiple of 16 bytes (f32 d = 383,
+    16-bit d = 385 and 100), and rows of a TMA-legal width that start off a
+    16-byte boundary, route to the mma.sync body and match the twin."""
+    from sqlite_vector_tpu_torch.ops.block_scan import k1_body, tma_ready
+
+    q, base = case(dtype, 5003, d, 9, cuda, seed=d)
+    assert not tma_ready(base)
+    wide = torch.zeros((5004 * 384,), dtype=dtype, device=cuda)
+    shifted = wide[1 : 1 + 5003 * 384].view(5003, 384)
+    shifted.copy_(case(dtype, 5003, 384, 9, cuda, seed=d)[1])
+    q384 = case(dtype, 5003, 384, 9, cuda, seed=d)[0]
+    assert k1_body(dtype, DistanceMetric.L2, 384) == "wgmma" and not tma_ready(shifted)
+    for qq, bb in ((q, base), (q384, shifted)):
+        for metric in DOT_FAMILY:
+            before = dict(block_minima.body_launches)
+            assert_k1_matches_twin(qq, bb, metric, 4990)
+            assert block_minima.body_launches == {**before, "mma": before["mma"] + 1}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "d,b,tile",
-    # the widest f32 rows each query tile holds, and one column past them
-    [(416, 64, 64), (417, 64, 32), (832, 32, 32), (833, 32, 16), (1024, 65, 16),
-     (1696, 16, 16), (1697, 16, 8), (3424, 1, 8), (3424, 65, 8), (3425, 1, 8), (3425, 65, 64)],
+    "body,d,b,plan",
+    # the mma.sync body: the widest f32 rows each query tile holds, and one
+    # column past them ((tile, streamed))
+    [("mma", d, b, (tile, d > 3424)) for d, b, tile in [
+        (416, 64, 64), (417, 64, 32), (832, 32, 32), (833, 32, 16), (1024, 65, 16),
+        (1696, 16, 16), (1697, 16, 8), (3424, 1, 8), (3424, 65, 8), (3425, 1, 8), (3425, 65, 64)]]
+    # the wgmma body: the widest f32 rows whose two query planes each
+    # resident tile holds, and the next TMA-legal width, streamed
+    + [("wgmma", d, b, plan) for d, b, plan in [
+        (192, 64, (64, False)), (196, 64, (64, True)), (384, 32, (32, False)), (388, 32, (32, True)),
+        (768, 16, (16, False)), (772, 16, (16, True)), (1536, 8, (8, False)), (1536, 65, (64, True)),
+        (1540, 8, (8, True)), (3424, 65, (64, True))]],
+    ids=str,
 )
-def test_mma_body_at_the_widest_rows_of_each_query_tile(cuda, d, b, tile):
-    """f32 rows up to d = 3,424 on resident tiles and one column past on
-    streamed ones (several query tiles for B past the tile): the minima, a
-    self-match's included, stay within tolerance of the twin, which needs
-    the narrow tiles' per-chunk sums at large d."""
-    from sqlite_vector_tpu_torch.ops.block_scan import mma_query_tile
+def test_mma_body_at_the_widest_rows_of_each_query_tile(cuda, body, d, b, plan):
+    """f32 rows at the edges of each tensor-core body's resident query
+    tiles and past them on streamed ones (several query tiles for B past
+    the tile): the minima, a self-match's included, stay within tolerance
+    of the twin, which needs the narrow tiles' per-chunk sums at large d."""
+    from sqlite_vector_tpu_torch.ops.block_scan import mma_query_tile, mma_streams_queries, wgmma_plan
 
-    assert mma_query_tile(torch.float32, d, b) == tile
+    if body == "mma":
+        assert (mma_query_tile(torch.float32, d, b), mma_streams_queries(torch.float32, d)) == plan
+    else:
+        assert wgmma_plan(torch.float32, d, b) == plan
     q, base = case(torch.float32, 700, d, b, cuda, seed=d + b)
-    before = block_minima.body_launches["mma"]
+    before = block_minima.body_launches[body]
     for metric in DOT_FAMILY:
-        assert_k1_matches_twin(q, base, metric, 690)
-    assert block_minima.body_launches["mma"] == before + len(DOT_FAMILY)
+        assert_k1_matches_twin(q, base, metric, 690, body=body)
+    assert block_minima.body_launches[body] == before + len(DOT_FAMILY)
 
 
 # rows past the resident query tile's widths (f32 3,424, 16-bit 6,848,
@@ -563,11 +632,16 @@ STREAMED = [(torch.float32, 3425), (torch.float32, 4096), (torch.float32, 8192),
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,d", STREAMED, ids=str)
+@pytest.mark.parametrize(
+    "dtype,d,body",
+    [(dt, d, "mma") for dt, d in STREAMED]
+    + [(dt, d, "wgmma") for dt, d in STREAMED if dt.is_floating_point and d * dt.itemsize % 16 == 0],
+    ids=str,
+)
 @pytest.mark.parametrize("b", [1, 9, 64, 65])  # tiles of 8, 16 and 64, and two of 64
-def test_streamed_mma_body_matches_twin_and_cuda_core_body(cuda, dtype, d, b):
-    """The tensor-core body with its query tile streamed beside the rows:
-    every dot-family metric, unmasked and with each row mask, rows >= valid,
+def test_streamed_mma_body_matches_twin_and_cuda_core_body(cuda, dtype, d, b, body):
+    """Each tensor-core body with its query tile streamed beside the rows
+    (the wgmma body at the widths TMA takes): every dot-family metric, unmasked and with each row mask, rows >= valid,
     a NaN row and (floats) a row with +Inf (the non-finite recompute), a
     self-match, over 34,003 rows (more row tiles than SMs: a block's later
     tiles reuse the query norms summed in its first). Codes equal the twin
@@ -575,7 +649,7 @@ def test_streamed_mma_body_matches_twin_and_cuda_core_body(cuda, dtype, d, b):
     the twin (1e-5 of the magnitude each minimum accumulates, as at the
     resident widths: no band widens with d) and within twice it of the
     CUDA-core body."""
-    from sqlite_vector_tpu_torch.ops.block_scan import _launch_k1, k1_body, mma_streams_queries
+    from sqlite_vector_tpu_torch.ops.block_scan import _launch_k1, k1_body, mma_streams_queries, wgmma_plan
 
     n, valid = 34_003, 34_003 - 300
     q, base = case(dtype, n, d, b, cuda, seed=d + b)
@@ -583,11 +657,14 @@ def test_streamed_mma_body_matches_twin_and_cuda_core_body(cuda, dtype, d, b):
         base[300, 7] = float("inf")
     masks = [None] + [mask_case(kind, n, cuda, seed=d) for kind in MASK_KINDS]
     for metric in DOT_FAMILY:
-        assert k1_body(dtype, metric, d) == "mma" and mma_streams_queries(dtype, d)
+        if body == "wgmma":
+            assert k1_body(dtype, metric, d) == "wgmma" and wgmma_plan(dtype, d, b)[1]
+        else:
+            assert k1_body(dtype, metric, d) in ("mma", "wgmma") and mma_streams_queries(dtype, d)
         for mask in masks:
-            before = block_minima.body_launches["mma"]
-            got = assert_k1_matches_twin(q, base, metric, valid, mask)
-            assert block_minima.body_launches["mma"] == before + 1
+            before = block_minima.body_launches[body]
+            got = assert_k1_matches_twin(q, base, metric, valid, mask, body)
+            assert block_minima.body_launches[body] == before + 1
             assert bool(torch.isinf(got[:, valid // 128 + 1 :]).all())
             simt = _launch_k1(q, base, metric, valid, mask, "simt")
             torch.cuda.synchronize()
@@ -614,10 +691,17 @@ def assert_close_to_twin(got, want):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16], ids=str)
-@pytest.mark.parametrize("d", [100, 384, 3424, 6848])  # 6,848: the widest resident 16-bit row
+@pytest.mark.parametrize(
+    "d,body",
+    # 6,848: the widest resident 16-bit row of the mma.sync body; the
+    # wgmma body takes 104 (TMA-legal) for 100 and keeps 3,424 and 6,848
+    # resident at 8 queries and streamed past them
+    [(d, "mma") for d in (100, 384, 3424, 6848)] + [(d, "wgmma") for d in (104, 384, 3424, 6848)],
+    ids=str,
+)
 @pytest.mark.parametrize("b", [1, 8, 9, 33, 64, 65, 200])  # the query tiles' edges
-def test_16bit_mma_body_matches_twin_and_cuda_core_body(cuda, dtype, d, b):
-    """float16 and bfloat16 rows on the tensor-core body (f16/bf16 MMA, f32
+def test_16bit_mma_body_matches_twin_and_cuda_core_body(cuda, dtype, d, b, body):
+    """float16 and bfloat16 rows on each tensor-core body (f16/bf16 MMA, f32
     sums, per-chunk sums for the 8- and 16-query tiles): every dot-family
     metric, unmasked and with each row mask, against the twin and the
     CUDA-core body. Up to d = 384 within rtol 1e-5 and atol 1e-3 (f32 sums
@@ -632,11 +716,11 @@ def test_16bit_mma_body_matches_twin_and_cuda_core_body(cuda, dtype, d, b):
     q, base = case(dtype, 5003, d, b, cuda, seed=d + b)
     masks = [None] + [mask_case(kind, 5003, cuda, seed=d) for kind in MASK_KINDS]
     for metric in DOT_FAMILY:
-        assert k1_body(dtype, metric, d) == "mma"
+        assert k1_body(dtype, metric, d) == ("wgmma" if d % 8 == 0 else "mma")
         for mask in masks:
-            before = block_minima.body_launches["mma"]
-            got = assert_k1_matches_twin(q, base, metric, 4990, mask)
-            assert block_minima.body_launches["mma"] == before + 1
+            before = block_minima.body_launches[body]
+            got = assert_k1_matches_twin(q, base, metric, 4990, mask, body)
+            assert block_minima.body_launches[body] == before + 1
             simt = _launch_k1(q, base, metric, 4990, mask, "simt")
             torch.cuda.synchronize()
             want = block_minima_reference(q, base, metric, 4990, mask)
@@ -650,19 +734,21 @@ def test_16bit_mma_body_matches_twin_and_cuda_core_body(cuda, dtype, d, b):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("body", FLOAT_BODIES)
 @pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16], ids=str)
 @pytest.mark.parametrize("metric", list(DistanceMetric), ids=lambda m: m.value)
-def test_nonfinite_16bit_keeps_the_twin_semantics(cuda, dtype, metric):
+def test_nonfinite_16bit_keeps_the_twin_semantics(cuda, dtype, metric, body):
     """16-bit rows with +-Inf, NaN-making 0 x Inf and (bfloat16) squared
-    norms past float32's range, unmasked and with each row mask: both
-    bodies give the twin's +inf and -inf groups and finite minima within
+    norms past float32's range, unmasked and with each row mask: each
+    tensor-core body and the CUDA-core body give the twin's +inf and -inf groups and finite minima within
     tolerance; DOT over a +Inf column reads -inf."""
     from sqlite_vector_tpu_torch.ops.block_scan import _launch_k1
 
     q, base = nonfinite_case(7001, cuda, dtype=dtype)
+    forced = None if metric is DistanceMetric.L1 else body
     for kind in [None, *MASK_KINDS]:
         mask = None if kind is None else mask_case(kind, 7001, cuda, seed=3)
-        got = assert_k1_matches_twin(q, base, metric, 6990, mask)
+        got = assert_k1_matches_twin(q, base, metric, 6990, mask, forced)
         if metric is not DistanceMetric.L1:
             simt = _launch_k1(q, base, metric, 6990, mask, "simt")
             torch.cuda.synchronize()
@@ -860,7 +946,7 @@ def test_streamed_search_equals_the_device_search_bit_for_bit(cuda, tmp_path, mo
     host = svt.Dataset.load(d, device="cuda", storage="host", mmap=True)
     dev = svt.Dataset.load(d, device="cuda")
     _tiny_tiles(monkeypatch, 64 * 4)
-    block_minima.launches, block_minima.body_launches = 0, {"mma": 0, "simt": 0}
+    block_minima.launches, block_minima.body_launches = 0, {"wgmma": 0, "mma": 0, "simt": 0}
     for b in (1, 64):
         for got, want in zip(host.search(q[:b], 20), dev.search(q[:b], 20)):
             np.testing.assert_array_equal(got, want)
@@ -1004,7 +1090,8 @@ def sql_table(path, rows):
 @pytest.mark.cuda
 def test_sql_full_scan_launches_k1_and_equals_the_dataset(cuda, tmp_path):
     """SQL vector_full_scan on the card (connect() with no device): one K1
-    launch on its tensor-core body a call, the Dataset's result."""
+    launch on its tensor-core body (wgmma: f32 rows of 256 bytes) a call,
+    the Dataset's result."""
     import sqlite_vector_tpu_torch.sqlite as psql
 
     rows = np.random.default_rng(4).standard_normal((6000, 64)).astype(np.float32)
@@ -1015,9 +1102,9 @@ def test_sql_full_scan_launches_k1_and_equals_the_dataset(cuda, tmp_path):
     ref = svt.Dataset.from_arrays("ref", rows, device=cuda)
     for q in rows[[3, 4000]] + np.float32(1e-3):
         conn.vector_full_scan("docs", "v", q, 10)  # loads the table
-        before, mma = block_minima.launches, block_minima.body_launches["mma"]
+        before, wgmma = block_minima.launches, block_minima.body_launches["wgmma"]
         got = conn.vector_full_scan("docs", "v", q, 10)
-        assert block_minima.launches == before + 1 and block_minima.body_launches["mma"] == mma + 1
+        assert block_minima.launches == before + 1 and block_minima.body_launches["wgmma"] == wgmma + 1
         ids, dist = ref.search(q, 10)
         assert [r[0] for r in got] == ids.tolist()
         np.testing.assert_allclose([r[1] for r in got], dist, rtol=1e-5, atol=1e-6)
@@ -1051,3 +1138,27 @@ def test_sql_int4_quantize_scan_launches_k2_and_equals_the_dataset(cuda, tmp_pat
         assert [r[1] for r in got] == dist.astype(np.float64).tolist()
     conn.close()
     other.close()
+
+
+@pytest.mark.cuda
+def test_exact_search_reads_wide_bfloat16_self_matches_at_zero(cuda):
+    """Exact Dataset.search over 20,000 x 18,432 FLOATB16 L2 rows (737 MB;
+    the width of a kNN-LM datastore keyed by Nemotron-4-340B's hidden
+    states): 32 queries drawn from the base, every self-match first at
+    exactly 0.0. The finish rescores L2 as the direct sum((x - q)^2); the
+    decomposition, summed in cuBLAS's order against the norms', left
+    0.265-0.280 for 6 of 32 such self-matches on an H100. K1 runs on its
+    wgmma body."""
+    n, d = 20_000, 18_432
+    gen = torch.Generator(device=cuda).manual_seed(18)
+    rows = torch.randn((n, d), generator=gen, device=cuda).to(torch.bfloat16)
+    ds = svt.VectorStore(device="cuda").create("knn", f"dimension={d},type=FLOATB16,distance=L2")
+    ds._add_host_rows(rows.view(torch.int16).cpu().numpy().view(np.uint16), None)  # as the SQL loader adds
+    pick = np.random.default_rng(18).choice(n, 32, replace=False)
+    q = rows[torch.from_numpy(pick).to(cuda)].float().cpu().numpy()
+    before = dict(block_minima.body_launches)
+    ids, dist = ds.search(q, 5)
+    assert block_minima.body_launches == {**before, "wgmma": before["wgmma"] + 1}
+    np.testing.assert_array_equal(ids[:, 0], np.asarray(ds.ids)[pick])
+    np.testing.assert_array_equal(dist[:, 0], 0.0)
+    assert bool((dist[:, 1] > 100.0).all())

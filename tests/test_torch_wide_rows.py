@@ -1,7 +1,9 @@
-"""Rows past the widths whose query tile K1's tensor-core body keeps resident
+"""Rows past the widths whose query tile K1's mma.sync body keeps resident
 in shared memory (float32 d > 3,424, 16-bit d > 6,848, codes d > 13,696):
-such scans now take the body's streamed query tile (ops/block_scan.py:
-mma_streams_queries) where they used to take the CUDA-core body. On the
+such scans take a tensor-core body with its query tile streamed (the wgmma
+body where TMA takes the rows, ops/block_scan.py:wgmma_plan; else the
+mma.sync body's, mma_streams_queries) where they used to take the
+CUDA-core body. On the
 CPU both bodies are the twin, so this holds the port's Dataset.search at
 those widths against the JAX package's on the same seeded rows, in exact
 and int8 quantized mode, through tests/test_torch_mutations.py:
@@ -41,9 +43,14 @@ def test_wide_rows_search_matches_jax(vtype, dim, metric):
     compare_mode(pair.j, pair.p, q, "exact")
     pair.do("quantize")
     compare_mode(pair.j, pair.p, q, "quantized")
-    # on the card, every scan of these searches takes the tensor-core body,
-    # its query tile streamed
+    # on the card, every scan of these searches takes a tensor-core body,
+    # its query tile streamed: the wgmma body where TMA takes the rows'
+    # pitch (f32 at 4,096), the mma.sync body otherwise
     dt = TORCH_DTYPE[vtype]
-    assert block_scan.k1_body(dt, DistanceMetric(metric), dim) == "mma"
-    assert block_scan.mma_streams_queries(dt, dim)
+    body = block_scan.k1_body(dt, DistanceMetric(metric), dim)
+    if body == "wgmma":
+        assert dt.is_floating_point and dim * dt.itemsize % 16 == 0
+        assert block_scan.wgmma_plan(dt, dim, len(q))[1]
+    else:
+        assert body == "mma" and block_scan.mma_streams_queries(dt, dim)
     assert not block_scan.mma_streams_queries(dt, RESIDENT_EDGE[vtype])

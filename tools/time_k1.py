@@ -1,10 +1,14 @@
 #!/usr/bin/env python3
 """Time K1 (ops/block_scan.py:block_minima, routed as the checkout routes
-it), and K2 (ops/int4_scan.py:int4_block_minima, L2 over the rows' int4
-codes) in two or more checkouts of this repository on one CUDA card, in
-turns (A B B A per round), at the main path's size: 1,000,000 x 384 rows
-from N(0, 1) (seed 0) and 64 queries, cast for the 16-bit and u8 shapes
-(u8: the rows scaled by 32 and offset by 128, clamped).
+it, and for float L2 rows each of its bodies forced: the wgmma, mma.sync
+and CUDA-core bodies, where the checkout has them), and K2
+(ops/int4_scan.py:int4_block_minima, L2 over the rows' int4 codes) in two
+or more checkouts of this repository on one CUDA card, in turns (A B B A
+per round), at the main path's size: 1,000,000 x 384 rows from N(0, 1)
+(seed 0) and 64 queries, cast for the 16-bit and u8 shapes (u8: the rows
+scaled by 32 and offset by 128, clamped); and the exact finish that
+follows K1 (ops/block_scan.py:_finish_from_minima, k=20, f32 L2 at B=1 and
+64: select 20 groups, gather and rescore their rows, top-k).
 
     python3 tools/time_k1.py CHECKOUT_A CHECKOUT_B [--rounds 2] [--out FILE]
 
@@ -34,10 +38,14 @@ SHAPES = [
 ]
 
 
+# (metric, dtype, B) timed in each body the checkout has
+FORCED = [("L2", "float32", 1), ("L2", "float32", 64), ("L2", "float16", 64)]
+
+
 def worker() -> None:
     import torch
 
-    from sqlite_vector_tpu_torch.ops.block_scan import block_minima
+    from sqlite_vector_tpu_torch.ops.block_scan import _finish_from_minima, _launch_k1, block_minima
     from sqlite_vector_tpu_torch.ops.int4_scan import int4_block_minima
     from sqlite_vector_tpu_torch.ops.quantize4 import quantize4_device, quantize_query_int8
     from sqlite_vector_tpu_torch.types import DistanceMetric
@@ -56,7 +64,18 @@ def worker() -> None:
         m = DistanceMetric(metric)
         out[f"{metric} {dtype} B={b}"] = window_ms(
             lambda: block_minima(q, base, m, base.shape[0]), 20 if b == 1 else 10)
+        if (metric, dtype, b) in FORCED:
+            for body in ("wgmma", "mma", "simt"):
+                if body in block_minima.body_launches:
+                    out[f"{metric} {dtype} B={b} [{body}]"] = window_ms(
+                        lambda: _launch_k1(q, base, m, base.shape[0], None, body), 20 if b == 1 else 10)
         del base
+    for b in (1, 64):
+        q = queries[:b].contiguous()
+        minima = block_minima(q, rows, DistanceMetric.L2, rows.shape[0])
+        out[f"finish L2 float32 B={b}"] = window_ms(
+            lambda: _finish_from_minima(minima, q, rows, rows.shape[0], DistanceMetric.L2, 20),
+            20 if b == 1 else 10)
     packed, alpha, csq = quantize4_device(rows)
     for b in (1, 64):
         qc, qs, _ = quantize_query_int8(queries[:b])
@@ -121,8 +140,10 @@ def main() -> int:
     medians = {
         c: {k: statistics.median(t[k] for t in ts) for k in ts[0]} for c, ts in turns.items()
     }
-    for shape in medians[args.checkouts[0]]:
-        print(f"{shape}: " + ", ".join(f"{c} {medians[c][shape]!r} ms" for c in args.checkouts))
+    shapes = list(dict.fromkeys(k for c in args.checkouts for k in medians[c]))
+    for shape in shapes:
+        print(f"{shape}: " + ", ".join(
+            f"{c} {medians[c][shape]!r} ms" if shape in medians[c] else f"{c} -" for c in args.checkouts))
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps({"card": card, "turns": turns, "medians": medians}, indent=1))
