@@ -14,8 +14,9 @@ Phases, each printing its own lines:
   2. build    compile K1's three bodies (csrc/block_minima_wgmma.cu on
               warpgroup MMA fed by TMA, csrc/block_minima_mma.cu on mma.sync,
               csrc/block_minima.cu on CUDA cores) and the packed-int4
-              kernel K2's two bodies (csrc/int4_minima_mma.cu on tensor
-              cores, csrc/int4_minima.cu on CUDA cores) from csrc/ with nvcc,
+              kernel K2's three bodies (csrc/int4_minima_wgmma.cu on
+              warpgroup MMA fed by TMA, csrc/int4_minima_mma.cu on
+              mma.sync, csrc/int4_minima.cu on CUDA cores) from csrc/ with nvcc,
               one process per source, and print what ptxas reported of each
               function (registers, stack, spills); no instance of a
               tensor-core body or of K1's L1 kernel may spill;
@@ -34,16 +35,17 @@ Phases, each printing its own lines:
               nonfinite_case) under every metric, the float dot family also
               on the mma.sync body, the 16-bit one also on the CUDA-core
               body; then K2 against its twin
-              for its four metrics, d in {95, 384}, B in {1, 8, 33, 64, 65,
-              200}, and d = 16,385 (the query tile streamed; its
-              streamed_launches printed), B in {1, 65},
+              for its four metrics, d in {95, 97, 384}, B in {1, 8, 33, 64,
+              65, 200}, and d = 16,385 (the mma.sync body's query tile
+              streamed; its streamed_launches printed), B in {1, 65},
               with a zero row, duplicate rows and rows scaled by 1e25
               (overflowing surrogates, one group entirely); each case also
               with the four row masks of tests/test_torch_kernel_cuda.py:
               mask_case (a random half, a group with no live row, every row
               masked, three live rows); each case in the body
-              ops/int4_scan.py:k2_body routes it to and in the CUDA-core
-              body, the two equal bit for bit;
+              ops/int4_scan.py:k2_body routes it to (wgmma where TMA takes
+              the packed rows: d = 95, 384; else mma.sync) and in every
+              other body that takes it, all equal bit for bit;
   4. main     VectorStore(device="cuda"): create dimension=384 FLOAT32 L2,
               add 1,000,000 rows, search(Q, 20) for 64 queries (half drawn
               from the base) against a plain-torch ground truth, then
@@ -76,15 +78,15 @@ Phases, each printing its own lines:
               against the refine rescore of that loop's candidates; K2's
               launch count over these searches must be above 0; int4 and
               refine recall@20 against exact are printed; every K2 launch
-              must take its tensor-core body;
-  7. times    K2 at B=1 and B=64, both bodies held against the twin, then
-              timed (CUDA events): the twin apart, the routed body, the
-              CUDA-core body and the library yardstick (library_call_k2) in
-              five rounds of turns (medians), beside its bound (k2_bound);
-              then end-to-end int4-quantized and refine search at B=1 and
-              B=64, measured as in phase 5, every K2 launch in its
-              tensor-core body, the query tile resident (streamed_launches
-              printed, 0);
+              must take its wgmma body;
+  7. times    K2 at B=1 and B=64, its three bodies held against the twin,
+              then timed (CUDA events): the twin apart, the routed (wgmma)
+              body, the mma.sync body, the CUDA-core body and the library
+              yardstick (library_call_k2) in five rounds of turns (medians),
+              beside its bound (k2_bound); then end-to-end int4-quantized
+              and refine search at B=1 and B=64, measured as in phase 5,
+              every K2 launch in its wgmma body, the query tile resident
+              (streamed_launches printed, 0);
   8. mutate   on the same rows: remove 10,000 random ids (tombstones, below
               the compaction threshold); exact search at B=1 and B=64 and
               distances on 4 queries against the plain masked scan; an
@@ -96,7 +98,7 @@ Phases, each printing its own lines:
               fresh int8 quantize() and filtered quantized and rerank
               search, and unfiltered rerank, against their plain
               counterparts. K1's and K2's launch counts over the masked
-              searches must be above 0, K2's all in its tensor-core body.
+              searches must be above 0, K2's all in its wgmma body.
               Times: remove, update and compact
               wall ms; masked exact search at B=1 and B=64 beside unmasked;
               filtered search at B=64 and the filter mask's build; rerank
@@ -194,7 +196,7 @@ Phases, each printing its own lines:
               searches at B=64, each inside annotate("svt.search.exact") or
               annotate("svt.search.int4"): the trace must hold CUDA kernel
               events, as many K1 (mma_minima_kernel) and K2
-              (int4_mma_minima_kernel) events as the launch counters
+              (int4_wgmma_minima_kernel) events as the launch counters
               counted, each launched inside its range (joined by
               correlation id) and starting after the range does; each
               range kind's device-busy share (the union of kernel, memcpy
@@ -221,25 +223,26 @@ Phases, each printing its own lines:
               20,000 x 16,384 for L2, COSINE and DOT, both bodies equal to
               the twin bit for bit. Prints the peak device memory. The
               1M x 4,096 dataset goes on to phase 14.
- 14. wide4    int4 where K2's tensor-core body streams its query tile
-              (ops/int4_scan.py:k2_streams_queries): phase 13's 1M x 4,096
+ 14. wide4    int4 where K2's wgmma body streams its query tile
+              (ops/int4_scan.py:k2_wgmma_plan): phase 13's 1M x 4,096
               rows quantize(qtype="int4", refine=True), then int4-quantized
               and refine search at B=1 and B=64, k=20, against the plain
               int4 tile loop and the refine rescore of its candidates (as
               phase 6), recall@20 against phase 13's exact ids printed, K2's
               counters (zeroed before, read after) showing each launch on
-              the tensor-core body, streamed where the route says; K2 alone
-              there and over 2 GB of codes at 8,192 and 16,384 columns: both
-              bodies bit-equal to the twin, timed in turns (CUDA events)
-              with the CUDA-core body, torch._int_mm on the unpacked codes
-              (B=64) and, where a resident tile fits, the resident and the
-              streamed tile side by side, beside k2_bound; then a kNN-LM
+              the wgmma body, streamed where the route says; K2 alone
+              there and over 2 GB of codes at 8,192 and 16,384 columns: its
+              three bodies bit-equal to the twin, timed in turns (CUDA
+              events) with the mma.sync and the CUDA-core body,
+              torch._int_mm on the unpacked codes (B=64) and, where a
+              resident tile fits, the wgmma body's resident and streamed
+              tile side by side, beside k2_bound; then a kNN-LM
               datastore shard keyed by Nemotron-4-340B's final hidden
               states: 500,000 x 18,432 FLOATB16 L2 N(0, 1) rows drawn on the
               card (18.4 GB), 64 queries, half from the base, exact search
               (self-matches first, each at exactly 0), the same int4
-              and refine checks, every K2 launch streamed, the CUDA-core
-              body forced once and bit-equal, K2 alone as above and beside
+              and refine checks, every K2 launch streamed, the mma.sync and
+              CUDA-core bodies forced once and bit-equal, K2 alone as above and beside
               the finish (CUDA-event windows). Prints the peak device
               memory.
 
@@ -252,8 +255,10 @@ from phase 4's quantized search), K1's wgmma body for 16-bit rows (L2 f16
 B=64; launches from phase 5's FLOAT16 and FLOATB16 searches), K1's wgmma
 body with the query tile streamed (f32 d=4096 B=64; launches from phase
 13's two searches), K1's L1 kernel (L1 f32 B=64; launches from the FLOAT32 L1
-search), K2 (B=64), K2 past the resident query tile (int4_block_minima_wide:
-bf16 d=18432 B=64; launches from phase 14's eight searches); the rest under "by_shape"; "sql_launches" counts phase 10's
+search), K2's wgmma body (B=64), K2 past the resident query tile
+(int4_block_minima_wide: bf16 d=18432 B=64; launches from phase 14's eight
+searches), both K2 entries with the mma.sync body's ms as "mma_sync_ms";
+the rest under "by_shape"; "sql_launches" counts phase 10's
 launches on the SQL path, "mesh_launches" phase 11's, "trace_launches" the
 kernel events in phase 12's trace; phase 10's times under
 "frontends", phase 11's under "mesh"), the card
@@ -581,14 +586,16 @@ def load_tests_module(name: str, folder: str = "tests"):
 
 
 def compare_int4_minima(args, metric, valid: int, label: str, mask=None) -> float:
-    """K2, in the body k2_body routes to and (where that is the tensor-core
-    body) forced onto the CUDA-core body, against its twin on the same CUDA
-    tensors: +inf positions equal and finite minima EQUAL (tolerance 0):
-    both take the exact integer dot and then the same float32 epilogue,
-    each op rounded once in the same order (__fmul_rn/__fsub_rn and a
-    correctly rounded 1/sqrt in the kernel, one torch op per step in the
-    twin); the two bodies equal bit for bit. Returns max |kernel - twin|
+    """K2, in the body k2_body routes to and forced onto every other body
+    that takes the codes (the wgmma body only where TMA copies the packed
+    rows; the mma.sync and CUDA-core bodies always), against its twin on
+    the same CUDA tensors: +inf positions equal and finite minima EQUAL
+    (tolerance 0): all take the exact integer dot and then the same float32
+    epilogue, each op rounded once in the same order (__fmul_rn/__fsub_rn
+    and a correctly rounded 1/sqrt in the kernel, one torch op per step in
+    the twin); the bodies equal bit for bit. Returns max |kernel - twin|
     over the finite minima."""
+    from sqlite_vector_tpu_torch.ops.block_scan import tma_ready
     from sqlite_vector_tpu_torch.ops.int4_scan import (
         _launch_k2,
         int4_block_minima,
@@ -596,9 +603,11 @@ def compare_int4_minima(args, metric, valid: int, label: str, mask=None) -> floa
         k2_body,
     )
 
-    got = {k2_body(args[0].shape[1]): int4_block_minima(*args, metric, valid, mask)}
-    if "mma" in got:
-        got["simt"] = _launch_k2(*args, metric, valid, mask, "simt")
+    routed = k2_body(args[0].shape[1], tma_ready(args[2]))
+    got = {routed: int4_block_minima(*args, metric, valid, mask)}
+    for body in ("mma", "simt"):
+        if body not in got:
+            got[body] = _launch_k2(*args, metric, valid, mask, body)
     ref = int4_block_minima_reference(*args, metric, valid, mask)
     torch.cuda.synchronize()
     fin = torch.isfinite(ref)
@@ -611,17 +620,18 @@ def compare_int4_minima(args, metric, valid: int, label: str, mask=None) -> floa
         err = float((minima[fin] - ref[fin]).abs().max()) if bool(fin.any()) else 0.0
         check(torch.equal(minima[fin], ref[fin]), f"{where}: max |kernel - twin| {err}")
         worst = max(worst, err)
-    if len(got) == 2:
-        check(torch.equal(got["mma"].view(torch.int32), got["simt"].view(torch.int32)),
-              f"{label}: the two bodies differ in some bit")
+    for body, minima in got.items():
+        check(torch.equal(minima.view(torch.int32), got["simt"].view(torch.int32)),
+              f"{label}: the {body} and CUDA-core bodies differ in some bit")
     return worst
 
 
 def phase_kernel_int4(card: str) -> tuple[float, float]:
-    """K2 (both bodies) vs twin for its 4 metrics x d in {95, 384} x B in
-    {1, 8, 33, 64, 65, 200}, and d = 16,385 (the query tile streamed) x B
-    in {1, 65}, unmasked and with each row mask; returns the largest
-    |kernel - twin| over finite minima, unmasked and masked."""
+    """K2 (every body that takes the codes) vs twin for its 4 metrics x d
+    in {95, 97, 384} x B in {1, 8, 33, 64, 65, 200}, and d = 16,385 (the
+    mma.sync body's query tile streamed) x B in {1, 65}, unmasked and with
+    each row mask; returns the largest |kernel - twin| over finite minima,
+    unmasked and masked."""
     from sqlite_vector_tpu_torch.ops.int4_scan import int4_block_minima, k2_body, k2_streams_queries
     from sqlite_vector_tpu_torch.types import DistanceMetric
 
@@ -635,8 +645,9 @@ def phase_kernel_int4(card: str) -> tuple[float, float]:
     t0 = time.perf_counter()
     batches = (1, 8, 33, 64, 65, 200)
     int4_block_minima.streamed_launches = 0
-    for d, bs in ((95, batches), (384, batches), (16385, (1, 65))):
-        check(k2_body(d) == "mma", f"K2 at d={d} routes to its {k2_body(d)} body")
+    for d, bs in ((95, batches), (97, batches), (384, batches), (16385, (1, 65))):
+        want_body = "wgmma" if d in (95, 384) else "mma"
+        check(k2_body(d) == want_body, f"K2 at d={d} routes to its {k2_body(d)} body, not {want_body}")
         for b in bs:
             args, _ = int4_case(n, d, b, "cuda", seed=SEED + 2 + d + b)
             for metric in metrics:
@@ -655,10 +666,11 @@ def phase_kernel_int4(card: str) -> tuple[float, float]:
     check(int4_block_minima.streamed_launches == want,
           f"K2 at d=16385 streamed {int4_block_minima.streamed_launches} launches, not {want}")
     print(
-        f"[kernel] K2 == twin for {len(metrics)} metrics x d in (95, 384) x B in "
+        f"[kernel] K2 == twin for {len(metrics)} metrics x d in (95, 97, 384) x B in "
         f"{batches} and d=16385 x B in (1, 65) (N={n}, valid={valid}, zero/duplicate/1e25-scaled "
-        f"rows; +inf positions equal, finite minima equal), the tensor-core body (routed) "
-        f"and the CUDA-core body each, equal bit for bit; max |kernel - twin| = "
+        f"rows; +inf positions equal, finite minima equal), the routed body (wgmma at d=95 and "
+        f"384, mma.sync at 97 and 16385) and every other body that takes the codes, equal bit "
+        f"for bit; max |kernel - twin| = "
         f"{worst!r}; masked ({len(masks)} row masks each): max |kernel - twin| = "
         f"{masked_worst!r}; streamed_launches {int4_block_minima.streamed_launches} (all at "
         f"d=16385); in {time.perf_counter() - t0:.1f} s | {card}",
@@ -1057,15 +1069,13 @@ def phase_int4(card: str, ds, Q, ids_e) -> int:
     n = quant.count
     Qd = torch.from_numpy(Q).cuda()
 
-    block_minima.launches = 0
-    int4_block_minima.launches = 0
-    int4_block_minima.body_launches = {"mma": 0, "simt": 0}
+    zero_counts()
     ids_q, d_q = ds.search(Q, K, mode="quantized")
     ids_r, d_r = ds.search(Q, K, mode="refine")
     launches = int4_block_minima.launches
     check(launches > 0, "int4 quantized/refine search did not launch K2")
-    check(int4_block_minima.body_launches == {"mma": launches, "simt": 0},
-          f"int4 searches left K2's tensor-core body: {int4_block_minima.body_launches}")
+    check(int4_block_minima.body_launches == {"wgmma": launches, "mma": 0, "simt": 0},
+          f"int4 searches left K2's wgmma body: {int4_block_minima.body_launches}")
     check(block_minima.launches == 0, "int4 searches launched K1")
 
     # quantized: the plain tile loop over the same codes
@@ -1092,7 +1102,7 @@ def phase_int4(card: str, ds, Q, ids_e) -> int:
         f"search(Q[{B_MAIN}], {K}, mode='quantized') == the plain int4 tile loop over the "
         f"same codes (distances equal, ids tie-aware); mode='refine' == the refine rescore "
         f"of the plain loop's candidates; recall@{K} vs exact: int4 {recall(ids_q)!r}, "
-        f"refine {recall(ids_r)!r}; K2 launches {launches}, all in its tensor-core body, "
+        f"refine {recall(ids_r)!r}; K2 launches {launches}, all in its wgmma body, "
         f"K1 launches 0 | {card}",
         flush=True,
     )
@@ -1100,12 +1110,13 @@ def phase_int4(card: str, ds, Q, ids_e) -> int:
 
 
 def phase_int4_times(card: str, ds, Q) -> dict:
-    """K2 at B=1 and B=B_MAIN, both bodies held against the twin, then
-    timed in turns with the twin, the CUDA-core body and the library
-    yardstick, beside its bound; then end-to-end int4-quantized and refine
-    search, every K2 launch in its tensor-core body. Returns, by label, the
-    kernel's, the twin's, the CUDA-core body's and the library's ms with
-    the bound, and the largest |kernel - twin| under "max_abs_err"."""
+    """K2 at B=1 and B=B_MAIN, its three bodies held against the twin, then
+    timed in turns with the twin, the mma.sync and CUDA-core bodies and the
+    library yardstick, beside its bound; then end-to-end int4-quantized and
+    refine search, every K2 launch in its wgmma body. Returns, by label,
+    the kernel's, the twin's, the mma.sync body's, the CUDA-core body's and
+    the library's ms with the bound, and the largest |kernel - twin| under
+    "max_abs_err"."""
     from sqlite_vector_tpu_torch.ops.int4_scan import (
         _launch_k2,
         int4_block_minima,
@@ -1129,28 +1140,30 @@ def phase_int4_times(card: str, ds, Q) -> dict:
         # skewed that body's time; the bodies and the yardstick over five
         # rounds in turns (their times spread by up to 8% between passes)
         (plain_ms,) = in_turns([lambda: int4_block_minima_reference(*args, L2, n)], iters)
-        fns = [lambda: int4_block_minima(*args, L2, n), lambda: _launch_k2(*args, L2, n, None, "simt")]
+        fns = [lambda: int4_block_minima(*args, L2, n), lambda: _launch_k2(*args, L2, n, None, "mma"),
+               lambda: _launch_k2(*args, L2, n, None, "simt")]
         lib = library_call_k2(qc, codes8)
         ms = in_turns(fns + ([lib] if lib else []), iters, rounds=5)
         lim, by = k2_bound(b, n, DIM_MAIN)
         label = f"B={b}"
-        out[label] = {"ms": ms[0], "plain_ms": plain_ms, "simt_ms": ms[1],
-                      "library_ms": ms[2] if lib else None, "bound_ms": lim, "bound_by": by}
+        out[label] = {"ms": ms[0], "plain_ms": plain_ms, "mma_sync_ms": ms[1], "simt_ms": ms[2],
+                      "library_ms": ms[3] if lib else None, "bound_ms": lim, "bound_by": by}
         print(
-            f"[times] K2 {shape} f32 queries {label} L2 (both bodies == twin; mma body): kernel "
+            f"[times] K2 {shape} f32 queries {label} L2 (the three bodies == twin; wgmma body): kernel "
             f"{ms[0]!r} ms ({quant.codes.numel() / (ms[0] * 1e-3) / 1e9:.0f} GB/s of packed "
-            f"codes), bound {lim!r} ms ({by}), {100 * lim / ms[0]:.1f}% of bound; CUDA-core body "
-            f"{ms[1]!r} ms; twin {plain_ms!r} ms; library (torch._int_mm) "
-            f"{'none' if not lib else repr(ms[2]) + ' ms'} (medians of 10 passes in turns) | {card}",
+            f"codes), bound {lim!r} ms ({by}), {100 * lim / ms[0]:.1f}% of bound; mma.sync body "
+            f"{ms[1]!r} ms; CUDA-core body {ms[2]!r} ms; twin {plain_ms!r} ms; library "
+            f"(torch._int_mm) {'none' if not lib else repr(ms[3]) + ' ms'} (medians of 10 passes "
+            f"in turns) | {card}",
             flush=True,
         )
     del codes8
-    int4_block_minima.body_launches = {"mma": 0, "simt": 0}
-    int4_block_minima.streamed_launches = 0
+    zero_counts()
     for mode, label in (("quantized", "int4 quantized"), ("refine", "refine expand=4")):
         search_times(card, ds, Q, mode, shape, ((1, 200), (B_MAIN, 100)), label)
     used = int4_block_minima.body_launches
-    check(used["mma"] > 0 and used["simt"] == 0, f"timed int4 searches left K2's tensor-core body: {used}")
+    check(used["wgmma"] > 0 and used["mma"] == 0 and used["simt"] == 0,
+          f"timed int4 searches left K2's wgmma body: {used}")
     check(int4_block_minima.streamed_launches == 0, "K2 streamed its query tile at d=384")
     print(f"[times] the timed int4 searches' K2 launches: {used}, streamed_launches "
           f"{int4_block_minima.streamed_launches} (the query tile resident at d={DIM_MAIN}) | {card}",
@@ -1213,9 +1226,7 @@ def phase_mutate(card: str, ds, Q) -> dict:
         torch.cuda.synchronize()
         return r, (time.perf_counter() - t0) * 1e3
 
-    block_minima.launches = 0
-    int4_block_minima.launches = 0
-    int4_block_minima.body_launches = {"mma": 0, "simt": 0}
+    zero_counts()
     # -- remove: tombstones below the 250,000-row threshold ------------------
     gone = rng.choice(ds.ids, 10_000, replace=False)
     removed, t_remove = timed(lambda: ds.remove(gone))
@@ -1275,8 +1286,8 @@ def phase_mutate(card: str, ds, Q) -> dict:
     )
     same_topk("filtered rerank (int4 stage 1, id remap)", ids_rr, d_rr, *plain_remap(cand))
     masked = {"K1": block_minima.launches, "K2": int4_block_minima.launches}
-    check(int4_block_minima.body_launches == {"mma": masked["K2"], "simt": 0},
-          f"masked int4 searches left K2's tensor-core body: {int4_block_minima.body_launches}")
+    check(int4_block_minima.body_launches == {"wgmma": masked["K2"], "mma": 0, "simt": 0},
+          f"masked int4 searches left K2's wgmma body: {int4_block_minima.body_launches}")
     print(
         f"[mutate] remove(10000) of {N_MAIN} rows: {ds.tombstones} tombstones; masked exact "
         f"B=1 and B={B_MAIN} == the plain masked scan (rtol {F32_TOL}), no removed id back; "
@@ -1421,9 +1432,9 @@ def counts():
     from sqlite_vector_tpu_torch.ops.int4_scan import int4_block_minima
 
     # (launches, launches on a tensor-core body)
-    k1 = block_minima.body_launches
+    k1, k2 = block_minima.body_launches, int4_block_minima.body_launches
     return {"K1": (block_minima.launches, k1["wgmma"] + k1["mma"]),
-            "K2": (int4_block_minima.launches, int4_block_minima.body_launches["mma"])}
+            "K2": (int4_block_minima.launches, k2["wgmma"] + k2["mma"])}
 
 
 def zero_counts() -> None:
@@ -2566,14 +2577,16 @@ def serving(card: str, ref, rows, Q, path: str) -> dict:
 # kernel and PERF.md §5's device-busy share for it at B=64
 # (tools/profile_torch_search.py), printed beside phase 12's
 TRACED = {"svt.search.exact": ("exact", "K1", 47.6), "svt.search.int4": ("quantized", "K2", 25.1)}
-# the substring of each scan kernel's device name in the trace (the tensor-core
-# bodies; "int4_mma_minima_kernel" also holds K1's, so K1 excludes it)
-TRACE_KERNELS = {"K1": ("mma_minima_kernel", "int4_mma_minima_kernel"), "K2": ("int4_mma_minima_kernel", None)}
+# the substrings of each scan kernel's device name in the trace: K1's
+# tensor-core bodies (mma_minima_kernel, wgmma_minima_kernel) hold the
+# first and not the second, K2's (int4_wgmma_minima_kernel,
+# int4_mma_minima_kernel) both
+TRACE_KERNELS = {"K1": ("mma_minima_kernel", "int4_"), "K2": ("mma_minima_kernel", "int4_")}
 
 
 def kernel_of(name: str) -> str | None:
-    for kernel, (sub, not_sub) in TRACE_KERNELS.items():
-        if sub in name and not (not_sub and not_sub in name):
+    for kernel, (sub, int4) in TRACE_KERNELS.items():
+        if sub in name and (int4 in name) == (kernel == "K2"):
             return kernel
     return None
 
@@ -2974,10 +2987,10 @@ def int4_searches(card: str, ds, Q, ids_e, dim: int, label: str) -> int:
     the plain int4 tile loop, and the refine rescore of its candidates),
     recall@K against the exact ids `ids_e` printed, and K2's launch
     counters (set to 0 just before the four searches, read just after):
-    each on the tensor-core body, streamed where k2_streams_queries says.
-    Returns the launches."""
+    each on the wgmma body, streamed where k2_wgmma_plan says. Returns the
+    launches."""
     from sqlite_vector_tpu_torch.ops.block_scan import block_minima
-    from sqlite_vector_tpu_torch.ops.int4_scan import int4_block_minima, k2_query_tile, k2_streams_queries
+    from sqlite_vector_tpu_torch.ops.int4_scan import int4_block_minima, k2_wgmma_plan
     from sqlite_vector_tpu_torch.ops.quantize4 import int4_scan_topk_plain
     from sqlite_vector_tpu_torch.ops.refine import refine_candidates
     from sqlite_vector_tpu_torch.types import DistanceMetric
@@ -2989,10 +3002,10 @@ def int4_searches(card: str, ds, Q, ids_e, dim: int, label: str) -> int:
     got = {(mode, b): ds.search(Q[:b], K, mode=mode) for b in (1, B_MAIN) for mode in ("quantized", "refine")}
     launches, used, streamed = (int4_block_minima.launches, dict(int4_block_minima.body_launches),
                                 int4_block_minima.streamed_launches)
-    want_streamed = 2 * sum(k2_streams_queries(dim, b) for b in (1, B_MAIN))
-    check(launches == 4 and used == {"mma": 4, "simt": 0} and streamed == want_streamed
+    want_streamed = 2 * sum(k2_wgmma_plan(dim, b)[1] for b in (1, B_MAIN))
+    check(launches == 4 and used == {"wgmma": 4, "mma": 0, "simt": 0} and streamed == want_streamed
           and block_minima.launches == 0,
-          f"{label}: K2 launches {launches} {used}, {streamed} streamed (want 4 on the tensor-core "
+          f"{label}: K2 launches {launches} {used}, {streamed} streamed (want 4 on the wgmma "
           f"body, {want_streamed} streamed), K1 {block_minima.launches}")
     ids_all = quant.ids
     recalls = {}
@@ -3014,7 +3027,8 @@ def int4_searches(card: str, ds, Q, ids_e, dim: int, label: str) -> int:
             recalls[(mode, b)] = float(np.mean([len(set(ids[i]) & set(ids_e[i])) / K for i in range(b)]))
 
     def tile(b):
-        return f"{k2_query_tile(dim, b)} {'streamed' if k2_streams_queries(dim, b) else 'resident'}"
+        t, streamed = k2_wgmma_plan(dim, b)
+        return f"{t} {'streamed' if streamed else 'resident'}"
 
     print(
         f"[wide4] {label}: search(Q[b], {K}, mode='quantized') == the plain int4 tile loop and "
@@ -3029,18 +3043,18 @@ def int4_searches(card: str, ds, Q, ids_e, dim: int, label: str) -> int:
 
 
 def wide_k2(card: str, label: str, Q, packed, alpha, csq, dim: int, out: dict) -> None:
-    """K2 alone at B=1 and B=B_MAIN over these codes: the routed body and
-    the CUDA-core body against the twin (compare_int4_minima: bit-equal),
-    then timed in turns (CUDA events; the twin apart) with the CUDA-core
-    body, torch._int_mm on the codes unpacked once to int8 where it takes
-    the shape, and, where a resident query tile fits, the resident and the
-    streamed tile side by side; beside k2_bound. Into out[label B=b]."""
+    """K2 alone at B=1 and B=B_MAIN over these codes: the routed (wgmma)
+    body, the mma.sync and the CUDA-core body against the twin
+    (compare_int4_minima: bit-equal), then timed in turns (CUDA events; the
+    twin apart) with the mma.sync and CUDA-core bodies, torch._int_mm on
+    the codes unpacked once to int8 where it takes the shape, and, where a
+    resident query tile fits, the wgmma body's resident and streamed tile
+    side by side; beside k2_bound. Into out[label B=b]."""
     from sqlite_vector_tpu_torch.ops.int4_scan import (
         _launch_k2,
         int4_block_minima,
         int4_block_minima_reference,
-        k2_query_tile,
-        k2_streams_queries,
+        k2_wgmma_plan,
     )
     from sqlite_vector_tpu_torch.ops.quantize4 import quantize_query_int8, unpack4
     from sqlite_vector_tpu_torch.types import DistanceMetric
@@ -3057,29 +3071,32 @@ def wide_k2(card: str, label: str, Q, packed, alpha, csq, dim: int, out: dict) -
         out["max_abs_err"] = max(out["max_abs_err"], compare_int4_minima(args, L2, n, f"wide K2 {key}"))
         (plain_ms,) = in_turns([lambda: int4_block_minima_reference(*args, L2, n)], 3)
         fns = {"kernel": lambda: int4_block_minima(*args, L2, n),
+               "mma": lambda: _launch_k2(*args, L2, n, None, "mma"),
                "simt": lambda: _launch_k2(*args, L2, n, None, "simt")}
         lib = library_call_k2(qc, codes8)
         if lib:
             fns["library"] = lib
-        resident = k2_query_tile(dim, b, False)
+        resident = k2_wgmma_plan(dim, b, False)[0]
         if resident:
-            fns["resident"] = lambda: _launch_k2(*args, L2, n, None, "mma", False)
-            fns["streamed"] = lambda: _launch_k2(*args, L2, n, None, "mma", True)
+            fns["resident"] = lambda: _launch_k2(*args, L2, n, None, "wgmma", False)
+            fns["streamed"] = lambda: _launch_k2(*args, L2, n, None, "wgmma", True)
         ms = dict(zip(fns, in_turns(list(fns.values()), 10 if b == 1 else 5, rounds=2)))
         lim, by = k2_bound(b, n, dim)
-        routed = f"{k2_query_tile(dim, b)} {'streamed' if k2_streams_queries(dim, b) else 'resident'}"
-        out[key] = {"ms": ms["kernel"], "plain_ms": plain_ms, "simt_ms": ms["simt"],
+        tile, streamed = k2_wgmma_plan(dim, b)
+        routed = f"{tile} {'streamed' if streamed else 'resident'}"
+        out[key] = {"ms": ms["kernel"], "plain_ms": plain_ms, "mma_sync_ms": ms["mma"], "simt_ms": ms["simt"],
                     "library_ms": ms.get("library"), "bound_ms": lim, "bound_by": by,
                     "query_tile": routed}
         side = ""
         if resident:
             out[key].update(resident_ms=ms["resident"], streamed_ms=ms["streamed"])
-            side = (f"; resident tile {resident} (x{-(-b // resident)}) {ms['resident']!r} ms against "
-                    f"streamed tile {k2_query_tile(dim, b, True)} {ms['streamed']!r} ms")
+            side = (f"; wgmma resident tile {resident} (x{-(-b // resident)}) {ms['resident']!r} ms "
+                    f"against streamed tile {k2_wgmma_plan(dim, b, True)[0]} {ms['streamed']!r} ms")
         print(
-            f"[times] K2 {n}x{dim} {key} L2 (both bodies == twin; routed: the tensor-core body, query "
+            f"[times] K2 {n}x{dim} {key} L2 (the three bodies == twin; routed: the wgmma body, query "
             f"tile {routed}): kernel {ms['kernel']!r} ms, bound {lim!r} ms ({by}), "
-            f"{100 * lim / ms['kernel']:.1f}% of bound; CUDA-core body {ms['simt']!r} ms "
+            f"{100 * lim / ms['kernel']:.1f}% of bound; mma.sync body {ms['mma']!r} ms "
+            f"({ms['mma'] / ms['kernel']:.2f}x); CUDA-core body {ms['simt']!r} ms "
             f"({ms['simt'] / ms['kernel']:.2f}x); twin {plain_ms!r} ms; library (torch._int_mm) "
             f"{'none' if not lib else repr(ms['library']) + ' ms'}{side} | {card}",
             flush=True,
@@ -3134,8 +3151,8 @@ def datastore(card: str):
 
 
 def phase_wide_int4(card: str, wide: dict) -> dict:
-    """Phase 14: int4 and refine where K2's tensor-core body streams its
-    query tile (ops/int4_scan.py:k2_streams_queries). Phase 13's 1,000,000
+    """Phase 14: int4 and refine where K2's wgmma body streams its query
+    tile (ops/int4_scan.py:k2_wgmma_plan). Phase 13's 1,000,000
     x 4,096 f32 dataset (popped from phase 13's result `wide`, so that it
     is freed here: the dataset, its queries and their exact ids), then the kNN-LM datastore shard (datastore()): each
     quantize(qtype="int4", refine=True) and searched by int4_searches, K2
@@ -3195,15 +3212,17 @@ def phase_wide_int4(card: str, wide: dict) -> dict:
     print(f"[wide4] datastore: peak device memory after the int4 searches and their plain "
           f"counterparts {torch.cuda.max_memory_allocated()} bytes | {card}", flush=True)
     quant = ds._quant
-    # the CUDA-core body forced once more, at B=B_MAIN: bit-equal
+    # the mma.sync and CUDA-core bodies forced once more, at B=B_MAIN: bit-equal
     qc, qs, _ = quantize_query_int8(torch.from_numpy(Q).cuda())
     args = (qc, qs, quant.codes, quant.row_scale, quant.sq_norms)
+    wgmma = _launch_k2(*args, L2, quant.count, None, "wgmma")
     mma = _launch_k2(*args, L2, quant.count, None, "mma")
     simt = _launch_k2(*args, L2, quant.count, None, "simt")
     torch.cuda.synchronize()
-    check(torch.equal(mma.view(torch.int32), simt.view(torch.int32)),
-          "datastore: the streamed tensor-core body and the CUDA-core body differ")
-    del mma, simt, args
+    check(torch.equal(wgmma.view(torch.int32), simt.view(torch.int32))
+          and torch.equal(mma.view(torch.int32), simt.view(torch.int32)),
+          "datastore: the streamed wgmma, the streamed mma.sync and the CUDA-core body differ")
+    del wgmma, mma, simt, args
     wide_k2(card, f"bf16 d={DIM_WIDE4}", Q, quant.codes, quant.row_scale, quant.sq_norms, DIM_WIDE4, out)
     # K2 against the finish (select k groups, gather, unpack and rescore
     # their packed rows in float64 past d = 16,513, top-k), as phase 13
@@ -3287,7 +3306,7 @@ def main() -> int:
     t0 = time.perf_counter()
     load_library()
     print(
-        f"[build] K1 (three bodies) and K2 (two) built from csrc/ and loaded in {time.perf_counter() - t0:.1f} s "
+        f"[build] K1 (three bodies) and K2 (three) built from csrc/ and loaded in {time.perf_counter() - t0:.1f} s "
         f"-> {library_path().name}",
         flush=True,
     )
@@ -3369,7 +3388,7 @@ def main() -> int:
         {
             "name": "int4_block_minima",
             "route": "cuda",
-            "source": "sqlite_vector_tpu_torch/csrc/int4_minima_mma.cu",
+            "source": "sqlite_vector_tpu_torch/csrc/int4_minima_wgmma.cu",
             "replaces": "sqlite_vector_tpu/ops/pallas_int4.py:408",
             "launches": k2_launches,
             "max_abs_err": max(k2_err, k2["max_abs_err"]),
@@ -3378,6 +3397,8 @@ def main() -> int:
             "bound_ms": k2_main["bound_ms"],
             "bound_by": k2_main["bound_by"],
             "library_ms": k2_main["library_ms"],
+            "mma_sync_ms": k2_main["mma_sync_ms"],
+            "mma_sync_body": "sqlite_vector_tpu_torch/csrc/int4_minima_mma.cu",
             "masked_launches": masked["K2"],
             "streamed_launches": host["K2"],
             "sql_launches": fe["sql_launches"]["K2"]["launches"],
@@ -3392,7 +3413,7 @@ def main() -> int:
             # codes; launches from phase 14's eight checked searches
             "name": "int4_block_minima_wide",
             "route": "cuda",
-            "source": "sqlite_vector_tpu_torch/csrc/int4_minima_mma.cu",
+            "source": "sqlite_vector_tpu_torch/csrc/int4_minima_wgmma.cu",
             "replaces": "sqlite_vector_tpu/ops/pallas_int4.py:408",
             "launches": wide_k2["launches"],
             "max_abs_err": wide_k2["max_abs_err"],
@@ -3401,6 +3422,8 @@ def main() -> int:
             "bound_ms": k2_wide["bound_ms"],
             "bound_by": k2_wide["bound_by"],
             "library_ms": k2_wide["library_ms"],
+            "mma_sync_ms": k2_wide["mma_sync_ms"],
+            "mma_sync_body": "sqlite_vector_tpu_torch/csrc/int4_minima_mma.cu",
             "main_shape": f"bf16 d={DIM_WIDE4} B={B_MAIN}",
             "cuda_core_body": "sqlite_vector_tpu_torch/csrc/int4_minima.cu",
             "by_shape": {k: v for k, v in wide_k2.items() if k not in ("max_abs_err", "launches")},

@@ -89,6 +89,7 @@
 
 #include "k1_common.cuh"
 #include "sm90_common.cuh"
+#include "sm90_wgmma.cuh"
 
 namespace {
 
@@ -103,9 +104,6 @@ constexpr int kConsumerRegs = 232;
 // ping-pong order (3, 4: consumer w waits on 3 + w)
 constexpr int kBarConsumer = 1;
 constexpr int kBarOrder = 3;
-// what svt_block_minima_wgmma returns when the driver refuses a TMA
-// descriptor: this plus the CUresult
-constexpr int kEncodeFailed = 10000;
 
 // planes of the query tile: f32 keeps q_hi and q_lo
 template <typename T>
@@ -120,103 +118,6 @@ __host__ __device__ constexpr int stage_bytes() {
 
 // a consumer's floats: query norms [QT], warp minima [4][QT], row norms [128]
 __host__ __device__ constexpr int consumer_floats(int qt) { return qt + 4 * qt + kWgRows; }
-
-// ---- PTX wrappers (cp.async ones in sm90_common.cuh) ---------------------
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// wait for the completion of the barrier's phase of this parity (the loop
-// is PTX's, so the warp stays converged for the .aligned instructions after)
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred p;\nWAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// a TMA copy of the box at (c0, c1, c2) of `map` into shared memory at dst,
-// completing on the mbarrier bar
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
-                                         int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, "
-      "%4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-__device__ __forceinline__ void bar_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(int id, int threads) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-// a barrier of one warpgroup that also ORs v over its 128 threads
-__device__ __forceinline__ bool bar_any(int id, bool v) {
-  uint32_t r;
-  asm volatile(
-      "{\n.reg .pred p, q;\nsetp.ne.u32 p, %1, 0;\nbar.red.or.pred q, %2, 128, p;\n"
-      "selp.u32 %0, 1, 0, q;\n}\n"
-      : "=r"(r)
-      : "r"(static_cast<uint32_t>(v)), "r"(id)
-      : "memory");
-  return r != 0;
-}
-
-template <int R>
-__device__ __forceinline__ void regs_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
-}
-
-template <int R>
-__device__ __forceinline__ void regs_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keeps the compiler from moving accesses of the accumulators across the
-// asynchronous MMAs that write them
-template <int NT>
-__device__ __forceinline__ void fence_acc(float (&acc)[2][NT][4]) {
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(acc[m][n][e])::"memory");
-}
-
-// The wgmma shared-memory descriptor of a K-major operand as TMA's
-// SWIZZLE_128B leaves it: 128-byte rows, 8-row (1,024-byte) swizzle atoms
-// one after another (stride byte offset 1,024), layout type 1 (128B
-// swizzle). A k-step of 32 bytes inside the atom moves the start address by
-// 2 (16-byte units); the hardware applies the swizzle to the address.
-__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
-  return static_cast<uint64_t>((smem_addr(p) & 0x3ffff) >> 4) | (1ull << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
 
 // One wgmma m64nNk16 (16-bit operands from shared memory) or m64nNk8 (TF32
 // with A in registers), D in registers: d[4 n + 2 h + e] is row g + 8 h of
@@ -633,31 +534,6 @@ wgmma_minima_kernel(const __grid_constant__ CUtensorMap rows_map,
 
 // ---- host side -------------------------------------------------------------
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// the driver's cuTensorMapEncodeTiled, looked up once
-cudaError_t encode_tiled(EncodeTiled& fn) {
-  static std::atomic<void*> cached{nullptr};
-  void* p = cached.load(std::memory_order_acquire);
-  if (p == nullptr) {
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess) return err;
-    if (found != cudaDriverEntryPointSuccess || p == nullptr) return cudaErrorSymbolNotFound;
-    cached.store(p, std::memory_order_release);
-  }
-  fn = reinterpret_cast<EncodeTiled>(p);
-  return cudaSuccess;
-}
-
 template <typename T>
 constexpr CUtensorMapDataType kMapType = kIsF32<T> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
                                          : std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
@@ -670,19 +546,7 @@ constexpr CUtensorMapDataType kMapType = kIsF32<T> ? CU_TENSOR_MAP_DATA_TYPE_FLO
 template <typename T>
 int encode_map(CUtensorMap* map, const void* ptr, long long d, long long rows, long long planes,
                int box_rows) {
-  EncodeTiled fn;
-  const cudaError_t err = encode_tiled(fn);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long pitch = d * static_cast<long long>(sizeof(T));
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(planes)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(pitch), static_cast<cuuint64_t>(pitch * rows)};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(kChunk / sizeof(T)), static_cast<cuuint32_t>(box_rows), 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  const CUresult r = fn(map, kMapType<T>, 3, const_cast<void*>(ptr), dims, strides, box, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kEncodeFailed + static_cast<int>(r);
+  return encode_map3(map, kMapType<T>, sizeof(T), ptr, d, rows, planes, kChunk / sizeof(T), box_rows);
 }
 
 template <typename T, int NT, bool kStream>
@@ -744,10 +608,6 @@ int launch(const void* q, const void* qplanes, const void* base, const uint8_t* 
     case 64: return launch_tile<T, 8, false>(q, qplanes, base, mask, out, B, N, d, valid, metric, pingpong, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-}
-
-bool tma_ready(const void* p, long long row_bytes) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && row_bytes % 16 == 0;
 }
 
 }  // namespace

@@ -7,8 +7,11 @@
 // states the contract: per 128-row group, the minimum of _surrogate_block's
 // surrogate over the exact integer dot of the int8 query codes with the
 // row's int4 codes; rows >= valid, masked rows and NaN surrogates at +inf).
-// ops/int4_scan.py:k2_body sends every scan here (d < 2^21);
-// int4_minima.cu runs only where a caller forces it, as the cross-check.
+// ops/int4_scan.py:k2_body sends here the scans whose packed rows TMA cannot
+// copy (csrc/int4_minima_wgmma.cu takes the rest), at every d < 2^21;
+// forced, it takes every scan, as a cross-check, and int4_minima.cu runs
+// only where a caller forces it. The epilogue is k2_common.cuh's, shared
+// with the wgmma body.
 //
 // The plane dots run where the TPU kernel runs them (_plane_dot and its i8dot
 // path), on the matrix unit: mma.sync m16n8k32 with u8 row nibbles and s8
@@ -30,9 +33,10 @@
 // of packed codes and 8 MB of alpha and csq, 0.060 ms at 3.35 TB/s; the
 // 2 B N d int8 operations take 0.025 ms at 1,979 TOP/s even at B = 64).
 // At 500,000 x 18,432, B=1 is bound by the bytes too (4.6 GB, 1.38 ms), but
-// B=64 by mma.sync's issue rate: tools/probe_k2_body.py --streamed read ~25
-// cycles per MMA of a warp in the loop (an NVIDIA H100 80GB HBM3 at 700 W),
-// where the 1.2 P int8 operations would take 0.6 ms at wgmma's peak. The
+// B=64 by mma.sync's issue rate: tools/probe_k2_body.py --body mma
+// --streamed read ~25 cycles per MMA of a warp in the loop (an NVIDIA H100
+// 80GB HBM3 at 700 W), where the 1.2 P int8 operations would take 0.6 ms
+// at wgmma's peak. The
 // design reads the codes once per batch and keeps the tensor cores fed:
 //   - persistent blocks of 8 warps walk 256-row tiles (two 128-row groups);
 //     each warp owns 32 rows (two m16 tiles) against every query of its tile;
@@ -70,7 +74,8 @@
 //     copy per metric, and runs no test per (row, query) pair: the bias
 //     rides in the accumulators' start, a dead row's terms are NaN (fminf
 //     drops them), and the minimum over a warp's rows is a halving butterfly.
-// tools/probe_k2_body.py splits a row tile's cycles into these phases.
+// tools/probe_k2_body.py --body mma splits a row tile's cycles into these
+// phases.
 //
 // Build: see block_minima_mma.cu (same flags; plain C interface, ctypes).
 
@@ -80,11 +85,11 @@
 
 #include <atomic>
 
+#include "k2_common.cuh"
 #include "sm90_common.cuh"
 
 namespace {
 
-constexpr int kGroup = 128;             // rows per minima group
 constexpr int kTileRows = 256;          // rows per block iteration: two groups
 constexpr int kWarps = kTileRows / 32;  // 32 rows each
 constexpr int kThreads = kWarps * 32;
@@ -96,133 +101,12 @@ constexpr int kStages = 2;  // double buffer: two blocks fit an SM at small batc
 constexpr int kChunkUnit = 64;
 constexpr int kPad = 16;
 
-// codes shared with ops/block_scan.py (_METRIC_CODE); L1 has no surrogate
-enum Metric : int { kL2 = 0, kSquaredL2 = 1, kCosine = 2, kDot = 3 };
-
 __device__ __forceinline__ void mma_u8s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
   asm("mma.sync.aligned.m16n8k32.row.col.s32.u8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
       "{%8,%9}, {%0,%1,%2,%3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Bytes p[c], ..., p[c + 3] of a query plane (byte b in bits 8b), 0 at and
-// past `limit`.
-__device__ __forceinline__ uint32_t plane_word(const int8_t* p, int c, int limit) {
-  uint32_t w = 0;
-#pragma unroll
-  for (int b = 0; b < 4; ++b) {
-    if (c + b < limit) w |= static_cast<uint32_t>(static_cast<uint8_t>(p[c + b])) << (8 * b);
-  }
-  return w;
-}
-
-// 1.5 * 2^23 as a float's bits: these bits plus an int x in [-2^22, 2^22]
-// are the float 1.5 * 2^23 + x exactly, so subtracting 1.5 * 2^23 gives
-// float(x) in one full-rate operation (int -> float conversion runs at a
-// fraction of that rate). Accumulators of tiles with kSmallDot start at
-// kMagicBits - 8 sum(qc), so the MMAs leave kMagicBits + dot in them.
-constexpr int kMagicBits = 0x4B400000;
-constexpr float kMagic = 12582912.0f;
-
-// The warp's part of a row tile's epilogue under metric M: the surrogates of
-// its 32 rows against the QT queries from the accumulators, and each query's
-// minimum over the 32 rows into wmin[warp * QT + j]; a dead row or a NaN
-// surrogate counts as +inf. The lane's own row (warp * 32 + lane of the
-// tile) brings alpha `a`, its row term `rowv` (alpha^2 csq for L2,
-// 1/sqrt(max(csq, 1)) for COSINE), csq > 0 (`pos`) and whether it is live
-// (`ok`); the accumulators hold the dots (the -8 bias already off), plus
-// kMagicBits where kSmallDot. A dead row's terms are made NaN, so each of
-// its surrogates is NaN, and fminf, which returns the other operand of a
-// NaN, never takes one: the minimum equals the minimum with NaN read as
-// +inf, bit for bit, and +inf when no surrogate of the group is a number.
-// kSmallDot: every dot is in [-2^22, 2^22] (d <= 4,096: |code * qc| <= 8 *
-// 128), so the magic conversion is exact; otherwise the conversion rounds to
-// nearest, as the twin's float32 cast of its exact dot does.
-template <int M, int NT, bool kSmallDot>
-__device__ __forceinline__ void warp_minima(const int (&acc)[2][NT][4], float a, float rowv,
-                                            bool pos, bool ok, const float* qs, float* wmin,
-                                            int warp, int lane) {
-  constexpr int QT = 8 * NT;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  if (!ok) {
-    a = NAN;
-    rowv = NAN;
-    pos = true;
-  }
-  const unsigned posbits = __ballot_sync(0xffffffffu, pos);
-  float vals[2 * NT];
-  float ra[2][2], rv[2][2];
-  bool rpos[2][2];
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = m * 16 + h * 8 + g;  // accumulator rows of this lane
-      ra[m][h] = __shfl_sync(0xffffffffu, a, r);
-      rv[m][h] = __shfl_sync(0xffffffffu, rowv, r);
-      rpos[m][h] = (posbits >> r) & 1u;
-    }
-#pragma unroll
-  for (int n = 0; n < NT; ++n) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int j = n * 8 + 2 * t + e;  // query of the tile
-      const float q = qs[j];
-      float best = INFINITY;
-#pragma unroll
-      for (int m = 0; m < 2; ++m)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int v = acc[m][n][h * 2 + e];
-          const float dotf = kSmallDot ? __fsub_rn(__int_as_float(v), kMagic) : static_cast<float>(v);
-          float s;
-          if constexpr (M == kDot) {
-            s = __fmul_rn(-__fmul_rn(q, ra[m][h]), dotf);
-          } else if constexpr (M == kCosine) {
-            s = rpos[m][h] ? __fmul_rn(-dotf, rv[m][h]) : 0.0f;
-          } else {
-            s = __fsub_rn(rv[m][h], __fmul_rn(__fmul_rn(2.0f, __fmul_rn(q, ra[m][h])), dotf));
-          }
-          best = fminf(best, s);
-        }
-      vals[n * 2 + e] = best;
-    }
-  }
-  // The minima over the 8 row groups g (lane bits 2-4) by a halving
-  // butterfly: at each level a lane keeps half of its values, takes the
-  // partner lane's minima of that half, and passes on the other half (V/2 +
-  // V/4 + V/8 shuffles, not 3 V); a lane ends with the minima of queries
-  // kbase, kbase + 1, ... of its list (n * 2 + e), all lanes writing.
-  constexpr int V = 2 * NT;
-  int kbase = 0;
-#pragma unroll
-  for (int lvl = 0; lvl < 3; ++lvl) {
-    const int off = 16 >> lvl;
-    const bool upper = (lane & off) != 0;
-    const int c = V >> lvl;  // values held before this level
-    if (c >= 2) {
-#pragma unroll
-      for (int i = 0; i < V / 2; ++i) {
-        if (i < c / 2) {
-          const float mine = upper ? vals[c / 2 + i] : vals[i];
-          const float other = upper ? vals[i] : vals[c / 2 + i];
-          vals[i] = fminf(mine, __shfl_xor_sync(0xffffffffu, other, off));
-        }
-      }
-      if (upper) kbase += c / 2;
-    } else {
-      vals[0] = fminf(vals[0], __shfl_xor_sync(0xffffffffu, vals[0], off));
-    }
-  }
-  constexpr int kLeft = V >= 8 ? V / 8 : 1;
-#pragma unroll
-  for (int i = 0; i < kLeft; ++i) {
-    const int k = kbase + i;
-    wmin[warp * QT + (k >> 1) * 8 + 2 * t + (k & 1)] = vals[i];
-  }
 }
 
 // NT: 8-query column tiles per block (QT = 8 NT). chunk: the ring's row
@@ -347,7 +231,7 @@ int4_mma_minima_kernel(const int8_t* __restrict__ qc, const float* __restrict__ 
   uint8_t pm = 0;
   bool pin = false;
   auto load_aux = [&](int tile) {
-    const long long row = static_cast<long long>(tile) * kTileRows + tid;
+    const long long row = static_cast<long long>(tile) * kTileRows + warp * 32 + lane_row<16>(lane);
     pin = row < valid;
     pm = (pin && mask != nullptr) ? mask[row] : 1;
     pa = row < N ? alpha[row] : 0.0f;
@@ -411,18 +295,7 @@ int4_mma_minima_kernel(const int8_t* __restrict__ qc, const float* __restrict__ 
 
     // ---- epilogue of the row tile: surrogates, group minima ----------------
     const int tile = slot + (s / nchunks) * nslots;
-    const float csqf = static_cast<float>(pc);
-    const bool ok = pin && pm != 0;
-    const bool pos = csqf > 0.0f;
-    if (metric == kDot) {
-      warp_minima<kDot, NT, kSmallDot>(acc, pa, 0.0f, pos, ok, qs, wmin, warp, lane);
-    } else if (metric == kCosine) {
-      const float inv = __fdiv_rn(1.0f, __fsqrt_rn(fmaxf(csqf, 1.0f)));
-      warp_minima<kCosine, NT, kSmallDot>(acc, pa, inv, pos, ok, qs, wmin, warp, lane);
-    } else {
-      const float bsq = __fmul_rn(__fmul_rn(pa, pa), csqf);
-      warp_minima<kL2, NT, kSmallDot>(acc, pa, bsq, pos, ok, qs, wmin, warp, lane);
-    }
+    warp_surrogate_minima<NT, kSmallDot>(acc, metric, pa, pc, pin && pm != 0, qs, wmin, warp, lane);
     if (tile + nslots < ntiles) load_aux(tile + nslots);
     __syncthreads();
     if (tid < kTileRows / kGroup * QT) {

@@ -56,6 +56,11 @@ _SIGNATURES = {
     # the same arguments, the query tile, and the streamed tile's planes and
     # biases (or None twice: resident; K2's tensor-core body)
     "svt_int4_block_minima_mma": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+    # the same arguments up to the query tile, the query planes
+    # (k2_wgmma_planes, or None: qc itself), each query's sum of codes (or
+    # None: the tile resident), whether the tile is streamed, the zeroed
+    # work counters, stream (K2's wgmma body)
+    "svt_int4_block_minima_wgmma": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P),
 }
 
 _lock = threading.Lock()

@@ -19,13 +19,16 @@ finish (ops.block_scan.finish_groups).
 
 Stage 1 has two implementations of one contract:
   - int4_block_minima_reference: plain PyTorch, the definition of the output;
-  - the CUDA kernel K2, hand-written for Hopper, in two bodies that agree bit
-    for bit: csrc/int4_minima_mma.cu (int8 tensor cores over the nibble
-    planes, every d < 2^21; its query tile resident in shared memory or
-    streamed beside the codes, as k2_streams_queries says) and
-    csrc/int4_minima.cu (CUDA cores: __dp4a), which runs only where a
-    caller forces it as the cross-check (_launch_k2). k2_body says which
-    body a call takes.
+  - the CUDA kernel K2, hand-written for Hopper, in three bodies that agree
+    bit for bit: csrc/int4_minima_wgmma.cu (warpgroup MMA fed by TMA, a
+    producer warp and two consumer warpgroups, wherever TMA takes the
+    packed rows: ceil(d/2) a multiple of 16 bytes and a 16-byte aligned
+    start; its plan from k2_wgmma_plan), csrc/int4_minima_mma.cu (mma.sync
+    over the nibble planes, every d < 2^21; the rows TMA cannot copy; its
+    query tile resident in shared memory or streamed beside the codes, as
+    k2_streams_queries says) and csrc/int4_minima.cu (CUDA cores: __dp4a).
+    k2_body says which body a call takes; the other two run only where a
+    caller forces them as cross-checks (_launch_k2).
 `int4_block_minima` picks by where the tensors live: the twin for CPU
 tensors, the kernel for CUDA tensors (it raises rather than fall back).
 L1 has no surrogate of this form and is rejected (it runs the plain tile
@@ -41,6 +44,7 @@ from sqlite_vector_tpu_torch.ops.block_scan import (
     _METRIC_CODE,
     check_row_mask,
     finish_groups,
+    tma_ready,
 )
 from sqlite_vector_tpu_torch.ops.distance import sqrt_rn
 from sqlite_vector_tpu_torch.ops.quantize4 import (
@@ -75,6 +79,13 @@ _K2_QUERY_TILES = (8, 16, 32, 64)
 # PERF.md section 6): the resident tile's planes leave the ring its
 # narrowest row chunks, and several tiles re-run the MMAs' A side.
 _K2_RESIDENT_BYTES = 65536
+# The wgmma body (csrc/int4_minima_wgmma.cu) keeps the query tile's two
+# planes, each query's padded to a multiple of 128 codes (128 bytes a
+# plane and TMA box), resident in shared memory beside its two rings of
+# 16 KB stages while they take at most this many bytes; past it the tile is
+# streamed beside the rows (k2_wgmma_plan). Forced resident, a tile may
+# take up to _K2_QUERY_BYTES (the rings then keep 2-3 stages a consumer).
+_K2_WGMMA_RESIDENT_BYTES = 98304
 
 
 def _surrogate(
@@ -164,13 +175,58 @@ def k2_query_tile(d: int, b: int, streamed: bool | None = None) -> int:
     return next((t for t in tiles if t >= b), tiles[-1] if tiles else 0)
 
 
-def k2_body(d: int) -> str:
-    """Which body of K2 serves a scan of d-column codes: "mma" (tensor
-    cores) at every d (the launcher takes d < 2^21), its query tile
-    resident or streamed. The CUDA-core body ("simt") runs only where a
-    caller forces it (_launch_k2), as the cross-check. Every metric K2
-    takes runs in both bodies, and the batch does not route."""
-    return "mma"
+def k2_body(d: int, aligned: bool = True) -> str:
+    """Which body of K2 serves a scan of d-column codes: "wgmma" (warpgroup
+    MMA fed by TMA) where TMA takes the packed rows, their ceil(d/2) bytes a
+    multiple of 16 and (`aligned`) the tensor's start 16-byte aligned
+    (block_scan.tma_ready); "mma" (mma.sync) otherwise, at every d the
+    launchers take (d < 2^21). The CUDA-core body ("simt") runs only where
+    a caller forces it (_launch_k2), as the mma.sync body does where the
+    route takes wgmma: the cross-checks. Every metric K2 takes runs in every
+    body, and the batch does not route."""
+    return "wgmma" if aligned and packed_width(d) % 16 == 0 else "mma"
+
+
+def _wgmma_plane_bytes(d: int) -> int:
+    """Shared bytes of one query's two planes in the wgmma body's resident
+    tile: each plane padded to a multiple of 128 codes."""
+    return 2 * 128 * -(-packed_width(d) // 128)
+
+
+def k2_wgmma_plan(d: int, b: int, streamed: bool | None = None) -> tuple[int, bool]:
+    """(query tile, streamed) of K2's wgmma body for b queries: the
+    narrowest tile of 8, 16, 32 and 64 that covers min(b, 64), resident
+    while its planes fit _K2_WGMMA_RESIDENT_BYTES, else streamed beside the
+    rows (a larger batch takes several tiles). `streamed` forces the
+    choice: True, that tile streamed; False, the narrowest resident tile
+    that covers min(b, 64) among those within _K2_QUERY_BYTES, else the
+    widest of them, and tile 0 where none is."""
+    want = min(b, _K2_QUERY_TILES[-1])
+    cover = next(t for t in _K2_QUERY_TILES if t >= want)
+    if streamed:
+        return cover, True
+    if streamed is None:
+        return cover, cover * _wgmma_plane_bytes(d) > _K2_WGMMA_RESIDENT_BYTES
+    resident = [t for t in _K2_QUERY_TILES if t * _wgmma_plane_bytes(d) <= _K2_QUERY_BYTES]
+    return next((t for t in resident if t >= want), resident[-1] if resident else 0), False
+
+
+def k2_wgmma_planes(qc: torch.Tensor, tile: int) -> torch.Tensor:
+    """The query planes of K2's wgmma body where its TMA cannot copy them
+    from qc itself (an odd d, or qc off a 16-byte boundary), laid out once a
+    call (as block_scan.tf32_planes lays out K1's): int8 [ceil(B / tile) *
+    tile, 2, hc], hc = ceil(h / 128) * 128 with h = ceil(d / 2), each
+    query's plane 0 codes [0, h) (the low nibbles' columns) and plane 1
+    codes [h, d) (the high nibbles'), each zero past its end, and zero rows
+    past B. For an even d, qc's rows are this layout with hc = h."""
+    b, d = qc.shape
+    h = packed_width(d)
+    planes = torch.zeros(
+        (-(-b // tile) * tile, 2, 128 * -(-h // 128)), dtype=torch.int8, device=qc.device
+    )
+    planes[:b, 0, :h] = qc[:, :h]
+    planes[:b, 1, : d - h] = qc[:, h:]
+    return planes
 
 
 def k2_query_planes(qc: torch.Tensor, tile: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -195,6 +251,25 @@ def k2_query_planes(qc: torch.Tensor, tile: int) -> tuple[torch.Tensor, torch.Te
     # i, k-step, n, g, t, plane, half, byte
     frag = planes.view(nqt, tile // 8, 8, 2, ks, 2, 4, 4).permute(0, 4, 1, 2, 6, 3, 5, 7)
     return frag.reshape(nqt, ks, tile // 8, 32, 16), 8 * qc.sum(1, dtype=torch.int32)
+
+
+# The wgmma body's work counters, one zeroed int32 buffer per (device,
+# stream): the kernel hands out each query tile's groups from them and
+# leaves them zero, and launches on one stream run in turn.
+_WORK_COUNTERS: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _work_counters(dev: torch.device, stream: int, tiles: int) -> torch.Tensor:
+    """A zeroed int32 buffer of at least 1 + tiles counters for a launch of
+    K2's wgmma body on `stream` of `dev`, kept for the stream's next one."""
+    key = (dev.index, stream)
+    buf = _WORK_COUNTERS.get(key)
+    if buf is None or buf.numel() < 1 + tiles:
+        # a replaced buffer goes back to the allocator on this stream, after
+        # the launches queued on it
+        buf = torch.zeros(max(64, 1 + tiles), dtype=torch.int32, device=dev)
+        _WORK_COUNTERS[key] = buf
+    return buf
 
 
 def _check(qc, qscale, packed, alpha, csq, metric, valid) -> None:
@@ -241,7 +316,7 @@ def int4_block_minima(
     quantize4_device. CPU tensors run int4_block_minima_reference; CUDA
     tensors launch the K2 kernel in the body k2_body picks and count the
     launch in `int4_block_minima.launches`, by body in
-    `int4_block_minima.body_launches` and, where the tensor-core body
+    `int4_block_minima.body_launches` and, where a tensor-core body
     streams its query tile, in `int4_block_minima.streamed_launches`.
     """
     _check(qc, qscale, packed, alpha, csq, metric, valid)
@@ -251,7 +326,8 @@ def int4_block_minima(
         return int4_block_minima_reference(
             qc, qscale, packed, alpha, csq, metric, valid, row_mask
         )
-    return _launch_k2(qc, qscale, packed, alpha, csq, metric, valid, row_mask, k2_body(qc.shape[1]))
+    body = k2_body(qc.shape[1], tma_ready(packed))
+    return _launch_k2(qc, qscale, packed, alpha, csq, metric, valid, row_mask, body)
 
 
 def _launch_k2(
@@ -266,11 +342,13 @@ def _launch_k2(
     body: str,
     streamed: bool | None = None,
 ) -> torch.Tensor:
-    """K2 in `body` ("mma" or "simt") on checked CUDA tensors.
-    int4_block_minima passes k2_body's choice; chip_smoke.py forces "simt"
-    to hold and time the CUDA-core body beside the tensor-core one, and
-    `streamed` (tensor-core body only; default k2_streams_queries) to time
-    the resident and the streamed query tile side by side. Raises where a
+    """K2 in `body` ("wgmma", "mma" or "simt") on checked CUDA tensors.
+    int4_block_minima passes k2_body's choice; chip_smoke.py and the card
+    tests force the other bodies to hold and time them beside it ("mma"
+    and "simt" take every scan, "wgmma" only rows TMA can copy), and
+    `streamed` (tensor-core bodies only; default k2_wgmma_plan's or
+    k2_streams_queries' choice) to time the resident and the streamed query
+    tile side by side. Raises where the body does not take the scan or a
     resident tile does not fit."""
     dev = packed.device
     if dev.type != "cuda":
@@ -282,9 +360,14 @@ def _launch_k2(
     n = packed.shape[0]
     if n >= 2**31 or b >= 2**31 or dim >= 2**21:
         raise ValueError("int4_block_minima: B, N must fit int32 and d < 2^21")
-    streamed = body == "mma" and (k2_streams_queries(dim, b) if streamed is None else streamed)
-    tile = k2_query_tile(dim, b, streamed)
-    if body == "mma" and not tile:
+    if body == "wgmma":
+        if k2_body(dim, tma_ready(packed)) != "wgmma":
+            raise ValueError("int4_block_minima: the wgmma body does not take these rows (TMA cannot copy them)")
+        tile, streamed = k2_wgmma_plan(dim, b, streamed)
+    else:
+        streamed = body == "mma" and (k2_streams_queries(dim, b) if streamed is None else streamed)
+        tile = k2_query_tile(dim, b, streamed)
+    if body != "simt" and not tile:
         raise ValueError("int4_block_minima: no resident query tile fits these rows")
     out = torch.empty((b, -(-n // BLOCK)), dtype=torch.float32, device=dev)
     if out.numel() == 0:
@@ -307,7 +390,19 @@ def _launch_k2(
         _METRIC_CODE[metric],
     ]
     with torch.cuda.device(dev):
-        if body == "mma":
+        if body == "wgmma":
+            launch = lib.svt_int4_block_minima_wgmma
+            # made on the current stream, which the launch queues on: their
+            # memory is not reused before the kernel ran. TMA copies the
+            # query tile from qc itself where d is even; a resident tile's
+            # sums the kernel takes itself
+            planes = None if dim % 2 == 0 and tma_ready(qc) else k2_wgmma_planes(qc, tile)
+            sums = qc.sum(1, dtype=torch.int32) if streamed else None
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            args += [tile, None if planes is None else planes.data_ptr(),
+                     None if sums is None else sums.data_ptr(), int(streamed),
+                     _work_counters(dev, stream, -(-b // tile)).data_ptr()]
+        elif body == "mma":
             launch = lib.svt_int4_block_minima_mma
             args.append(tile)
             if streamed:
@@ -329,7 +424,7 @@ def _launch_k2(
 
 
 int4_block_minima.launches = 0
-int4_block_minima.body_launches = {"mma": 0, "simt": 0}
+int4_block_minima.body_launches = {"wgmma": 0, "mma": 0, "simt": 0}
 int4_block_minima.streamed_launches = 0
 
 

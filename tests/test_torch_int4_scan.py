@@ -315,16 +315,97 @@ def test_k2_wide_query_tiles_stay_within_the_exact_float_conversion():
     assert int4_scan.k2_query_tile(18432, 200) == 64 and int4_scan.k2_streams_queries(18432, 200)
 
 
-def test_k2_body_routes_by_d_alone():
-    """The tensor-core body at every d the launcher takes (d < 2^21). A
-    single query's tile stays resident up to d = 8,192 (8 queries of 8,192
-    plane bytes fill the route's 65,536) and is streamed past it; past
-    16,384 no tile fits the shared budget at all (forcing one raises on
-    the card). The CUDA-core body runs only where a caller forces it."""
-    for d in (1, 9, 16, 95, 384, 768, 2049, 8192, 8193, 16384, 16385, 18432, 20000, 2**21 - 1):
-        assert int4_scan.k2_body(d) == "mma", d
-        assert int4_scan.k2_streams_queries(d, 1) == (d > 8192), d
-        assert (int4_scan.k2_query_tile(d, 1, False) == 8) == (d <= 16384), d
+@pytest.mark.parametrize(
+    "d", [1, 9, 16, 31, 32, 64, 95, 97, 383, 384, 768, 2049, 4096, 8192, 8193, 16384, 16385,
+          16433, 18432, 20000, 2**21 - 1],
+)
+def test_k2_body_routes_by_d_alone(d):
+    """A tensor-core body at every d the launchers take (d < 2^21): the
+    wgmma body where TMA takes the packed rows, ceil(d/2) bytes a multiple
+    of 16 (d = 31, 32, 95, 383, 384, 4,096, ...), the mma.sync body
+    elsewhere (odd pitches: d = 9, 97, 2,049, 16,433, ...) and wherever the
+    rows start off a 16-byte boundary (`aligned` False: a packed view that
+    starts mid-row), whatever d. For the mma.sync body a single query's
+    tile stays resident up to d = 8,192 (8 queries of 8,192 plane bytes fill
+    the route's 65,536) and is streamed past it; past 16,384 no tile fits
+    the shared budget at all (forcing one raises on the card). The
+    CUDA-core body runs only where a caller forces it."""
+    tma = q4.packed_width(d) % 16 == 0
+    assert int4_scan.k2_body(d) == ("wgmma" if tma else "mma")
+    assert int4_scan.k2_body(d, aligned=False) == "mma"
+    assert int4_scan.k2_streams_queries(d, 1) == (d > 8192)
+    assert (int4_scan.k2_query_tile(d, 1, False) == 8) == (d <= 16384)
+
+
+@pytest.mark.parametrize(
+    "d,b,plan",
+    [
+        # 384 codes: 192 packed bytes, two 128-byte chunks a plane, 512
+        # plane bytes a query: 64 queries resident
+        (384, 1, (8, False)), (384, 9, (16, False)), (384, 64, (64, False)), (384, 200, (64, False)),
+        # the widest rows each tile keeps resident within 98,304 bytes (64 /
+        # 32 / 16 / 8 queries up to d = 1,536 / 3,072 / 6,144 / 12,288), and
+        # one chunk past them: that tile streamed
+        (1536, 64, (64, False)), (1537, 64, (64, True)), (1537, 32, (32, False)),
+        (3072, 32, (32, False)), (3073, 32, (32, True)), (3073, 16, (16, False)),
+        (6144, 16, (16, False)), (6145, 16, (16, True)), (6145, 8, (8, False)),
+        (12288, 1, (8, False)), (12289, 1, (8, True)), (18432, 64, (64, True)),
+    ],
+)
+def test_k2_wgmma_plan_at_the_edges_of_its_budget(d, b, plan):
+    """K2's wgmma body takes the narrowest query tile that covers min(b,
+    64), resident while its two padded planes take at most
+    _K2_WGMMA_RESIDENT_BYTES, streamed past that; forced resident it takes
+    the narrowest tile within _K2_QUERY_BYTES that covers the batch, else
+    the widest that fits (0 where none does); forced streamed, the covering
+    tile."""
+    tile, streamed = plan
+    assert int4_scan.k2_wgmma_plan(d, b) == plan
+    plane_bytes = tile * 2 * 128 * -(-q4.packed_width(d) // 128)
+    assert streamed == (plane_bytes > int4_scan._K2_WGMMA_RESIDENT_BYTES)
+    assert int4_scan.k2_wgmma_plan(d, b, True) == (tile, True)
+    forced, res = int4_scan.k2_wgmma_plan(d, b, False)
+    assert not res and forced * 2 * 128 * -(-q4.packed_width(d) // 128) <= int4_scan._K2_QUERY_BYTES
+    assert forced == tile or streamed
+    if not streamed:
+        assert forced == tile
+    assert int4_scan.k2_wgmma_plan(2**21 - 1, 1, False) == (0, False)
+
+
+@pytest.mark.parametrize("d,b,tile", [(75, 11, 8), (74, 3, 16), (383, 70, 64), (16, 1, 8), (2, 9, 32),
+                                      (384, 64, 64), (300, 33, 32)])
+def test_k2_wgmma_planes_give_back_both_planes(d, b, tile):
+    """The wgmma body's query planes (k2_wgmma_planes): int8 [ceil(B /
+    tile) * tile, 2, ceil(h / 128) * 128], each query's plane 0 qc's codes
+    [0, h) and plane 1 its codes [h, d), zero past each plane's end and
+    past B; for an even d qc's own rows are the layout with pitch h (the
+    kernel's TMA copies them from qc then). With the packed rows' low
+    nibbles (columns [0, h)) against plane 0 and high nibbles (columns [h,
+    d)) against plane 1, minus 8 * sum(qc), the products give the exact
+    integer dot of qc with the int4 codes, as the kernel's accumulators
+    do."""
+    rng = np.random.default_rng(d + b)
+    q = rng.integers(-127, 128, (b, d)).astype(np.int8)
+    planes = int4_scan.k2_wgmma_planes(torch.from_numpy(q), tile)
+    h = q4.packed_width(d)
+    hc = 128 * -(-h // 128)
+    assert planes.dtype == torch.int8 and planes.shape == (-(-b // tile) * tile, 2, hc)
+    assert planes.is_contiguous()
+    p = planes.numpy()
+    np.testing.assert_array_equal(p[:b, 0, :h], q[:, :h])
+    np.testing.assert_array_equal(p[:b, 1, : d - h], q[:, h:])
+    assert not p[:, 0, h:].any() and not p[:, 1, d - h :].any() and not p[b:].any()
+    if d % 2 == 0:
+        np.testing.assert_array_equal(q.reshape(b, 2, h), p[:b, :, :h])
+    codes = rng.integers(-8, 8, (5, d)).astype(np.int8)
+    packed = q4.pack4_np(codes)
+    lo = np.zeros((5, hc), np.int64)
+    hi = np.zeros((5, hc), np.int64)
+    lo[:, :h] = packed & 15
+    hi[:, :h] = packed >> 4
+    bias = 8 * q.astype(np.int64).sum(1)
+    got = lo @ p[:b, 0].T.astype(np.int64) + hi @ p[:b, 1].T.astype(np.int64) - bias
+    np.testing.assert_array_equal(got, codes.astype(np.int64) @ q.T.astype(np.int64))
 
 
 @pytest.mark.parametrize("d,b,tile", [(75, 11, 8), (74, 3, 16), (129, 70, 64), (16, 1, 8), (2, 9, 32)])
@@ -358,6 +439,23 @@ def test_k2_query_planes_hold_each_lanes_fragments(d, b, tile):
     np.testing.assert_array_equal(bias.numpy(), 8 * q.astype(np.int64).sum(1))
 
 
+def test_k2_wgmma_work_counters_are_kept_per_device_and_stream():
+    """The wgmma body's work counters: one zeroed int32 buffer per (device,
+    stream), at least 1 + tiles long (64 at the least), the same buffer for
+    the stream's next launch (the kernel leaves it zero), replaced by a
+    longer zeroed one where a launch needs more tiles."""
+    dev = torch.device("cpu")
+    a = int4_scan._work_counters(dev, 11, 3)
+    assert a.dtype == torch.int32 and a.numel() == 64 and not a.any()
+    assert int4_scan._work_counters(dev, 11, 63) is a
+    assert int4_scan._work_counters(dev, 12, 3) is not a
+    b = int4_scan._work_counters(dev, 11, 100)
+    assert b is not a and b.numel() == 101 and not b.any()
+    assert int4_scan._work_counters(dev, 11, 5) is b
+    for key in [(None, 11), (None, 12)]:
+        int4_scan._WORK_COUNTERS.pop(key, None)
+
+
 def test_launch_k2_takes_only_cuda_tensors():
     """The CPU routes to the twin before any body; a body asked for CPU
     tensors raises instead of running the twin, and counts nothing."""
@@ -365,7 +463,7 @@ def test_launch_k2_takes_only_cuda_tensors():
     args = (qc, torch.ones(2), torch.zeros((10, 4), dtype=torch.uint8), torch.ones(10),
             torch.ones(10, dtype=torch.int32), DistanceMetric.L2, 10, None)
     before = (int4_block_minima.launches, dict(int4_block_minima.body_launches))
-    for body in ("mma", "simt"):
+    for body in ("wgmma", "mma", "simt"):
         with pytest.raises(ValueError, match="unsupported device"):
             int4_scan._launch_k2(*args, body)
     int4_block_minima(*args[:7])

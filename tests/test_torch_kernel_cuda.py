@@ -1,6 +1,6 @@
 """The port's CUDA kernels on the card: K1 (csrc/block_minima_wgmma.cu,
 csrc/block_minima_mma.cu and csrc/block_minima.cu) and K2
-(csrc/int4_minima_mma.cu and
+(csrc/int4_minima_wgmma.cu, csrc/int4_minima_mma.cu and
 csrc/int4_minima.cu), unmasked and with row masks, and the searches that
 launch them.
 
@@ -21,9 +21,12 @@ from sqlite_vector_tpu_torch.ops.block_scan import (
     block_minima_reference,
     block_scan_topk,
 )
+from sqlite_vector_tpu_torch.ops.block_scan import tma_ready
 from sqlite_vector_tpu_torch.ops.int4_scan import (
     int4_block_minima,
     int4_block_minima_reference,
+    k2_body,
+    k2_wgmma_plan,
 )
 from sqlite_vector_tpu_torch.ops.quantize4 import (
     int4_scan_topk_plain,
@@ -191,28 +194,52 @@ def test_int4_kernel_matches_twin(cuda, d, b):
     assert int4_block_minima.launches == before + len(K2_METRICS)
 
 
-def assert_k2_bodies_match_twin(tensors, metric, valid, mask=None):
-    """K2 forced into each body (_launch_k2): each against the twin as
-    assert_k2_matches_twin holds it, and the two bodies equal bit for bit
-    (float32 bit patterns). Returns the tensor-core body's minima."""
+def k2_bodies(tensors):
+    """The bodies of K2 that take these codes: all three where the route
+    takes the wgmma body (TMA copies the packed rows), else the mma.sync
+    and the CUDA-core body."""
+    packed = tensors[2]
+    wgmma = k2_body(tensors[0].shape[1], tma_ready(packed)) == "wgmma"
+    return ("wgmma", "mma", "simt") if wgmma else ("mma", "simt")
+
+
+def assert_k2_bodies_match_twin(tensors, metric, valid, mask=None, streamed=None):
+    """K2 forced into each body that takes the codes (_launch_k2,
+    k2_bodies): each against the twin as assert_k2_matches_twin holds it,
+    and the bodies equal bit for bit (float32 bit patterns). `streamed`
+    forces the wgmma body's query tile resident or streamed. Returns the
+    mma.sync body's minima."""
     from sqlite_vector_tpu_torch.ops.int4_scan import _launch_k2
 
     want = int4_block_minima_reference(*tensors, metric, valid, mask)
-    got = {body: _launch_k2(*tensors, metric, valid, mask, body) for body in ("mma", "simt")}
+    got = {body: _launch_k2(*tensors, metric, valid, mask, body, streamed if body == "wgmma" else None)
+           for body in k2_bodies(tensors)}
     torch.cuda.synchronize()
     for minima in got.values():
         assert_k2_matches_twin(minima, want)
-    assert torch.equal(got["mma"].view(torch.int32), got["simt"].view(torch.int32)), metric
+    for body, minima in got.items():
+        assert torch.equal(minima.view(torch.int32), got["simt"].view(torch.int32)), (metric, body)
     return got["mma"]
 
 
 @pytest.mark.cuda
 def test_int4_kernel_unaligned_packed_rows(cuda):
     """A packed view that starts off a 16-byte boundary takes the 1-byte
-    staging in both bodies and still equals the twin."""
+    staging in the mma.sync and CUDA-core bodies and still equals the twin;
+    TMA cannot copy it, so the route takes the mma.sync body and the wgmma
+    body refuses it."""
+    from sqlite_vector_tpu_torch.ops.int4_scan import _launch_k2
+
     (qc, qs, packed, alpha, csq), _ = int4_case(1000, 64, 2, cuda, seed=4)
     view = packed.view(-1)[1 : 1 + 999 * 32].view(999, 32)  # row 0 at byte 1
-    assert_k2_bodies_match_twin((qc, qs, view, alpha[:999], csq[:999]), DistanceMetric.L2, 999)
+    tensors = (qc, qs, view, alpha[:999], csq[:999])
+    assert k2_bodies(tensors) == ("mma", "simt")
+    assert_k2_bodies_match_twin(tensors, DistanceMetric.L2, 999)
+    before = dict(int4_block_minima.body_launches)
+    int4_block_minima(*tensors, DistanceMetric.L2, 999)
+    assert int4_block_minima.body_launches == {**before, "mma": before["mma"] + 1}
+    with pytest.raises(ValueError, match="TMA"):
+        _launch_k2(*tensors, DistanceMetric.L2, 999, None, "wgmma")
 
 
 @pytest.mark.cuda
@@ -226,15 +253,17 @@ def test_int4_and_refine_search_launch_k2_except_l1(cuda, metric):
     base = rng.standard_normal((3000, 96)).astype(np.float32)
     q = base[[7, 2500]] + np.float32(1e-3)
     results = []
+    assert k2_body(96) == "wgmma"  # 48 packed bytes a row
     for device in ("cuda", "cpu"):
         ds = svt.VectorStore(device=device).create("d", f"dimension=96,distance={metric.value}")
         ds.add(base)
         ds.quantize(qtype="int4", refine=True)
-        before = int4_block_minima.launches
+        before = (int4_block_minima.launches, int4_block_minima.body_launches["wgmma"])
         results.append((ds.search(q, 9, mode="quantized"), ds.search(q, 9, mode="refine")))
         if device == "cuda":
-            launched = int4_block_minima.launches - before
+            launched = int4_block_minima.launches - before[0]
             assert launched == (0 if metric is DistanceMetric.L1 else 2)
+            assert int4_block_minima.body_launches["wgmma"] - before[1] == launched
     for got, want in zip(results[0], results[1]):
         np.testing.assert_array_equal(got[0], want[0])
         np.testing.assert_allclose(got[1], want[1], rtol=1e-5, atol=1e-5)
@@ -787,21 +816,56 @@ def test_l1_body_matches_twin(cuda, dtype, d):
 # -- K2's tensor-core body (csrc/int4_minima_mma.cu) -------------------------
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [9, 16, 95, 384])  # 1-, 4- and 16-byte staging; odd d
+@pytest.mark.parametrize("d", [9, 16, 95, 97, 384])  # 1-, 4- and 16-byte staging; odd d
 @pytest.mark.parametrize("b", [1, 8, 64, 65, 200])  # query tiles of 8 and 64, and several
 def test_k2_bodies_match_twin_and_each_other(cuda, d, b):
-    """Both bodies of K2 for its 4 metrics, rows >= valid, unmasked and with
-    each row mask: equal to the twin (tolerance 0) and to each other bit for
-    bit; the routed call takes the tensor-core body."""
+    """Every body of K2 that takes the codes, for its 4 metrics, rows >=
+    valid, unmasked and with each row mask: equal to the twin (tolerance 0)
+    and to each other bit for bit; the routed call takes the wgmma body
+    where TMA copies the packed rows (d = 95, 384: 48 and 192 bytes), the
+    mma.sync body elsewhere (d = 9, 16, 97: 5, 8 and 49 bytes)."""
     tensors, _ = int4_case(5003, d, b, cuda, seed=d + b)
     masks = [None] + [mask_case(kind, 5003, cuda, seed=d) for kind in MASK_KINDS]
+    body = "wgmma" if d in (95, 384) else "mma"
+    assert k2_bodies(tensors)[0] == body
     for metric in K2_METRICS:
         for mask in masks:
             got = assert_k2_bodies_match_twin(tensors, metric, 4990, mask)
             assert bool(torch.isinf(got[:, -1]).all())  # rows >= valid only
         before = dict(int4_block_minima.body_launches)
         int4_block_minima(*tensors, metric, 4990)
-        assert int4_block_minima.body_launches == {**before, "mma": before["mma"] + 1}
+        assert int4_block_minima.body_launches == {**before, body: before[body] + 1}
+
+
+# the wgmma body's resident and streamed query tiles at each width: every
+# width takes a streamed tile, and a resident one where it fits the shared
+# budget (not at d = 18,432)
+K2_WGMMA_CASES = [
+    (d, streamed)
+    for d in (64, 383, 384, 768, 4096, 8192, 16384, 18432)
+    for streamed in (False, True)
+    if streamed or k2_wgmma_plan(d, 1, False)[0]
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,streamed", K2_WGMMA_CASES)
+def test_k2_wgmma_body_matches_twin_and_each_other(cuda, d, streamed):
+    """K2's wgmma body with its query tile forced resident or streamed, B in
+    1, 7, 8, 9, 33, 64, 65 and 130 (each tile's edges, several tiles), for
+    the 4 metrics, rows >= valid, unmasked and with each row mask: equal to
+    the twin (tolerance 0) and to the mma.sync and CUDA-core bodies bit for
+    bit (torch.equal of the float32 bits)."""
+    # the last group's rows all at or past valid
+    n, valid = (5003, 4990) if d <= 768 else (1411, 1408)
+    masks = [None] + [mask_case(kind, n, cuda, seed=d) for kind in MASK_KINDS]
+    for b in (1, 7, 8, 9, 33, 64, 65, 130):
+        tensors, _ = int4_case(n, d, b, cuda, seed=d + b)
+        assert k2_bodies(tensors) == ("wgmma", "mma", "simt")
+        for metric in K2_METRICS:
+            for mask in masks:
+                got = assert_k2_bodies_match_twin(tensors, metric, valid, mask, streamed)
+                assert bool(torch.isinf(got[:, -1]).all())  # rows >= valid only
 
 
 @pytest.mark.cuda
@@ -862,11 +926,14 @@ def test_streamed_k2_body_matches_twin_and_cuda_core_body(cuda, d, b):
     assert k2_streams_queries(d, b)
     tensors, _ = int4_case(3003, d, b, cuda, seed=d + b)
     masks = [None] + [mask_case(kind, 3003, cuda, seed=d) for kind in MASK_KINDS]
+    # the tensor-core bodies that run: both stream at these widths
+    streaming = len(k2_bodies(tensors)) - 1
+    assert streaming == 1 or k2_wgmma_plan(d, b)[1]
     for metric in K2_METRICS:
         for mask in masks:
             before = int4_block_minima.streamed_launches
             got = assert_k2_bodies_match_twin(tensors, metric, 2900, mask)
-            assert int4_block_minima.streamed_launches == before + 1
+            assert int4_block_minima.streamed_launches == before + streaming
             assert bool(torch.isinf(got[:, -1]).all())  # rows >= valid only
 
 
@@ -887,6 +954,29 @@ def test_k2_resident_and_streamed_tiles_agree(cuda, d, b):
             got = _launch_k2(*tensors, metric, 1490, mask, "mma", streamed)
             torch.cuda.synchronize()
             assert torch.equal(got.view(torch.int32), want.view(torch.int32)), (metric, streamed)
+
+
+@pytest.mark.cuda
+def test_k2_wgmma_work_counters_are_left_zero_on_each_stream(cuda):
+    """The wgmma body hands out groups from per-stream work counters that
+    each launch leaves zero: launches back to back on the current stream
+    and on a side stream (two query tiles a launch), each equal to the
+    mma.sync body bit for bit, and the counters zero after them."""
+    from sqlite_vector_tpu_torch.ops import int4_scan
+
+    tensors, _ = int4_case(5003, 384, 65, cuda, seed=7)
+    want = int4_scan._launch_k2(*tensors, DistanceMetric.L2, 4990, None, "mma")
+    side = torch.cuda.Stream()
+    got = [int4_scan._launch_k2(*tensors, DistanceMetric.L2, 4990, None, "wgmma") for _ in range(3)]
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got += [int4_scan._launch_k2(*tensors, DistanceMetric.L2, 4990, None, "wgmma") for _ in range(2)]
+    torch.cuda.synchronize()
+    for minima in got:
+        assert torch.equal(minima.view(torch.int32), want.view(torch.int32))
+    for stream in (torch.cuda.current_stream(), side):
+        buf = int4_scan._WORK_COUNTERS[(cuda.index or 0, stream.cuda_stream)]
+        assert not bool(buf.any())
 
 
 @pytest.mark.cuda
@@ -913,7 +1003,8 @@ def test_k2_exact_where_unbiased_sums_pass_int32(cuda, b):
     assert bool((qc[0] == 127).all())
     nib = (packed[1].to(torch.int64) & 15).sum() + (packed[1].to(torch.int64) >> 4).sum()
     assert int(nib) * 127 > 2**31  # row 1's unbiased sum against query 0
-    assert k2_streams_queries(d, b)
+    assert k2_streams_queries(d, b) and k2_wgmma_plan(d, b)[1]
+    assert k2_bodies((qc, qs, packed, alpha, csq)) == ("wgmma", "mma", "simt")
     for metric in K2_METRICS:
         assert_k2_bodies_match_twin((qc, qs, packed, alpha, csq), metric, n)
 
@@ -1115,7 +1206,8 @@ def test_sql_full_scan_launches_k1_and_equals_the_dataset(cuda, tmp_path):
 def test_sql_int4_quantize_scan_launches_k2_and_equals_the_dataset(cuda, tmp_path):
     """SQL vector_quantize(..., 'qtype=INT4') and vector_quantize_scan on
     the card, own connection and a second one reading the shadow table:
-    K2 on its tensor-core body, bit-equal to the Dataset's int4 search."""
+    K2 on its wgmma body (32 packed bytes a row), bit-equal to the
+    Dataset's int4 search."""
     import sqlite_vector_tpu_torch.sqlite as psql
 
     rows = np.random.default_rng(5).standard_normal((6000, 64)).astype(np.float32)
@@ -1131,9 +1223,9 @@ def test_sql_int4_quantize_scan_launches_k2_and_equals_the_dataset(cuda, tmp_pat
     q = rows[11]
     ids, dist = ref.search(q, 10, mode="quantized")
     for c in (conn, other):
-        before, mma = int4_block_minima.launches, int4_block_minima.body_launches["mma"]
+        before, wgmma = int4_block_minima.launches, int4_block_minima.body_launches["wgmma"]
         got = c.vector_quantize_scan("docs", "v", q, 10)
-        assert int4_block_minima.launches == before + 1 and int4_block_minima.body_launches["mma"] == mma + 1
+        assert int4_block_minima.launches == before + 1 and int4_block_minima.body_launches["wgmma"] == wgmma + 1
         assert [r[0] for r in got] == ids.tolist()
         assert [r[1] for r in got] == dist.astype(np.float64).tolist()
     conn.close()

@@ -2,7 +2,9 @@
 """Time K1 (ops/block_scan.py:block_minima, routed as the checkout routes
 it, and for float L2 rows each of its bodies forced: the wgmma, mma.sync
 and CUDA-core bodies, where the checkout has them), and K2
-(ops/int4_scan.py:int4_block_minima, L2 over the rows' int4 codes) in two
+(ops/int4_scan.py:int4_block_minima, L2 over the rows' int4 codes, routed
+and each of its bodies forced: wgmma, mma.sync and CUDA cores, where the
+checkout has them) in two
 or more checkouts of this repository on one CUDA card, in turns (A B B A
 per round), at the main path's size: 1,000,000 x 384 rows from N(0, 1)
 (seed 0) and 64 queries, cast for the 16-bit and u8 shapes (u8: the rows
@@ -46,7 +48,7 @@ def worker() -> None:
     import torch
 
     from sqlite_vector_tpu_torch.ops.block_scan import _finish_from_minima, _launch_k1, block_minima
-    from sqlite_vector_tpu_torch.ops.int4_scan import int4_block_minima
+    from sqlite_vector_tpu_torch.ops.int4_scan import _launch_k2, int4_block_minima
     from sqlite_vector_tpu_torch.ops.quantize4 import quantize4_device, quantize_query_int8
     from sqlite_vector_tpu_torch.types import DistanceMetric
 
@@ -84,6 +86,11 @@ def worker() -> None:
             return int4_block_minima(qc, qs, packed, alpha, csq, DistanceMetric.L2, packed.shape[0])
 
         out[f"K2 L2 int4 B={b}"] = window_ms(k2, 20 if b == 1 else 10)
+        for body in ("wgmma", "mma", "simt"):
+            if body in int4_block_minima.body_launches:
+                out[f"K2 L2 int4 B={b} [{body}]"] = window_ms(
+                    lambda: _launch_k2(qc, qs, packed, alpha, csq, DistanceMetric.L2, packed.shape[0], None,
+                                       body), 20 if b == 1 else 10)
     print(json.dumps(out))
 
 
