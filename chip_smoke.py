@@ -2603,7 +2603,7 @@ def read_trace(log_dir: Path) -> dict:
     events = [e for e in json.loads(files[0].read_text())["traceEvents"] if e.get("ph") == "X"]
     ranges = sorted(
         ({"name": e["name"], "start": float(e["ts"]), "cpu_end": float(e["ts"]) + float(e["dur"]), "device": []}
-         for e in events if e.get("cat") == "user_annotation" and e["name"] in TRACED),
+         for e in events if e.get("cat") in ("user_annotation", "cpu_op") and e["name"] in TRACED),
         key=lambda r: r["start"],
     )
     launch_ts = {  # correlation id -> the launching call's start

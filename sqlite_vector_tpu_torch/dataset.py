@@ -44,7 +44,6 @@ import dataclasses
 import json
 import os
 import threading
-import time
 from typing import Any, Sequence
 
 import numpy as np
@@ -109,6 +108,7 @@ from sqlite_vector_tpu_torch.types import (
     VectorType,
     parse_options,
 )
+from sqlite_vector_tpu_torch.utils.profiling import annotate, is_recording, timed
 
 MIN_CAPACITY = 1024
 # elements per chunk of the host passes (non-finite scan, host quantize
@@ -1337,16 +1337,34 @@ class Dataset:
                 "mode must be exact|quantized|rerank|refine|approx, "
                 f"got '{mode}'"
             )
-        q, single = self._coerce_queries(queries)
-        if k == 0 or self._count == 0:
-            if single:
-                return np.zeros((0,), np.int64), np.zeros((0,), np.float32)
-            return (
-                np.full((q.shape[0], k), -1, np.int64),
-                np.full((q.shape[0], k), np.inf, np.float32),
+        with annotate("search", k=k, mode=mode) as span:
+            with annotate("search.prepare"):
+                q, single = self._coerce_queries(queries)
+            span.set(B=q.shape[0])
+            if k == 0 or self._count == 0:
+                if single:
+                    return np.zeros((0,), np.int64), np.zeros((0,), np.float32)
+                return (
+                    np.full((q.shape[0], k), -1, np.int64),
+                    np.full((q.shape[0], k), np.inf, np.float32),
+                )
+            # positions mean something only in the row layout they were
+            # scanned in
+            out_ids, vals, valid = self._in_one_layout(
+                lambda: self._search_once(q, k, mode, expand, recall_target, ids_filter)
             )
+            if single:
+                keep = valid[0]
+                return out_ids[0][keep], vals[0][keep]
+            return out_ids, vals
 
-        def attempt():
+    def _search_once(self, q: np.ndarray, k: int, mode: str, expand: int, recall_target: float, ids_filter):
+        """One try of search() against the current row layout: (ids,
+        distances, valid) [B, k]. The spans `search.mask`, the route's
+        `search.query` and `search.scan` (or rerank's stages),
+        `search.d2h` (where the host waits for the device) and
+        `search.ids` cover it."""
+        with annotate("search.mask"):
             # lane-skip dtypes with non-finite data: rerank's and refine's
             # rescores cannot honor the policies, so they run as exact,
             # which does (as in the JAX package)
@@ -1359,21 +1377,21 @@ class Dataset:
             quant = self._quant
             mask = self._search_mask(mode_eff, quant, ids_filter, self._streams(mode_eff, quant))
             cosine_fast = mode_eff in ("exact", "approx") and self._cosine_dot_fast(q)
-            if mode_eff in ("exact", "approx"):
-                if mode_eff == "approx" and not 0.0 < recall_target <= 1.0:
-                    raise VectorConfigError(
-                        f"recall_target must be in (0, 1], got {recall_target}"
-                    )
-                vals, idx = self._search_exact(q, k, mask, cosine_fast, policy)
-            elif mode_eff == "refine":
-                vals, idx = self._search_refine(q, k, mask, expand, quant)
-            elif mode_eff == "rerank":
-                vals, idx = self._search_rerank(q, k, mask, expand, quant)
-            else:
-                vals, idx = self._search_quantized(q, k, mask, quant)
+            if mode_eff == "approx" and not 0.0 < recall_target <= 1.0:
+                raise VectorConfigError(f"recall_target must be in (0, 1], got {recall_target}")
+        if mode_eff in ("exact", "approx"):
+            vals, idx = self._search_exact(q, k, mask, cosine_fast, policy)
+        elif mode_eff == "refine":
+            vals, idx = self._search_refine(q, k, mask, expand, quant)
+        elif mode_eff == "rerank":
+            vals, idx = self._search_rerank(q, k, mask, expand, quant)
+        else:
+            vals, idx = self._search_quantized(q, k, mask, quant)
+        with annotate("search.d2h"):
             # one device->host copy for both outputs: float32 values and int
             # positions (< 2^53) are both exact in float64
             host = torch.stack([vals.double(), idx.double()]).cpu().numpy()
+        with annotate("search.ids"):
             vals = host[0].astype(np.float32)
             idx = host[1].astype(np.int64)
             if cosine_fast:
@@ -1391,13 +1409,6 @@ class Dataset:
             else:
                 out_ids = np.where(valid, id_map[np.clip(idx, 0, n_map - 1)], -1)
             return out_ids, vals, valid
-
-        # positions mean something only in the row layout they were scanned in
-        out_ids, vals, valid = self._in_one_layout(attempt)
-        if single:
-            keep = valid[0]
-            return out_ids[0][keep], vals[0][keep]
-        return out_ids, vals
 
     def _in_one_layout(self, read):
         """read() as it ran against one row layout: twice lock-free, each
@@ -1451,28 +1462,30 @@ class Dataset:
         # the count holds those rows (a compaction that shrank the matrix
         # meanwhile is caught by the layout generation)
         count = self._count
-        qd = self._query_to_device(q)
-        if self._storage == "host":
-            return streaming_scan_topk(
-                qd, self._host_vectors, metric, k, valid_count=count, row_mask=mask,
-                policy_vtype=policy, mesh=self._mesh,
+        with annotate("search.query"):
+            qd = self._query_to_device(q)
+        with annotate("search.scan"):
+            if self._storage == "host":
+                return streaming_scan_topk(
+                    qd, self._host_vectors, metric, k, valid_count=count, row_mask=mask,
+                    policy_vtype=policy, mesh=self._mesh,
+                )
+            if self._mesh_2d:
+                vecs = self._vectors
+                return sharded_scan_topk_2d(
+                    qd, vecs, metric, k, self._mesh, valid_count=count, row_mask=mask,
+                    base_sq_norms=self._exact_sq_norms(vecs, metric), policy_vtype=policy,
+                    rows_axis=self._mesh.axis_names[0], dim_axis=self._mesh.axis_names[1],
+                )
+            if self._mesh is not None:
+                return sharded_scan_topk(
+                    qd, self._vectors, metric, k, self._mesh, valid_count=count, row_mask=mask,
+                    policy_vtype=policy,
+                )
+            base = self._vectors[:count]
+            return fused_scan_topk(
+                qd, base, metric, k, row_mask=_fit_mask(mask, base.shape[0]), policy_vtype=policy
             )
-        if self._mesh_2d:
-            vecs = self._vectors
-            return sharded_scan_topk_2d(
-                qd, vecs, metric, k, self._mesh, valid_count=count, row_mask=mask,
-                base_sq_norms=self._exact_sq_norms(vecs, metric), policy_vtype=policy,
-                rows_axis=self._mesh.axis_names[0], dim_axis=self._mesh.axis_names[1],
-            )
-        if self._mesh is not None:
-            return sharded_scan_topk(
-                qd, self._vectors, metric, k, self._mesh, valid_count=count, row_mask=mask,
-                policy_vtype=policy,
-            )
-        base = self._vectors[:count]
-        return fused_scan_topk(
-            qd, base, metric, k, row_mask=_fit_mask(mask, base.shape[0]), policy_vtype=policy
-        )
 
     def _exact_sq_norms(self, vecs: RowShards, metric: DistanceMetric) -> RowShards | None:
         """A 2-D mesh's full-dim row norms of the GIVEN matrix snapshot for
@@ -1492,43 +1505,46 @@ class Dataset:
 
     def _search_quantized(self, q: np.ndarray, k: int, mask, quant: _QuantState | None):
         quant = self._require_quant("vector_quantize_scan", quant)
-        qf = from_numpy(q.astype(np.float32), self.device)
-        if not _on_device(quant.codes):
-            # host codes stream per query until preload() (the reference's
-            # preloaded-vs-disk split)
-            if quant.qtype is QuantType.I4:
-                return int4_streaming_scan_topk(
-                    qf, quant.codes, quant.row_scale, quant.sq_norms, self.metric, k,
-                    dim=self.dimension, valid_count=quant.count, row_mask=mask, mesh=self._mesh,
+        int4 = quant.qtype is QuantType.I4
+        with annotate("search.query"):
+            qf = from_numpy(q.astype(np.float32), self.device)
+            # query quantization with the stored params
+            # (src/sqlite-vector.c:2162-2177); the int4 scans build their
+            # per-query int8 codes inside
+            qq = None if int4 else quantize_device(qf, quant.scale, quant.offset, quant.qtype)
+        with annotate("search.scan"):
+            if not _on_device(quant.codes):
+                # host codes stream per query until preload() (the
+                # reference's preloaded-vs-disk split)
+                if int4:
+                    return int4_streaming_scan_topk(
+                        qf, quant.codes, quant.row_scale, quant.sq_norms, self.metric, k,
+                        dim=self.dimension, valid_count=quant.count, row_mask=mask, mesh=self._mesh,
+                    )
+                return streaming_scan_topk(
+                    qq, quant.codes, self.metric, k, valid_count=quant.count, row_mask=mask,
+                    mesh=self._mesh,
                 )
-            qq = quantize_device(qf, quant.scale, quant.offset, quant.qtype)
-            return streaming_scan_topk(
-                qq, quant.codes, self.metric, k, valid_count=quant.count, row_mask=mask,
-                mesh=self._mesh,
-            )
-        if self._mesh is not None:
-            return self._search_quantized_mesh(qf, k, mask, quant)
-        row_mask = _fit_mask(mask, quant.count)
-        if quant.qtype is QuantType.I4:
-            # per-query int8 codes are built inside the int4 scan
-            return int4_scan_topk(
-                qf, quant.codes, quant.row_scale, quant.sq_norms, self.metric, k,
-                dim=self.dimension, valid_count=quant.count, row_mask=row_mask,
-            )
-        # query quantization with the stored params (src/sqlite-vector.c:2162-2177)
-        qq = quantize_device(qf, quant.scale, quant.offset, quant.qtype)
-        return fused_scan_topk(qq, quant.codes, self.metric, k, row_mask=row_mask)
+            if self._mesh is not None:
+                return self._search_quantized_mesh(qf, qq, k, mask, quant)
+            row_mask = _fit_mask(mask, quant.count)
+            if int4:
+                return int4_scan_topk(
+                    qf, quant.codes, quant.row_scale, quant.sq_norms, self.metric, k,
+                    dim=self.dimension, valid_count=quant.count, row_mask=row_mask,
+                )
+            return fused_scan_topk(qq, quant.codes, self.metric, k, row_mask=row_mask)
 
-    def _search_quantized_mesh(self, qf: torch.Tensor, k: int, mask, quant: _QuantState):
-        """The code scans of a mesh: K2 on every shard for int4, K1 on
-        every shard for int8, the summed partial components on a 2-D mesh
-        (the query quantized before the zero column padding)."""
+    def _search_quantized_mesh(self, qf: torch.Tensor, qq: torch.Tensor | None, k: int, mask, quant: _QuantState):
+        """The code scans of a mesh: K2 on every shard for int4 (from the
+        float queries qf), K1 on every shard for int8 (the query codes qq),
+        the summed partial components on a 2-D mesh (the query quantized
+        before the zero column padding)."""
         if quant.qtype is QuantType.I4:
             return sharded_int4_scan_topk(
                 qf, quant.codes, quant.row_scale, quant.sq_norms, self.metric, k, self._mesh,
                 dim=self.dimension, valid_count=quant.count, row_mask=mask,
             )
-        qq = quantize_device(qf, quant.scale, quant.offset, quant.qtype)
         if self._mesh_2d:
             return sharded_scan_topk_2d(
                 qq, quant.codes, self.metric, k, self._mesh, valid_count=quant.count,
@@ -1557,13 +1573,15 @@ class Dataset:
                 "(refine is a device-side two-stage search; streaming it "
                 "through the host would defeat its no-round-trip contract)."
             )
-        return int4_refine_topk(
-            from_numpy(q.astype(np.float32), self.device),
-            quant.codes, quant.row_scale, quant.sq_norms, quant.codes8,
-            quant.scale8, quant.offset8, self.metric, k,
-            dim=self.dimension, expand=expand, valid_count=quant.count,
-            row_mask=_fit_mask(mask, quant.count),
-        )
+        with annotate("search.query"):
+            qf = from_numpy(q.astype(np.float32), self.device)
+        with annotate("search.scan"):
+            return int4_refine_topk(
+                qf, quant.codes, quant.row_scale, quant.sq_norms, quant.codes8,
+                quant.scale8, quant.offset8, self.metric, k,
+                dim=self.dimension, expand=expand, valid_count=quant.count,
+                row_mask=_fit_mask(mask, quant.count),
+            )
 
     def _search_rerank(
         self, q: np.ndarray, k: int, mask, expand: int, quant: _QuantState | None
@@ -1578,13 +1596,19 @@ class Dataset:
         and ops.rerank.rescore_live_rows rescores the gathered live rows on
         the device. With host storage the candidates' rows come from the
         host mirror in one sorted-unique gather, and are rescored on the
-        device. last_rerank_decomposition records the stages' seconds
-        (on the device the remap's gather runs inside its rescore, so
-        host_gather_s is 0.0 there; the fused route reports everything
-        under stage1_s)."""
+        device. The stages are the spans `search.rerank.stage1`,
+        `.translate`, `.gather` and `.rescore` (the fused route: stage1
+        alone), timed whether or not anything records them, and
+        last_rerank_decomposition holds their seconds. While recording, the
+        device has finished each stage's work when it ends; otherwise a
+        stage's seconds are its enqueue time (stage1_s on the remap route
+        ends in a copy to the host). On the device the remap's gather runs
+        inside its rescore, so host_gather_s is 0.0 there; the fused route
+        reports everything under stage1_s."""
         quant = self._require_quant("rerank", quant)
         count = self._count
-        qf = from_numpy(q.astype(np.float32), self.device)
+        with annotate("search.query"):
+            qf = from_numpy(q.astype(np.float32), self.device)
         b = q.shape[0]
         if (
             not quant.stale
@@ -1595,69 +1619,70 @@ class Dataset:
             and self._vectors is not None
             and _on_device(quant.codes)
         ):
-            t0 = time.perf_counter()
-            qq = quantize_device(qf, quant.scale, quant.offset, quant.qtype)
-            vals, idx = rerank_topk(
-                qf, self._vectors[:count], qq, quant.codes, self.metric, k,
-                expand=expand, valid_count=quant.count,
-            )
-            _sync(self.device)
+            with timed("search.rerank.stage1") as stage1:
+                qq = quantize_device(qf, quant.scale, quant.offset, quant.qtype)
+                vals, idx = rerank_topk(
+                    qf, self._vectors[:count], qq, quant.codes, self.metric, k,
+                    expand=expand, valid_count=quant.count,
+                )
+                if is_recording():
+                    _sync(self.device)
             self.last_rerank_decomposition = {
                 "batch": b, "k": k, "expand": expand,
-                "stage1_s": time.perf_counter() - t0,
+                "stage1_s": stage1.seconds,
                 "translate_s": 0.0, "host_gather_s": 0.0, "rescore_s": 0.0,
                 "gathered_rows": 0,
             }
             return vals, idx
 
         ke = max(k * expand, k)
-        t0 = time.perf_counter()
-        _, idx = self._search_quantized(q, ke, mask, quant)
-        idx = idx.cpu().numpy()
-        t1 = time.perf_counter()
+        with timed("search.rerank.stage1") as stage1:
+            _, idx = self._search_quantized(q, ke, mask, quant)
+            idx = idx.cpu().numpy()
         # snapshot positions -> live positions through the ids; the id map
         # and the matrix it indexes come from one generation (under the lock)
         with self._mutate_lock:
-            qids = self._quant_id_map(quant)
-            live = self._id_to_pos()
-            flat = idx.reshape(-1)
-            ok = (flat >= 0) & (flat < len(qids))
-            pos = np.full(flat.shape, -1, np.int64)
-            if ok.any():
-                pos[ok] = np.fromiter(
-                    (live.get(int(i), -1) for i in qids[flat[ok]]),
-                    np.int64, count=int(ok.sum()),
-                )
-            pos = pos.reshape(b, ke)
-            t2 = time.perf_counter()
-            if self._storage == "host" or self._mesh is not None:
-                # the ONE gather for the batch, sorted-unique (page cache
-                # friendly on a memory map; on a mesh each shard's
-                # candidates come from its device); positions become
-                # indices into the gathered rows
-                keep = pos >= 0
-                uniq, inv = np.unique(pos[keep], return_inverse=True)
-                at = uniq if len(uniq) else np.zeros(1, np.int64)
-                if self._storage == "host":
-                    vecs = self._rows_to_device(np.asarray(self._host_vectors[at]))
+            with timed("search.rerank.translate") as translate:
+                qids = self._quant_id_map(quant)
+                live = self._id_to_pos()
+                flat = idx.reshape(-1)
+                ok = (flat >= 0) & (flat < len(qids))
+                pos = np.full(flat.shape, -1, np.int64)
+                if ok.any():
+                    pos[ok] = np.fromiter(
+                        (live.get(int(i), -1) for i in qids[flat[ok]]),
+                        np.int64, count=int(ok.sum()),
+                    )
+                pos = pos.reshape(b, ke)
+            with timed("search.rerank.gather") as gather:
+                if self._storage == "host" or self._mesh is not None:
+                    # the ONE gather for the batch, sorted-unique (page cache
+                    # friendly on a memory map; on a mesh each shard's
+                    # candidates come from its device); positions become
+                    # indices into the gathered rows
+                    keep = pos >= 0
+                    uniq, inv = np.unique(pos[keep], return_inverse=True)
+                    at = uniq if len(uniq) else np.zeros(1, np.int64)
+                    if self._storage == "host":
+                        vecs = self._rows_to_device(np.asarray(self._host_vectors[at]))
+                    else:
+                        vecs = self._vectors.gather(at)
+                    local = np.full(pos.shape, -1, np.int64)
+                    local[keep] = inv.reshape(-1)
                 else:
-                    vecs = self._vectors.gather(at)
-                local = np.full(pos.shape, -1, np.int64)
-                local[keep] = inv.reshape(-1)
-            else:
-                uniq, vecs, local = None, self._vectors, pos
-        t3 = time.perf_counter()
-        vals, out = rescore_live_rows(qf, vecs, from_numpy(local, self.device), self.metric, k)
-        if uniq is not None:
-            uniq_dev = from_numpy(uniq if len(uniq) else np.zeros(1, np.int64), self.device)
-            out = torch.where(out >= 0, uniq_dev[out.clamp(min=0)], -1)
-        _sync(self.device)
-        t4 = time.perf_counter()
+                    uniq, vecs, local = None, self._vectors, pos
+        with timed("search.rerank.rescore") as rescore:
+            vals, out = rescore_live_rows(qf, vecs, from_numpy(local, self.device), self.metric, k)
+            if uniq is not None:
+                uniq_dev = from_numpy(uniq if len(uniq) else np.zeros(1, np.int64), self.device)
+                out = torch.where(out >= 0, uniq_dev[out.clamp(min=0)], -1)
+            if is_recording():
+                _sync(self.device)
         self.last_rerank_decomposition = {
             "batch": b, "k": k, "expand": expand,
-            "stage1_s": t1 - t0, "translate_s": t2 - t1,
-            "host_gather_s": t3 - t2 if uniq is not None else 0.0,
-            "rescore_s": t4 - t3,
+            "stage1_s": stage1.seconds, "translate_s": translate.seconds,
+            "host_gather_s": gather.seconds if uniq is not None else 0.0,
+            "rescore_s": rescore.seconds,
             "gathered_rows": int(np.unique(pos[pos >= 0]).size),
         }
         return vals, out

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from sqlite_vector_tpu_torch.errors import VectorConfigError
+from sqlite_vector_tpu_torch.utils.profiling import count
 
 
 def resolve_device(device: Any = None) -> torch.device:
@@ -68,10 +69,13 @@ def from_numpy(arr: np.ndarray, device: Any = "cpu") -> torch.Tensor:
     """A copy of a numpy array as a tensor on `device`, dtype kept (the
     tensor never aliases the caller's array). torch cannot read numpy's
     bfloat16 (ml_dtypes), so bfloat16 travels as its exact float32 values
-    and is narrowed back on the device."""
+    and is narrowed back on the device. The bytes copied count under
+    `h2d_bytes` while recording (utils.profiling), whatever the device."""
     if arr.dtype.name == "bfloat16":
         f32 = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32))
+        count("h2d_bytes", f32.nbytes)
         return f32.to(device).to(torch.bfloat16)
+    count("h2d_bytes", arr.nbytes)
     arr = np.ascontiguousarray(arr)
     if not arr.flags.writeable:  # torch.from_numpy wants a writable buffer
         arr = arr.copy()

@@ -40,6 +40,7 @@ from sqlite_vector_tpu_torch.ops.distance import (
 from sqlite_vector_tpu_torch.ops.rerank import candidate_distances
 from sqlite_vector_tpu_torch.ops.topk import topk_ascending
 from sqlite_vector_tpu_torch.types import DistanceMetric
+from sqlite_vector_tpu_torch.utils.profiling import annotate
 
 # rows per minima group
 BLOCK = 128
@@ -284,15 +285,18 @@ def block_minima(
     kernel in the body k1_body picks and count the launch in
     `block_minima.launches`, by body in `block_minima.body_launches` and,
     where a tensor-core body streams its query tile, in
-    `block_minima.streamed_launches`.
+    `block_minima.streamed_launches`. Its span is `ops.scan` (range
+    `svt.ops.scan:<B>`).
     """
     _check(queries, base, valid)
-    dev = base.device
-    check_row_mask(row_mask, base.shape[0], dev, "block_minima")
-    if dev.type == "cpu":
-        return block_minima_reference(queries, base, metric, valid, row_mask)
-    aligned = tma_ready(queries) and tma_ready(base)
-    return _launch_k1(queries, base, metric, valid, row_mask, k1_body(base.dtype, metric, base.shape[1], aligned))
+    b = queries.shape[0]
+    with annotate("ops.scan", tag=b, B=b):
+        dev = base.device
+        check_row_mask(row_mask, base.shape[0], dev, "block_minima")
+        if dev.type == "cpu":
+            return block_minima_reference(queries, base, metric, valid, row_mask)
+        aligned = tma_ready(queries) and tma_ready(base)
+        return _launch_k1(queries, base, metric, valid, row_mask, k1_body(base.dtype, metric, base.shape[1], aligned))
 
 
 def _launch_k1(
@@ -460,7 +464,8 @@ def block_scan_topk(
     """Fused top-k scan via block minima + exact finish. Same contract as
     ops.scan.scan_topk: (distances [B, k] float32, positions [B, k] int64)
     ascending; unfilled slots +inf / -1; rows where row_mask ([N] bool) is
-    False are never returned."""
+    False are never returned. The finish's span is `ops.finish`."""
     valid = base.shape[0] if valid_count is None else int(valid_count)
     minima = block_minima(queries, base, metric, valid, row_mask)
-    return _finish_from_minima(minima, queries, base, valid, metric, k, row_mask)
+    with annotate("ops.finish"):
+        return _finish_from_minima(minima, queries, base, valid, metric, k, row_mask)

@@ -56,6 +56,7 @@ from sqlite_vector_tpu_torch.ops.quantize4 import (
     unpack4,
 )
 from sqlite_vector_tpu_torch.types import DistanceMetric
+from sqlite_vector_tpu_torch.utils.profiling import annotate
 
 # bound on the twin's unpacked [rows, d] codes and [B, rows] dots (elements)
 _TWIN_CHUNK_ELEMS = 1 << 25
@@ -317,17 +318,20 @@ def int4_block_minima(
     tensors launch the K2 kernel in the body k2_body picks and count the
     launch in `int4_block_minima.launches`, by body in
     `int4_block_minima.body_launches` and, where a tensor-core body
-    streams its query tile, in `int4_block_minima.streamed_launches`.
+    streams its query tile, in `int4_block_minima.streamed_launches`. Its
+    span is `ops.scan` (range `svt.ops.scan:<B>`).
     """
     _check(qc, qscale, packed, alpha, csq, metric, valid)
-    dev = packed.device
-    check_row_mask(row_mask, packed.shape[0], dev, "int4_block_minima")
-    if dev.type == "cpu":
-        return int4_block_minima_reference(
-            qc, qscale, packed, alpha, csq, metric, valid, row_mask
-        )
-    body = k2_body(qc.shape[1], tma_ready(packed))
-    return _launch_k2(qc, qscale, packed, alpha, csq, metric, valid, row_mask, body)
+    b = qc.shape[0]
+    with annotate("ops.scan", tag=b, B=b):
+        dev = packed.device
+        check_row_mask(row_mask, packed.shape[0], dev, "int4_block_minima")
+        if dev.type == "cpu":
+            return int4_block_minima_reference(
+                qc, qscale, packed, alpha, csq, metric, valid, row_mask
+            )
+        body = k2_body(qc.shape[1], tma_ready(packed))
+        return _launch_k2(qc, qscale, packed, alpha, csq, metric, valid, row_mask, body)
 
 
 def _launch_k2(
@@ -449,8 +453,9 @@ def int4_block_scan_topk(
     valid = packed.shape[0] if valid_count is None else int(valid_count)
     codes = quantize_query_int8(queries)
     minima = int4_block_minima(*codes[:2], packed, alpha, csq, metric, valid, row_mask)
-    return _finish_int4(minima, codes, sanitize_queries(queries), packed, alpha, csq, metric, k,
-                        dim, valid, row_mask)
+    with annotate("ops.finish"):
+        return _finish_int4(minima, codes, sanitize_queries(queries), packed, alpha, csq, metric, k,
+                            dim, valid, row_mask)
 
 
 def _finish_int4(

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from sqlite_vector_tpu_torch.types import QuantType
+from sqlite_vector_tpu_torch.utils.profiling import count
 
 # rows per chunk of the min/max pass: bounds its float32 temporaries
 _MINMAX_CHUNK_ELEMS = 1 << 26
@@ -130,6 +131,7 @@ def quantize_device(
     # 0-dim float32 tensors: the arithmetic is float32 end to end
     off = torch.tensor(np.float32(offset), device=base.device)
     sc = torch.tensor(np.float32(scale), device=base.device)
+    count("h2d_bytes", 8)
     s = (base.float() - off) * sc
     lo, hi = (0.0, 255.0) if qtype is QuantType.U8 else (-128.0, 127.0)
     return _q_round(s, lo, hi).to(QUANT_TORCH_DTYPE[qtype])

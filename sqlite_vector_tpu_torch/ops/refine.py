@@ -17,6 +17,7 @@ from sqlite_vector_tpu_torch.ops.quantize4 import int4_scan_topk
 from sqlite_vector_tpu_torch.ops.rerank import RESCORE_CHUNK_ELEMS as _RESCORE_CHUNK_ELEMS
 from sqlite_vector_tpu_torch.ops.rerank import candidate_distances, rescore_topk
 from sqlite_vector_tpu_torch.types import DistanceMetric
+from sqlite_vector_tpu_torch.utils.profiling import count
 
 
 def refine_candidates(
@@ -36,6 +37,7 @@ def refine_candidates(
     # device tensors, so each op is an IEEE float32 divide / add
     sc = torch.tensor(np.float32(scale8), device=dev)
     off = torch.tensor(np.float32(offset8), device=dev)
+    count("h2d_bytes", 8)
     qf = queries_f.float()
 
     def distances(s: int, e: int, rows: torch.Tensor) -> torch.Tensor:

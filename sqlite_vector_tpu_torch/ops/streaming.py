@@ -56,6 +56,7 @@ from sqlite_vector_tpu_torch.ops.quantize4 import int4_scan_distances, int4_scan
 from sqlite_vector_tpu_torch.ops.scan import fused_scan_topk, scan_distances
 from sqlite_vector_tpu_torch.ops.topk import merge_topk
 from sqlite_vector_tpu_torch.types import DistanceMetric, VectorType
+from sqlite_vector_tpu_torch.utils.profiling import count
 
 # Bytes per streamed tile (of all the streamed arrays' rows) when
 # tile_rows is not given. Each tile costs the host a few ms of launches
@@ -210,6 +211,7 @@ class _Tiles:
                     self.copy_stream.wait_event(self.consumed[slot])
                 for h, d in zip(bufs, self.dev[slot]):
                     d[:rows].copy_(h[:rows], non_blocking=True)
+                    count("h2d_bytes", h[:rows].nbytes)
                 self.copied[slot].record(self.copy_stream)
         return rows
 

@@ -18,12 +18,21 @@ queued before (an add()'s row writes on a side stream of its own, say) is
 ordered before every search, as it would be for a search made on that
 thread.
 
+The dispatcher's spans (utils.profiling.annotate): `serve.collect` from
+its return to the queue to a batch's cut (its child `serve.empty` the wait
+for the first query), then per (k, mode) group `serve.search` (stacking
+and the search) and `serve.deliver` (its futures resolved), all with the
+batch's id; while recording, each request's `serve.queued` from its
+submit() to the cut, and the counters `serve.batches` and `serve.queries`
+per Dataset.search call.
+
 `serve()` exposes a Dataset or a VectorStore over JSON/HTTP (stdlib only).
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import queue
 import threading
@@ -35,10 +44,13 @@ import torch
 
 from sqlite_vector_tpu_torch.dataset import Dataset, VectorStore
 from sqlite_vector_tpu_torch.errors import VectorStateError
+from sqlite_vector_tpu_torch.utils.profiling import add_span, annotate, count, stamp
 
 # the batch sizes the JAX package pads to; here the cap on max_batch and
 # the batches `python -m sqlite_vector_tpu_torch warm` visits
 _BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
+# the batches' ids in the spans, unique in the process
+_BATCH_IDS = itertools.count(1)
 
 
 class BatchingSearcher:
@@ -95,7 +107,8 @@ class BatchingSearcher:
         with self._lifecycle_lock:
             if self._closed:
                 raise RuntimeError("BatchingSearcher is closed")
-            self._queue.put((q[0], k, mode, fut))
+            # the time it was queued, only while recording (serve.queued)
+            self._queue.put((q[0], k, mode, fut, stamp()))
         return fut
 
     def search(self, query: Any, k: int, *, exact: bool = True, mode: str | None = None):
@@ -116,7 +129,7 @@ class BatchingSearcher:
                 break
             if item is None:
                 continue
-            fut = item[-1]
+            fut = item[3]
             # claim, then set: a racing fut.cancel() would otherwise make
             # set_exception raise InvalidStateError
             if fut.set_running_or_notify_cancel():
@@ -132,28 +145,40 @@ class BatchingSearcher:
     def _run(self) -> None:
         with torch.cuda.stream(self._stream) if self._stream is not None else contextlib.nullcontext():
             while True:
-                item = self._queue.get()
-                if item is None:
-                    return
-                batch = [item]
-                # coalesce: wait up to max_wait_s for more queries
-                deadline = None
-                while len(batch) < self.max_batch:
-                    try:
-                        nxt = self._queue.get(timeout=self.max_wait_s if deadline is None else deadline)
-                    except queue.Empty:
-                        break
-                    if nxt is None:
-                        self._dispatch(batch)
+                bid = next(_BATCH_IDS)
+                with annotate("serve.collect", batch=bid) as span:
+                    with annotate("serve.empty"):
+                        item = self._queue.get()
+                    if item is None:
                         return
-                    batch.append(nxt)
-                    deadline = 0.0  # drain whatever is already queued
-                self._dispatch(batch)
+                    batch = [item]
+                    # coalesce: wait up to max_wait_s for more queries
+                    deadline = None
+                    last = False
+                    while len(batch) < self.max_batch:
+                        try:
+                            nxt = self._queue.get(timeout=self.max_wait_s if deadline is None else deadline)
+                        except queue.Empty:
+                            break
+                        if nxt is None:
+                            last = True
+                            break
+                        batch.append(nxt)
+                        deadline = 0.0  # drain whatever is already queued
+                    span.set(size=len(batch))
+                    cut = stamp()
+                    if cut is not None:
+                        for queued in batch:
+                            if queued[4] is not None:
+                                add_span("serve.queued", queued[4], cut, batch=bid)
+                self._dispatch(batch, bid)
+                if last:
+                    return
 
-    def _dispatch(self, batch: list) -> None:
+    def _dispatch(self, batch: list, bid: int | None = None) -> None:
         # group by (k, mode): different k values and modes need separate scans
         groups: dict[tuple[int, str], list] = {}
-        for q, k, mode, fut in batch:
+        for q, k, mode, fut, *_ in batch:  # (submit() adds the queued time)
             groups.setdefault((k, mode), []).append((q, fut))
         for (k, mode), items in groups.items():
             # claim every future FIRST: after set_running_or_notify_cancel
@@ -165,21 +190,28 @@ class BatchingSearcher:
             if not live:
                 continue
             try:
-                qs = np.stack([q for q, _ in live])
-                try:
-                    ids, dist = self.dataset.search(qs, k, mode=mode)
-                except VectorStateError:
-                    if not (self.fallback_exact and mode in ("quantized", "rerank")):
-                        raise
-                    # requantization window: serve exact results instead
-                    ids, dist = self.dataset.search(qs, k, mode="exact")
-                for i, (_, fut) in enumerate(live):
-                    keep = ids[i] >= 0
-                    fut.set_result((ids[i][keep], dist[i][keep]))
+                with annotate("serve.search", batch=bid):
+                    qs = np.stack([q for q, _ in live])
+                    try:
+                        ids, dist = self._search(qs, k, mode)
+                    except VectorStateError:
+                        if not (self.fallback_exact and mode in ("quantized", "rerank")):
+                            raise
+                        # requantization window: serve exact results instead
+                        ids, dist = self._search(qs, k, "exact")
+                with annotate("serve.deliver", batch=bid):
+                    for i, (_, fut) in enumerate(live):
+                        keep = ids[i] >= 0
+                        fut.set_result((ids[i][keep], dist[i][keep]))
             except Exception as e:  # to every waiter of the group
                 for _, fut in live:
                     if not fut.done():
                         fut.set_exception(e)
+
+    def _search(self, qs: np.ndarray, k: int, mode: str):
+        count("serve.batches")
+        count("serve.queries", len(qs))
+        return self.dataset.search(qs, k, mode=mode)
 
 
 def _dataset_stats(ds: Dataset) -> dict:

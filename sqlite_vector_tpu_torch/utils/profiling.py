@@ -1,23 +1,42 @@
-"""Per-query instrumentation and torch.profiler integration.
+"""Per-query instrumentation, the port's own spans and counters, and
+torch.profiler integration.
 
 Port of sqlite_vector_tpu/utils/profiling.py. `QueryStats`, `StatsRecorder`
 and `timed_search` are the JAX package's, field for field; `profile_trace`
 runs torch.profiler (CPU, plus CUDA when a card is present) and writes a
 Chrome/Perfetto-readable trace (`*.pt.trace.json`) into its directory,
-where the JAX package writes a TensorBoard trace with jax.profiler;
-`annotate` is torch.profiler.record_function. Kernels launched through the
-ctypes library (ops/_build.py) are CUPTI activity like any other: they
-appear in the trace under their kernel names, on the device's stream,
-linked to their launch by correlation id.
+where the JAX package writes a TensorBoard trace with jax.profiler.
+Kernels launched through the ctypes library (ops/_build.py) are CUPTI
+activity like any other: they appear in the trace under their kernel
+names, on the device's stream, linked to their launch by correlation id.
+
+`annotate(name, **attrs)` is the port's span. The serving, api and ops
+layers open one around each stage of their work (PERF.md section 3 names
+them). It does nothing unless recording is on (`start_recording()` ..
+`stop_recording()`, or `with recording() as rec:`) or a torch profiler is
+active. Recording keeps each span in memory (`Recording.spans`): its name,
+start and end on `time.perf_counter_ns()`, its id and its parent's (the
+innermost span open on its thread), its thread, its batch (a `batch`
+attribute, else its parent's) and its attributes; `count(name, n)` adds to
+`Recording.counters` and to the counts of the innermost open span of its
+thread (a span's counts hold its children's). Under an active profiler the
+span is also a profiler range named `svt.<name>` (`:<tag>` appended
+where given; torch's RecordFunction, opened without releasing the
+interpreter lock), so the spans land in the trace beside the kernels they
+launch, on the profiler's clock.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import threading
 import time
-from typing import Any, Iterator
+from typing import Any, Iterator, NamedTuple
+
+import torch.profiler
+from torch.autograd import profiler as _autograd_profiler
 
 
 @dataclasses.dataclass
@@ -90,13 +109,222 @@ def profile_trace(log_dir: str) -> Iterator[None]:
             _trace_active = False
 
 
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """Named region inside an active profiler trace."""
-    import torch.profiler
+class Span(NamedTuple):
+    """One recorded span (times from time.perf_counter_ns)."""
 
-    with torch.profiler.record_function(name):
-        yield
+    name: str
+    start_ns: int
+    end_ns: int
+    id: int
+    parent: int | None  # the span open around it on its thread
+    thread: int  # threading.get_ident()
+    batch: int | None  # a `batch` attribute, else its parent's
+    attrs: dict
+    counts: dict | None  # count() on its thread while it was open
+
+    @property
+    def ms(self) -> float:
+        return (self.end_ns - self.start_ns) / 1e6
+
+
+class Recording:
+    """What was recorded between start_recording() and stop_recording():
+    `spans` in the order they ended, `counters` summed."""
+
+    def __init__(self):
+        self.spans: list[Span] = []
+        self.counters: dict[str, int] = {}
+        self._lock = threading.Lock()  # counters are added from every thread
+        self._local = threading.local()  # each thread's stack of open spans
+
+    def named(self, name: str) -> list[Span]:
+        return [s for s in self.spans if s.name == name]
+
+
+_clock = time.perf_counter_ns
+_ids = itertools.count(1)
+_new_span = tuple.__new__  # Span(...) without its Python-level __new__: a third of the cost
+_active: Recording | None = None
+_active_lock = threading.Lock()
+
+
+def start_recording() -> Recording:
+    """Keep every span and counter from now on, until stop_recording().
+    One recording at a time: a second start raises RuntimeError."""
+    global _active
+    with _active_lock:
+        if _active is not None:
+            raise RuntimeError("a recording is already on")
+        _active = Recording()
+        return _active
+
+
+def stop_recording() -> Recording:
+    """Stop recording; returns what was recorded. Spans still open end
+    unrecorded."""
+    global _active
+    with _active_lock:
+        rec, _active = _active, None
+    if rec is None:
+        raise RuntimeError("no recording is on")
+    return rec
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[Recording]:
+    """start_recording() .. stop_recording() around a region; yields the
+    Recording, complete once the region ends."""
+    rec = start_recording()
+    try:
+        yield rec
+    finally:
+        if _active is rec:
+            stop_recording()
+
+
+def is_recording() -> bool:
+    return _active is not None
+
+
+def stamp() -> int | None:
+    """perf_counter_ns() while recording, else None (and no clock read)."""
+    return _clock() if _active is not None else None
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add n to a counter while recording; a no-op otherwise."""
+    rec = _active
+    if rec is None:
+        return
+    with rec._lock:
+        rec.counters[name] = rec.counters.get(name, 0) + n
+    stack = getattr(rec._local, "stack", None)
+    if stack:
+        top = stack[-1]
+        if top.counts is None:
+            top.counts = {}
+        top.counts[name] = top.counts.get(name, 0) + n
+
+
+def add_span(name: str, start_ns: int, end_ns: int, **attrs) -> None:
+    """Record a span measured elsewhere (a request's wait in a queue,
+    stamped where it was queued), with no parent; a no-op when not
+    recording."""
+    rec = _active
+    if rec is not None:
+        rec.spans.append(
+            Span(name, start_ns, end_ns, next(_ids), None, threading.get_ident(),
+                 attrs.get("batch"), attrs, None)
+        )
+
+
+def _open_range(label: str):
+    """A profiler range that keeps the interpreter lock.
+    torch.profiler.record_function enters and exits through dispatcher
+    ops, each of which releases the lock: under load (a dispatcher beside
+    64 client threads) every span would then hand the lock to another
+    thread and wait to get it back, up to the 5 ms switch interval.
+    _RecordFunctionFast records the same range in C++ without releasing
+    it (Chrome trace category `cpu_op`, where record_function's is
+    `user_annotation`)."""
+    fast = getattr(torch._C._profiler, "_RecordFunctionFast", None)
+    return fast(label) if fast is not None else torch.profiler.record_function(label)
+
+
+class _Off:
+    """The span while neither recording nor profiling: one shared object
+    that does nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+    def set(self, **attrs) -> None:
+        pass
+
+
+_OFF = _Off()
+
+
+class _Span:
+    __slots__ = ("name", "tag", "attrs", "rec", "range", "id", "parent", "batch", "counts", "start", "end")
+
+    def __init__(self, name: str, tag: Any, attrs: dict, rec: Recording | None):
+        self.name, self.tag, self.attrs, self.rec = name, tag, attrs, rec
+        self.range = None
+        self.counts = None
+
+    def __enter__(self):
+        if _autograd_profiler._is_profiler_enabled:
+            label = self.name if self.name.startswith("svt.") else "svt." + self.name
+            if self.tag is not None:
+                label = f"{label}:{self.tag}"
+            self.range = _open_range(label)
+            self.range.__enter__()
+        rec = self.rec
+        if rec is not None:
+            stack = getattr(rec._local, "stack", None)
+            if stack is None:
+                stack = rec._local.stack = []
+            up = stack[-1] if stack else None
+            self.id = next(_ids)
+            self.parent = up.id if up is not None else None
+            self.batch = self.attrs.get("batch", up.batch if up is not None else None)
+            stack.append(self)
+        self.start = _clock()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.end = end = _clock()
+        rec = self.rec
+        if rec is not None:
+            stack = rec._local.stack
+            stack.pop()
+            if self.counts and stack:
+                up = stack[-1]
+                if up.counts is None:
+                    up.counts = {}
+                for k, v in self.counts.items():
+                    up.counts[k] = up.counts.get(k, 0) + v
+            if rec is _active:
+                rec.spans.append(_new_span(Span, (
+                    self.name, self.start, end, self.id, self.parent, threading.get_ident(),
+                    self.batch, self.attrs, self.counts,
+                )))
+        if self.range is not None:
+            self.range.__exit__(None, None, None)
+        return False
+
+    def set(self, **attrs) -> None:
+        """Attributes known only once the span is open (a batch's size)."""
+        self.attrs.update(attrs)
+
+    @property
+    def seconds(self) -> float:
+        """Its duration on the clock, once it has ended."""
+        return (self.end - self.start) / 1e9
+
+
+def annotate(name: str, /, *, tag: Any = None, **attrs):
+    """The port's span: a context manager over one stage of work (the
+    module docstring says what it records). With neither recording nor a
+    profiler on it reads two flags and returns a shared no-op."""
+    rec = _active
+    if rec is None and not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name, tag, attrs, rec)
+
+
+def timed(name: str, /, **attrs) -> _Span:
+    """annotate()'s span, built also with recording and profiling off, so
+    that it always reads its clock: `seconds` is its duration once it has
+    ended (a stage whose time the program reports itself,
+    Dataset.last_rerank_decomposition)."""
+    return _Span(name, None, attrs, _active)
 
 
 class StatsRecorder:

@@ -1,15 +1,17 @@
 """Timing / observability helpers.
 
 Port of sqlite_vector_tpu/utils/timing.py: `Timer` and `format_bytes` are
-copied unchanged; `trace` names its region with
-torch.profiler.record_function where the JAX package uses
-jax.profiler.TraceAnnotation.
+copied unchanged; `trace` is the port's span (utils.profiling.annotate:
+a `record_function` range under an active profiler, kept while recording)
+where the JAX package uses jax.profiler.TraceAnnotation.
 """
 
 from __future__ import annotations
 
 import contextlib
 import time
+
+from sqlite_vector_tpu_torch.utils.profiling import annotate
 
 
 class Timer:
@@ -28,16 +30,11 @@ class Timer:
         return False
 
 
-@contextlib.contextmanager
 def trace(name: str, enabled: bool = False):
-    """Optional torch.profiler range around a region."""
+    """Optional span around a region (utils.profiling.annotate)."""
     if not enabled:
-        yield
-        return
-    import torch.profiler
-
-    with torch.profiler.record_function(name):
-        yield
+        return contextlib.nullcontext()
+    return annotate(name)
 
 
 def format_bytes(n: int) -> str:
