@@ -53,6 +53,8 @@ Phases, each printing its own lines:
               integer-domain scan of the same codes; K1's launch count over
               these searches must be above 0, every exact launch in its
               wgmma body and every quantized one in its mma.sync body;
+              the quantized search's finish launches the rescore kernel
+              once a K1 scan, the exact search's never;
   5. times    K1 at the main path's shapes (f32, the int8 codes and u8 codes,
               and L2 over the rows cast to float16 and bfloat16, each at B=1
               and B=64), the routed body (floats: wgmma; codes: mma.sync),
@@ -245,6 +247,18 @@ Phases, each printing its own lines:
               CUDA-core bodies forced once and bit-equal, K2 alone as above and beside
               the finish (CUDA-event windows). Prints the peak device
               memory.
+ 15. rescore  (run after phase 3, before phase 4 makes its rows) the
+              int8/u8 finish's rescore kernel (csrc/rescore_codes.cu) at
+              the benchmark's shape: 10,000,000 x 768 int8 codes drawn on
+              the card, COSINE, k=100, the groups K1's minima select for
+              B in {1, 32, 64} queries (half copies of base rows): the
+              kernel bit-equal to its twin (the gathered float64 path it
+              replaced), also under L2, SQUARED_L2 and DOT with valid < N
+              and a row mask at B=32, and over 1,000,000 x 768 u8 codes;
+              then timed in turns with the twin (CUDA events) beside its
+              bound (rescore_bound), and the whole finish on its route
+              (one rescore launch) against the gathered route, equal and
+              timed in turns.
 
 Each phase ends with a line of its seconds. Then one JSON line of kernel results, one entry a kernel body (each with
 its bound, the side that bounds it and the library yardstick; the three
@@ -257,7 +271,9 @@ body with the query tile streamed (f32 d=4096 B=64; launches from phase
 13's two searches), K1's L1 kernel (L1 f32 B=64; launches from the FLOAT32 L1
 search), K2's wgmma body (B=64), K2 past the resident query tile
 (int4_block_minima_wide: bf16 d=18432 B=64; launches from phase 14's eight
-searches), both K2 entries with the mma.sync body's ms as "mma_sync_ms";
+searches), both K2 entries with the mma.sync body's ms as "mma_sync_ms",
+the rescore kernel (int8 B=32; launches from phase 4's quantized search,
+phase 15's under "timing_launches");
 the rest under "by_shape"; "sql_launches" counts phase 10's
 launches on the SQL path, "mesh_launches" phase 11's, "trace_launches" the
 kernel events in phase 12's trace; phase 10's times under
@@ -398,6 +414,19 @@ def k2_bound(b: int, n: int, d: int, masked: bool = False) -> tuple[float, str]:
     written once; 2 B N d int8 operations."""
     nbytes = n * (-(-d // 2) + 8) + b * (d + 4) + b * -(-n // 128) * 4 + (n if masked else 0)
     return bound(nbytes, 2.0 * b * n * d, "int8")
+
+
+def rescore_bound(b: int, kg: int, d: int) -> tuple[float, str]:
+    """The rescore kernel's bound (csrc/rescore_codes.cu) for b queries of
+    kg groups each over d-wide codes: the query codes, the int64 group
+    indices and the selected groups' codes (b kg 128 d bytes) read once,
+    the float32 distances written once (b kg 128 4), over the HBM rate;
+    against two dp4a a 4-byte word of codes (the dot and the row's square
+    norm) on the INT32 pipe at INT_INSTR_PER_S."""
+    cand = b * kg * 128
+    t_bytes = (b * d + b * kg * 8 + cand * (d + 4)) / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * (cand * d / 4) / INT_INSTR_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def library_call_k2(qc: torch.Tensor, codes8: torch.Tensor):
@@ -679,9 +708,107 @@ def phase_kernel_int4(card: str) -> tuple[float, float]:
     return worst, masked_worst
 
 
+N_RESCORE = 10_000_000
+DIM_RESCORE = 768
+K_RESCORE = 100
+B_RESCORE = 32
+
+
+def random_codes(gen: torch.Generator, n: int, d: int, dtype: torch.dtype) -> torch.Tensor:
+    """n x d uniform u8 or i8 codes drawn on the card a million rows at a
+    time (make_rows draws all of them as int32 at once)."""
+    lo, hi = (0, 256) if dtype is torch.uint8 else (-128, 128)
+    out = torch.empty((n, d), dtype=dtype, device="cuda")
+    for s in range(0, n, 1_000_000):
+        e = min(s + 1_000_000, n)
+        out[s:e] = torch.randint(lo, hi, (e - s, d), generator=gen, device="cuda", dtype=torch.int32)
+    return out
+
+
+def phase_rescore(card: str) -> dict:
+    """Phase 15: the rescore kernel against its twin and timed, at the
+    benchmark's shape (the module docstring says what). Returns, by label,
+    the kernel's and the twin's ms with the bound, the finish's on each
+    route, the kernel's launches here under "timing_launches" and the
+    largest |kernel - twin| over the finite distances under
+    "max_abs_err"."""
+    from sqlite_vector_tpu_torch.ops import block_scan as bs
+    from sqlite_vector_tpu_torch.types import DistanceMetric
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    n, d, k = N_RESCORE, DIM_RESCORE, K_RESCORE
+    codes = random_codes(gen, n, d, torch.int8)
+    mask = torch.rand(n, generator=gen, device="cuda") < 0.5
+    cos = DistanceMetric.COSINE
+    out = {"max_abs_err": 0.0}
+    launches = bs.rescore_groups.launches
+
+    def queries(base: torch.Tensor, b: int) -> torch.Tensor:
+        q = random_codes(gen, b, d, base.dtype)
+        near = b // 2
+        q[:near] = base[torch.randint(0, base.shape[0], (near,), generator=gen, device="cuda")]
+        return q
+
+    def same(label: str, q, base, gidx, valid, metric, row_mask=None) -> None:
+        got = bs.rescore_groups(q, base, gidx, valid, metric, row_mask)
+        want = bs.rescore_groups_reference(q, base, gidx, valid, metric, row_mask)
+        finite = torch.isfinite(want)
+        check(torch.equal(finite, torch.isfinite(got)), f"rescore {label}: +inf positions differ")
+        err = float((got[finite] - want[finite]).abs().max()) if bool(finite.any()) else 0.0
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        check(torch.equal(got, want), f"rescore {label}: kernel != twin (max |diff| {err!r})")
+
+    for b in (1, B_RESCORE, 64):
+        q = queries(codes, b)
+        minima = bs.block_minima(q, codes, cos, n)
+        gidx = bs.select_groups(minima, k)
+        kg = gidx.shape[1]
+        label = f"int8 B={b}"
+        same(f"{label} COSINE", q, codes, gidx, n, cos)
+        if b == B_RESCORE:
+            for metric in (DistanceMetric.L2, DistanceMetric.SQUARED_L2, DistanceMetric.DOT, cos):
+                same(f"{label} {metric.value} valid<N masked", q, codes, gidx, n - 1000, metric, mask)
+
+        def gathered():
+            return bs.finish_groups(minima, k, bs._gathered_candidates(q, codes, n, cos, None), d)
+
+        def routed():
+            return bs.finish_groups(minima, k, lambda s, e, g, pos: bs.rescore_groups(q[s:e], codes, g, n, cos), 1)
+
+        before = bs.rescore_groups.launches
+        bs._finish_from_minima(minima, q, codes, n, cos, k)
+        check(bs.rescore_groups.launches == before + 1, f"rescore {label}: the finish did not launch the kernel once")
+        got, want = routed(), gathered()
+        check(all(torch.equal(g, w) for g, w in zip(got, want)), f"rescore {label}: the finish's routes differ")
+        iters = 20 if b == 1 else 10
+        ms = in_turns([lambda: bs.rescore_groups_reference(q, codes, gidx, n, cos),
+                       lambda: bs.rescore_groups(q, codes, gidx, n, cos)], iters)
+        fin = in_turns([gathered, routed], iters)
+        lim, by = rescore_bound(b, kg, d)
+        out[label] = {"ms": ms[1], "plain_ms": ms[0], "bound_ms": lim, "bound_by": by,
+                      "finish_ms": fin[1], "gathered_finish_ms": fin[0], "library_ms": None}
+        print(
+            f"[times] rescore {n}x{d} {label} COSINE k={k} (kernel == twin): kernel {ms[1]!r} ms, "
+            f"bound {lim!r} ms ({by}), {100 * lim / ms[1]:.1f}% of bound; twin (the gathered float64 "
+            f"path it replaced) {ms[0]!r} ms; finish on its route {fin[1]!r} ms, gathered {fin[0]!r} ms "
+            f"| {card}",
+            flush=True,
+        )
+    del codes, mask
+    u8 = random_codes(gen, 1_000_000, d, torch.uint8)
+    q = queries(u8, B_RESCORE)
+    gidx = bs.select_groups(bs.block_minima(q, u8, cos, u8.shape[0]), k)
+    for metric in (DistanceMetric.L2, DistanceMetric.SQUARED_L2, DistanceMetric.DOT, cos):
+        same(f"u8 B={B_RESCORE} {metric.value}", q, u8, gidx, u8.shape[0], metric)
+    del u8
+    out["timing_launches"] = bs.rescore_groups.launches - launches
+    return out
+
+
 def phase_main(card: str):
     import sqlite_vector_tpu_torch as svt
-    from sqlite_vector_tpu_torch.ops.block_scan import block_minima
+    from sqlite_vector_tpu_torch.ops import block_scan
+    from sqlite_vector_tpu_torch.ops.block_scan import block_minima, rescore_groups
     from sqlite_vector_tpu_torch.ops.distance import pairwise_distance
     from sqlite_vector_tpu_torch.ops.quantize import quantize_device
     from sqlite_vector_tpu_torch.ops.scan import scan_topk
@@ -717,6 +844,7 @@ def phase_main(card: str):
     check(launches["wgmma"] > 0, "exact search did not launch K1")
     check(block_minima.body_launches == {"wgmma": launches["wgmma"], "mma": 0, "simt": 0},
           f"exact search left K1's wgmma body: {block_minima.body_launches}")
+    check(rescore_groups.launches == 0, "exact float search launched the rescore kernel")
     vecs = ds._vectors[: len(ds)]
     Qd = torch.from_numpy(Q).cuda()
     oracle = pairwise_distance(Qd, vecs, svt.DistanceMetric.L2).cpu().numpy()
@@ -747,6 +875,12 @@ def phase_main(card: str):
     check(launches["mma"] > 0, "quantized search did not launch K1")
     check(block_minima.body_launches == {"wgmma": 0, "mma": launches["mma"], "simt": 0},
           f"quantized search left K1's mma.sync body: {block_minima.body_launches}")
+    # each K1 scan's finish rescores with the rescore kernel in one query
+    # chunk: the [B, K*128] distances are within the finish's element bound
+    check(B_MAIN * K * 128 <= block_scan._FINISH_CHUNK_ELEMS, "the main finish needs query chunks")
+    launches["rescore"] = rescore_groups.launches
+    check(launches["rescore"] == launches["mma"],
+          f"quantized search launched the rescore kernel {launches['rescore']} times, K1 {launches['mma']}")
     codes = ds._quant.codes
     qq = quantize_device(Qd, scale, offset, qt)
     gv, gi = scan_topk(qq, codes, svt.DistanceMetric.L2, K)
@@ -759,7 +893,8 @@ def phase_main(card: str):
         f"[main] quantize() -> {qt.value} scale={float(scale)!r} offset={float(offset)!r} "
         f"in {t_quant:.2f} s; search(Q[{B_MAIN}], {K}, exact=False) ids and distances "
         f"equal to the plain integer-domain scan of the same codes; recall@{K} vs exact = "
-        f"{recall!r}; K1 launches {launches['mma']}, all on its mma.sync body | {card}",
+        f"{recall!r}; K1 launches {launches['mma']}, all on its mma.sync body; rescore kernel "
+        f"launches {launches['rescore']} | {card}",
         flush=True,
     )
     return ds, Q, ids_e, launches
@@ -1438,13 +1573,14 @@ def counts():
 
 
 def zero_counts() -> None:
-    from sqlite_vector_tpu_torch.ops.block_scan import block_minima
+    from sqlite_vector_tpu_torch.ops.block_scan import block_minima, rescore_groups
     from sqlite_vector_tpu_torch.ops.int4_scan import int4_block_minima
 
     for fn in (block_minima, int4_block_minima):
         fn.launches = 0
         fn.body_launches = {body: 0 for body in fn.body_launches}
         fn.streamed_launches = 0
+    rescore_groups.launches = 0
 
 
 def phase_persist(card: str, ds, Q) -> dict:
@@ -3306,20 +3442,22 @@ def main() -> int:
     t0 = time.perf_counter()
     load_library()
     print(
-        f"[build] K1 (three bodies) and K2 (three) built from csrc/ and loaded in {time.perf_counter() - t0:.1f} s "
+        f"[build] K1 (three bodies), K2 (three) and the rescore kernel built from csrc/ and loaded in "
+        f"{time.perf_counter() - t0:.1f} s "
         f"-> {library_path().name}",
         flush=True,
     )
     for name, said in ptxas_report().items():
         print(f"[build] ptxas {name}: {said}", flush=True)
-        if "mma_minima_kernel" in name or "l1_minima_kernel" in name:
-            # K1's and K2's tensor-core bodies (wgmma_minima_kernel too) and
-            # K1's L1 body
+        if any(k in name for k in ("mma_minima_kernel", "l1_minima_kernel", "rescore_groups_kernel")):
+            # K1's and K2's tensor-core bodies (wgmma_minima_kernel too),
+            # K1's L1 body and the rescore kernel
             check(" 0 bytes spill stores" in f" {said}", f"{name} spills: {said}")
     if cards:
         return main_cards(card)
     max_err, masked_err, nonfinite_err = phase(phase_kernel, card)
     k2_err, k2_masked_err = phase(phase_kernel_int4, card)
+    rescore = phase(phase_rescore, card)
     ds, Q, ids_e, launches = phase(phase_main, card)
     k1 = phase(phase_times, card, ds, Q)  # reads the int8 state
     other_launches = phase(phase_datasets, card, ds, Q)
@@ -3427,6 +3565,18 @@ def main() -> int:
             "main_shape": f"bf16 d={DIM_WIDE4} B={B_MAIN}",
             "cuda_core_body": "sqlite_vector_tpu_torch/csrc/int4_minima.cu",
             "by_shape": {k: v for k, v in wide_k2.items() if k not in ("max_abs_err", "launches")},
+        },
+        {
+            "name": "rescore_groups",
+            "route": "cuda",
+            "source": "sqlite_vector_tpu_torch/csrc/rescore_codes.cu",
+            "replaces": None,
+            "launches": launches["rescore"],
+            "timing_launches": rescore.pop("timing_launches"),
+            "max_abs_err": rescore.pop("max_abs_err"),
+            **rescore[f"int8 B={B_RESCORE}"],
+            "main_shape": f"int8 B={B_RESCORE}",
+            "by_shape": rescore,
         },
     ], "host_storage": {k: host[k] for k in ("pinned_gbps", "stream_pass_s", "tile_sweep_s", "thread_sweep_s")},
         "frontends": {k: v for k, v in fe.items() if k != "sql_launches"},

@@ -61,6 +61,9 @@ _SIGNATURES = {
     # None: the tile resident), whether the tile is streamed, the zeroed
     # work counters, stream (K2's wgmma body)
     "svt_int4_block_minima_wgmma": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P),
+    # queries, base, gidx, mask (or None), out, B, kg, N, d, valid, dtype,
+    # metric, the bytes a lane loads, stream (the int8/u8 finish's rescore)
+    "svt_rescore_groups": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

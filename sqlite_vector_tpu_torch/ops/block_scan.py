@@ -1,11 +1,16 @@
-"""Fused block-minima scan + exact finish (K1 and its plain twin).
+"""Fused block-minima scan + exact finish (K1, the rescore kernel and
+their plain twins).
 
 Counterpart of sqlite_vector_tpu/ops/pallas_scan.py. Stage 1 makes one
 pass over the matrix and keeps only per-128-row distance minima [B, N/128];
-the [B, N] distance matrix never exists. Stage 2 (torch ops) selects the k
-best groups (exact: if a true top-k row's group were not selected, k groups
-would each hold a row smaller than it), gathers their k*128 rows, rescores
-them exactly and takes the final top-k, ties going to the earliest row.
+the [B, N] distance matrix never exists. Stage 2 selects the k best groups
+(exact: if a true top-k row's group were not selected, k groups would each
+hold a row smaller than it), rescores their k*128 rows exactly and takes
+the final top-k, ties going to the earliest row. The rescore of u8/i8
+codes under the dot-family metrics is a hand-written kernel that reads the
+selected groups in place (csrc/rescore_codes.cu, rescore_groups, with
+rescore_groups_reference its twin); other rows are gathered and rescored
+with torch ops (gathered_score). Selection and top-k are torch ops.
 
 Stage 1 has two implementations of one contract:
   - block_minima_reference: plain PyTorch, the definition of the output;
@@ -96,8 +101,9 @@ _MMA_METRICS = (
 
 # bound on the twin's [B, rows] distance intermediates (elements)
 _TWIN_CHUNK_ELEMS = 1 << 26
-# bound on the finish's gathered candidate rows (elements); the rescore's
-# widened temporaries are a small multiple of it (ops/rerank.py)
+# bound on the finish's gathered candidate rows and its [B, k*128] distances
+# (elements); a gathered rescore's widened temporaries are a small multiple
+# of it (ops/rerank.py)
 _FINISH_CHUNK_ELEMS = 1 << 26
 
 
@@ -372,26 +378,36 @@ block_minima.body_launches = {"wgmma": 0, "mma": 0, "simt": 0}
 block_minima.streamed_launches = 0
 
 
+def select_groups(minima: torch.Tensor, k: int) -> torch.Tensor:
+    """The finish's selection over block minima [B, G]: the min(k, G) best
+    groups of each query (ties to the earlier group), [B, kg] int64 in
+    ascending group order, so that candidates stay in global row order
+    for tie parity."""
+    kg = min(k, minima.shape[1])
+    gidx = torch.sort(minima, dim=-1, stable=True).indices[:, :kg]
+    return torch.sort(gidx, dim=-1).values
+
+
 def finish_groups(
     minima: torch.Tensor,
-    n: int,
-    valid: int,
     k: int,
-    dim: int,
-    rescore,
-    row_mask: torch.Tensor | None = None,
+    score,
+    row_elems: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The finish over block minima [B, G]: select the k best groups per
-    query (ties to the earlier group), rescore their k*128 rows, take the
-    final top-k (ties to the earlier row). rescore(s, e, rows) returns the
-    rank-ready [e - s, C] distances of queries s:e to rows [e - s, C]
-    (positions clamped into [0, n)). Returns (values, positions) [B, k],
-    +inf / -1 past the candidates, at rows >= valid and at rows where
-    row_mask ([n] bool, optional) is False.
+    query (select_groups), score their k*128 rows, take the final top-k
+    (ties to the earlier row). score(s, e, gidx, pos) returns the
+    rank-ready [e - s, kg*128] distances of queries s:e to the rows pos
+    [e - s, kg*128] of their groups gidx [e - s, kg] (pos[., j*128 + r] is
+    gidx[., j]*128 + r, unclamped), +inf at rows the finish must not
+    return. Returns (values, positions) [B, k], +inf / -1 past the
+    candidates and where score reads +inf.
 
-    The rescore runs in chunks of queries, and each query chunk's
-    candidates in slices, so that no gathered [queries, candidates, dim]
-    block exceeds _FINISH_CHUNK_ELEMS elements whatever B and k are."""
+    The queries go to score in chunks that keep the [queries, kg*128]
+    distances, and a one-group block of row_elems elements a candidate
+    (what score holds per candidate: d for a gather, 1 for the rescore
+    kernel's output), within _FINISH_CHUNK_ELEMS elements whatever B and k
+    are."""
     b = minima.shape[0]
     kg = min(k, minima.shape[1])
     dev = minima.device
@@ -400,32 +416,178 @@ def finish_groups(
             torch.full((b, k), torch.inf, device=dev),
             torch.full((b, k), -1, dtype=torch.int64, device=dev),
         )
-    # stable: among equal minima the earlier group is taken; then ascending
-    # group order so candidates stay in global row order for tie parity
-    gidx = torch.sort(minima, dim=-1, stable=True).indices[:, :kg]
-    gidx = torch.sort(gidx, dim=-1).values
+    gidx = select_groups(minima, k)
     n_cand = kg * BLOCK
-    # queries per chunk bound the [bq, n_cand] distances and a one-group
-    # slice; candidates per slice then fill the rest of the bound
-    bq = max(1, min(b, _FINISH_CHUNK_ELEMS // n_cand, _FINISH_CHUNK_ELEMS // (BLOCK * dim)))
-    cs = max(1, _FINISH_CHUNK_ELEMS // (bq * dim))
+    bq = max(1, min(b, _FINISH_CHUNK_ELEMS // n_cand, _FINISH_CHUNK_ELEMS // (BLOCK * row_elems)))
     lane = torch.arange(BLOCK, device=dev)
     vals, idx = [], []
     for s in range(0, b, bq):
         e = min(s + bq, b)
         pos = (gidx[s:e, :, None] * BLOCK + lane).reshape(e - s, n_cand)
+        v, cpos = topk_ascending(score(s, e, gidx[s:e], pos), k)  # padded with +inf / -1 past n_cand
+        vals.append(v)
+        idx.append(torch.where(cpos >= 0, torch.gather(pos, 1, cpos.clamp(min=0)), -1))
+    return torch.cat(vals), torch.cat(idx)
+
+
+def gathered_score(
+    n: int,
+    valid: int,
+    dim: int,
+    rescore,
+    row_mask: torch.Tensor | None = None,
+):
+    """finish_groups' score by gathering: rescore(s, e, rows) returns the
+    rank-ready [e - s, C] distances of queries s:e to rows [e - s, C]
+    (positions clamped into [0, n)); the candidates go to it in slices
+    that keep each gathered [queries, C, dim] block within
+    _FINISH_CHUNK_ELEMS elements, and rows >= valid, >= n and where
+    row_mask ([n] bool, optional) is False read +inf."""
+
+    def score(s: int, e: int, gidx: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+        cs = max(1, _FINISH_CHUNK_ELEMS // ((e - s) * dim))
         d = torch.cat(
-            [rescore(s, e, pos[:, c : c + cs].clamp(0, n - 1)) for c in range(0, n_cand, cs)],
+            [rescore(s, e, pos[:, c : c + cs].clamp(0, n - 1)) for c in range(0, pos.shape[1], cs)],
             dim=1,
         )
         keep = (pos < valid) & (pos < n)
         if row_mask is not None:
             keep &= row_mask[pos.clamp(0, n - 1)]
-        d = torch.where(keep, d, torch.inf)
-        v, cpos = topk_ascending(d, k)  # padded with +inf / -1 past n_cand
-        vals.append(v)
-        idx.append(torch.where(cpos >= 0, torch.gather(pos, 1, cpos.clamp(min=0)), -1))
-    return torch.cat(vals), torch.cat(idx)
+        return torch.where(keep, d, torch.inf)
+
+    return score
+
+
+def _gathered_candidates(
+    queries: torch.Tensor,
+    base: torch.Tensor,
+    valid: int,
+    metric: DistanceMetric,
+    row_mask: torch.Tensor | None,
+):
+    """gathered_score over base's rows with candidate_distances, made
+    rank-ready: the finish's rescore of every row the kernel does not take,
+    and the kernel's twin."""
+    n, dim = base.shape
+    return gathered_score(
+        n, valid, dim,
+        lambda s, e, rows: _rank_ready(candidate_distances(queries[s:e], base[rows], metric), metric),
+        row_mask,
+    )
+
+
+def rescore_takes(dtype: torch.dtype, metric: DistanceMetric) -> bool:
+    """Whether a finish rescores with rescore_groups: u8/i8 codes under
+    the dot-family metrics (L1 codes, float rows and int4 gather)."""
+    return dtype in (torch.uint8, torch.int8) and metric in _MMA_METRICS
+
+
+def rescore_width(queries: torch.Tensor, base: torch.Tensor) -> int:
+    """The bytes a lane of the rescore kernel loads at once: 16, else 4,
+    else 1, the widest that divides d and both tensors' start."""
+    d = base.shape[1]
+    return next(
+        w for w in (16, 4, 1)
+        if d % w == 0 and queries.data_ptr() % w == 0 and base.data_ptr() % w == 0
+    )
+
+
+def rescore_groups_reference(
+    queries: torch.Tensor,
+    base: torch.Tensor,
+    gidx: torch.Tensor,
+    valid: int,
+    metric: DistanceMetric,
+    row_mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Plain-PyTorch twin of the rescore kernel: the finish's gathered
+    route (_gathered_candidates) over the groups' rows, so
+    candidate_distances' exact int32-wrapped integer distances (float64
+    products), _rank_ready and the mask of dead rows. It takes all the
+    queries at once; finish_groups chunks them for it."""
+    pos = (gidx[:, :, None] * BLOCK + torch.arange(BLOCK, device=gidx.device)).reshape(gidx.shape[0], -1)
+    return _gathered_candidates(queries, base, valid, metric, row_mask)(0, queries.shape[0], gidx, pos)
+
+
+def rescore_groups(
+    queries: torch.Tensor,
+    base: torch.Tensor,
+    gidx: torch.Tensor,
+    valid: int,
+    metric: DistanceMetric,
+    row_mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Rank-ready float32 distances [B, kg*128] of queries [B, d] to the
+    rows of their groups gidx [B, kg] (int64 in [0, ceil(N/128)); column
+    j*128 + r holds row gidx[b, j]*128 + r) of the codes base [N, d] (u8
+    or i8, the queries' type), under a dot-family metric (L2 squared).
+    Rows >= valid, past N and where row_mask ([N] bool, optional) is False
+    read +inf.
+
+    CPU tensors run rescore_groups_reference; CUDA tensors launch the
+    rescore kernel (csrc/rescore_codes.cu) and count the launch in
+    `rescore_groups.launches`. Its span is `ops.rescore` (range
+    `svt.ops.rescore:<B>`)."""
+    if queries.dim() != 2 or base.dim() != 2 or gidx.dim() != 2:
+        raise ValueError("rescore_groups: queries, base and gidx must be 2-D")
+    if queries.dtype != base.dtype or not rescore_takes(base.dtype, metric):
+        raise ValueError(
+            "rescore_groups: queries and base must share uint8 or int8 under L2, "
+            f"SQUARED_L2, COSINE or DOT (got {queries.dtype}, {base.dtype}, {metric})"
+        )
+    if queries.shape[1] != base.shape[1] or gidx.shape[0] != queries.shape[0]:
+        raise ValueError("rescore_groups: queries [B, d], base [N, d] and gidx [B, kg] disagree")
+    if gidx.dtype != torch.int64:
+        raise ValueError("rescore_groups: gidx must be int64")
+    if not (queries.device == base.device == gidx.device):
+        raise ValueError("rescore_groups: queries, base and gidx on different devices")
+    n = base.shape[0]
+    if not (0 <= valid <= n):
+        raise ValueError(f"rescore_groups: valid={valid} outside [0, N]")
+    check_row_mask(row_mask, n, base.device, "rescore_groups")
+    b = queries.shape[0]
+    with annotate("ops.rescore", tag=b, B=b):
+        if base.device.type == "cpu":
+            return rescore_groups_reference(queries, base, gidx, valid, metric, row_mask)
+        return _launch_rescore(queries, base, gidx, valid, metric, row_mask)
+
+
+def _launch_rescore(
+    queries: torch.Tensor,
+    base: torch.Tensor,
+    gidx: torch.Tensor,
+    valid: int,
+    metric: DistanceMetric,
+    row_mask: torch.Tensor | None,
+) -> torch.Tensor:
+    dev = base.device
+    if dev.type != "cuda":
+        raise ValueError(f"rescore_groups: unsupported device {dev}")
+    tensors = (queries, base, gidx) if row_mask is None else (queries, base, gidx, row_mask)
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("rescore_groups: the kernel needs contiguous tensors")
+    (b, d), n, kg = queries.shape, base.shape[0], gidx.shape[1]
+    if n >= 2**31 or b * kg >= 2**31:
+        raise ValueError("rescore_groups: N and B * kg must fit int32")
+    out = torch.empty((b, kg * BLOCK), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    from sqlite_vector_tpu_torch.ops._build import load_library
+
+    with torch.cuda.device(dev):
+        rc = load_library().svt_rescore_groups(
+            queries.data_ptr(), base.data_ptr(), gidx.data_ptr(),
+            None if row_mask is None else row_mask.data_ptr(), out.data_ptr(),
+            b, kg, n, d, valid, _DTYPE_CODE[base.dtype], _METRIC_CODE[metric],
+            rescore_width(queries, base), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"rescore_groups kernel launch failed: error {rc}")
+    rescore_groups.launches += 1
+    return out
+
+
+rescore_groups.launches = 0
 
 
 def _finish_from_minima(
@@ -438,14 +600,20 @@ def _finish_from_minima(
     row_mask: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k from block minima: select k groups, rescore k*128 rows
-    exactly (finish_groups), then L2's sqrt and the near-zero snap."""
-    vals, idx = finish_groups(
-        minima, base.shape[0], valid, k, base.shape[1],
-        lambda s, e, rows: _rank_ready(
-            candidate_distances(queries[s:e], base[rows], metric), metric
-        ),
-        row_mask,
-    )
+    exactly (finish_groups: u8/i8 codes under the dot family with
+    rescore_groups, other rows gathered), then L2's sqrt and the near-zero
+    snap."""
+    if rescore_takes(base.dtype, metric):
+        def score(s, e, gidx, pos):
+            return rescore_groups(queries[s:e], base, gidx, valid, metric, row_mask)
+
+        # the kernel holds one output element a candidate; its CPU twin
+        # gathers whole rows
+        row_elems = base.shape[1] if base.device.type == "cpu" else 1
+    else:
+        score = _gathered_candidates(queries, base, valid, metric, row_mask)
+        row_elems = base.shape[1]
+    vals, idx = finish_groups(minima, k, score, row_elems)
     if metric is DistanceMetric.L2:
         vals = sqrt_rn(vals)
     vals = torch.where(vals.abs() <= NEARLY_ZERO, 0.0, vals)

@@ -44,6 +44,7 @@ from sqlite_vector_tpu_torch.ops.block_scan import (
     _METRIC_CODE,
     check_row_mask,
     finish_groups,
+    gathered_score,
     tma_ready,
 )
 from sqlite_vector_tpu_torch.ops.distance import sqrt_rn
@@ -483,5 +484,5 @@ def _finish_int4(
         )
         return torch.where(torch.isnan(d), torch.inf, d)
 
-    vals, idx = finish_groups(minima, packed.shape[0], valid, k, dim, rescore, row_mask)
+    vals, idx = finish_groups(minima, k, gathered_score(packed.shape[0], valid, dim, rescore, row_mask), dim)
     return vals, torch.where(torch.isposinf(vals), -1, idx)

@@ -237,6 +237,173 @@ def test_block_minima_rejects_what_the_kernel_does_not_take():
 
 
 
+# -- the int8/u8 finish's rescore (rescore_groups) ---------------------------
+
+RESCORE_METRICS = ["L2", "SQUARED_L2", "COSINE", "DOT"]
+
+
+@pytest.mark.parametrize("vtype", ["FLOAT32", "FLOATB16", "UINT8", "INT8"])
+@pytest.mark.parametrize("metric", METRICS)
+def test_finish_rescores_codes_under_the_dot_family_with_rescore_groups(monkeypatch, vtype, metric):
+    """u8/i8 codes under L2, SQUARED_L2, COSINE and DOT take rescore_groups
+    (one call for the one query chunk); L1 codes and float rows keep the
+    gathered rescore; the result is the same either way."""
+    q, base = scan_case(vtype, 300 + METRICS.index(metric))
+    tq, tb, tm = from_numpy(q), from_numpy(base), DistanceMetric(metric)
+    calls = []
+    real = block_scan.rescore_groups
+
+    def spy(*a, **kw):
+        calls.append(a[0].shape[0])
+        return real(*a, **kw)
+
+    monkeypatch.setattr(block_scan, "rescore_groups", spy)
+    got = block_scan_topk(tq, tb, tm, 7, valid_count=690)
+    takes = vtype in ("UINT8", "INT8") and metric != "L1"
+    assert calls == ([3] if takes else [])
+    monkeypatch.setattr(block_scan, "rescore_takes", lambda dtype, m: False)
+    want = block_scan_topk(tq, tb, tm, 7, valid_count=690)
+    assert len(calls) == len(set(calls)) and all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_int4_finish_keeps_the_gathered_rescore(monkeypatch):
+    from sqlite_vector_tpu_torch.ops.int4_scan import int4_block_scan_topk
+    from sqlite_vector_tpu_torch.ops.quantize4 import quantize4_device
+
+    def fail(*a, **kw):
+        raise AssertionError("int4 rescored with rescore_groups")
+
+    monkeypatch.setattr(block_scan, "rescore_groups", fail)
+    x = torch.from_numpy(np.random.default_rng(8).standard_normal((700, 32)).astype(np.float32))
+    packed, alpha, csq = quantize4_device(x)[:3]
+    for metric in ("L2", "COSINE", "DOT"):
+        int4_block_scan_topk(x[:3], packed, alpha, csq, DistanceMetric(metric), 5, dim=32)
+
+
+def test_cpu_tensors_never_launch_the_rescore_kernel(monkeypatch):
+    from sqlite_vector_tpu_torch.ops import _build
+
+    def fail(*a, **kw):
+        raise AssertionError("a kernel launch for CPU tensors")
+
+    monkeypatch.setattr(block_scan, "_launch_rescore", fail)
+    monkeypatch.setattr(_build, "load_library", fail)
+    before = block_scan.rescore_groups.launches
+    for vtype in ("UINT8", "INT8"):
+        q, base = scan_case(vtype, 40)
+        for metric in RESCORE_METRICS:
+            block_scan_topk(from_numpy(q), from_numpy(base), DistanceMetric(metric), 5)
+    assert block_scan.rescore_groups.launches == before
+
+
+def rescore_case(dtype, n, d, b, seed):
+    """numpy codes over their whole range with rows at the extremes (all
+    top, all bottom, alternating), a zero row and a duplicate; query 0 a
+    self-match, query 1 zero, query 2 at the top."""
+    rng = np.random.default_rng(seed)
+    info = np.iinfo(dtype)
+    base = rng.integers(info.min, info.max + 1, (n, d)).astype(dtype)
+    q = rng.integers(info.min, info.max + 1, (b, d)).astype(dtype)
+    base[1], base[2], base[3] = info.max, info.min, 0
+    base[4, ::2], base[4, 1::2] = info.min, info.max
+    base[n - 3] = base[10]
+    q[0] = base[10]
+    q[1:2] = 0
+    q[2:3] = info.max
+    return torch.from_numpy(q), torch.from_numpy(base)
+
+
+def gathered_rescore(q, base, gidx, valid, metric, row_mask=None):
+    """The gathered path, written out as the finish ran it before the
+    kernel: rows gathered whole, candidate_distances, _rank_ready, keep."""
+    n = base.shape[0]
+    pos = (gidx[:, :, None] * BLOCK + torch.arange(BLOCK)).reshape(gidx.shape[0], -1)
+    d = block_scan._rank_ready(block_scan.candidate_distances(q, base[pos.clamp(0, n - 1)], metric), metric)
+    keep = (pos < valid) & (pos < n)
+    if row_mask is not None:
+        keep &= row_mask[pos.clamp(0, n - 1)]
+    return torch.where(keep, d, torch.inf)
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.int8], ids=["u8", "i8"])
+@pytest.mark.parametrize("metric", RESCORE_METRICS)
+@pytest.mark.parametrize("d", [5, 95, 384, 768])
+@pytest.mark.parametrize("b", [1, 2, 32, 62, 65])
+def test_rescore_twin_equals_the_gathered_path(dtype, metric, d, b):
+    """rescore_groups on CPU tensors (its twin) equals the per-row values of
+    the plain [B, N] integer distances, bit for bit, over N = 1,000 (a
+    ragged last group), three groups a query (the first and the last among
+    them), unmasked and with valid < N and a row mask; the latter also
+    equals the gathered path."""
+    n = 1000
+    q, base = rescore_case(dtype, n, d, b, seed=d + b)
+    gen = torch.Generator().manual_seed(b)
+    gidx = torch.stack([torch.tensor([0, 7, 1 + int(torch.randint(6, (1,), generator=gen))]) for _ in range(b)])
+    gidx = torch.sort(gidx, dim=-1).values
+    mask = np.random.default_rng(d).random(n) < 0.5
+    tm = DistanceMetric(metric)
+    pos = (gidx[:, :, None] * BLOCK + torch.arange(BLOCK)).reshape(b, -1)
+    for valid, row_mask in ((n, None), (n - 77, mask)):
+        tmask = None if row_mask is None else torch.from_numpy(row_mask)
+        got = block_scan.rescore_groups(q, base, gidx, valid, tm, tmask)
+        if row_mask is not None:
+            assert torch.equal(got, gathered_rescore(q, base, gidx, valid, tm, tmask))
+        plain = per_row(q, base, tm, valid, np.ones(n, bool) if row_mask is None else row_mask)
+        assert torch.equal(got, torch.gather(plain, 1, pos))
+
+
+@pytest.mark.parametrize("d", [16513, 16520])
+def test_rescore_twin_wraps_int32_terms_of_wide_u8_codes(d):
+    """u8 codes near the top past d = 16,512: q_sq + c_sq passes 2^31 and
+    wraps, and the squared L2 is still exact."""
+    rng = np.random.default_rng(d)
+    base = torch.from_numpy(rng.integers(250, 256, (300, d)).astype(np.uint8))
+    q = torch.full((2, d), 255, dtype=torch.uint8)
+    q[1] = base[7]
+    gidx = torch.tensor([[0, 2], [0, 1]])
+    assert 2 * int((q[0].long() ** 2).sum()) >= 2**31
+    for metric in RESCORE_METRICS:
+        tm = DistanceMetric(metric)
+        got = block_scan.rescore_groups(q, base, gidx, 300, tm)
+        assert torch.equal(got, gathered_rescore(q, base, gidx, 300, tm))
+    got = block_scan.rescore_groups(q, base, gidx, 300, DistanceMetric.SQUARED_L2)
+    assert torch.equal(got[0, :128], ((q[0].long() - base[:128].long()) ** 2).sum(-1).float())
+    assert float(got[1, 7]) == 0.0
+
+
+def test_rescore_width_is_the_widest_word_d_and_both_starts_allow():
+    q = torch.zeros((2, 64), dtype=torch.int8)
+    flat = torch.zeros(64 * 10 + 16, dtype=torch.int8)
+    assert flat.data_ptr() % 16 == 0
+    assert block_scan.rescore_width(q, flat[:640].view(10, 64)) == 16
+    assert block_scan.rescore_width(q, flat[4:644].view(10, 64)) == 4
+    assert block_scan.rescore_width(q, flat[1:641].view(10, 64)) == 1
+    assert block_scan.rescore_width(q[:, :60].contiguous(), flat[:600].view(10, 60)) == 4
+    assert block_scan.rescore_width(q[:, :5].contiguous(), flat[:50].view(10, 5)) == 1
+
+
+def test_rescore_groups_rejects_what_it_does_not_take():
+    q = torch.zeros((2, 8), dtype=torch.int8)
+    base = torch.zeros((300, 8), dtype=torch.int8)
+    gidx = torch.tensor([[0, 1], [1, 2]])
+    dot = DistanceMetric.DOT
+    block_scan.rescore_groups(q, base, gidx, 300, dot)
+    for args in (
+        (q.float(), base.float(), gidx, 300, dot),
+        (q, base.to(torch.uint8), gidx, 300, dot),
+        (q, base, gidx, 300, DistanceMetric.L1),
+        (q[:, :4], base, gidx, 300, dot),
+        (q[:1], base, gidx, 300, dot),
+        (q, base, gidx.int(), 300, dot),
+        (q, base, gidx[0], 300, dot),
+        (q, base, gidx, 301, dot),
+    ):
+        with pytest.raises(ValueError):
+            block_scan.rescore_groups(*args)
+    with pytest.raises(ValueError):
+        block_scan.rescore_groups(q, base, gidx, 300, dot, torch.ones(299, dtype=torch.bool))
+
+
 # -- row masks ---------------------------------------------------------------
 
 MASKS = ["half", "dead-group", "all-masked", "fewer-than-k"]
@@ -637,3 +804,22 @@ def test_k2_bound_counts_packed_codes_and_scales():
     got, side = smoke.k2_bound(64, 1_000_000, 384)
     nbytes = 1_000_000 * (192 + 8) + 64 * (384 + 4) + 64 * 7813 * 4
     assert side == "bytes" and got == pytest.approx(nbytes / 3.35e12 * 1e3, rel=1e-12)
+
+
+@pytest.mark.parametrize(
+    "b,kg,ms",
+    [
+        # B=32, k=100 over 768-wide codes: 315 MB of codes and 1.6 MB of
+        # distances at 3.35 TB/s, against 78.6 M dp4a at 16.75 T/s
+        (32, 100, 0.09440638089552239),
+        (1, 100, 0.0029501994029850747),
+        (64, 100, 0.18881276179104478),
+    ],
+)
+def test_rescore_bound_is_the_bytes_of_the_selected_groups(b, kg, ms):
+    smoke = _chip_smoke()
+    got, side = smoke.rescore_bound(b, kg, 768)
+    assert side == "bytes" and got == pytest.approx(ms, rel=1e-12)
+    nbytes = b * 768 + b * kg * 8 + b * kg * 128 * (768 + 4)
+    assert got == pytest.approx(nbytes / 3.35e12 * 1e3)
+    assert 2 * (b * kg * 128 * 768 / 4) / 16.75e12 * 1e3 < got

@@ -1,8 +1,9 @@
 """The port's CUDA kernels on the card: K1 (csrc/block_minima_wgmma.cu,
-csrc/block_minima_mma.cu and csrc/block_minima.cu) and K2
+csrc/block_minima_mma.cu and csrc/block_minima.cu), K2
 (csrc/int4_minima_wgmma.cu, csrc/int4_minima_mma.cu and
-csrc/int4_minima.cu), unmasked and with row masks, and the searches that
-launch them.
+csrc/int4_minima.cu) and the int8/u8 finish's rescore
+(csrc/rescore_codes.cu), unmasked and with row masks, and the searches
+that launch them.
 
 Every test here needs a CUDA device and skips without one. The file imports
 neither jax nor the JAX package, so on a machine without jax it runs on its
@@ -394,6 +395,7 @@ def test_masked_searches_launch_the_kernels_and_match_cpu(cuda, metric, monkeypa
                         raise AssertionError("plain route on a CUDA tensor")
 
                     for mod, name in ((scan, "scan_topk"), (block_scan, "block_minima_reference"),
+                                      (block_scan, "rescore_groups_reference"),
                                       (int4_scan, "int4_block_minima_reference")):
                         monkeypatch.setattr(mod, name, fail)
                     k1, k2 = block_minima.launches, int4_block_minima.launches
@@ -1254,3 +1256,162 @@ def test_exact_search_reads_wide_bfloat16_self_matches_at_zero(cuda):
     np.testing.assert_array_equal(ids[:, 0], np.asarray(ds.ids)[pick])
     np.testing.assert_array_equal(dist[:, 0], 0.0)
     assert bool((dist[:, 1] > 100.0).all())
+
+
+# -- the int8/u8 finish's rescore (csrc/rescore_codes.cu) --------------------
+
+RESCORE_METRICS = [DistanceMetric.L2, DistanceMetric.SQUARED_L2, DistanceMetric.COSINE, DistanceMetric.DOT]
+
+
+def rescore_case(dtype, n, d, b, device, seed=0):
+    """Codes over their whole range, rows at the extremes (every code at
+    the top, every code at the bottom, both alternating), a zero row and a
+    duplicate row; query 0 a self-match, query 1 zero, query 2 at the top."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    lo, hi = (0, 255) if dtype is torch.uint8 else (-128, 127)
+    base = torch.randint(lo, hi + 1, (n, d), generator=gen, device=device, dtype=torch.int32).to(dtype)
+    q = torch.randint(lo, hi + 1, (b, d), generator=gen, device=device, dtype=torch.int32).to(dtype)
+    base[1], base[2], base[3] = hi, lo, 0
+    base[4, ::2], base[4, 1::2] = lo, hi
+    base[n - 3] = base[10]
+    q[0] = base[10]
+    q[1:2] = 0
+    q[2:3] = hi
+    return q, base
+
+
+def group_choice(b, groups, kg, device, seed=0):
+    """[b, kg] ascending int64 groups, each query's holding the first group
+    (the extreme rows) and the last (ragged where N is not a multiple of
+    128), the rest drawn."""
+    gen = torch.Generator().manual_seed(seed)
+    picks = [torch.cat([torch.tensor([0, groups - 1]), 1 + torch.randperm(groups - 2, generator=gen)[: kg - 2]])
+             for _ in range(b)]
+    return torch.sort(torch.stack(picks), dim=-1).values.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int8], ids=str)
+@pytest.mark.parametrize("metric", RESCORE_METRICS, ids=lambda m: m.value)
+@pytest.mark.parametrize("d", [5, 95, 384, 768])  # 1-, 1-, 16- and 16-byte words
+@pytest.mark.parametrize("b", [1, 2, 32, 62, 65])
+def test_rescore_kernel_is_bit_equal_to_the_gathered_path(cuda, dtype, metric, d, b):
+    """The kernel's rank-ready distances equal its twin's, the gathered
+    float64 path it replaced (held to the plain [B, N] distances in
+    tests/test_torch_block_scan.py), bit for bit over N = 1,000 (the last
+    group 104 rows), unmasked, and with valid < N and a row mask; one
+    launch a call."""
+    from sqlite_vector_tpu_torch.ops.block_scan import rescore_groups, rescore_groups_reference
+
+    n = 1000
+    q, base = rescore_case(dtype, n, d, b, cuda, seed=d + b)
+    gidx = group_choice(b, 8, 5, cuda, seed=b)
+    mask = torch.rand(n, generator=torch.Generator(device=cuda).manual_seed(d), device=cuda) < 0.5
+    before = rescore_groups.launches
+    for valid, row_mask in ((n, None), (n - 77, mask)):
+        got = rescore_groups(q, base, gidx, valid, metric, row_mask)
+        want = rescore_groups_reference(q, base, gidx, valid, metric, row_mask)
+        assert torch.equal(got, want), (valid, row_mask is None)
+    assert rescore_groups.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16513, 16520])  # 1- and 4-byte words
+@pytest.mark.parametrize("metric", RESCORE_METRICS, ids=lambda m: m.value)
+def test_rescore_kernel_wraps_int32_terms_of_wide_u8_codes(cuda, d, metric):
+    """Past d = 16,512 the u8 square norms of codes near the top sum past
+    2^31: the int32 terms wrap, yet the L2 values are exact (below 2^31 up
+    to d = 33,025) and every value equals the twin's."""
+    from sqlite_vector_tpu_torch.ops.block_scan import rescore_groups, rescore_groups_reference
+
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    base = torch.randint(250, 256, (300, d), generator=gen, device=cuda, dtype=torch.int32).to(torch.uint8)
+    q = torch.full((2, d), 255, dtype=torch.uint8, device=cuda)
+    q[1] = base[7]
+    gidx = torch.tensor([[0, 2], [0, 1]], device=cuda)
+    got = rescore_groups(q, base, gidx, 300, metric)
+    assert torch.equal(got, rescore_groups_reference(q, base, gidx, 300, metric))
+    if metric is DistanceMetric.SQUARED_L2:
+        qsq = (q.long() ** 2).sum(-1)
+        assert int(qsq[0]) * 2 >= 2**31  # the terms wrap
+        exact = ((q[0].long() - base[:128].long()) ** 2).sum(-1).float()
+        assert torch.equal(got[0, :128], exact)
+        assert float(got[1, 7]) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", RESCORE_METRICS, ids=lambda m: m.value)
+def test_rescore_kernel_reads_unaligned_rows_in_narrower_words(cuda, metric):
+    """Rows or queries that start off a 16-byte (or 4-byte) boundary take
+    4-byte (or 1-byte) words, with the same values."""
+    from sqlite_vector_tpu_torch.ops.block_scan import rescore_groups, rescore_width
+
+    q, base = rescore_case(torch.int8, 1001, 384, 3, cuda, seed=5)
+    gidx = group_choice(3, 7, 4, cuda)
+    want = rescore_groups(q, base, gidx, 1000, metric)
+    for skip in (4, 1):
+        flat = torch.empty(1000 * 384 + skip, dtype=torch.int8, device=cuda)
+        moved = flat[skip:].view(1000, 384)
+        moved.copy_(base[:1000])
+        assert rescore_width(q, moved) == skip
+        assert torch.equal(rescore_groups(q, moved, gidx, 1000, metric), want)
+
+
+@pytest.mark.cuda
+def test_rescore_kernel_refuses_what_it_does_not_take(cuda):
+    from sqlite_vector_tpu_torch.ops.block_scan import rescore_groups
+
+    q, base = rescore_case(torch.int8, 300, 32, 2, cuda)
+    gidx = torch.tensor([[0, 1], [1, 2]], device=cuda)
+    with pytest.raises(ValueError):
+        rescore_groups(q, base.t(), gidx, 300, DistanceMetric.DOT)  # not contiguous
+    with pytest.raises(ValueError):
+        rescore_groups(q, base, gidx[:, ::2], 300, DistanceMetric.DOT)
+    with pytest.raises(ValueError):
+        rescore_groups(q, base.float(), gidx, 300, DistanceMetric.DOT)
+    with pytest.raises(ValueError):
+        rescore_groups(q, base, gidx, 300, DistanceMetric.L1)
+    with pytest.raises(ValueError):
+        rescore_groups(q, base, gidx.cpu(), 300, DistanceMetric.DOT)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", RESCORE_METRICS, ids=lambda m: m.value)
+def test_block_scan_topk_at_100k_x_768_int8_equals_the_cpu_twin(cuda, metric):
+    """K1 + the rescore kernel on the card == the twins on the CPU, values
+    and positions, at 100,000 x 768 int8 codes and k = 100 (with valid < N
+    and ties from duplicate rows)."""
+    from sqlite_vector_tpu_torch.ops.block_scan import rescore_groups
+
+    q, base = rescore_case(torch.int8, 100_000, 768, 8, cuda, seed=11)
+    before = rescore_groups.launches
+    got = block_scan_topk(q, base, metric, 100, valid_count=99_990)
+    assert rescore_groups.launches == before + 1
+    want = block_scan_topk(q.cpu(), base.cpu(), metric, 100, valid_count=99_990)
+    assert torch.equal(got[1].cpu(), want[1]) and torch.equal(got[0].cpu(), want[0])
+
+
+@pytest.mark.cuda
+def test_only_u8_and_i8_dot_family_searches_launch_the_rescore_kernel(cuda):
+    """An int8 quantized search launches the rescore kernel once (k = 9
+    over 3,000 rows: one query chunk); exact float search, int4 quantized
+    and refine search and an L1 int8 search launch it never."""
+    from sqlite_vector_tpu_torch.ops.block_scan import rescore_groups
+
+    rng = np.random.default_rng(19)
+    base = rng.standard_normal((3000, 96)).astype(np.float32)
+    q = base[[7, 2500]] + np.float32(1e-3)
+    for metric, qtype, mode, want in (
+        ("COSINE", "int8", "quantized", 1),
+        ("DOT", "int8", "quantized", 1),
+        ("L1", "int8", "quantized", 0),
+        ("COSINE", "int8", "exact", 0),
+        ("L2", "int4", "quantized", 0),
+        ("L2", "int4", "refine", 0),
+    ):
+        ds = svt.VectorStore(device="cuda").create("d", f"dimension=96,distance={metric}")
+        ds.add(base)
+        ds.quantize(qtype=qtype, refine=qtype == "int4")
+        before = rescore_groups.launches
+        ds.search(q, 9, mode=mode)
+        assert rescore_groups.launches - before == want, (metric, qtype, mode)
