@@ -45,7 +45,7 @@ from sqlite_vector_tpu_torch.ops.distance import (
 from sqlite_vector_tpu_torch.ops.rerank import candidate_distances
 from sqlite_vector_tpu_torch.ops.topk import topk_ascending
 from sqlite_vector_tpu_torch.types import DistanceMetric
-from sqlite_vector_tpu_torch.utils.profiling import annotate
+from sqlite_vector_tpu_torch.utils.profiling import annotate, count
 
 # rows per minima group
 BLOCK = 128
@@ -602,7 +602,10 @@ def _finish_from_minima(
     """Exact top-k from block minima: select k groups, rescore k*128 rows
     exactly (finish_groups: u8/i8 codes under the dot family with
     rescore_groups, other rows gathered), then L2's sqrt and the near-zero
-    snap."""
+    snap. The gathered route's span is `ops.gather` (range
+    `svt.ops.gather:<B>`), one a query chunk; it counts the candidate rows
+    gathered in `finish.gathered_rows` and their bytes in
+    `finish.gathered_bytes`."""
     if rescore_takes(base.dtype, metric):
         def score(s, e, gidx, pos):
             return rescore_groups(queries[s:e], base, gidx, valid, metric, row_mask)
@@ -611,7 +614,15 @@ def _finish_from_minima(
         # gathers whole rows
         row_elems = base.shape[1] if base.device.type == "cpu" else 1
     else:
-        score = _gathered_candidates(queries, base, valid, metric, row_mask)
+        gathered = _gathered_candidates(queries, base, valid, metric, row_mask)
+        row_bytes = base.shape[1] * base.element_size()
+
+        def score(s, e, gidx, pos):
+            with annotate("ops.gather", tag=e - s, B=e - s):
+                count("finish.gathered_rows", pos.numel())
+                count("finish.gathered_bytes", pos.numel() * row_bytes)
+                return gathered(s, e, gidx, pos)
+
         row_elems = base.shape[1]
     vals, idx = finish_groups(minima, k, score, row_elems)
     if metric is DistanceMetric.L2:

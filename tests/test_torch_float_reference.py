@@ -1,0 +1,129 @@
+"""The exact float32 search held to the benchmark's plain reference
+(vbench/reference/float_exact.py), on the CPU at small sizes: the port's
+Dataset.search(mode="exact") over rows drawn as the benchmark draws them,
+judged by vbench/check.py against the configuration's limits, passes; the
+reference one precision step down (TF32) fails them. And the gathered
+finish's span and counters: `ops.gather` inside `ops.finish`, one a query
+chunk, counting the candidate rows gathered and their bytes; the codes
+finish on the rescore route records neither."""
+
+import numpy as np
+import pytest
+import torch
+
+import sqlite_vector_tpu_torch as svt
+from sqlite_vector_tpu_torch.ops import block_scan
+from sqlite_vector_tpu_torch.utils import profiling
+from vbench import check, data, spec
+
+N, K, POOL = 3000, 10, 64
+CONFIG = "openai-5m-1536"
+METRICS = ["COSINE", "L2", "SQUARED_L2", "DOT"]
+DIMS = [1536, 48]
+
+
+def cfg_for(metric, d):
+    cfg = spec.config(CONFIG)
+    cfg.update(rows=N, dim=d, k=K, metric=metric)
+    return cfg
+
+
+def pool(seed, d):
+    plan = data.QueryPlan(seed, N, d, POOL, 0.5, 0.1, "cpu")
+    for start, rows in data.row_chunks(seed, N, d, "cpu"):
+        plan.take(start, rows)
+    return plan.queries()
+
+
+def reference(cfg, precision="reference"):
+    return spec.reference(cfg["reference"]).Reference(cfg, precision)
+
+
+@pytest.mark.parametrize("d", DIMS)
+@pytest.mark.parametrize("metric", METRICS)
+def test_exact_search_passes_the_configurations_check(metric, d):
+    seed = 4_000_000_000 + d
+    cfg = cfg_for(metric, d)
+    ds = svt.Dataset("t", svt.parse_options(f"dimension={d},type=FLOAT32,distance={metric}"), device="cpu")
+    for start, rows in data.row_chunks(seed, N, d, "cpu"):
+        ds.add(rows.numpy(), np.arange(start + 1, start + rows.shape[0] + 1))
+    q = pool(seed, d)
+    ids, dist = ds.search(q, K, mode="exact")
+    answers = [(i, q[i], (ids[i], dist[i])) for i in range(len(q))]
+    numbers = check.judge(answers, reference(cfg), seed, cfg, "cpu")
+    assert check.correct(numbers), numbers
+    if metric == spec.config(CONFIG)["metric"]:
+        # under the metric the limits were set for, the program's readings
+        # sit at most a fifth of them
+        for name in ("dist_err", "rank_gap"):
+            assert numbers[name]["value"] <= numbers[name]["limit"] / 5, numbers
+
+
+@pytest.mark.parametrize("d", DIMS)
+@pytest.mark.parametrize("metric", METRICS)
+def test_the_tf32_control_fails_the_configurations_check(metric, d):
+    seed = 4_100_000_000 + d
+    cfg = cfg_for(metric, d)
+    q = pool(seed, d)
+    own = check.control_answers(reference(cfg), seed, cfg, "cpu", q)
+    assert check.correct(check.judge(own, reference(cfg), seed, cfg, "cpu"))
+    ctrl = check.control_answers(reference(cfg, "control"), seed, cfg, "cpu", q)
+    numbers = check.judge(ctrl, reference(cfg), seed, cfg, "cpu")
+    assert not check.correct(numbers), numbers
+    assert numbers["dist_err"]["value"] > 5 * numbers["dist_err"]["limit"], numbers
+
+
+def test_tf32_rounds_to_nearest_even_on_ten_mantissa_bits():
+    tf32 = spec.reference("float_exact").tf32
+    one = 1.0
+    ulp = 2.0 ** -10  # TF32's step at 1
+    x = torch.tensor([one, one + ulp / 2, one + 3 * ulp / 2, one + ulp / 2 + 2 ** -20,
+                      -(one + 3 * ulp / 2), 3.0e38, 0.0], dtype=torch.float32)
+    want = [one, one, one + 2 * ulp, one + ulp, -(one + 2 * ulp)]
+    got = tf32(x)
+    assert got[:5].tolist() == want  # ties to the even neighbour, else the nearest
+    assert got[6] == 0.0 and torch.isfinite(got[5])
+    low = got.view(torch.int32) & 0x1FFF
+    assert not bool(low.any())
+
+
+def _dataset(n, d, qtype=None):
+    ds = svt.VectorStore(device="cpu").create("t", f"dimension={d},type=FLOAT32,distance=COSINE")
+    ds.add(np.random.default_rng(0).standard_normal((n, d)).astype(np.float32))
+    if qtype:
+        ds.quantize(qtype=qtype)
+    return ds
+
+
+@pytest.mark.parametrize("chunk_elems", [None, 1280])
+def test_the_gathered_finish_records_its_gather_and_counts_its_rows(monkeypatch, chunk_elems):
+    """B = 3 queries, k = 5 over 1,000 rows (8 groups, 5 kept): 3 * 5 * 128
+    candidate rows of 24 float32 elements. With the finish's bound cut so
+    that each query chunk holds one query, three `ops.gather` spans of
+    B = 1, which sum to the same counts."""
+    n, d, b, k = 1000, 24, 3, 5
+    if chunk_elems is not None:
+        monkeypatch.setattr(block_scan, "_FINISH_CHUNK_ELEMS", chunk_elems)
+    ds = _dataset(n, d)
+    q = np.random.default_rng(1).standard_normal((b, d)).astype(np.float32)
+    with profiling.recording() as rec:
+        ds.search(q, k, mode="exact")
+    finish = rec.named("ops.finish")
+    assert len(finish) == 1
+    gathers = rec.named("ops.gather")
+    assert [g.parent for g in gathers] == [finish[0].id] * len(gathers)
+    assert [g.attrs for g in gathers] == ([{"B": b}] if chunk_elems is None else [{"B": 1}] * b)
+    rows = b * k * block_scan.BLOCK
+    assert rec.counters["finish.gathered_rows"] == rows
+    assert rec.counters["finish.gathered_bytes"] == rows * d * 4
+    assert finish[0].counts == {"finish.gathered_rows": rows, "finish.gathered_bytes": rows * d * 4}
+
+
+def test_the_codes_finish_records_no_gather():
+    ds = _dataset(1000, 24, "int8")
+    q = np.random.default_rng(1).standard_normal((3, 24)).astype(np.float32)
+    with profiling.recording() as rec:
+        ds.search(q, 5, mode="quantized")
+    assert len(rec.named("ops.rescore")) == 1
+    assert rec.named("ops.gather") == []
+    assert not any(name.startswith("finish.") for name in rec.counters)

@@ -103,9 +103,10 @@ def test_off_reads_no_clock_builds_no_span_and_opens_no_range(monkeypatch):
 def test_a_search_records_its_stages_nested(mode, qtype):
     """One search, recorded: the `search` span holds its stages in order
     with no other child, the route's scan holds K1's or K2's `ops.scan`
-    (its B attribute the batch) and the finish, and the int8 finish the
-    rescore's `ops.rescore` (its B the batch); every span is on the
-    caller's thread, inside its parent's interval, with no batch id."""
+    (its B attribute the batch) and the finish, the int8 finish the
+    rescore's `ops.rescore` and the float finish its gather's `ops.gather`
+    (each with B the batch); every span is on the caller's thread, inside
+    its parent's interval, with no batch id."""
     ds = _dataset(qtype, refine=mode == "refine")
     q = _queries(3)
     with profiling.recording() as rec:
@@ -120,10 +121,10 @@ def test_a_search_records_its_stages_nested(mode, qtype):
     # the scan span's own time)
     assert inner == SCAN_CHILDREN
     assert _one(rec, "ops.scan").attrs == {"B": 3}
-    rescore = ["ops.rescore"] if qtype == "int8" else []
+    rescore = {"int8": ["ops.rescore"], None: ["ops.gather"]}.get(qtype, [])
     assert [s.name for s in rec.spans if s.parent == _one(rec, "ops.finish").id] == rescore
     if rescore:
-        assert _one(rec, "ops.rescore").attrs == {"B": 3}
+        assert _one(rec, rescore[0]).attrs == {"B": 3}
     me = threading.get_ident()
     for s in rec.spans:
         assert s.thread == me and s.batch is None and s.start_ns <= s.end_ns
@@ -321,7 +322,8 @@ def test_recording_is_one_at_a_time_and_keeps_nothing_after_it_stops():
 def test_profile_trace_holds_the_spans_as_svt_ranges(tmp_path):
     """Under profile_trace, recording at once: every recorded span of two
     searches is a `svt.<name>` range (the scan's `svt.ops.scan:<B>`, the
-    int8 rescore's `svt.ops.rescore:<B>`), with
+    int8 rescore's `svt.ops.rescore:<B>`, the float finish's
+    `svt.ops.gather:<B>`), with
     the same counts, each range inside the range of its span's parent."""
     ds = _dataset("int8")
     with profile_trace(str(tmp_path)):
@@ -330,7 +332,7 @@ def test_profile_trace_holds_the_spans_as_svt_ranges(tmp_path):
             ds.search(_queries(1, seed=2), 5)
 
     def label(s):
-        return f"svt.{s.name}" + (f":{s.attrs['B']}" if s.name in ("ops.scan", "ops.rescore") else "")
+        return f"svt.{s.name}" + (f":{s.attrs['B']}" if s.name in ("ops.scan", "ops.rescore", "ops.gather") else "")
 
     by_id = {s.id: s for s in rec.spans}
     want = sorted((label(s), label(by_id[s.parent]) if s.parent else None) for s in rec.spans)
@@ -346,6 +348,7 @@ def test_profile_trace_holds_the_spans_as_svt_ranges(tmp_path):
         got.append((r["name"], parent))
     assert sorted(got) == want
     assert ("svt.ops.scan:3", "svt.search.scan") in got and ("svt.ops.scan:1", "svt.search.scan") in got
+    assert ("svt.ops.gather:1", "svt.ops.finish") in got
 
 
 def test_a_span_under_a_profiler_keeps_the_interpreter_lock():

@@ -4,7 +4,8 @@ card, forcing each of its plans: the query tile resident or streamed, and
 the two consumer warpgroups in ping-pong or free-running.
 
     python3 tools/probe_k1_wgmma.py [--check] [--time] [--n 1000000]
-                                    [--d 384] [--rounds 3]
+                                    [--d 384] [--rounds 3] [--b 1 64]
+                                    [--dtype float32 float16 bfloat16]
 
 --check: over 20,003 rows (valid 19,926; a NaN row, a zero row, a
 self-match) of float32, float16 and bfloat16 at d = 384 and at a streamed
@@ -16,7 +17,8 @@ schedules against the plain twin
 non-finite rows and queries of nonfinite_case in each dtype. Prints each
 failure and exits 1 if any.
 
---time: at N x d rows from N(0, 1) (seed 0), L2 at B = 1 and 64: each
+--time: at N x d rows from N(0, 1) (seed 0) of each --dtype, L2 at each
+--b (1 and 64 unless given): each
 plan of the wgmma body, the mma.sync body and torch.matmul of the same
 product, in turns (CUDA events, the median over 2 x rounds passes), beside
 chip_smoke.py:k1_bound. Prints the card line first and what ptxas reported
@@ -35,6 +37,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 DTYPES = (torch.float32, torch.float16, torch.bfloat16)
+DTYPE_NAMES = [str(dt).split(".")[1] for dt in DTYPES]
 
 
 def load(name: str, path: Path):
@@ -117,7 +120,7 @@ def check() -> int:
     return 1 if failed else 0
 
 
-def time_shapes(n: int, d: int, rounds: int) -> None:
+def time_shapes(n: int, d: int, rounds: int, bs: list[int], dtypes: list[torch.dtype]) -> None:
     from sqlite_vector_tpu_torch.ops.block_scan import _launch_k1, tma_ready
     from sqlite_vector_tpu_torch.types import DistanceMetric
 
@@ -125,10 +128,10 @@ def time_shapes(n: int, d: int, rounds: int) -> None:
     L2 = DistanceMetric.L2
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = torch.randn((n, d), generator=gen, device="cuda")
-    queries = torch.randn((64, d), generator=gen, device="cuda")
-    for dt in DTYPES:
+    queries = torch.randn((max(bs), d), generator=gen, device="cuda")
+    for dt in dtypes:
         base = rows.to(dt)
-        for b in (1, 64):
+        for b in bs:
             q = queries[:b].to(dt).contiguous()
             assert tma_ready(q) and tma_ready(base)
             names, fns = [], []
@@ -155,6 +158,8 @@ def main() -> int:
     ap.add_argument("--n", type=int, default=1_000_000)
     ap.add_argument("--d", type=int, default=384)
     ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--b", type=int, nargs="+", default=[1, 64])
+    ap.add_argument("--dtype", nargs="+", default=DTYPE_NAMES, choices=DTYPE_NAMES)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("probe_k1_wgmma: needs a CUDA card", file=sys.stderr)
@@ -175,7 +180,7 @@ def main() -> int:
             print(f"ptxas: {line}", flush=True)
     rc = check() if args.check else 0
     if args.time and rc == 0:
-        time_shapes(args.n, args.d, args.rounds)
+        time_shapes(args.n, args.d, args.rounds, args.b, [getattr(torch, t) for t in args.dtype])
     return rc
 
 
