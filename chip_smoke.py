@@ -53,8 +53,8 @@ Phases, each printing its own lines:
               integer-domain scan of the same codes; K1's launch count over
               these searches must be above 0, every exact launch in its
               wgmma body and every quantized one in its mma.sync body;
-              the quantized search's finish launches the rescore kernel
-              once a K1 scan, the exact search's never;
+              the quantized search's finish launches the codes' rescore
+              kernel once a K1 scan, the exact search's the float one;
   5. times    K1 at the main path's shapes (f32, the int8 codes and u8 codes,
               and L2 over the rows cast to float16 and bfloat16, each at B=1
               and B=64), the routed body (floats: wgmma; codes: mma.sync),
@@ -258,7 +258,19 @@ Phases, each printing its own lines:
               then timed in turns with the twin (CUDA events) beside its
               bound (rescore_bound), and the whole finish on its route
               (one rescore launch) against the gathered route, equal and
-              timed in turns.
+              timed in turns;
+ 16. rescore_rows  (run after phase 15) the float finish's rescore kernel
+              (csrc/rescore_rows.cu) at the float cell's shape: 5,000,000 x
+              1,536 float32 rows drawn on the card (30.72 GB), COSINE,
+              k=100, the groups K1's minima select for B in {1, 32, 64}
+              queries (half copies of base rows): the kernel against its
+              twin (the gathered float32 path it replaced; +inf at the same
+              places, values within rtol 1e-5), also under L2, SQUARED_L2
+              and DOT with valid < N and a row mask at B=32, and over
+              1,000,000 x 1,536 float16 and bfloat16 rows; then timed in
+              turns with the twin beside its bound (rescore_rows_bound), and
+              the whole finish on its route (one rescore launch) against
+              the gathered route, close and timed in turns.
 
 Each phase ends with a line of its seconds. Then one JSON line of kernel results, one entry a kernel body (each with
 its bound, the side that bounds it and the library yardstick; the three
@@ -273,7 +285,8 @@ search), K2's wgmma body (B=64), K2 past the resident query tile
 (int4_block_minima_wide: bf16 d=18432 B=64; launches from phase 14's eight
 searches), both K2 entries with the mma.sync body's ms as "mma_sync_ms",
 the rescore kernel (int8 B=32; launches from phase 4's quantized search,
-phase 15's under "timing_launches");
+phase 15's under "timing_launches"), the float rescore kernel (f32 B=32;
+launches from phase 4's exact search, phase 16's under "timing_launches");
 the rest under "by_shape"; "sql_launches" counts phase 10's
 launches on the SQL path, "mesh_launches" phase 11's, "trace_launches" the
 kernel events in phase 12's trace; phase 10's times under
@@ -426,6 +439,20 @@ def rescore_bound(b: int, kg: int, d: int) -> tuple[float, str]:
     cand = b * kg * 128
     t_bytes = (b * d + b * kg * 8 + cand * (d + 4)) / HBM_BYTES_PER_S * 1e3
     t_ops = 2.0 * (cand * d / 4) / INT_INSTR_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def rescore_rows_bound(b: int, kg: int, d: int, elem: int) -> tuple[float, str]:
+    """The float rescore kernel's bound (csrc/rescore_rows.cu) for b
+    queries of kg groups each over d-wide rows of elem bytes an element:
+    the queries, the int64 group indices and the selected groups' rows (b
+    kg 128 d elem bytes) read once, the float32 distances written once (b
+    kg 128 4), over the HBM rate; against two FP32 FMAs an element (the
+    dot family's dot and the row's square; L2 adds a subtraction) at
+    FP32_INSTR_PER_S."""
+    cand = b * kg * 128
+    t_bytes = (b * d * elem + b * kg * 8 + cand * (d * elem + 4)) / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * cand * d / FP32_INSTR_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -805,6 +832,99 @@ def phase_rescore(card: str) -> dict:
     return out
 
 
+N_RESCORE_ROWS = 5_000_000
+DIM_RESCORE_ROWS = 1536
+
+
+def phase_rescore_rows(card: str) -> dict:
+    """Phase 16: the float rescore kernel against its twin and timed, at
+    the float cell's shape (the module docstring says what). Returns, by
+    label, the kernel's and the twin's ms with the bound, the finish's on
+    each route, the kernel's launches here under "timing_launches" and the
+    largest |kernel - twin| over the finite distances under
+    "max_abs_err"."""
+    from sqlite_vector_tpu_torch.ops import block_scan as bs
+    from sqlite_vector_tpu_torch.types import DistanceMetric
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    n, d, k = N_RESCORE_ROWS, DIM_RESCORE_ROWS, K_RESCORE
+    rows = torch.empty((n, d), dtype=torch.float32, device="cuda")
+    for s in range(0, n, 500_000):
+        rows[s : s + 500_000] = torch.randn((min(500_000, n - s), d), generator=gen, device="cuda")
+    mask = torch.rand(n, generator=gen, device="cuda") < 0.5
+    cos = DistanceMetric.COSINE
+    out = {"max_abs_err": 0.0}
+    launches = bs.rescore_groups.launches
+
+    def queries(base: torch.Tensor, b: int) -> torch.Tensor:
+        q = torch.randn((b, base.shape[1]), generator=gen, device="cuda").to(base.dtype)
+        near = b // 2
+        q[:near] = base[torch.randint(0, base.shape[0], (near,), generator=gen, device="cuda")]
+        return q
+
+    def close(label: str, q, base, gidx, valid, metric, row_mask=None) -> None:
+        # float32 sums in another order than the twin's: the card tests'
+        # tolerance (tests/test_torch_kernel_cuda.py:assert_float_rescore_close)
+        got = bs.rescore_groups(q, base, gidx, valid, metric, row_mask)
+        want = bs.rescore_groups_reference(q, base, gidx, valid, metric, row_mask)
+        finite = torch.isfinite(want)
+        check(torch.equal(torch.isposinf(want), torch.isposinf(got)), f"rescore {label}: +inf positions differ")
+        err = float((got[finite] - want[finite]).abs().max()) if bool(finite.any()) else 0.0
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        atol = 1e-5 if metric is cos else 1e-3
+        check(torch.allclose(got[finite], want[finite], rtol=1e-5, atol=atol),
+              f"rescore {label}: kernel != twin (max |diff| {err!r})")
+
+    for b in (1, B_RESCORE, 64):
+        q = queries(rows, b)
+        minima = bs.block_minima(q, rows, cos, n)
+        gidx = bs.select_groups(minima, k)
+        kg = gidx.shape[1]
+        label = f"f32 B={b}"
+        close(f"{label} COSINE", q, rows, gidx, n, cos)
+        if b == B_RESCORE:
+            for metric in (DistanceMetric.L2, DistanceMetric.SQUARED_L2, DistanceMetric.DOT, cos):
+                close(f"{label} {metric.value} valid<N masked", q, rows, gidx, n - 1000, metric, mask)
+
+        def gathered():
+            return bs.finish_groups(minima, k, bs._gathered_candidates(q, rows, n, cos, None), d)
+
+        def routed():
+            return bs.finish_groups(minima, k, lambda s, e, g, pos: bs.rescore_groups(q[s:e], rows, g, n, cos), 1)
+
+        before = bs.rescore_groups.launches
+        bs._finish_from_minima(minima, q, rows, n, cos, k)
+        check(bs.rescore_groups.launches == before + 1, f"rescore {label}: the finish did not launch the kernel once")
+        (gv, gi), (wv, wi) = routed(), gathered()
+        check(torch.equal(torch.isposinf(gv), torch.isposinf(wv))
+              and torch.allclose(gv[torch.isfinite(wv)], wv[torch.isfinite(wv)], rtol=1e-5, atol=1e-5),
+              f"rescore {label}: the finish's routes differ in value")
+        iters = 20 if b == 1 else 5
+        ms = in_turns([lambda: bs.rescore_groups_reference(q, rows, gidx, n, cos),
+                       lambda: bs.rescore_groups(q, rows, gidx, n, cos)], iters)
+        fin = in_turns([gathered, routed], iters)
+        lim, by = rescore_rows_bound(b, kg, d, 4)
+        out[label] = {"ms": ms[1], "plain_ms": ms[0], "bound_ms": lim, "bound_by": by,
+                      "finish_ms": fin[1], "gathered_finish_ms": fin[0], "library_ms": None}
+        print(
+            f"[times] rescore {n}x{d} {label} COSINE k={k} (kernel ~ twin): kernel {ms[1]!r} ms, "
+            f"bound {lim!r} ms ({by}), {100 * lim / ms[1]:.1f}% of bound; twin (the gathered float32 "
+            f"path it replaced) {ms[0]!r} ms; finish on its route {fin[1]!r} ms, gathered {fin[0]!r} ms "
+            f"| {card}",
+            flush=True,
+        )
+    del rows, mask
+    for dtype in (torch.float16, torch.bfloat16):
+        half = torch.randn((1_000_000, d), generator=gen, device="cuda").to(dtype)
+        q = queries(half, B_RESCORE)
+        gidx = bs.select_groups(bs.block_minima(q, half, cos, half.shape[0]), k)
+        for metric in (DistanceMetric.L2, DistanceMetric.SQUARED_L2, DistanceMetric.DOT, cos):
+            close(f"{dtype} B={B_RESCORE} {metric.value}", q, half, gidx, half.shape[0], metric)
+        del half
+    out["timing_launches"] = bs.rescore_groups.launches - launches
+    return out
+
+
 def phase_main(card: str):
     import sqlite_vector_tpu_torch as svt
     from sqlite_vector_tpu_torch.ops import block_scan
@@ -844,7 +964,12 @@ def phase_main(card: str):
     check(launches["wgmma"] > 0, "exact search did not launch K1")
     check(block_minima.body_launches == {"wgmma": launches["wgmma"], "mma": 0, "simt": 0},
           f"exact search left K1's wgmma body: {block_minima.body_launches}")
-    check(rescore_groups.launches == 0, "exact float search launched the rescore kernel")
+    # each K1 scan's finish rescores with the float rescore kernel in one
+    # query chunk: the [B, K*128] distances are within the finish's bound
+    check(B_MAIN * K * 128 <= block_scan._FINISH_CHUNK_ELEMS, "the main finish needs query chunks")
+    launches["rescore_rows"] = rescore_groups.launches
+    check(launches["rescore_rows"] == launches["wgmma"],
+          f"exact search launched the rescore kernel {launches['rescore_rows']} times, K1 {launches['wgmma']}")
     vecs = ds._vectors[: len(ds)]
     Qd = torch.from_numpy(Q).cuda()
     oracle = pairwise_distance(Qd, vecs, svt.DistanceMetric.L2).cpu().numpy()
@@ -859,7 +984,7 @@ def phase_main(card: str):
         f"[main] exact search(Q[{B_MAIN}], {K}): ids match the plain-torch ground "
         f"truth (tie-aware, rel_tol {REL_TOL_BY_TYPE['FLOAT32']}), {len(picks)}/"
         f"{len(picks)} self-matches first at 0.0, K1 launches {launches['wgmma']}, all on its wgmma "
-        f"body | {card}",
+        f"body; rescore kernel launches {launches['rescore_rows']} | {card}",
         flush=True,
     )
 
@@ -875,9 +1000,7 @@ def phase_main(card: str):
     check(launches["mma"] > 0, "quantized search did not launch K1")
     check(block_minima.body_launches == {"wgmma": 0, "mma": launches["mma"], "simt": 0},
           f"quantized search left K1's mma.sync body: {block_minima.body_launches}")
-    # each K1 scan's finish rescores with the rescore kernel in one query
-    # chunk: the [B, K*128] distances are within the finish's element bound
-    check(B_MAIN * K * 128 <= block_scan._FINISH_CHUNK_ELEMS, "the main finish needs query chunks")
+    # and the quantized search's with the codes' rescore kernel
     launches["rescore"] = rescore_groups.launches
     check(launches["rescore"] == launches["mma"],
           f"quantized search launched the rescore kernel {launches['rescore']} times, K1 {launches['mma']}")
@@ -3442,22 +3565,24 @@ def main() -> int:
     t0 = time.perf_counter()
     load_library()
     print(
-        f"[build] K1 (three bodies), K2 (three) and the rescore kernel built from csrc/ and loaded in "
+        f"[build] K1 (three bodies), K2 (three) and the two rescore kernels built from csrc/ and loaded in "
         f"{time.perf_counter() - t0:.1f} s "
         f"-> {library_path().name}",
         flush=True,
     )
     for name, said in ptxas_report().items():
         print(f"[build] ptxas {name}: {said}", flush=True)
-        if any(k in name for k in ("mma_minima_kernel", "l1_minima_kernel", "rescore_groups_kernel")):
+        if any(k in name for k in ("mma_minima_kernel", "l1_minima_kernel", "rescore_groups_kernel",
+                                   "rescore_rows_kernel")):
             # K1's and K2's tensor-core bodies (wgmma_minima_kernel too),
-            # K1's L1 body and the rescore kernel
+            # K1's L1 body and the rescore kernels
             check(" 0 bytes spill stores" in f" {said}", f"{name} spills: {said}")
     if cards:
         return main_cards(card)
     max_err, masked_err, nonfinite_err = phase(phase_kernel, card)
     k2_err, k2_masked_err = phase(phase_kernel_int4, card)
     rescore = phase(phase_rescore, card)
+    rescore_rows = phase(phase_rescore_rows, card)
     ds, Q, ids_e, launches = phase(phase_main, card)
     k1 = phase(phase_times, card, ds, Q)  # reads the int8 state
     other_launches = phase(phase_datasets, card, ds, Q)
@@ -3577,6 +3702,18 @@ def main() -> int:
             **rescore[f"int8 B={B_RESCORE}"],
             "main_shape": f"int8 B={B_RESCORE}",
             "by_shape": rescore,
+        },
+        {
+            "name": "rescore_rows",
+            "route": "cuda",
+            "source": "sqlite_vector_tpu_torch/csrc/rescore_rows.cu",
+            "replaces": None,
+            "launches": launches["rescore_rows"],
+            "timing_launches": rescore_rows.pop("timing_launches"),
+            "max_abs_err": rescore_rows.pop("max_abs_err"),
+            **rescore_rows[f"f32 B={B_RESCORE}"],
+            "main_shape": f"f32 B={B_RESCORE}",
+            "by_shape": rescore_rows,
         },
     ], "host_storage": {k: host[k] for k in ("pinned_gbps", "stream_pass_s", "tile_sweep_s", "thread_sweep_s")},
         "frontends": {k: v for k, v in fe.items() if k != "sql_launches"},

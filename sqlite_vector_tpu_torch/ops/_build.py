@@ -64,6 +64,8 @@ _SIGNATURES = {
     # queries, base, gidx, mask (or None), out, B, kg, N, d, valid, dtype,
     # metric, the bytes a lane loads, stream (the int8/u8 finish's rescore)
     "svt_rescore_groups": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # the same arguments (the float finish's rescore)
+    "svt_rescore_rows": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

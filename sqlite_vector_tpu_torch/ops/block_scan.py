@@ -6,11 +6,12 @@ pass over the matrix and keeps only per-128-row distance minima [B, N/128];
 the [B, N] distance matrix never exists. Stage 2 selects the k best groups
 (exact: if a true top-k row's group were not selected, k groups would each
 hold a row smaller than it), rescores their k*128 rows exactly and takes
-the final top-k, ties going to the earliest row. The rescore of u8/i8
-codes under the dot-family metrics is a hand-written kernel that reads the
-selected groups in place (csrc/rescore_codes.cu, rescore_groups, with
-rescore_groups_reference its twin); other rows are gathered and rescored
-with torch ops (gathered_score). Selection and top-k are torch ops.
+the final top-k, ties going to the earliest row. The rescore under the
+dot-family metrics is a hand-written kernel that reads the selected groups
+in place (rescore_groups, with rescore_groups_reference its twin):
+csrc/rescore_codes.cu for u8/i8 codes, csrc/rescore_rows.cu for float32,
+float16 and bfloat16 rows. L1 rows are gathered and rescored with torch
+ops (gathered_score). Selection and top-k are torch ops.
 
 Stage 1 has two implementations of one contract:
   - block_minima_reference: plain PyTorch, the definition of the output;
@@ -477,18 +478,21 @@ def _gathered_candidates(
 
 
 def rescore_takes(dtype: torch.dtype, metric: DistanceMetric) -> bool:
-    """Whether a finish rescores with rescore_groups: u8/i8 codes under
-    the dot-family metrics (L1 codes, float rows and int4 gather)."""
-    return dtype in (torch.uint8, torch.int8) and metric in _MMA_METRICS
+    """Whether a finish rescores with rescore_groups: u8/i8 codes and
+    float32, float16 and bfloat16 rows under the dot-family metrics (L1
+    rows and int4 gather)."""
+    return dtype in _DTYPE_CODE and metric in _MMA_METRICS
 
 
 def rescore_width(queries: torch.Tensor, base: torch.Tensor) -> int:
     """The bytes a lane of the rescore kernel loads at once: 16, else 4,
-    else 1, the widest that divides d and both tensors' start."""
-    d = base.shape[1]
+    else the element's size, the widest that divides a row's bytes and
+    both tensors' start."""
+    elem = base.element_size()
+    row = base.shape[1] * elem
     return next(
-        w for w in (16, 4, 1)
-        if d % w == 0 and queries.data_ptr() % w == 0 and base.data_ptr() % w == 0
+        w for w in (16, 4, elem)
+        if row % w == 0 and queries.data_ptr() % w == 0 and base.data_ptr() % w == 0
     )
 
 
@@ -500,11 +504,12 @@ def rescore_groups_reference(
     metric: DistanceMetric,
     row_mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Plain-PyTorch twin of the rescore kernel: the finish's gathered
+    """Plain-PyTorch twin of the rescore kernels: the finish's gathered
     route (_gathered_candidates) over the groups' rows, so
-    candidate_distances' exact int32-wrapped integer distances (float64
-    products), _rank_ready and the mask of dead rows. It takes all the
-    queries at once; finish_groups chunks them for it."""
+    candidate_distances (exact int32-wrapped integer distances of codes in
+    float64 products; float rows widened to float32, L2 as the direct sum),
+    _rank_ready and the mask of dead rows. It takes all the queries at
+    once; finish_groups chunks them for it."""
     pos = (gidx[:, :, None] * BLOCK + torch.arange(BLOCK, device=gidx.device)).reshape(gidx.shape[0], -1)
     return _gathered_candidates(queries, base, valid, metric, row_mask)(0, queries.shape[0], gidx, pos)
 
@@ -519,21 +524,21 @@ def rescore_groups(
 ) -> torch.Tensor:
     """Rank-ready float32 distances [B, kg*128] of queries [B, d] to the
     rows of their groups gidx [B, kg] (int64 in [0, ceil(N/128)); column
-    j*128 + r holds row gidx[b, j]*128 + r) of the codes base [N, d] (u8
-    or i8, the queries' type), under a dot-family metric (L2 squared).
-    Rows >= valid, past N and where row_mask ([N] bool, optional) is False
-    read +inf.
+    j*128 + r holds row gidx[b, j]*128 + r) of base [N, d] (u8 or i8
+    codes, or float32, float16 or bfloat16 rows; the queries' type), under
+    a dot-family metric (L2 squared). Rows >= valid, past N and where
+    row_mask ([N] bool, optional) is False read +inf.
 
     CPU tensors run rescore_groups_reference; CUDA tensors launch the
-    rescore kernel (csrc/rescore_codes.cu) and count the launch in
-    `rescore_groups.launches`. Its span is `ops.rescore` (range
-    `svt.ops.rescore:<B>`)."""
+    rescore kernel (csrc/rescore_codes.cu for codes, csrc/rescore_rows.cu
+    for float rows) and count the launch in `rescore_groups.launches`. Its
+    span is `ops.rescore` (range `svt.ops.rescore:<B>`)."""
     if queries.dim() != 2 or base.dim() != 2 or gidx.dim() != 2:
         raise ValueError("rescore_groups: queries, base and gidx must be 2-D")
     if queries.dtype != base.dtype or not rescore_takes(base.dtype, metric):
         raise ValueError(
-            "rescore_groups: queries and base must share uint8 or int8 under L2, "
-            f"SQUARED_L2, COSINE or DOT (got {queries.dtype}, {base.dtype}, {metric})"
+            "rescore_groups: queries and base must share uint8, int8, float32, float16 or "
+            f"bfloat16 under L2, SQUARED_L2, COSINE or DOT (got {queries.dtype}, {base.dtype}, {metric})"
         )
     if queries.shape[1] != base.shape[1] or gidx.shape[0] != queries.shape[0]:
         raise ValueError("rescore_groups: queries [B, d], base [N, d] and gidx [B, kg] disagree")
@@ -561,11 +566,11 @@ def _launch_rescore(
     row_mask: torch.Tensor | None,
 ) -> torch.Tensor:
     dev = base.device
-    if dev.type != "cuda":
-        raise ValueError(f"rescore_groups: unsupported device {dev}")
     tensors = (queries, base, gidx) if row_mask is None else (queries, base, gidx, row_mask)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("rescore_groups: the kernel needs contiguous tensors")
+    if dev.type != "cuda":
+        raise ValueError(f"rescore_groups: unsupported device {dev}")
     (b, d), n, kg = queries.shape, base.shape[0], gidx.shape[1]
     if n >= 2**31 or b * kg >= 2**31:
         raise ValueError("rescore_groups: N and B * kg must fit int32")
@@ -574,8 +579,10 @@ def _launch_rescore(
         return out
     from sqlite_vector_tpu_torch.ops._build import load_library
 
+    lib = load_library()
+    launch = lib.svt_rescore_rows if base.dtype.is_floating_point else lib.svt_rescore_groups
     with torch.cuda.device(dev):
-        rc = load_library().svt_rescore_groups(
+        rc = launch(
             queries.data_ptr(), base.data_ptr(), gidx.data_ptr(),
             None if row_mask is None else row_mask.data_ptr(), out.data_ptr(),
             b, kg, n, d, valid, _DTYPE_CODE[base.dtype], _METRIC_CODE[metric],
@@ -600,12 +607,11 @@ def _finish_from_minima(
     row_mask: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k from block minima: select k groups, rescore k*128 rows
-    exactly (finish_groups: u8/i8 codes under the dot family with
-    rescore_groups, other rows gathered), then L2's sqrt and the near-zero
-    snap. The gathered route's span is `ops.gather` (range
-    `svt.ops.gather:<B>`), one a query chunk; it counts the candidate rows
-    gathered in `finish.gathered_rows` and their bytes in
-    `finish.gathered_bytes`."""
+    exactly (finish_groups: rows under the dot family with rescore_groups,
+    L1 rows gathered), then L2's sqrt and the near-zero snap. The gathered
+    route's span is `ops.gather` (range `svt.ops.gather:<B>`), one a query
+    chunk; it counts the candidate rows gathered in `finish.gathered_rows`
+    and their bytes in `finish.gathered_bytes`."""
     if rescore_takes(base.dtype, metric):
         def score(s, e, gidx, pos):
             return rescore_groups(queries[s:e], base, gidx, valid, metric, row_mask)

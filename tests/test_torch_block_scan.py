@@ -245,9 +245,9 @@ RESCORE_METRICS = ["L2", "SQUARED_L2", "COSINE", "DOT"]
 @pytest.mark.parametrize("vtype", ["FLOAT32", "FLOATB16", "UINT8", "INT8"])
 @pytest.mark.parametrize("metric", METRICS)
 def test_finish_rescores_codes_under_the_dot_family_with_rescore_groups(monkeypatch, vtype, metric):
-    """u8/i8 codes under L2, SQUARED_L2, COSINE and DOT take rescore_groups
-    (one call for the one query chunk); L1 codes and float rows keep the
-    gathered rescore; the result is the same either way."""
+    """u8/i8 codes and float rows under L2, SQUARED_L2, COSINE and DOT
+    take rescore_groups (one call for the one query chunk); L1 rows keep
+    the gathered rescore; the result is the same either way."""
     q, base = scan_case(vtype, 300 + METRICS.index(metric))
     tq, tb, tm = from_numpy(q), from_numpy(base), DistanceMetric(metric)
     calls = []
@@ -259,7 +259,7 @@ def test_finish_rescores_codes_under_the_dot_family_with_rescore_groups(monkeypa
 
     monkeypatch.setattr(block_scan, "rescore_groups", spy)
     got = block_scan_topk(tq, tb, tm, 7, valid_count=690)
-    takes = vtype in ("UINT8", "INT8") and metric != "L1"
+    takes = metric != "L1"
     assert calls == ([3] if takes else [])
     monkeypatch.setattr(block_scan, "rescore_takes", lambda dtype, m: False)
     want = block_scan_topk(tq, tb, tm, 7, valid_count=690)
@@ -289,7 +289,7 @@ def test_cpu_tensors_never_launch_the_rescore_kernel(monkeypatch):
     monkeypatch.setattr(block_scan, "_launch_rescore", fail)
     monkeypatch.setattr(_build, "load_library", fail)
     before = block_scan.rescore_groups.launches
-    for vtype in ("UINT8", "INT8"):
+    for vtype in ("UINT8", "INT8", "FLOAT32", "FLOAT16", "FLOATB16"):
         q, base = scan_case(vtype, 40)
         for metric in RESCORE_METRICS:
             block_scan_topk(from_numpy(q), from_numpy(base), DistanceMetric(metric), 5)
@@ -389,7 +389,9 @@ def test_rescore_groups_rejects_what_it_does_not_take():
     dot = DistanceMetric.DOT
     block_scan.rescore_groups(q, base, gidx, 300, dot)
     for args in (
-        (q.float(), base.float(), gidx, 300, dot),
+        (q.double(), base.double(), gidx, 300, dot),
+        (q.float(), base.half(), gidx, 300, dot),
+        (q.float(), base.float(), gidx, 300, DistanceMetric.L1),
         (q, base.to(torch.uint8), gidx, 300, dot),
         (q, base, gidx, 300, DistanceMetric.L1),
         (q[:, :4], base, gidx, 300, dot),
@@ -402,6 +404,92 @@ def test_rescore_groups_rejects_what_it_does_not_take():
             block_scan.rescore_groups(*args)
     with pytest.raises(ValueError):
         block_scan.rescore_groups(q, base, gidx, 300, dot, torch.ones(299, dtype=torch.bool))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16, torch.int8], ids=str)
+def test_the_rescore_kernels_wrapper_refuses_tensors_that_are_not_contiguous(dtype):
+    """The kernel reads rows by their pitch: a transposed base, a strided
+    gidx or a strided mask is refused before any launch."""
+    q = torch.zeros((2, 8), dtype=dtype)
+    base = torch.zeros((8, 300), dtype=dtype).t()
+    gidx = torch.tensor([[0, 1, 2, 0], [1, 2, 0, 1]])
+    mask = torch.ones(600, dtype=torch.bool)
+    dot = DistanceMetric.DOT
+    for args in (
+        (q, base, gidx[:, :2].contiguous(), 300, dot, None),
+        (q, base.contiguous(), gidx[:, ::2], 300, dot, None),
+        (q, base.contiguous(), gidx[:, :2].contiguous(), 300, dot, mask[::2]),
+    ):
+        with pytest.raises(ValueError, match="contiguous"):
+            block_scan._launch_rescore(*args)
+
+
+def test_rescore_width_counts_bytes_for_float_rows():
+    """Float rows: 16 bytes where a row's bytes and both starts allow,
+    else 4, else the element (a 16-bit row of odd width)."""
+    for dtype, elem in ((torch.float32, 4), (torch.float16, 2), (torch.bfloat16, 2)):
+        q = torch.zeros((2, 96), dtype=dtype)
+        flat = torch.zeros(96 * 10 + 16, dtype=dtype)
+        assert flat.data_ptr() % 16 == 0
+        assert block_scan.rescore_width(q, flat[: 960].view(10, 96)) == 16
+        assert block_scan.rescore_width(q, flat[1:961].view(10, 96)) == elem
+        d4 = 95 if elem == 4 else 94  # a row of 380 or 188 bytes
+        assert block_scan.rescore_width(q[:, :d4].contiguous(), flat[: 10 * d4].view(10, d4)) == 4
+        odd = torch.zeros((2, 97), dtype=dtype)
+        assert block_scan.rescore_width(odd, flat[:970].view(10, 97)) == elem
+    q = torch.zeros((2, 64), dtype=torch.float16)
+    flat = torch.zeros(64 * 10 + 16, dtype=torch.float16)
+    assert block_scan.rescore_width(q, flat[2:642].view(10, 64)) == 4  # 4-byte aligned start
+
+
+def float_rescore_case(dtype, n, d, b, seed):
+    """Float rows with a NaN row, a zero row and a duplicate; query 0 a
+    self-match, query 1 zero."""
+    rng = np.random.default_rng(seed)
+    base = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(dtype)
+    q = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32)).to(dtype)
+    base[5] = torch.nan
+    base[3] = 0
+    base[n - 3] = base[10]
+    q[0] = base[10]
+    q[1:2] = 0
+    return q, base
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("metric", RESCORE_METRICS)
+@pytest.mark.parametrize("d", [97, 1536])
+@pytest.mark.parametrize("b", [1, 33])
+def test_float_rescore_twin_equals_the_gathered_path(dtype, metric, d, b):
+    """rescore_groups on CPU float rows (the twin the float kernel is held
+    to) equals the gathered path bit for bit, and the plain [B, N]
+    distances within float32 rounding, over N = 1,000 (a ragged last
+    group), three groups a query, unmasked and with valid < N and a row
+    mask; a self-match reads exactly 0 and the NaN row +inf."""
+    n = 1000
+    q, base = float_rescore_case(dtype, n, d, b, seed=d + b)
+    gen = torch.Generator().manual_seed(b)
+    gidx = torch.stack([torch.tensor([0, 7, 1 + int(torch.randint(6, (1,), generator=gen))]) for _ in range(b)])
+    gidx = torch.sort(gidx, dim=-1).values
+    mask = np.random.default_rng(d).random(n) < 0.5
+    tm = DistanceMetric(metric)
+    pos = (gidx[:, :, None] * BLOCK + torch.arange(BLOCK)).reshape(b, -1)
+    for valid, row_mask in ((n, None), (n - 77, mask)):
+        tmask = None if row_mask is None else torch.from_numpy(row_mask)
+        got = block_scan.rescore_groups(q, base, gidx, valid, tm, tmask)
+        assert torch.equal(got, gathered_rescore(q, base, gidx, valid, tm, tmask))
+        plain = torch.gather(per_row(q, base, tm, valid, np.ones(n, bool) if row_mask is None else row_mask), 1, pos)
+        assert torch.equal(torch.isinf(got), torch.isinf(plain))
+        fin = torch.isfinite(plain)
+        torch.testing.assert_close(got[fin], plain[fin], rtol=1e-5, atol=1e-4)
+    got = block_scan.rescore_groups(q, base, gidx, n, tm)
+    if tm is DistanceMetric.COSINE and b > 1:
+        # a zero norm reads 1.0, ahead of the NaN row (the reference's order)
+        assert bool((got[1, :BLOCK] == 1.0).all())
+        got = got[[0, *range(2, b)]]
+    assert bool(torch.isposinf(got[:, 5]).all())
+    if tm is not DistanceMetric.DOT:
+        assert float(got[0, 10]) == 0.0
 
 
 # -- row masks ---------------------------------------------------------------
@@ -823,3 +911,20 @@ def test_rescore_bound_is_the_bytes_of_the_selected_groups(b, kg, ms):
     nbytes = b * 768 + b * kg * 8 + b * kg * 128 * (768 + 4)
     assert got == pytest.approx(nbytes / 3.35e12 * 1e3)
     assert 2 * (b * kg * 128 * 768 / 4) / 16.75e12 * 1e3 < got
+
+
+
+@pytest.mark.parametrize("b,elem", [(1, 4), (32, 4), (64, 4), (32, 2)])
+def test_rescore_rows_bound_is_the_bytes_of_the_selected_float_rows(b, elem):
+    """B queries, k = 100 groups over 1,536-wide rows: the rows read once at
+    their element size (2.52 GB of float32 at B = 32), the queries and
+    group indices read once, the distances written once, over 3.35 TB/s;
+    the two FMAs an element at 33.5 T/s take far less."""
+    smoke = _chip_smoke()
+    got, side = smoke.rescore_rows_bound(b, 100, 1536, elem)
+    cand = b * 100 * 128
+    nbytes = b * 1536 * elem + b * 100 * 8 + cand * (1536 * elem + 4)
+    assert side == "bytes" and got == pytest.approx(nbytes / 3.35e12 * 1e3, rel=1e-12)
+    assert 2 * cand * 1536 / 33.5e12 * 1e3 < got / 4
+    if (b, elem) == (32, 4):
+        assert got == pytest.approx(0.7517740322388059, rel=1e-12)

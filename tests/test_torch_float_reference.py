@@ -2,10 +2,11 @@
 (vbench/reference/float_exact.py), on the CPU at small sizes: the port's
 Dataset.search(mode="exact") over rows drawn as the benchmark draws them,
 judged by vbench/check.py against the configuration's limits, passes; the
-reference one precision step down (TF32) fails them. And the gathered
-finish's span and counters: `ops.gather` inside `ops.finish`, one a query
-chunk, counting the candidate rows gathered and their bytes; the codes
-finish on the rescore route records neither."""
+reference one precision step down (TF32) fails them. And the finish's
+spans and counters: the gathered finish of L1 rows records `ops.gather`
+inside `ops.finish`, one a query chunk, counting the candidate rows
+gathered and their bytes; the float and codes finishes on the rescore
+route record `ops.rescore` and neither."""
 
 import numpy as np
 import pytest
@@ -87,8 +88,8 @@ def test_tf32_rounds_to_nearest_even_on_ten_mantissa_bits():
     assert not bool(low.any())
 
 
-def _dataset(n, d, qtype=None):
-    ds = svt.VectorStore(device="cpu").create("t", f"dimension={d},type=FLOAT32,distance=COSINE")
+def _dataset(n, d, qtype=None, metric="COSINE"):
+    ds = svt.VectorStore(device="cpu").create("t", f"dimension={d},type=FLOAT32,distance={metric}")
     ds.add(np.random.default_rng(0).standard_normal((n, d)).astype(np.float32))
     if qtype:
         ds.quantize(qtype=qtype)
@@ -97,14 +98,14 @@ def _dataset(n, d, qtype=None):
 
 @pytest.mark.parametrize("chunk_elems", [None, 1280])
 def test_the_gathered_finish_records_its_gather_and_counts_its_rows(monkeypatch, chunk_elems):
-    """B = 3 queries, k = 5 over 1,000 rows (8 groups, 5 kept): 3 * 5 * 128
-    candidate rows of 24 float32 elements. With the finish's bound cut so
-    that each query chunk holds one query, three `ops.gather` spans of
+    """B = 3 queries, k = 5 over 1,000 L1 rows (8 groups, 5 kept): 3 * 5 *
+    128 candidate rows of 24 float32 elements. With the finish's bound cut
+    so that each query chunk holds one query, three `ops.gather` spans of
     B = 1, which sum to the same counts."""
     n, d, b, k = 1000, 24, 3, 5
     if chunk_elems is not None:
         monkeypatch.setattr(block_scan, "_FINISH_CHUNK_ELEMS", chunk_elems)
-    ds = _dataset(n, d)
+    ds = _dataset(n, d, metric="L1")
     q = np.random.default_rng(1).standard_normal((b, d)).astype(np.float32)
     with profiling.recording() as rec:
         ds.search(q, k, mode="exact")
@@ -117,6 +118,25 @@ def test_the_gathered_finish_records_its_gather_and_counts_its_rows(monkeypatch,
     assert rec.counters["finish.gathered_rows"] == rows
     assert rec.counters["finish.gathered_bytes"] == rows * d * 4
     assert finish[0].counts == {"finish.gathered_rows": rows, "finish.gathered_bytes": rows * d * 4}
+
+
+@pytest.mark.parametrize("chunk_elems", [None, 1280])
+def test_the_float_finish_records_its_rescore_and_no_gather(monkeypatch, chunk_elems):
+    """The COSINE float finish takes the rescore route: one `ops.rescore`
+    span a query chunk inside `ops.finish` (B = 3, or three of B = 1 with
+    the bound cut), no `ops.gather` and no `finish.*` counter."""
+    if chunk_elems is not None:
+        monkeypatch.setattr(block_scan, "_FINISH_CHUNK_ELEMS", chunk_elems)
+    ds = _dataset(1000, 24)
+    q = np.random.default_rng(1).standard_normal((3, 24)).astype(np.float32)
+    with profiling.recording() as rec:
+        ds.search(q, 5, mode="exact")
+    finish = rec.named("ops.finish")
+    rescores = rec.named("ops.rescore")
+    assert len(finish) == 1 and [r.parent for r in rescores] == [finish[0].id] * len(rescores)
+    assert [r.attrs for r in rescores] == ([{"B": 3}] if chunk_elems is None else [{"B": 1}] * 3)
+    assert rec.named("ops.gather") == []
+    assert not any(name.startswith("finish.") for name in rec.counters)
 
 
 def test_the_codes_finish_records_no_gather():

@@ -1,9 +1,9 @@
 """The port's CUDA kernels on the card: K1 (csrc/block_minima_wgmma.cu,
 csrc/block_minima_mma.cu and csrc/block_minima.cu), K2
 (csrc/int4_minima_wgmma.cu, csrc/int4_minima_mma.cu and
-csrc/int4_minima.cu) and the int8/u8 finish's rescore
-(csrc/rescore_codes.cu), unmasked and with row masks, and the searches
-that launch them.
+csrc/int4_minima.cu), the int8/u8 finish's rescore
+(csrc/rescore_codes.cu) and the float finish's (csrc/rescore_rows.cu),
+unmasked and with row masks, and the searches that launch them.
 
 Every test here needs a CUDA device and skips without one. The file imports
 neither jax nor the JAX package, so on a machine without jax it runs on its
@@ -1393,9 +1393,10 @@ def test_block_scan_topk_at_100k_x_768_int8_equals_the_cpu_twin(cuda, metric):
 
 @pytest.mark.cuda
 def test_only_u8_and_i8_dot_family_searches_launch_the_rescore_kernel(cuda):
-    """An int8 quantized search launches the rescore kernel once (k = 9
-    over 3,000 rows: one query chunk); exact float search, int4 quantized
-    and refine search and an L1 int8 search launch it never."""
+    """An int8 quantized search and an exact float dot-family search each
+    launch a rescore kernel once (k = 9 over 3,000 rows: one query chunk);
+    int4 quantized and refine search and the L1 int8 and float searches
+    launch it never."""
     from sqlite_vector_tpu_torch.ops.block_scan import rescore_groups
 
     rng = np.random.default_rng(19)
@@ -1405,7 +1406,8 @@ def test_only_u8_and_i8_dot_family_searches_launch_the_rescore_kernel(cuda):
         ("COSINE", "int8", "quantized", 1),
         ("DOT", "int8", "quantized", 1),
         ("L1", "int8", "quantized", 0),
-        ("COSINE", "int8", "exact", 0),
+        ("COSINE", "int8", "exact", 1),
+        ("L1", "int8", "exact", 0),
         ("L2", "int4", "quantized", 0),
         ("L2", "int4", "refine", 0),
     ):
@@ -1415,3 +1417,121 @@ def test_only_u8_and_i8_dot_family_searches_launch_the_rescore_kernel(cuda):
         before = rescore_groups.launches
         ds.search(q, 9, mode=mode)
         assert rescore_groups.launches - before == want, (metric, qtype, mode)
+
+
+# -- the float finish's rescore (csrc/rescore_rows.cu) ------------------------
+
+FLOAT_DTYPES = [torch.float32, torch.float16, torch.bfloat16]
+
+
+def float_rescore_case(dtype, n, d, b, device, seed=0):
+    """N(0, 1) rows with a NaN row, a zero row and a duplicate row; query 0
+    a self-match of the duplicated row, query 1 zero."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    base = torch.randn((n, d), generator=gen, device=device).to(dtype)
+    q = torch.randn((b, d), generator=gen, device=device).to(dtype)
+    base[5] = torch.nan
+    base[3] = 0
+    base[n - 3] = base[10]
+    q[0] = base[10]
+    q[1:2] = 0
+    return q, base
+
+
+def assert_float_rescore_close(got, want, metric):
+    """The kernel's float32 sums run in another order than the twin's:
+    +inf at the same places, the values within rtol 1e-5 (COSINE's, in
+    [0, 2], within 1e-5 of each other; others within K1's card test's
+    atol of 1e-3 beside their magnitude)."""
+    assert torch.equal(torch.isposinf(got), torch.isposinf(want))
+    fin = torch.isfinite(want)
+    atol = 1e-5 if metric is DistanceMetric.COSINE else 1e-3
+    torch.testing.assert_close(got[fin], want[fin], rtol=1e-5, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", FLOAT_DTYPES, ids=str)
+@pytest.mark.parametrize("metric", RESCORE_METRICS, ids=lambda m: m.value)
+@pytest.mark.parametrize("d", [1536, 97, 8192])  # 16-byte words, the element's / 4-byte, 16-byte
+@pytest.mark.parametrize("b", [1, 32, 64])
+def test_float_rescore_kernel_matches_its_twin(cuda, dtype, metric, d, b):
+    """The kernel's rank-ready distances against its twin, the gathered
+    float32 path it replaced, over N = 1,000 (the last group 104 rows),
+    every group kept (k = G = 8) and 5 of them, unmasked, and with
+    valid < N and a row mask; one launch a call. A self-match reads
+    exactly 0 under L2, SQUARED_L2 and COSINE."""
+    from sqlite_vector_tpu_torch.ops.block_scan import rescore_groups, rescore_groups_reference
+
+    n = 1000
+    q, base = float_rescore_case(dtype, n, d, b, cuda, seed=d + b)
+    mask = torch.rand(n, generator=torch.Generator(device=cuda).manual_seed(d), device=cuda) < 0.5
+    before = rescore_groups.launches
+    for kg in (8, 5):
+        gidx = group_choice(b, 8, kg, cuda, seed=b + kg)
+        for valid, row_mask in ((n, None), (n - 77, mask)):
+            got = rescore_groups(q, base, gidx, valid, metric, row_mask)
+            want = rescore_groups_reference(q, base, gidx, valid, metric, row_mask)
+            assert_float_rescore_close(got, want, metric)
+    assert rescore_groups.launches == before + 4
+    if metric is not DistanceMetric.DOT:
+        got = rescore_groups(q[:1], base, torch.zeros((1, 1), dtype=torch.int64, device=cuda), n, metric)
+        assert float(got[0, 10]) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", FLOAT_DTYPES, ids=str)
+@pytest.mark.parametrize("metric", RESCORE_METRICS, ids=lambda m: m.value)
+def test_float_rescore_kernel_reads_unaligned_rows_in_narrower_words(cuda, dtype, metric):
+    """Rows that start off a 16-byte boundary take 4-byte or one-element
+    words (rescore_width), with values within the sums' rounding."""
+    from sqlite_vector_tpu_torch.ops.block_scan import rescore_groups, rescore_width
+
+    q, base = float_rescore_case(dtype, 1001, 1536, 3, cuda, seed=5)
+    gidx = group_choice(3, 7, 4, cuda)
+    want = rescore_groups(q, base, gidx, 1000, metric)
+    elem = base.element_size()
+    for skip in sorted({4 // elem, 1}):
+        flat = torch.empty(1000 * 1536 + skip, dtype=dtype, device=cuda)
+        moved = flat[skip:].view(1000, 1536)
+        moved.copy_(base[:1000])
+        assert rescore_width(q, moved) == skip * elem
+        assert_float_rescore_close(rescore_groups(q, moved, gidx, 1000, metric), want, metric)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", FLOAT_DTYPES, ids=str)
+@pytest.mark.parametrize("metric", RESCORE_METRICS, ids=lambda m: m.value)
+def test_block_scan_topk_over_float_rows_matches_the_cpu_twin(cuda, dtype, metric):
+    """K1 + the float rescore kernel on the card against the twins on the
+    CPU at 20,000 x 1,536 and k = 100 (valid < N, ties from duplicate
+    rows): one rescore launch a scan, the same +inf slots, the values
+    within the sums' rounding and the ids tie-aware equal
+    (tests/parity.py) to the plain distances."""
+    import importlib.util
+    from pathlib import Path
+
+    from sqlite_vector_tpu_torch.ops.block_scan import rescore_groups
+
+    spec = importlib.util.spec_from_file_location("svt_parity", Path(__file__).with_name("parity.py"))
+    parity = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(parity)
+    n, d, k, valid = 20_000, 1536, 100, 19_990
+    q, base = float_rescore_case(dtype, n, d, 8, cuda, seed=23)
+    before = rescore_groups.launches
+    got_v, got_i = block_scan_topk(q, base, metric, k, valid_count=valid)
+    assert rescore_groups.launches == before + 1
+    want_v, _ = block_scan_topk(q.cpu(), base.cpu(), metric, k, valid_count=valid)
+    assert_float_rescore_close(got_v.cpu(), want_v, metric)
+    plain = pairwise_plain(q.cpu(), base.cpu()[:valid], metric)
+    vtype = {torch.float32: "FLOAT32", torch.float16: "FLOAT16", torch.bfloat16: "FLOATB16"}[dtype]
+    for i in range(q.shape[0]):
+        parity.assert_topk_parity(np.arange(valid), plain[i], got_i[i].cpu().numpy(), got_v[i].cpu().numpy(), k,
+                                  rel_tol=parity.REL_TOL_BY_TYPE[vtype], label=f"{dtype} {metric.value} q{i}")
+
+
+def pairwise_plain(q, base, metric):
+    """[B, N] float32 distances by the plain torch ops (ops/distance.py),
+    snapped as the search returns them."""
+    from sqlite_vector_tpu_torch.ops.distance import pairwise_distance
+
+    return pairwise_distance(q, base, metric).numpy()

@@ -104,9 +104,9 @@ def test_a_search_records_its_stages_nested(mode, qtype):
     """One search, recorded: the `search` span holds its stages in order
     with no other child, the route's scan holds K1's or K2's `ops.scan`
     (its B attribute the batch) and the finish, the int8 finish the
-    rescore's `ops.rescore` and the float finish its gather's `ops.gather`
-    (each with B the batch); every span is on the caller's thread, inside
-    its parent's interval, with no batch id."""
+    rescore's `ops.rescore`, as the float finish does (each with B the
+    batch); every span is on the caller's thread, inside its parent's
+    interval, with no batch id."""
     ds = _dataset(qtype, refine=mode == "refine")
     q = _queries(3)
     with profiling.recording() as rec:
@@ -121,7 +121,7 @@ def test_a_search_records_its_stages_nested(mode, qtype):
     # the scan span's own time)
     assert inner == SCAN_CHILDREN
     assert _one(rec, "ops.scan").attrs == {"B": 3}
-    rescore = {"int8": ["ops.rescore"], None: ["ops.gather"]}.get(qtype, [])
+    rescore = {"int8": ["ops.rescore"], None: ["ops.rescore"]}.get(qtype, [])
     assert [s.name for s in rec.spans if s.parent == _one(rec, "ops.finish").id] == rescore
     if rescore:
         assert _one(rec, rescore[0]).attrs == {"B": 3}
@@ -132,6 +132,21 @@ def test_a_search_records_its_stages_nested(mode, qtype):
             up = by_id[s.parent]
             assert up.start_ns <= s.start_ns and s.end_ns <= up.end_ns
     assert {s.name for s in rec.spans} == {"search", *SEARCH_CHILDREN, *SCAN_CHILDREN, *rescore}
+
+
+def test_the_l1_float_finish_records_its_gather_nested():
+    """An exact L1 search over float rows keeps the gathered finish: its
+    `ops.gather` span (B the batch) is the one child of `ops.finish`,
+    inside its interval, on the caller's thread."""
+    ds = _dataset(metric="L1")
+    with profiling.recording() as rec:
+        ds.search(_queries(3), 5, mode="exact")
+    finish = _one(rec, "ops.finish")
+    assert [s.name for s in rec.spans if s.parent == finish.id] == ["ops.gather"]
+    gather = _one(rec, "ops.gather")
+    assert gather.attrs == {"B": 3} and gather.thread == threading.get_ident()
+    assert finish.start_ns <= gather.start_ns and gather.end_ns <= finish.end_ns
+    assert rec.named("ops.rescore") == []
 
 
 @pytest.mark.parametrize("route", ["fused", "remap"])
@@ -322,14 +337,16 @@ def test_recording_is_one_at_a_time_and_keeps_nothing_after_it_stops():
 def test_profile_trace_holds_the_spans_as_svt_ranges(tmp_path):
     """Under profile_trace, recording at once: every recorded span of two
     searches is a `svt.<name>` range (the scan's `svt.ops.scan:<B>`, the
-    int8 rescore's `svt.ops.rescore:<B>`, the float finish's
+    int8 and float rescores' `svt.ops.rescore:<B>`, the L1 float finish's
     `svt.ops.gather:<B>`), with
     the same counts, each range inside the range of its span's parent."""
     ds = _dataset("int8")
+    l1 = _dataset(metric="L1")
     with profile_trace(str(tmp_path)):
         with profiling.recording() as rec:
             ds.search(_queries(3), 5, mode="quantized")
             ds.search(_queries(1, seed=2), 5)
+            l1.search(_queries(1, seed=2), 5)
 
     def label(s):
         return f"svt.{s.name}" + (f":{s.attrs['B']}" if s.name in ("ops.scan", "ops.rescore", "ops.gather") else "")
@@ -348,6 +365,7 @@ def test_profile_trace_holds_the_spans_as_svt_ranges(tmp_path):
         got.append((r["name"], parent))
     assert sorted(got) == want
     assert ("svt.ops.scan:3", "svt.search.scan") in got and ("svt.ops.scan:1", "svt.search.scan") in got
+    assert ("svt.ops.rescore:1", "svt.ops.finish") in got
     assert ("svt.ops.gather:1", "svt.ops.finish") in got
 
 
