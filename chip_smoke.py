@@ -13,10 +13,10 @@ Phases, each printing its own lines:
               and the TF32 flags, which are pinned off;
   2. build    compile K1's three bodies (csrc/block_minima_wgmma.cu on
               warpgroup MMA fed by TMA, csrc/block_minima_mma.cu on mma.sync,
-              csrc/block_minima.cu on CUDA cores) and the packed-int4
-              kernel K2's three bodies (csrc/int4_minima_wgmma.cu on
-              warpgroup MMA fed by TMA, csrc/int4_minima_mma.cu on
-              mma.sync, csrc/int4_minima.cu on CUDA cores) from csrc/ with nvcc,
+              csrc/block_minima.cu on CUDA cores), the packed-int4 kernel
+              K2's two bodies (csrc/int4_minima_wgmma.cu on warpgroup MMA
+              fed by TMA, csrc/int4_minima_mma.cu on mma.sync) and the
+              finish's two rescore kernels from csrc/ with nvcc,
               one process per source, and print what ptxas reported of each
               function (registers, stack, spills); no instance of a
               tensor-core body or of K1's L1 kernel may spill;
@@ -44,8 +44,9 @@ Phases, each printing its own lines:
               mask_case (a random half, a group with no live row, every row
               masked, three live rows); each case in the body
               ops/int4_scan.py:k2_body routes it to (wgmma where TMA takes
-              the packed rows: d = 95, 384; else mma.sync) and in every
-              other body that takes it, all equal bit for bit;
+              the packed rows: d = 95, 384; else mma.sync) and, where that
+              is wgmma, also in the mma.sync body, the two equal bit for
+              bit;
   4. main     VectorStore(device="cuda"): create dimension=384 FLOAT32 L2,
               add 1,000,000 rows, search(Q, 20) for 64 queries (half drawn
               from the base) against a plain-torch ground truth, then
@@ -81,9 +82,9 @@ Phases, each printing its own lines:
               launch count over these searches must be above 0; int4 and
               refine recall@20 against exact are printed; every K2 launch
               must take its wgmma body;
-  7. times    K2 at B=1 and B=64, its three bodies held against the twin,
+  7. times    K2 at B=1 and B=64, its two bodies held against the twin,
               then timed (CUDA events): the twin apart, the routed (wgmma)
-              body, the mma.sync body, the CUDA-core body and the library
+              body, the mma.sync body and the library
               yardstick (library_call_k2) in five rounds of turns (medians),
               beside its bound (k2_bound); then end-to-end int4-quantized
               and refine search at B=1 and B=64, measured as in phase 5,
@@ -234,8 +235,8 @@ Phases, each printing its own lines:
               counters (zeroed before, read after) showing each launch on
               the wgmma body, streamed where the route says; K2 alone
               there and over 2 GB of codes at 8,192 and 16,384 columns: its
-              three bodies bit-equal to the twin, timed in turns (CUDA
-              events) with the mma.sync and the CUDA-core body,
+              two bodies bit-equal to the twin, timed in turns (CUDA
+              events) with the mma.sync body,
               torch._int_mm on the unpacked codes (B=64) and, where a
               resident tile fits, the wgmma body's resident and streamed
               tile side by side, beside k2_bound; then a kNN-LM
@@ -243,8 +244,8 @@ Phases, each printing its own lines:
               states: 500,000 x 18,432 FLOATB16 L2 N(0, 1) rows drawn on the
               card (18.4 GB), 64 queries, half from the base, exact search
               (self-matches first, each at exactly 0), the same int4
-              and refine checks, every K2 launch streamed, the mma.sync and
-              CUDA-core bodies forced once and bit-equal, K2 alone as above and beside
+              and refine checks, every K2 launch streamed, the mma.sync
+              body forced once and bit-equal, K2 alone as above and beside
               the finish (CUDA-event windows). Prints the peak device
               memory.
  15. rescore  (run after phase 3, before phase 4 makes its rows) the
@@ -642,11 +643,11 @@ def load_tests_module(name: str, folder: str = "tests"):
 
 
 def compare_int4_minima(args, metric, valid: int, label: str, mask=None) -> float:
-    """K2, in the body k2_body routes to and forced onto every other body
-    that takes the codes (the wgmma body only where TMA copies the packed
-    rows; the mma.sync and CUDA-core bodies always), against its twin on
-    the same CUDA tensors: +inf positions equal and finite minima EQUAL
-    (tolerance 0): all take the exact integer dot and then the same float32
+    """K2, in the body k2_body routes to and forced onto the mma.sync body
+    where the route takes the wgmma body (the wgmma body takes only rows TMA
+    copies; the mma.sync body takes every scan), against its twin on the
+    same CUDA tensors: +inf positions equal and finite minima EQUAL
+    (tolerance 0): both take the exact integer dot and then the same float32
     epilogue, each op rounded once in the same order (__fmul_rn/__fsub_rn
     and a correctly rounded 1/sqrt in the kernel, one torch op per step in
     the twin); the bodies equal bit for bit. Returns max |kernel - twin|
@@ -661,9 +662,8 @@ def compare_int4_minima(args, metric, valid: int, label: str, mask=None) -> floa
 
     routed = k2_body(args[0].shape[1], tma_ready(args[2]))
     got = {routed: int4_block_minima(*args, metric, valid, mask)}
-    for body in ("mma", "simt"):
-        if body not in got:
-            got[body] = _launch_k2(*args, metric, valid, mask, body)
+    if "mma" not in got:
+        got["mma"] = _launch_k2(*args, metric, valid, mask, "mma")
     ref = int4_block_minima_reference(*args, metric, valid, mask)
     torch.cuda.synchronize()
     fin = torch.isfinite(ref)
@@ -677,13 +677,13 @@ def compare_int4_minima(args, metric, valid: int, label: str, mask=None) -> floa
         check(torch.equal(minima[fin], ref[fin]), f"{where}: max |kernel - twin| {err}")
         worst = max(worst, err)
     for body, minima in got.items():
-        check(torch.equal(minima.view(torch.int32), got["simt"].view(torch.int32)),
-              f"{label}: the {body} and CUDA-core bodies differ in some bit")
+        check(torch.equal(minima.view(torch.int32), got["mma"].view(torch.int32)),
+              f"{label}: the {body} and mma.sync bodies differ in some bit")
     return worst
 
 
 def phase_kernel_int4(card: str) -> tuple[float, float]:
-    """K2 (every body that takes the codes) vs twin for its 4 metrics x d
+    """K2 (both bodies where both take the codes) vs twin for its 4 metrics x d
     in {95, 97, 384} x B in {1, 8, 33, 64, 65, 200}, and d = 16,385 (the
     mma.sync body's query tile streamed) x B in {1, 65}, unmasked and with
     each row mask; returns the largest |kernel - twin| over finite minima,
@@ -725,7 +725,7 @@ def phase_kernel_int4(card: str) -> tuple[float, float]:
         f"[kernel] K2 == twin for {len(metrics)} metrics x d in (95, 97, 384) x B in "
         f"{batches} and d=16385 x B in (1, 65) (N={n}, valid={valid}, zero/duplicate/1e25-scaled "
         f"rows; +inf positions equal, finite minima equal), the routed body (wgmma at d=95 and "
-        f"384, mma.sync at 97 and 16385) and every other body that takes the codes, equal bit "
+        f"384, mma.sync at 97 and 16385) and, where that is wgmma, the mma.sync body, equal bit "
         f"for bit; max |kernel - twin| = "
         f"{worst!r}; masked ({len(masks)} row masks each): max |kernel - twin| = "
         f"{masked_worst!r}; streamed_launches {int4_block_minima.streamed_launches} (all at "
@@ -797,10 +797,10 @@ def phase_rescore(card: str) -> dict:
                 same(f"{label} {metric.value} valid<N masked", q, codes, gidx, n - 1000, metric, mask)
 
         def gathered():
-            return bs.finish_groups(minima, k, bs._gathered_candidates(q, codes, n, cos, None), d)
+            return bs.finish_groups(minima, k, lambda s, e, g, pos: bs.rescore_groups_reference(q[s:e], codes, g, n, cos))
 
         def routed():
-            return bs.finish_groups(minima, k, lambda s, e, g, pos: bs.rescore_groups(q[s:e], codes, g, n, cos), 1)
+            return bs.finish_groups(minima, k, lambda s, e, g, pos: bs.rescore_groups(q[s:e], codes, g, n, cos))
 
         before = bs.rescore_groups.launches
         bs._finish_from_minima(minima, q, codes, n, cos, k)
@@ -887,10 +887,10 @@ def phase_rescore_rows(card: str) -> dict:
                 close(f"{label} {metric.value} valid<N masked", q, rows, gidx, n - 1000, metric, mask)
 
         def gathered():
-            return bs.finish_groups(minima, k, bs._gathered_candidates(q, rows, n, cos, None), d)
+            return bs.finish_groups(minima, k, lambda s, e, g, pos: bs.rescore_groups_reference(q[s:e], rows, g, n, cos))
 
         def routed():
-            return bs.finish_groups(minima, k, lambda s, e, g, pos: bs.rescore_groups(q[s:e], rows, g, n, cos), 1)
+            return bs.finish_groups(minima, k, lambda s, e, g, pos: bs.rescore_groups(q[s:e], rows, g, n, cos))
 
         before = bs.rescore_groups.launches
         bs._finish_from_minima(minima, q, rows, n, cos, k)
@@ -927,7 +927,7 @@ def phase_rescore_rows(card: str) -> dict:
 
 def phase_main(card: str):
     import sqlite_vector_tpu_torch as svt
-    from sqlite_vector_tpu_torch.ops import block_scan
+    from sqlite_vector_tpu_torch.ops import rerank
     from sqlite_vector_tpu_torch.ops.block_scan import block_minima, rescore_groups
     from sqlite_vector_tpu_torch.ops.distance import pairwise_distance
     from sqlite_vector_tpu_torch.ops.quantize import quantize_device
@@ -966,7 +966,7 @@ def phase_main(card: str):
           f"exact search left K1's wgmma body: {block_minima.body_launches}")
     # each K1 scan's finish rescores with the float rescore kernel in one
     # query chunk: the [B, K*128] distances are within the finish's bound
-    check(B_MAIN * K * 128 <= block_scan._FINISH_CHUNK_ELEMS, "the main finish needs query chunks")
+    check(B_MAIN * K * 128 <= rerank.RESCORE_CHUNK_ELEMS, "the main finish needs query chunks")
     launches["rescore_rows"] = rescore_groups.launches
     check(launches["rescore_rows"] == launches["wgmma"],
           f"exact search launched the rescore kernel {launches['rescore_rows']} times, K1 {launches['wgmma']}")
@@ -1332,7 +1332,7 @@ def phase_int4(card: str, ds, Q, ids_e) -> int:
     ids_r, d_r = ds.search(Q, K, mode="refine")
     launches = int4_block_minima.launches
     check(launches > 0, "int4 quantized/refine search did not launch K2")
-    check(int4_block_minima.body_launches == {"wgmma": launches, "mma": 0, "simt": 0},
+    check(int4_block_minima.body_launches == {"wgmma": launches, "mma": 0},
           f"int4 searches left K2's wgmma body: {int4_block_minima.body_launches}")
     check(block_minima.launches == 0, "int4 searches launched K1")
 
@@ -1368,13 +1368,12 @@ def phase_int4(card: str, ds, Q, ids_e) -> int:
 
 
 def phase_int4_times(card: str, ds, Q) -> dict:
-    """K2 at B=1 and B=B_MAIN, its three bodies held against the twin, then
-    timed in turns with the twin, the mma.sync and CUDA-core bodies and the
-    library yardstick, beside its bound; then end-to-end int4-quantized and
-    refine search, every K2 launch in its wgmma body. Returns, by label,
-    the kernel's, the twin's, the mma.sync body's, the CUDA-core body's and
-    the library's ms with the bound, and the largest |kernel - twin| under
-    "max_abs_err"."""
+    """K2 at B=1 and B=B_MAIN, its two bodies held against the twin, then
+    timed in turns with the twin, the mma.sync body and the library
+    yardstick, beside its bound; then end-to-end int4-quantized and refine
+    search, every K2 launch in its wgmma body. Returns, by label, the
+    kernel's, the twin's, the mma.sync body's and the library's ms with the
+    bound, and the largest |kernel - twin| under "max_abs_err"."""
     from sqlite_vector_tpu_torch.ops.int4_scan import (
         _launch_k2,
         int4_block_minima,
@@ -1398,20 +1397,19 @@ def phase_int4_times(card: str, ds, Q) -> dict:
         # skewed that body's time; the bodies and the yardstick over five
         # rounds in turns (their times spread by up to 8% between passes)
         (plain_ms,) = in_turns([lambda: int4_block_minima_reference(*args, L2, n)], iters)
-        fns = [lambda: int4_block_minima(*args, L2, n), lambda: _launch_k2(*args, L2, n, None, "mma"),
-               lambda: _launch_k2(*args, L2, n, None, "simt")]
+        fns = [lambda: int4_block_minima(*args, L2, n), lambda: _launch_k2(*args, L2, n, None, "mma")]
         lib = library_call_k2(qc, codes8)
         ms = in_turns(fns + ([lib] if lib else []), iters, rounds=5)
         lim, by = k2_bound(b, n, DIM_MAIN)
         label = f"B={b}"
-        out[label] = {"ms": ms[0], "plain_ms": plain_ms, "mma_sync_ms": ms[1], "simt_ms": ms[2],
-                      "library_ms": ms[3] if lib else None, "bound_ms": lim, "bound_by": by}
+        out[label] = {"ms": ms[0], "plain_ms": plain_ms, "mma_sync_ms": ms[1],
+                      "library_ms": ms[2] if lib else None, "bound_ms": lim, "bound_by": by}
         print(
-            f"[times] K2 {shape} f32 queries {label} L2 (the three bodies == twin; wgmma body): kernel "
+            f"[times] K2 {shape} f32 queries {label} L2 (the two bodies == twin; wgmma body): kernel "
             f"{ms[0]!r} ms ({quant.codes.numel() / (ms[0] * 1e-3) / 1e9:.0f} GB/s of packed "
             f"codes), bound {lim!r} ms ({by}), {100 * lim / ms[0]:.1f}% of bound; mma.sync body "
-            f"{ms[1]!r} ms; CUDA-core body {ms[2]!r} ms; twin {plain_ms!r} ms; library "
-            f"(torch._int_mm) {'none' if not lib else repr(ms[3]) + ' ms'} (medians of 10 passes "
+            f"{ms[1]!r} ms; twin {plain_ms!r} ms; library "
+            f"(torch._int_mm) {'none' if not lib else repr(ms[2]) + ' ms'} (medians of 10 passes "
             f"in turns) | {card}",
             flush=True,
         )
@@ -1420,7 +1418,7 @@ def phase_int4_times(card: str, ds, Q) -> dict:
     for mode, label in (("quantized", "int4 quantized"), ("refine", "refine expand=4")):
         search_times(card, ds, Q, mode, shape, ((1, 200), (B_MAIN, 100)), label)
     used = int4_block_minima.body_launches
-    check(used["wgmma"] > 0 and used["mma"] == 0 and used["simt"] == 0,
+    check(used["wgmma"] > 0 and used["mma"] == 0,
           f"timed int4 searches left K2's wgmma body: {used}")
     check(int4_block_minima.streamed_launches == 0, "K2 streamed its query tile at d=384")
     print(f"[times] the timed int4 searches' K2 launches: {used}, streamed_launches "
@@ -1544,7 +1542,7 @@ def phase_mutate(card: str, ds, Q) -> dict:
     )
     same_topk("filtered rerank (int4 stage 1, id remap)", ids_rr, d_rr, *plain_remap(cand))
     masked = {"K1": block_minima.launches, "K2": int4_block_minima.launches}
-    check(int4_block_minima.body_launches == {"wgmma": masked["K2"], "mma": 0, "simt": 0},
+    check(int4_block_minima.body_launches == {"wgmma": masked["K2"], "mma": 0},
           f"masked int4 searches left K2's wgmma body: {int4_block_minima.body_launches}")
     print(
         f"[mutate] remove(10000) of {N_MAIN} rows: {ds.tombstones} tombstones; masked exact "
@@ -3262,7 +3260,7 @@ def int4_searches(card: str, ds, Q, ids_e, dim: int, label: str) -> int:
     launches, used, streamed = (int4_block_minima.launches, dict(int4_block_minima.body_launches),
                                 int4_block_minima.streamed_launches)
     want_streamed = 2 * sum(k2_wgmma_plan(dim, b)[1] for b in (1, B_MAIN))
-    check(launches == 4 and used == {"wgmma": 4, "mma": 0, "simt": 0} and streamed == want_streamed
+    check(launches == 4 and used == {"wgmma": 4, "mma": 0} and streamed == want_streamed
           and block_minima.launches == 0,
           f"{label}: K2 launches {launches} {used}, {streamed} streamed (want 4 on the wgmma "
           f"body, {want_streamed} streamed), K1 {block_minima.launches}")
@@ -3303,9 +3301,9 @@ def int4_searches(card: str, ds, Q, ids_e, dim: int, label: str) -> int:
 
 def wide_k2(card: str, label: str, Q, packed, alpha, csq, dim: int, out: dict) -> None:
     """K2 alone at B=1 and B=B_MAIN over these codes: the routed (wgmma)
-    body, the mma.sync and the CUDA-core body against the twin
-    (compare_int4_minima: bit-equal), then timed in turns (CUDA events; the
-    twin apart) with the mma.sync and CUDA-core bodies, torch._int_mm on
+    body and the mma.sync body against the twin (compare_int4_minima:
+    bit-equal), then timed in turns (CUDA events; the twin apart) with the
+    mma.sync body, torch._int_mm on
     the codes unpacked once to int8 where it takes the shape, and, where a
     resident query tile fits, the wgmma body's resident and streamed tile
     side by side; beside k2_bound. Into out[label B=b]."""
@@ -3330,8 +3328,7 @@ def wide_k2(card: str, label: str, Q, packed, alpha, csq, dim: int, out: dict) -
         out["max_abs_err"] = max(out["max_abs_err"], compare_int4_minima(args, L2, n, f"wide K2 {key}"))
         (plain_ms,) = in_turns([lambda: int4_block_minima_reference(*args, L2, n)], 3)
         fns = {"kernel": lambda: int4_block_minima(*args, L2, n),
-               "mma": lambda: _launch_k2(*args, L2, n, None, "mma"),
-               "simt": lambda: _launch_k2(*args, L2, n, None, "simt")}
+               "mma": lambda: _launch_k2(*args, L2, n, None, "mma")}
         lib = library_call_k2(qc, codes8)
         if lib:
             fns["library"] = lib
@@ -3343,7 +3340,7 @@ def wide_k2(card: str, label: str, Q, packed, alpha, csq, dim: int, out: dict) -
         lim, by = k2_bound(b, n, dim)
         tile, streamed = k2_wgmma_plan(dim, b)
         routed = f"{tile} {'streamed' if streamed else 'resident'}"
-        out[key] = {"ms": ms["kernel"], "plain_ms": plain_ms, "mma_sync_ms": ms["mma"], "simt_ms": ms["simt"],
+        out[key] = {"ms": ms["kernel"], "plain_ms": plain_ms, "mma_sync_ms": ms["mma"],
                     "library_ms": ms.get("library"), "bound_ms": lim, "bound_by": by,
                     "query_tile": routed}
         side = ""
@@ -3352,11 +3349,10 @@ def wide_k2(card: str, label: str, Q, packed, alpha, csq, dim: int, out: dict) -
             side = (f"; wgmma resident tile {resident} (x{-(-b // resident)}) {ms['resident']!r} ms "
                     f"against streamed tile {k2_wgmma_plan(dim, b, True)[0]} {ms['streamed']!r} ms")
         print(
-            f"[times] K2 {n}x{dim} {key} L2 (the three bodies == twin; routed: the wgmma body, query "
+            f"[times] K2 {n}x{dim} {key} L2 (the two bodies == twin; routed: the wgmma body, query "
             f"tile {routed}): kernel {ms['kernel']!r} ms, bound {lim!r} ms ({by}), "
             f"{100 * lim / ms['kernel']:.1f}% of bound; mma.sync body {ms['mma']!r} ms "
-            f"({ms['mma'] / ms['kernel']:.2f}x); CUDA-core body {ms['simt']!r} ms "
-            f"({ms['simt'] / ms['kernel']:.2f}x); twin {plain_ms!r} ms; library (torch._int_mm) "
+            f"({ms['mma'] / ms['kernel']:.2f}x); twin {plain_ms!r} ms; library (torch._int_mm) "
             f"{'none' if not lib else repr(ms['library']) + ' ms'}{side} | {card}",
             flush=True,
         )
@@ -3471,17 +3467,15 @@ def phase_wide_int4(card: str, wide: dict) -> dict:
     print(f"[wide4] datastore: peak device memory after the int4 searches and their plain "
           f"counterparts {torch.cuda.max_memory_allocated()} bytes | {card}", flush=True)
     quant = ds._quant
-    # the mma.sync and CUDA-core bodies forced once more, at B=B_MAIN: bit-equal
+    # the mma.sync body forced once more, at B=B_MAIN: bit-equal
     qc, qs, _ = quantize_query_int8(torch.from_numpy(Q).cuda())
     args = (qc, qs, quant.codes, quant.row_scale, quant.sq_norms)
     wgmma = _launch_k2(*args, L2, quant.count, None, "wgmma")
     mma = _launch_k2(*args, L2, quant.count, None, "mma")
-    simt = _launch_k2(*args, L2, quant.count, None, "simt")
     torch.cuda.synchronize()
-    check(torch.equal(wgmma.view(torch.int32), simt.view(torch.int32))
-          and torch.equal(mma.view(torch.int32), simt.view(torch.int32)),
-          "datastore: the streamed wgmma, the streamed mma.sync and the CUDA-core body differ")
-    del wgmma, mma, simt, args
+    check(torch.equal(wgmma.view(torch.int32), mma.view(torch.int32)),
+          "datastore: the streamed wgmma and the streamed mma.sync body differ")
+    del wgmma, mma, args
     wide_k2(card, f"bf16 d={DIM_WIDE4}", Q, quant.codes, quant.row_scale, quant.sq_norms, DIM_WIDE4, out)
     # K2 against the finish (select k groups, gather, unpack and rescore
     # their packed rows in float64 past d = 16,513, top-k), as phase 13
@@ -3565,7 +3559,7 @@ def main() -> int:
     t0 = time.perf_counter()
     load_library()
     print(
-        f"[build] K1 (three bodies), K2 (three) and the two rescore kernels built from csrc/ and loaded in "
+        f"[build] K1 (three bodies), K2 (two) and the two rescore kernels built from csrc/ and loaded in "
         f"{time.perf_counter() - t0:.1f} s "
         f"-> {library_path().name}",
         flush=True,
@@ -3668,7 +3662,6 @@ def main() -> int:
             "mesh_launches": mesh["K2"] + host["mesh"]["K2"],
             "trace_launches": traced["K2"],
             "masked_max_abs_err": k2_masked_err,
-            "cuda_core_body": "sqlite_vector_tpu_torch/csrc/int4_minima.cu",
             "by_shape": {k: v for k, v in k2.items() if k != "max_abs_err"},
         },
         {
@@ -3688,7 +3681,6 @@ def main() -> int:
             "mma_sync_ms": k2_wide["mma_sync_ms"],
             "mma_sync_body": "sqlite_vector_tpu_torch/csrc/int4_minima_mma.cu",
             "main_shape": f"bf16 d={DIM_WIDE4} B={B_MAIN}",
-            "cuda_core_body": "sqlite_vector_tpu_torch/csrc/int4_minima.cu",
             "by_shape": {k: v for k, v in wide_k2.items() if k not in ("max_abs_err", "launches")},
         },
         {

@@ -8,10 +8,11 @@ int4 quantization, host storage, persistence, the non-finite policies,
 the SQLite surface (sqlite.py), serving (BatchingSearcher, serve) and the
 CLI (python -m sqlite_vector_tpu_torch), and utils/ (QueryStats,
 timed_search, torch.profiler traces, the build cache). Scans on CUDA
-tensors run the hand-written kernels K1 (csrc/block_minima_mma.cu,
-csrc/block_minima.cu) and K2 (csrc/int4_minima_mma.cu,
-csrc/int4_minima.cu), built with nvcc at first use; on CPU tensors they
-run the kernels' plain PyTorch twins.
+tensors run the hand-written kernels K1 (csrc/block_minima_wgmma.cu,
+csrc/block_minima_mma.cu, csrc/block_minima.cu), K2
+(csrc/int4_minima_wgmma.cu, csrc/int4_minima_mma.cu) and the finish's
+rescores (csrc/rescore_codes.cu, csrc/rescore_rows.cu), built with nvcc at
+first use; on CPU tensors they run the kernels' plain PyTorch twins.
 
 This package imports torch and numpy, never jax.
 """

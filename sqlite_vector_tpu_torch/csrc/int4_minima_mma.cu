@@ -2,16 +2,12 @@
 // (sm_90a).
 //
 // Replaces the TPU kernel of sqlite_vector_tpu/ops/pallas_int4.py in both of
-// its schedules, :408 _int4_block_minima_manual and :511 _int4_block_minima,
-// and computes what csrc/int4_minima.cu computes, bit for bit (its header
-// states the contract: per 128-row group, the minimum of _surrogate_block's
-// surrogate over the exact integer dot of the int8 query codes with the
-// row's int4 codes; rows >= valid, masked rows and NaN surrogates at +inf).
-// ops/int4_scan.py:k2_body sends here the scans whose packed rows TMA cannot
-// copy (csrc/int4_minima_wgmma.cu takes the rest), at every d < 2^21;
-// forced, it takes every scan, as a cross-check, and int4_minima.cu runs
-// only where a caller forces it. The epilogue is k2_common.cuh's, shared
-// with the wgmma body.
+// its schedules, :408 _int4_block_minima_manual and :511 _int4_block_minima:
+// K2's contract (csrc/k2_common.cuh's header), bit for bit what
+// csrc/int4_minima_wgmma.cu computes. ops/int4_scan.py:k2_body sends here
+// the scans whose packed rows TMA cannot copy, at every d < 2^21; forced,
+// it takes every scan, as the cross-check. The epilogue is k2_common.cuh's,
+// shared with the wgmma body.
 //
 // The plane dots run where the TPU kernel runs them (_plane_dot and its i8dot
 // path), on the matrix unit: mma.sync m16n8k32 with u8 row nibbles and s8
@@ -25,9 +21,7 @@
 //   sum over c in P of (nibble_c - 8) qc_c  -  8 * sum over c not in P of qc_c,
 // whose every term is at most 8 * 127 in size, so |partial| <= 1,016 d <
 // 2^31 for every d < 2^21 (the launcher's limit) in any order of the MMAs:
-// the int32 accumulation is exact and equals the CUDA-core body's (which
-// sums the unbiased nibbles, past 2^31 at d ~ 1.1M, and relies on __dp4a's
-// wrap mod 2^32; mma.sync without .satfinite wraps alike, PTX ISA).
+// the int32 accumulation is exact and equals the twin's exact dot.
 //
 // What bounds it on an H100 (1M x 384): the bytes, at every B <= 64 (192 MB
 // of packed codes and 8 MB of alpha and csq, 0.060 ms at 3.35 TB/s; the
@@ -376,8 +370,10 @@ int launch(int query_tile, const int8_t* qc, const float* qscale, const uint4* q
 
 }  // namespace
 
-// The arguments of svt_int4_block_minima (csrc/int4_minima.cu), and
-// query_tile: queries per block, 8, 16, 32 or 64 (ops/int4_scan.py:
+// qc int8 [B, d], qscale float32 [B], packed uint8 [N, ceil(d/2)], alpha
+// float32 [N], csq int32 [N], all row-major; mask null (every row live) or
+// N bytes, 0 for a masked row (a torch.bool tensor); out float32
+// [B, ceil(N/128)]; and query_tile: queries per block, 8, 16, 32 or 64 (ops/int4_scan.py:
 // k2_query_tile picks it; B past one tile takes several tiles); qplanes and
 // qbias: null for a query tile resident in shared memory (tiles of 32 and
 // 64 only for d <= 4,096), or, to stream it, the query codes in fragment

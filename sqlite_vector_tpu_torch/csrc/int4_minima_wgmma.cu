@@ -3,16 +3,12 @@
 // Hopper (sm_90a).
 //
 // Replaces the TPU kernel of sqlite_vector_tpu/ops/pallas_int4.py in both of
-// its schedules, :408 _int4_block_minima_manual and :511 _int4_block_minima,
-// and computes what csrc/int4_minima_mma.cu (mma.sync) and
-// csrc/int4_minima.cu (CUDA cores) compute, bit for bit (int4_minima.cu's
-// header states the contract: per 128-row group, the minimum of
-// _surrogate_block's surrogate over the exact integer dot of the int8 query
-// codes with the row's int4 codes; rows >= valid, masked rows and NaN
-// surrogates at +inf). ops/int4_scan.py:k2_body sends a scan here wherever
-// TMA takes the packed rows (ceil(d/2) a multiple of 16 bytes, a 16-byte
-// aligned start); the mma.sync body keeps the rest, and both other bodies
-// stay launchable as cross-checks.
+// its schedules, :408 _int4_block_minima_manual and :511 _int4_block_minima:
+// K2's contract (csrc/k2_common.cuh's header), bit for bit what
+// csrc/int4_minima_mma.cu (mma.sync) computes. ops/int4_scan.py:k2_body
+// sends a scan here wherever TMA takes the packed rows (ceil(d/2) a
+// multiple of 16 bytes, a 16-byte aligned start); the mma.sync body keeps
+// the rest, and stays launchable on these rows as the cross-check.
 //
 // The products: wgmma m64nNk32 .s32.u8.s8, the row nibbles as the A operand
 // from registers and the query planes as B from shared memory. Each

@@ -1,11 +1,36 @@
-// What K2's two tensor-core bodies share, csrc/int4_minima_mma.cu (mma.sync)
-// and csrc/int4_minima_wgmma.cu (wgmma + TMA): the metric codes, the query
-// plane words, the magic int -> float conversion and the epilogue's per-warp
-// surrogate minima. Both bodies hold the dots in the m16n8 accumulator
-// layout (a wgmma m64nN accumulator gives warp w of its warpgroup rows 16 w
-// + g and 16 w + g + 8 of each 8-column slice, laid out as mma.sync's C
-// fragment), so one epilogue serves both. Everything is in an anonymous
-// namespace: each source keeps its own copy.
+// K2, packed-int4 surrogate block minima for NVIDIA Hopper (sm_90a): its
+// contract, and what its two bodies share.
+//
+// The contract, that of the TPU kernel it replaces
+// (sqlite_vector_tpu/ops/pallas_int4.py, both schedules):
+//
+//   out[b, g] = min over rows r in [128 g, 128 g + 128) of S(q_b, r)
+//
+// with S the monotone surrogate of _surrogate_block over the exact integer
+// dot of the int8 query codes with the row's int4 codes:
+//   L2, SQUARED_L2  alpha^2 csq - 2 (qscale alpha) dot
+//   DOT             -(qscale alpha) dot
+//   COSINE          -dot / sqrt(max(csq, 1))  (0 where csq == 0)
+// in _surrogate_block's operation order (__fmul_rn/__fsub_rn, no fma
+// contraction; a correctly rounded 1/sqrt), and rows >= valid, rows whose
+// mask byte is 0 and NaN surrogates at +inf. The mask rides in the kernel
+// (the JAX package sends masked scans to its XLA tile loop); the finish
+// (ops/int4_scan.py) masks the same rows inside the groups it selects.
+// ops/int4_scan.py:int4_block_minima_reference is the plain twin that
+// defines the output; both bodies equal it bit for bit.
+//
+// Packed layout (ops/quantize4.py): row i is h = ceil(d/2) bytes; byte j
+// holds code j in its low nibble and code h + j in its high nibble (odd d:
+// the last high nibble is the pad code 0), each as nibble = code + 8.
+//
+// The bodies, csrc/int4_minima_wgmma.cu (wgmma + TMA) and
+// csrc/int4_minima_mma.cu (mma.sync), share what is here: the metric codes,
+// the query plane words, the magic int -> float conversion and the
+// epilogue's per-warp surrogate minima. Both hold the dots in the m16n8
+// accumulator layout (a wgmma m64nN accumulator gives warp w of its
+// warpgroup rows 16 w + g and 16 w + g + 8 of each 8-column slice, laid out
+// as mma.sync's C fragment), so one epilogue serves both. Everything is in
+// an anonymous namespace: each source keeps its own copy.
 
 #pragma once
 

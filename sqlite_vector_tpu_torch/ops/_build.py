@@ -51,10 +51,8 @@ _SIGNATURES = {
     # then the tensor-core body's arguments and pingpong (K1's wgmma body)
     "svt_block_minima_wgmma": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # qc, qscale, packed, alpha, csq, mask (or None), out, B, N, d, valid,
-    # metric, stream
-    "svt_int4_block_minima": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # the same arguments, the query tile, and the streamed tile's planes and
-    # biases (or None twice: resident; K2's tensor-core body)
+    # metric, the query tile, the streamed tile's planes and biases (or None
+    # twice: resident), stream (K2's mma.sync body)
     "svt_int4_block_minima_mma": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     # the same arguments up to the query tile, the query planes
     # (k2_wgmma_planes, or None: qc itself), each query's sum of codes (or

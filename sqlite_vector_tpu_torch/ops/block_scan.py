@@ -10,8 +10,8 @@ the final top-k, ties going to the earliest row. The rescore under the
 dot-family metrics is a hand-written kernel that reads the selected groups
 in place (rescore_groups, with rescore_groups_reference its twin):
 csrc/rescore_codes.cu for u8/i8 codes, csrc/rescore_rows.cu for float32,
-float16 and bfloat16 rows. L1 rows are gathered and rescored with torch
-ops (gathered_score). Selection and top-k are torch ops.
+float16 and bfloat16 rows. L1 rows are gathered and rescored as the twin
+does (rescore_gathered). Selection and top-k are torch ops.
 
 Stage 1 has two implementations of one contract:
   - block_minima_reference: plain PyTorch, the definition of the output;
@@ -38,15 +38,16 @@ from __future__ import annotations
 
 import torch
 
-from sqlite_vector_tpu_torch.ops.distance import (
-    NEARLY_ZERO,
-    pairwise_distance,
-    sqrt_rn,
+from sqlite_vector_tpu_torch.ops.distance import NEARLY_ZERO, pairwise_distance
+from sqlite_vector_tpu_torch.ops.rerank import (
+    candidate_distances,
+    chunks,
+    finish_tail,
+    gathered_distances,
 )
-from sqlite_vector_tpu_torch.ops.rerank import candidate_distances
 from sqlite_vector_tpu_torch.ops.topk import topk_ascending
 from sqlite_vector_tpu_torch.types import DistanceMetric
-from sqlite_vector_tpu_torch.utils.profiling import annotate, count
+from sqlite_vector_tpu_torch.utils.profiling import annotate
 
 # rows per minima group
 BLOCK = 128
@@ -102,10 +103,6 @@ _MMA_METRICS = (
 
 # bound on the twin's [B, rows] distance intermediates (elements)
 _TWIN_CHUNK_ELEMS = 1 << 26
-# bound on the finish's gathered candidate rows and its [B, k*128] distances
-# (elements); a gathered rescore's widened temporaries are a small multiple
-# of it (ops/rerank.py)
-_FINISH_CHUNK_ELEMS = 1 << 26
 
 
 def _snap_threshold(metric: DistanceMetric) -> float:
@@ -389,26 +386,26 @@ def select_groups(minima: torch.Tensor, k: int) -> torch.Tensor:
     return torch.sort(gidx, dim=-1).values
 
 
-def finish_groups(
-    minima: torch.Tensor,
-    k: int,
-    score,
-    row_elems: int,
-) -> tuple[torch.Tensor, torch.Tensor]:
+def group_rows(gidx: torch.Tensor) -> torch.Tensor:
+    """The rows of groups gidx [B, kg]: [B, kg*128] int64, column j*128 + r
+    holding gidx[., j]*128 + r (unclamped)."""
+    lane = torch.arange(BLOCK, device=gidx.device)
+    return (gidx[:, :, None] * BLOCK + lane).reshape(gidx.shape[0], -1)
+
+
+def finish_groups(minima: torch.Tensor, k: int, score) -> tuple[torch.Tensor, torch.Tensor]:
     """The finish over block minima [B, G]: select the k best groups per
     query (select_groups), score their k*128 rows, take the final top-k
     (ties to the earlier row). score(s, e, gidx, pos) returns the
     rank-ready [e - s, kg*128] distances of queries s:e to the rows pos
-    [e - s, kg*128] of their groups gidx [e - s, kg] (pos[., j*128 + r] is
-    gidx[., j]*128 + r, unclamped), +inf at rows the finish must not
-    return. Returns (values, positions) [B, k], +inf / -1 past the
-    candidates and where score reads +inf.
+    (group_rows) of their groups gidx [e - s, kg], +inf at rows the finish
+    must not return. Returns (values, positions) [B, k], +inf / -1 past
+    the candidates and where score reads +inf.
 
     The queries go to score in chunks that keep the [queries, kg*128]
-    distances, and a one-group block of row_elems elements a candidate
-    (what score holds per candidate: d for a gather, 1 for the rescore
-    kernel's output), within _FINISH_CHUNK_ELEMS elements whatever B and k
-    are."""
+    distances within rerank.RESCORE_CHUNK_ELEMS elements whatever B and k
+    are (rerank.chunks); a gathering score slices them further
+    (rescore_gathered)."""
     b = minima.shape[0]
     kg = min(k, minima.shape[1])
     dev = minima.device
@@ -418,63 +415,32 @@ def finish_groups(
             torch.full((b, k), -1, dtype=torch.int64, device=dev),
         )
     gidx = select_groups(minima, k)
-    n_cand = kg * BLOCK
-    bq = max(1, min(b, _FINISH_CHUNK_ELEMS // n_cand, _FINISH_CHUNK_ELEMS // (BLOCK * row_elems)))
-    lane = torch.arange(BLOCK, device=dev)
     vals, idx = [], []
-    for s in range(0, b, bq):
-        e = min(s + bq, b)
-        pos = (gidx[s:e, :, None] * BLOCK + lane).reshape(e - s, n_cand)
-        v, cpos = topk_ascending(score(s, e, gidx[s:e], pos), k)  # padded with +inf / -1 past n_cand
+    for s, e in chunks(b, kg * BLOCK):
+        pos = group_rows(gidx[s:e])
+        v, cpos = topk_ascending(score(s, e, gidx[s:e], pos), k)  # padded with +inf / -1 past kg*128
         vals.append(v)
         idx.append(torch.where(cpos >= 0, torch.gather(pos, 1, cpos.clamp(min=0)), -1))
     return torch.cat(vals), torch.cat(idx)
 
 
-def gathered_score(
-    n: int,
-    valid: int,
-    dim: int,
-    rescore,
-    row_mask: torch.Tensor | None = None,
-):
-    """finish_groups' score by gathering: rescore(s, e, rows) returns the
-    rank-ready [e - s, C] distances of queries s:e to rows [e - s, C]
-    (positions clamped into [0, n)); the candidates go to it in slices
-    that keep each gathered [queries, C, dim] block within
-    _FINISH_CHUNK_ELEMS elements, and rows >= valid, >= n and where
-    row_mask ([n] bool, optional) is False read +inf."""
-
-    def score(s: int, e: int, gidx: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
-        cs = max(1, _FINISH_CHUNK_ELEMS // ((e - s) * dim))
-        d = torch.cat(
-            [rescore(s, e, pos[:, c : c + cs].clamp(0, n - 1)) for c in range(0, pos.shape[1], cs)],
-            dim=1,
-        )
-        keep = (pos < valid) & (pos < n)
-        if row_mask is not None:
-            keep &= row_mask[pos.clamp(0, n - 1)]
-        return torch.where(keep, d, torch.inf)
-
-    return score
+def rescore_gathered(pos, n: int, valid: int, dim: int, distances, row_mask=None) -> torch.Tensor:
+    """The finish's rescore by gathering, over candidate rows pos [B, C]
+    (>= 0) of an [n, dim] matrix: distances(s, e, rows) returns the
+    rank-ready distances of queries s:e to rows [e - s, c], in the slices
+    rerank.gathered_distances makes; rows >= valid and where row_mask ([n]
+    bool, optional) is False read +inf. The rescore kernels' twin is it
+    over candidate_distances, the int4 finish over the int4 composition."""
+    d = gathered_distances(pos, n, dim, distances)
+    keep = pos < valid
+    if row_mask is not None:
+        keep &= row_mask[pos.clamp(0, n - 1)]
+    return torch.where(keep, d, torch.inf)
 
 
-def _gathered_candidates(
-    queries: torch.Tensor,
-    base: torch.Tensor,
-    valid: int,
-    metric: DistanceMetric,
-    row_mask: torch.Tensor | None,
-):
-    """gathered_score over base's rows with candidate_distances, made
-    rank-ready: the finish's rescore of every row the kernel does not take,
-    and the kernel's twin."""
-    n, dim = base.shape
-    return gathered_score(
-        n, valid, dim,
-        lambda s, e, rows: _rank_ready(candidate_distances(queries[s:e], base[rows], metric), metric),
-        row_mask,
-    )
+def _candidates(queries: torch.Tensor, base: torch.Tensor, metric: DistanceMetric):
+    """rescore_gathered's distances over base's rows: candidate_distances, rank-ready."""
+    return lambda s, e, rows: _rank_ready(candidate_distances(queries[s:e], base[rows], metric), metric)
 
 
 def rescore_takes(dtype: torch.dtype, metric: DistanceMetric) -> bool:
@@ -504,14 +470,14 @@ def rescore_groups_reference(
     metric: DistanceMetric,
     row_mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Plain-PyTorch twin of the rescore kernels: the finish's gathered
-    route (_gathered_candidates) over the groups' rows, so
-    candidate_distances (exact int32-wrapped integer distances of codes in
-    float64 products; float rows widened to float32, L2 as the direct sum),
-    _rank_ready and the mask of dead rows. It takes all the queries at
-    once; finish_groups chunks them for it."""
-    pos = (gidx[:, :, None] * BLOCK + torch.arange(BLOCK, device=gidx.device)).reshape(gidx.shape[0], -1)
-    return _gathered_candidates(queries, base, valid, metric, row_mask)(0, queries.shape[0], gidx, pos)
+    """Plain-PyTorch twin of the rescore kernels: rescore_gathered over the
+    groups' rows (group_rows) with _candidates, so candidate_distances
+    (exact int32-wrapped integer distances of codes in float64 products;
+    float rows widened to float32, L2 as the direct sum) made rank-ready,
+    dead rows at +inf. The finish's L1 route is the same scorer over the
+    positions finish_groups passes."""
+    n, dim = base.shape
+    return rescore_gathered(group_rows(gidx), n, valid, dim, _candidates(queries, base, metric), row_mask)
 
 
 def rescore_groups(
@@ -608,33 +574,18 @@ def _finish_from_minima(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k from block minima: select k groups, rescore k*128 rows
     exactly (finish_groups: rows under the dot family with rescore_groups,
-    L1 rows gathered), then L2's sqrt and the near-zero snap. The gathered
-    route's span is `ops.gather` (range `svt.ops.gather:<B>`), one a query
-    chunk; it counts the candidate rows gathered in `finish.gathered_rows`
-    and their bytes in `finish.gathered_bytes`."""
+    L1 rows gathered, as the kernels' twin does), then finish_tail: L2's
+    sqrt and the near-zero snap."""
     if rescore_takes(base.dtype, metric):
         def score(s, e, gidx, pos):
             return rescore_groups(queries[s:e], base, gidx, valid, metric, row_mask)
-
-        # the kernel holds one output element a candidate; its CPU twin
-        # gathers whole rows
-        row_elems = base.shape[1] if base.device.type == "cpu" else 1
     else:
-        gathered = _gathered_candidates(queries, base, valid, metric, row_mask)
-        row_bytes = base.shape[1] * base.element_size()
+        n, dim = base.shape
 
         def score(s, e, gidx, pos):
-            with annotate("ops.gather", tag=e - s, B=e - s):
-                count("finish.gathered_rows", pos.numel())
-                count("finish.gathered_bytes", pos.numel() * row_bytes)
-                return gathered(s, e, gidx, pos)
+            return rescore_gathered(pos, n, valid, dim, _candidates(queries[s:e], base, metric), row_mask)
 
-        row_elems = base.shape[1]
-    vals, idx = finish_groups(minima, k, score, row_elems)
-    if metric is DistanceMetric.L2:
-        vals = sqrt_rn(vals)
-    vals = torch.where(vals.abs() <= NEARLY_ZERO, 0.0, vals)
-    return vals, torch.where(torch.isposinf(vals), -1, idx)
+    return finish_tail(*finish_groups(minima, k, score), metric)
 
 
 def block_scan_topk(

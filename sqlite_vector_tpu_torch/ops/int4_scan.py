@@ -15,20 +15,21 @@ int4 codes. Rows >= valid, rows a row mask excludes and NaN surrogates
 (inf - inf when alpha^2 * csq overflows) are +inf. Stage 2 (torch ops) selects the k best groups, gathers
 their k*128 packed rows, rescores them with the exact int4 composition
 (ops.quantize4.int4_distances) and takes the final top-k, through K1's
-finish (ops.block_scan.finish_groups).
+finish (ops.block_scan.finish_groups and rescore_gathered).
 
-Stage 1 has two implementations of one contract:
+Stage 1 has two implementations of one contract (csrc/k2_common.cuh's
+header states it):
   - int4_block_minima_reference: plain PyTorch, the definition of the output;
-  - the CUDA kernel K2, hand-written for Hopper, in three bodies that agree
+  - the CUDA kernel K2, hand-written for Hopper, in two bodies that agree
     bit for bit: csrc/int4_minima_wgmma.cu (warpgroup MMA fed by TMA, a
     producer warp and two consumer warpgroups, wherever TMA takes the
     packed rows: ceil(d/2) a multiple of 16 bytes and a 16-byte aligned
-    start; its plan from k2_wgmma_plan), csrc/int4_minima_mma.cu (mma.sync
-    over the nibble planes, every d < 2^21; the rows TMA cannot copy; its
-    query tile resident in shared memory or streamed beside the codes, as
-    k2_streams_queries says) and csrc/int4_minima.cu (CUDA cores: __dp4a).
-    k2_body says which body a call takes; the other two run only where a
-    caller forces them as cross-checks (_launch_k2).
+    start; its plan from k2_wgmma_plan) and csrc/int4_minima_mma.cu
+    (mma.sync over the nibble planes, every d < 2^21; the rows TMA cannot
+    copy; its query tile resident in shared memory or streamed beside the
+    codes, as k2_streams_queries says). k2_body says which body a call
+    takes; the mma.sync body runs where the route takes wgmma only where a
+    caller forces it as the cross-check (_launch_k2).
 `int4_block_minima` picks by where the tensors live: the twin for CPU
 tensors, the kernel for CUDA tensors (it raises rather than fall back).
 L1 has no surrogate of this form and is rejected (it runs the plain tile
@@ -44,7 +45,7 @@ from sqlite_vector_tpu_torch.ops.block_scan import (
     _METRIC_CODE,
     check_row_mask,
     finish_groups,
-    gathered_score,
+    rescore_gathered,
     tma_ready,
 )
 from sqlite_vector_tpu_torch.ops.distance import sqrt_rn
@@ -56,6 +57,7 @@ from sqlite_vector_tpu_torch.ops.quantize4 import (
     sanitize_queries,
     unpack4,
 )
+from sqlite_vector_tpu_torch.ops.rerank import finish_tail
 from sqlite_vector_tpu_torch.types import DistanceMetric
 from sqlite_vector_tpu_torch.utils.profiling import annotate
 
@@ -182,10 +184,9 @@ def k2_body(d: int, aligned: bool = True) -> str:
     MMA fed by TMA) where TMA takes the packed rows, their ceil(d/2) bytes a
     multiple of 16 and (`aligned`) the tensor's start 16-byte aligned
     (block_scan.tma_ready); "mma" (mma.sync) otherwise, at every d the
-    launchers take (d < 2^21). The CUDA-core body ("simt") runs only where
-    a caller forces it (_launch_k2), as the mma.sync body does where the
-    route takes wgmma: the cross-checks. Every metric K2 takes runs in every
-    body, and the batch does not route."""
+    launchers take (d < 2^21). The mma.sync body runs where the route takes
+    wgmma only where a caller forces it (_launch_k2): the cross-check. Every
+    metric K2 takes runs in both bodies, and the batch does not route."""
     return "wgmma" if aligned and packed_width(d) % 16 == 0 else "mma"
 
 
@@ -347,14 +348,15 @@ def _launch_k2(
     body: str,
     streamed: bool | None = None,
 ) -> torch.Tensor:
-    """K2 in `body` ("wgmma", "mma" or "simt") on checked CUDA tensors.
+    """K2 in `body` ("wgmma" or "mma") on checked CUDA tensors.
     int4_block_minima passes k2_body's choice; chip_smoke.py and the card
-    tests force the other bodies to hold and time them beside it ("mma"
-    and "simt" take every scan, "wgmma" only rows TMA can copy), and
-    `streamed` (tensor-core bodies only; default k2_wgmma_plan's or
-    k2_streams_queries' choice) to time the resident and the streamed query
-    tile side by side. Raises where the body does not take the scan or a
-    resident tile does not fit."""
+    tests force the other body to hold and time it beside it ("mma" takes
+    every scan, "wgmma" only rows TMA can copy), and `streamed` (default
+    k2_wgmma_plan's or k2_streams_queries' choice) to time the resident and
+    the streamed query tile side by side. Raises for another body, where
+    the body does not take the scan or a resident tile does not fit."""
+    if body not in ("wgmma", "mma"):
+        raise ValueError(f"int4_block_minima: no {body!r} body (K2 has wgmma and mma)")
     dev = packed.device
     if dev.type != "cuda":
         raise ValueError(f"int4_block_minima: unsupported device {dev}")
@@ -370,9 +372,9 @@ def _launch_k2(
             raise ValueError("int4_block_minima: the wgmma body does not take these rows (TMA cannot copy them)")
         tile, streamed = k2_wgmma_plan(dim, b, streamed)
     else:
-        streamed = body == "mma" and (k2_streams_queries(dim, b) if streamed is None else streamed)
+        streamed = k2_streams_queries(dim, b) if streamed is None else streamed
         tile = k2_query_tile(dim, b, streamed)
-    if body != "simt" and not tile:
+    if not tile:
         raise ValueError("int4_block_minima: no resident query tile fits these rows")
     out = torch.empty((b, -(-n // BLOCK)), dtype=torch.float32, device=dev)
     if out.numel() == 0:
@@ -407,7 +409,7 @@ def _launch_k2(
             args += [tile, None if planes is None else planes.data_ptr(),
                      None if sums is None else sums.data_ptr(), int(streamed),
                      _work_counters(dev, stream, -(-b // tile)).data_ptr()]
-        elif body == "mma":
+        else:
             launch = lib.svt_int4_block_minima_mma
             args.append(tile)
             if streamed:
@@ -417,8 +419,6 @@ def _launch_k2(
                 args += [planes.data_ptr(), bias.data_ptr()]
             else:
                 args += [None, None]
-        else:
-            launch = lib.svt_int4_block_minima
         rc = launch(*args, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"int4_block_minima kernel launch failed: cudaError {rc}")
@@ -429,7 +429,7 @@ def _launch_k2(
 
 
 int4_block_minima.launches = 0
-int4_block_minima.body_launches = {"wgmma": 0, "mma": 0, "simt": 0}
+int4_block_minima.body_launches = {"wgmma": 0, "mma": 0}
 int4_block_minima.streamed_launches = 0
 
 
@@ -450,7 +450,8 @@ def int4_block_scan_topk(
     row_mask ([N] bool) is False are never returned). The finish is
     K1's group selection and chunked finish (block_scan.finish_groups),
     rescoring the gathered packed rows with the int4 composition (NaN ->
-    +inf); the query codes are made once for both stages."""
+    +inf, block_scan.rescore_gathered); the query codes are made once for
+    both stages."""
     valid = packed.shape[0] if valid_count is None else int(valid_count)
     codes = quantize_query_int8(queries)
     minima = int4_block_minima(*codes[:2], packed, alpha, csq, metric, valid, row_mask)
@@ -477,12 +478,15 @@ def _finish_int4(
     queries. chip_smoke.py times it beside K2."""
     qc, qscale, qsq = codes
 
-    def rescore(s: int, e: int, rows: torch.Tensor) -> torch.Tensor:
-        d = int4_distances(
-            qc[s:e], qscale[s:e], qsq[s:e], qf[s:e],
-            unpack4(packed[rows], dim), alpha[rows], csq[rows], metric,
-        )
-        return torch.where(torch.isnan(d), torch.inf, d)
+    def score(s: int, e: int, gidx: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+        def distances(a: int, b: int, rows: torch.Tensor) -> torch.Tensor:
+            q = slice(s + a, s + b)
+            d = int4_distances(
+                qc[q], qscale[q], qsq[q], qf[q],
+                unpack4(packed[rows], dim), alpha[rows], csq[rows], metric,
+            )
+            return torch.where(torch.isnan(d), torch.inf, d)
 
-    vals, idx = finish_groups(minima, k, gathered_score(packed.shape[0], valid, dim, rescore, row_mask), dim)
-    return vals, torch.where(torch.isposinf(vals), -1, idx)
+        return rescore_gathered(pos, packed.shape[0], valid, dim, distances, row_mask)
+
+    return finish_tail(*finish_groups(minima, k, score))

@@ -14,7 +14,6 @@ import numpy as np
 import torch
 
 from sqlite_vector_tpu_torch.ops.quantize4 import int4_scan_topk
-from sqlite_vector_tpu_torch.ops.rerank import RESCORE_CHUNK_ELEMS as _RESCORE_CHUNK_ELEMS
 from sqlite_vector_tpu_torch.ops.rerank import candidate_distances, rescore_topk
 from sqlite_vector_tpu_torch.types import DistanceMetric
 from sqlite_vector_tpu_torch.utils.profiling import count
@@ -49,10 +48,7 @@ def refine_candidates(
             return (diff * diff).sum(-1)
         return candidate_distances(q, xhat, metric)
 
-    return rescore_topk(
-        cand, k, metric, codes8.shape[0], codes8.shape[1], distances,
-        _RESCORE_CHUNK_ELEMS,
-    )
+    return rescore_topk(cand, k, metric, codes8.shape[0], codes8.shape[1], distances)
 
 
 def int4_refine_topk(

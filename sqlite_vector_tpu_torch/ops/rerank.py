@@ -9,6 +9,8 @@ int8 codes for the top k*expand candidates (K1 on CUDA tensors), stage 2
 gathers those rows of the full-precision matrix and rescores them exactly.
 rescore_live_rows is its id-remap route's stage 2, which the Dataset runs
 when the codes are stale, a mask is set or the codes are int4.
+Every gathered rescore here and in the block and int4 finishes runs
+gathered_distances under RESCORE_CHUNK_ELEMS and ends in finish_tail.
 """
 
 from __future__ import annotations
@@ -30,8 +32,50 @@ from sqlite_vector_tpu_torch.ops.distance import (
 from sqlite_vector_tpu_torch.ops.topk import topk_ascending
 from sqlite_vector_tpu_torch.types import DistanceMetric
 
-# bound on a gathered [queries, candidates, d] block (elements)
+# bound on a gathered [queries, candidates, d] block and on the finish's
+# [queries, candidates] distances (elements)
 RESCORE_CHUNK_ELEMS = 1 << 26
+
+
+def chunks(n: int, per_item: int) -> list[tuple[int, int]]:
+    """(start, end) ranges over n items of per_item elements whose blocks
+    stay within RESCORE_CHUNK_ELEMS elements (one item at least a range)."""
+    step = max(1, RESCORE_CHUNK_ELEMS // max(per_item, 1))
+    return [(s, min(s + step, n)) for s in range(0, max(n, 1), step)]
+
+
+def gathered_distances(
+    pos: torch.Tensor,
+    n_rows: int,
+    dim: int,
+    distances: Callable[[int, int, torch.Tensor], torch.Tensor],
+) -> torch.Tensor:
+    """The [B, C] distances of B queries to candidate positions pos [B, C]:
+    distances(s, e, rows) gives those of queries s:e to rows [e - s, c]
+    (pos clamped into [0, n_rows)), in slices of queries, then candidates,
+    whose gathered [e - s, c, dim] blocks stay within RESCORE_CHUNK_ELEMS."""
+    b, c = pos.shape
+    safe = pos.clamp(0, n_rows - 1)
+    out = []
+    for s, e in chunks(b, c * dim):
+        parts = [distances(s, e, safe[s:e, i:j]) for i, j in chunks(c, (e - s) * dim)]
+        out.append(parts[0] if len(parts) == 1 else torch.cat(parts, dim=1))
+    return out[0] if len(out) == 1 else torch.cat(out)
+
+
+def _snap(d: torch.Tensor) -> torch.Tensor:
+    return torch.where(d.abs() <= NEARLY_ZERO, 0.0, d)
+
+
+def finish_tail(vals: torch.Tensor, idx: torch.Tensor, metric: DistanceMetric | None = None):
+    """The end of every finish, on its top-k (vals, idx [B, k]): where
+    `metric` is given (values ranked squared under L2, unsnapped), L2's
+    sqrt_rn and then the near-zero snap; then -1 where the value is +inf."""
+    if metric is DistanceMetric.L2:
+        vals = sqrt_rn(vals)
+    if metric is not None:
+        vals = _snap(vals)
+    return vals, torch.where(torch.isposinf(vals), -1, idx)
 
 
 def candidate_distances(
@@ -92,19 +136,6 @@ def candidate_distances(
     return torch.where(torch.isfinite(resid), torch.where(direct <= resid, 0.0, direct), torch.nan)
 
 
-def _snap(d: torch.Tensor) -> torch.Tensor:
-    return torch.where(d.abs() <= NEARLY_ZERO, 0.0, d)
-
-
-def _chunked(
-    b: int, per_query: int, chunk_elems: int, fn: Callable[[int, int], torch.Tensor]
-) -> torch.Tensor:
-    """fn(s, e) over query chunks whose gathered [e - s, per_query] block
-    stays within chunk_elems elements, concatenated."""
-    bq = max(1, chunk_elems // max(per_query, 1))
-    return torch.cat([fn(s, min(s + bq, b)) for s in range(0, b, bq)])
-
-
 def rescore_topk(
     cand: torch.Tensor,
     k: int,
@@ -112,30 +143,20 @@ def rescore_topk(
     n_rows: int,
     dim: int,
     distances: Callable[[int, int, torch.Tensor], torch.Tensor],
-    chunk_elems: int = RESCORE_CHUNK_ELEMS,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Stage 2 of rerank and refine: rescore candidate positions cand
     [B, C] (-1 padded, C >= k) and take the top-k. distances(s, e, rows)
-    returns the raw [e - s, C] distances of queries s:e to rows [e - s, C]
-    (clamped into [0, n_rows); L2 squared). Candidates go in ascending row
+    returns the raw distances of queries s:e to rows [e - s, c]
+    (gathered_distances; L2 squared). Candidates go in ascending row
     order for tie parity with the scan paths (the earliest row wins equal
     distances); near-zero values snap to 0 before ranking, NaN is +inf.
     Returns (distances [B, k] float32, positions [B, k] int64), ascending,
     +inf / -1 padding."""
     cand = torch.sort(cand, dim=-1).values  # -1 padding sorts first, masked below
-    safe = cand.clamp(0, n_rows - 1)
-    d = _chunked(
-        cand.shape[0], cand.shape[1] * dim, chunk_elems,
-        lambda s, e: distances(s, e, safe[s:e]),
-    )
-    d = _snap(d)
+    d = _snap(gathered_distances(cand, n_rows, dim, distances))
     d = torch.where(torch.isnan(d) | (cand < 0), torch.inf, d)
     vals, pos = topk_ascending(d, k)
-    idx = torch.gather(cand, 1, pos)
-    if metric is DistanceMetric.L2:
-        vals = sqrt_rn(vals)
-    vals = _snap(vals)
-    return vals, torch.where(torch.isposinf(vals), -1, idx)
+    return finish_tail(vals, torch.gather(cand, 1, pos), metric)
 
 
 def rerank_topk(
@@ -200,14 +221,11 @@ def rescore_live_rows(
     values, admit finite distances only and keep the k best in a stable
     order (equal distances keep their stage-1 rank). Returns (distances
     [B, k] float32, positions [B, k] int64), +inf / -1 padding."""
-    safe = pos.clamp(0, vecs.shape[0] - 1)
     qf = queries_f.float()
-    d = _chunked(
-        pos.shape[0], pos.shape[1] * vecs.shape[1], RESCORE_CHUNK_ELEMS,
-        lambda s, e: direct_distances(qf[s:e], vecs[safe[s:e]].float(), metric),
-    )
-    d = _snap(d)
+    d = _snap(gathered_distances(
+        pos, vecs.shape[0], vecs.shape[1],
+        lambda s, e, rows: direct_distances(qf[s:e], vecs[rows].float(), metric),
+    ))
     d = torch.where(torch.isfinite(d) & (pos >= 0), d, torch.inf)
     vals, order = topk_ascending(d, k)
-    idx = torch.gather(pos, 1, order.clamp(min=0))
-    return vals, torch.where(torch.isposinf(vals), -1, idx)
+    return finish_tail(vals, torch.gather(pos, 1, order.clamp(min=0)))

@@ -15,7 +15,7 @@ from sqlite_vector_tpu.ops import distance as jax_distance
 from sqlite_vector_tpu.ops import pallas_scan
 from sqlite_vector_tpu.types import DistanceMetric as JaxMetric
 from sqlite_vector_tpu_torch.device import from_numpy
-from sqlite_vector_tpu_torch.ops import block_scan
+from sqlite_vector_tpu_torch.ops import block_scan, rerank
 from sqlite_vector_tpu_torch.ops.block_scan import (
     BLOCK,
     block_minima,
@@ -202,9 +202,11 @@ def test_router_sends_scans_to_block_scan():
 @pytest.mark.parametrize("vtype", ["FLOAT32", "FLOAT16", "UINT8", "INT8"])
 @pytest.mark.parametrize("metric", ["L2", "COSINE", "L1"])
 def test_finish_chunks_stay_under_the_element_bound(monkeypatch, limit, vtype, metric):
-    """A small bound splits the finish over queries (2 per chunk at 6144,
-    1 at 3000) and candidates: the result is unchanged, and no gathered
-    block of candidate rows holds more elements than the bound."""
+    """A small bound splits the finish over queries (its [queries, 1,152]
+    distances: 2 a chunk at 3000, all 4 at 6144) and its gathered rescore
+    over queries and candidates (1 query a slice, 125 or 256 candidates):
+    the result is unchanged, and no gathered block of candidate rows holds
+    more elements than the bound."""
     q, base = scan_case(vtype, 90 + METRICS.index(metric), n=1500, d=24, b=4)
     q, base, tm = from_numpy(q), from_numpy(base), DistanceMetric(metric)
     want = block_scan_topk(q, base, tm, 9, valid_count=1400)
@@ -215,7 +217,7 @@ def test_finish_chunks_stay_under_the_element_bound(monkeypatch, limit, vtype, m
         seen.append(cand.numel())
         return rescore(qs, cand, m)
 
-    monkeypatch.setattr(block_scan, "_FINISH_CHUNK_ELEMS", limit)
+    monkeypatch.setattr(rerank, "RESCORE_CHUNK_ELEMS", limit)
     monkeypatch.setattr(block_scan, "candidate_distances", spy)
     got = block_scan_topk(q, base, tm, 9, valid_count=1400)
     assert len(seen) > 4 and max(seen) <= limit

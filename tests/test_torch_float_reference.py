@@ -3,17 +3,20 @@
 Dataset.search(mode="exact") over rows drawn as the benchmark draws them,
 judged by vbench/check.py against the configuration's limits, passes; the
 reference one precision step down (TF32) fails them. And the finish's
-spans and counters: the gathered finish of L1 rows records `ops.gather`
-inside `ops.finish`, one a query chunk, counting the candidate rows
-gathered and their bytes; the float and codes finishes on the rescore
-route record `ops.rescore` and neither."""
+spans: the gathered finish of L1 rows returns the same answer with its
+element bound cut and records no span inside `ops.finish`; the float and
+codes finishes on the rescore route record `ops.rescore` there, one a
+query chunk, and no counter."""
 
 import numpy as np
 import pytest
 import torch
 
 import sqlite_vector_tpu_torch as svt
-from sqlite_vector_tpu_torch.ops import block_scan
+from sqlite_vector_tpu_torch.device import from_numpy
+from sqlite_vector_tpu_torch.ops import rerank
+from sqlite_vector_tpu_torch.ops.scan import scan_topk
+from sqlite_vector_tpu_torch.types import DistanceMetric
 from sqlite_vector_tpu_torch.utils import profiling
 from vbench import check, data, spec
 
@@ -99,34 +102,38 @@ def _dataset(n, d, qtype=None, metric="COSINE"):
 @pytest.mark.parametrize("chunk_elems", [None, 1280])
 def test_the_gathered_finish_records_its_gather_and_counts_its_rows(monkeypatch, chunk_elems):
     """B = 3 queries, k = 5 over 1,000 L1 rows (8 groups, 5 kept): 3 * 5 *
-    128 candidate rows of 24 float32 elements. With the finish's bound cut
-    so that each query chunk holds one query, three `ops.gather` spans of
-    B = 1, which sum to the same counts."""
+    128 candidate rows of 24 float32 elements. With the rescore's element
+    bound cut to 1,280 (two queries a finish chunk, one query and 53
+    candidates a gathered slice) the finish returns what it returns uncut,
+    and what the plain scan_topk returns; `ops.finish` holds no span on
+    this route and counts nothing."""
     n, d, b, k = 1000, 24, 3, 5
-    if chunk_elems is not None:
-        monkeypatch.setattr(block_scan, "_FINISH_CHUNK_ELEMS", chunk_elems)
     ds = _dataset(n, d, metric="L1")
     q = np.random.default_rng(1).standard_normal((b, d)).astype(np.float32)
+    want = ds.search(q, k, mode="exact")
+    if chunk_elems is not None:
+        monkeypatch.setattr(rerank, "RESCORE_CHUNK_ELEMS", chunk_elems)
     with profiling.recording() as rec:
-        ds.search(q, k, mode="exact")
+        got = ds.search(q, k, mode="exact")
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    plain_v, plain_i = scan_topk(from_numpy(q), ds._vectors[:n], DistanceMetric.L1, k)
+    np.testing.assert_array_equal(got[0], ds._ids[plain_i.numpy()])
+    np.testing.assert_allclose(got[1], plain_v.numpy(), rtol=1e-6)
     finish = rec.named("ops.finish")
     assert len(finish) == 1
-    gathers = rec.named("ops.gather")
-    assert [g.parent for g in gathers] == [finish[0].id] * len(gathers)
-    assert [g.attrs for g in gathers] == ([{"B": b}] if chunk_elems is None else [{"B": 1}] * b)
-    rows = b * k * block_scan.BLOCK
-    assert rec.counters["finish.gathered_rows"] == rows
-    assert rec.counters["finish.gathered_bytes"] == rows * d * 4
-    assert finish[0].counts == {"finish.gathered_rows": rows, "finish.gathered_bytes": rows * d * 4}
+    assert [s.name for s in rec.spans if s.parent == finish[0].id] == []
+    assert finish[0].counts is None and not any(name.startswith("finish.") for name in rec.counters)
 
 
 @pytest.mark.parametrize("chunk_elems", [None, 1280])
 def test_the_float_finish_records_its_rescore_and_no_gather(monkeypatch, chunk_elems):
     """The COSINE float finish takes the rescore route: one `ops.rescore`
-    span a query chunk inside `ops.finish` (B = 3, or three of B = 1 with
-    the bound cut), no `ops.gather` and no `finish.*` counter."""
+    span a query chunk inside `ops.finish` (B = 3, or B = 2 and B = 1 with
+    the bound cut to two queries' [queries, 640] distances), nothing else
+    inside it and no `finish.*` counter."""
     if chunk_elems is not None:
-        monkeypatch.setattr(block_scan, "_FINISH_CHUNK_ELEMS", chunk_elems)
+        monkeypatch.setattr(rerank, "RESCORE_CHUNK_ELEMS", chunk_elems)
     ds = _dataset(1000, 24)
     q = np.random.default_rng(1).standard_normal((3, 24)).astype(np.float32)
     with profiling.recording() as rec:
@@ -134,8 +141,8 @@ def test_the_float_finish_records_its_rescore_and_no_gather(monkeypatch, chunk_e
     finish = rec.named("ops.finish")
     rescores = rec.named("ops.rescore")
     assert len(finish) == 1 and [r.parent for r in rescores] == [finish[0].id] * len(rescores)
-    assert [r.attrs for r in rescores] == ([{"B": 3}] if chunk_elems is None else [{"B": 1}] * 3)
-    assert rec.named("ops.gather") == []
+    assert [r.attrs for r in rescores] == ([{"B": 3}] if chunk_elems is None else [{"B": 2}, {"B": 1}])
+    assert [s.name for s in rec.spans if s.parent == finish[0].id] == ["ops.rescore"] * len(rescores)
     assert not any(name.startswith("finish.") for name in rec.counters)
 
 
@@ -145,5 +152,4 @@ def test_the_codes_finish_records_no_gather():
     with profiling.recording() as rec:
         ds.search(q, 5, mode="quantized")
     assert len(rec.named("ops.rescore")) == 1
-    assert rec.named("ops.gather") == []
     assert not any(name.startswith("finish.") for name in rec.counters)

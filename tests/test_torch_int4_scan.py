@@ -17,7 +17,7 @@ from sqlite_vector_tpu.ops import pallas_int4
 from sqlite_vector_tpu.ops import quantize4 as jq4
 from sqlite_vector_tpu.types import DistanceMetric as JaxMetric
 from sqlite_vector_tpu_torch.device import from_numpy
-from sqlite_vector_tpu_torch.ops import block_scan, int4_scan
+from sqlite_vector_tpu_torch.ops import int4_scan, rerank
 from sqlite_vector_tpu_torch.ops import quantize4 as q4
 from sqlite_vector_tpu_torch.ops.block_scan import BLOCK
 from sqlite_vector_tpu_torch.ops.int4_scan import (
@@ -245,7 +245,7 @@ def test_finish_chunks_stay_under_the_element_bound(monkeypatch, limit, metric):
         seen.append(codes.numel())
         return real(qc, qs, qq, qf, codes, a, c, m)
 
-    monkeypatch.setattr(block_scan, "_FINISH_CHUNK_ELEMS", limit)
+    monkeypatch.setattr(rerank, "RESCORE_CHUNK_ELEMS", limit)
     monkeypatch.setattr(int4_scan, "int4_distances", spy)
     got = int4_block_scan_topk(*args, tm, 9, dim=24, valid_count=1400)
     assert len(seen) > 4 and max(seen) <= limit
@@ -458,14 +458,17 @@ def test_k2_wgmma_work_counters_are_kept_per_device_and_stream():
 
 def test_launch_k2_takes_only_cuda_tensors():
     """The CPU routes to the twin before any body; a body asked for CPU
-    tensors raises instead of running the twin, and counts nothing."""
+    tensors raises instead of running the twin, a body K2 does not have
+    raises, and neither counts anything."""
     qc = torch.zeros((2, 8), dtype=torch.int8)
     args = (qc, torch.ones(2), torch.zeros((10, 4), dtype=torch.uint8), torch.ones(10),
             torch.ones(10, dtype=torch.int32), DistanceMetric.L2, 10, None)
     before = (int4_block_minima.launches, dict(int4_block_minima.body_launches))
-    for body in ("wgmma", "mma", "simt"):
+    for body in ("wgmma", "mma"):
         with pytest.raises(ValueError, match="unsupported device"):
             int4_scan._launch_k2(*args, body)
+    with pytest.raises(ValueError, match="no 'simt' body"):
+        int4_scan._launch_k2(*args, "simt")
     int4_block_minima(*args[:7])
     assert (int4_block_minima.launches, int4_block_minima.body_launches) == before
 

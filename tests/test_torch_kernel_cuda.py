@@ -1,7 +1,7 @@
 """The port's CUDA kernels on the card: K1 (csrc/block_minima_wgmma.cu,
 csrc/block_minima_mma.cu and csrc/block_minima.cu), K2
-(csrc/int4_minima_wgmma.cu, csrc/int4_minima_mma.cu and
-csrc/int4_minima.cu), the int8/u8 finish's rescore
+(csrc/int4_minima_wgmma.cu and csrc/int4_minima_mma.cu), the int8/u8
+finish's rescore
 (csrc/rescore_codes.cu) and the float finish's (csrc/rescore_rows.cu),
 unmasked and with row masks, and the searches that launch them.
 
@@ -196,12 +196,11 @@ def test_int4_kernel_matches_twin(cuda, d, b):
 
 
 def k2_bodies(tensors):
-    """The bodies of K2 that take these codes: all three where the route
-    takes the wgmma body (TMA copies the packed rows), else the mma.sync
-    and the CUDA-core body."""
+    """The bodies of K2 that take these codes: both where the route takes
+    the wgmma body (TMA copies the packed rows), else the mma.sync body."""
     packed = tensors[2]
     wgmma = k2_body(tensors[0].shape[1], tma_ready(packed)) == "wgmma"
-    return ("wgmma", "mma", "simt") if wgmma else ("mma", "simt")
+    return ("wgmma", "mma") if wgmma else ("mma",)
 
 
 def assert_k2_bodies_match_twin(tensors, metric, valid, mask=None, streamed=None):
@@ -219,14 +218,14 @@ def assert_k2_bodies_match_twin(tensors, metric, valid, mask=None, streamed=None
     for minima in got.values():
         assert_k2_matches_twin(minima, want)
     for body, minima in got.items():
-        assert torch.equal(minima.view(torch.int32), got["simt"].view(torch.int32)), (metric, body)
+        assert torch.equal(minima.view(torch.int32), got["mma"].view(torch.int32)), (metric, body)
     return got["mma"]
 
 
 @pytest.mark.cuda
 def test_int4_kernel_unaligned_packed_rows(cuda):
     """A packed view that starts off a 16-byte boundary takes the 1-byte
-    staging in the mma.sync and CUDA-core bodies and still equals the twin;
+    staging in the mma.sync body and still equals the twin;
     TMA cannot copy it, so the route takes the mma.sync body and the wgmma
     body refuses it."""
     from sqlite_vector_tpu_torch.ops.int4_scan import _launch_k2
@@ -234,7 +233,7 @@ def test_int4_kernel_unaligned_packed_rows(cuda):
     (qc, qs, packed, alpha, csq), _ = int4_case(1000, 64, 2, cuda, seed=4)
     view = packed.view(-1)[1 : 1 + 999 * 32].view(999, 32)  # row 0 at byte 1
     tensors = (qc, qs, view, alpha[:999], csq[:999])
-    assert k2_bodies(tensors) == ("mma", "simt")
+    assert k2_bodies(tensors) == ("mma",)
     assert_k2_bodies_match_twin(tensors, DistanceMetric.L2, 999)
     before = dict(int4_block_minima.body_launches)
     int4_block_minima(*tensors, DistanceMetric.L2, 999)
@@ -856,14 +855,14 @@ def test_k2_wgmma_body_matches_twin_and_each_other(cuda, d, streamed):
     """K2's wgmma body with its query tile forced resident or streamed, B in
     1, 7, 8, 9, 33, 64, 65 and 130 (each tile's edges, several tiles), for
     the 4 metrics, rows >= valid, unmasked and with each row mask: equal to
-    the twin (tolerance 0) and to the mma.sync and CUDA-core bodies bit for
-    bit (torch.equal of the float32 bits)."""
+    the twin (tolerance 0) and to the mma.sync body bit for bit (torch.equal
+    of the float32 bits)."""
     # the last group's rows all at or past valid
     n, valid = (5003, 4990) if d <= 768 else (1411, 1408)
     masks = [None] + [mask_case(kind, n, cuda, seed=d) for kind in MASK_KINDS]
     for b in (1, 7, 8, 9, 33, 64, 65, 130):
         tensors, _ = int4_case(n, d, b, cuda, seed=d + b)
-        assert k2_bodies(tensors) == ("wgmma", "mma", "simt")
+        assert k2_bodies(tensors) == ("wgmma", "mma")
         for metric in K2_METRICS:
             for mask in masks:
                 got = assert_k2_bodies_match_twin(tensors, metric, valid, mask, streamed)
@@ -881,8 +880,8 @@ def test_k2_wgmma_body_matches_twin_and_each_other(cuda, d, streamed):
 def test_k2_tensor_core_body_at_the_widest_rows_of_each_query_tile(cuda, d, b, tile):
     """The resident tile forced at its widest rows, and the routed call
     (the tile streamed at each of these shapes: its planes would pass the
-    route's 65,536 bytes), equal to the twin and to the CUDA-core body bit
-    for bit."""
+    route's 65,536 bytes), equal to the twin and to the wgmma body bit for
+    bit where it takes the rows."""
     from sqlite_vector_tpu_torch.ops.int4_scan import _launch_k2, k2_query_tile
 
     assert k2_query_tile(d, b, False) == tile
@@ -899,7 +898,7 @@ def test_k2_tensor_core_body_is_refused_where_it_does_not_apply(cuda):
     """Past d = 16,384 not even 8 queries fit the tensor-core body's shared
     budget: forcing the resident tile raises, and the routed call takes
     the tensor-core body with the query tile streamed, equal to the twin
-    and to the CUDA-core body."""
+    and to the wgmma body."""
     from sqlite_vector_tpu_torch.ops.int4_scan import _launch_k2
 
     tensors, _ = int4_case(400, 16385, 2, cuda)
@@ -921,15 +920,15 @@ def test_streamed_k2_body_matches_twin_and_cuda_core_body(cuda, d, b):
     """K2's tensor-core body with its query tile streamed beside the codes
     (every d past 16,384): its 4 metrics, rows >= valid, unmasked and with
     each row mask, over 3,003 rows (more ring steps than one row tile's),
-    valid 2,900: equal to the twin (tolerance 0) and to the CUDA-core body
-    bit for bit, each routed call counted as streamed."""
+    valid 2,900: equal to the twin (tolerance 0) and to the wgmma body bit
+    for bit where it takes the rows, each call counted as streamed."""
     from sqlite_vector_tpu_torch.ops.int4_scan import k2_streams_queries
 
     assert k2_streams_queries(d, b)
     tensors, _ = int4_case(3003, d, b, cuda, seed=d + b)
     masks = [None] + [mask_case(kind, 3003, cuda, seed=d) for kind in MASK_KINDS]
-    # the tensor-core bodies that run: both stream at these widths
-    streaming = len(k2_bodies(tensors)) - 1
+    # the bodies that run: both stream at these widths
+    streaming = len(k2_bodies(tensors))
     assert streaming == 1 or k2_wgmma_plan(d, b)[1]
     for metric in K2_METRICS:
         for mask in masks:
@@ -945,7 +944,7 @@ def test_streamed_k2_body_matches_twin_and_cuda_core_body(cuda, d, b):
 def test_k2_resident_and_streamed_tiles_agree(cuda, d, b):
     """Where both fit, the resident query tile (at B=64 several narrow
     tiles) and the streamed one give the same minima bit for bit, equal to
-    the twin and to the CUDA-core body, for the 4 metrics with a row mask."""
+    the twin and to the wgmma body, for the 4 metrics with a row mask."""
     from sqlite_vector_tpu_torch.ops.int4_scan import _launch_k2
 
     tensors, _ = int4_case(1500, d, b, cuda, seed=d + b)
@@ -985,11 +984,10 @@ def test_k2_wgmma_work_counters_are_left_zero_on_each_stream(cuda):
 @pytest.mark.parametrize("b", [1, 65])
 def test_k2_exact_where_unbiased_sums_pass_int32(cuda, b):
     """d = 1,200,000: rows of int4 code +7 (nibble 15) in most columns and
-    a query of code +127 in every column (N = 300), so the unbiased nibble sums the
-    CUDA-core body accumulates reach ~15 * 127 * d > 2^31 and wrap mod 2^32
-    (__dp4a), while the tensor-core body's partial sums, the -8 bias in
-    their start, stay within 1,016 d < 2^31; both must equal the twin's
-    exact dot (float64) bit for bit, streamed."""
+    a query of code +127 in every column (N = 300), so unbiased nibble sums
+    would reach ~15 * 127 * d > 2^31, while the bodies' partial sums, the
+    -8 bias in their start, stay within 1,016 d < 2^31; both must equal the
+    twin's exact dot (float64) bit for bit, streamed."""
     from sqlite_vector_tpu_torch.ops.int4_scan import k2_streams_queries
 
     n, d = 300, 1_200_000
@@ -1006,7 +1004,7 @@ def test_k2_exact_where_unbiased_sums_pass_int32(cuda, b):
     nib = (packed[1].to(torch.int64) & 15).sum() + (packed[1].to(torch.int64) >> 4).sum()
     assert int(nib) * 127 > 2**31  # row 1's unbiased sum against query 0
     assert k2_streams_queries(d, b) and k2_wgmma_plan(d, b)[1]
-    assert k2_bodies((qc, qs, packed, alpha, csq)) == ("wgmma", "mma", "simt")
+    assert k2_bodies((qc, qs, packed, alpha, csq)) == ("wgmma", "mma")
     for metric in K2_METRICS:
         assert_k2_bodies_match_twin((qc, qs, packed, alpha, csq), metric, n)
 

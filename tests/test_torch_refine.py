@@ -17,7 +17,7 @@ from sqlite_vector_tpu.ops.refine import int4_refine_topk as jax_refine
 from sqlite_vector_tpu.types import DistanceMetric as JaxMetric
 from sqlite_vector_tpu.types import QuantType as JaxQuantType
 from sqlite_vector_tpu_torch.device import from_numpy
-from sqlite_vector_tpu_torch.ops import refine
+from sqlite_vector_tpu_torch.ops import refine, rerank
 from sqlite_vector_tpu_torch.ops.refine import int4_refine_topk
 from sqlite_vector_tpu_torch.types import DistanceMetric
 from tests.test_torch_block_scan import MASKS, mask_case
@@ -109,7 +109,7 @@ def test_rescore_chunks_match_one_pass(monkeypatch):
         seen.append(cand.shape[0])
         return real(q, cand, m)
 
-    monkeypatch.setattr(refine, "_RESCORE_CHUNK_ELEMS", 32 * 32 * 2)  # 2 queries a chunk
+    monkeypatch.setattr(rerank, "RESCORE_CHUNK_ELEMS", 32 * 32 * 2)  # 2 queries a chunk
     monkeypatch.setattr(refine, "candidate_distances", spy)
     got = run_both(*case, "COSINE", 8, 4, 900)[1]
     assert seen == [2, 2, 2]

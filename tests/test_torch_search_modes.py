@@ -21,6 +21,7 @@ from sqlite_vector_tpu.types import DistanceMetric as JaxMetric
 from sqlite_vector_tpu.types import VectorType as JaxVectorType
 from sqlite_vector_tpu_torch.device import from_numpy
 from sqlite_vector_tpu_torch.ops import quantize4 as q4
+from sqlite_vector_tpu_torch.ops import rerank
 from sqlite_vector_tpu_torch.ops.rerank import rerank_topk
 from sqlite_vector_tpu_torch.ops.scan import scan_topk
 from sqlite_vector_tpu_torch.types import DistanceMetric
@@ -66,25 +67,47 @@ def test_ids_filter_in_every_mode(mode, qtype):
     compare_mode(pair.j, pair.p, qs, mode, ids_filter=ids[90:220])
 
 
-@pytest.mark.parametrize("route", ["fused", "remap"])
-def test_rerank_mode_exact_distances(route):
+def _cut_matches_uncut(monkeypatch, ds, q, mode):
+    """ds.search(q, 10, mode=mode) with the rescores' element bound cut to
+    100 (one query and four 24-wide candidates a gathered slice) returns
+    what it returns uncut."""
+    want = ds.search(q, 10, mode=mode, expand=4)
+    with monkeypatch.context() as m:
+        m.setattr(rerank, "RESCORE_CHUNK_ELEMS", 100)
+        got = ds.search(q, 10, mode=mode, expand=4)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("route", ["fused", "remap", "cut"])
+def test_rerank_mode_exact_distances(monkeypatch, route):
     """JAX test_rerank_mode_exact_distances on both routes: fresh int8
     codes take the fused device route, stale ones (rows added after
     quantize) the id-remap route. Distances are true float L2 values
     (oracle within 1e-4), the top-10 overlaps the exact one in >= 9, and
-    both packages agree. The filter applies; without codes it raises."""
+    both packages agree. The filter applies; without codes it raises.
+    "cut": rerank on both routes, and refine, return what they return
+    uncut with the rescores' element bound cut (_cut_matches_uncut)."""
     rng = np.random.default_rng(21)
     base = rng.standard_normal((2000, 24)).astype(np.float32)
     pair = Pair("dimension=24,type=FLOAT32")
     ids = pair.do("add", base)
     pair.do("quantize")
-    if route == "remap":
+    q = rng.standard_normal((3, 24)).astype(np.float32)
+    if route == "cut":
+        _cut_matches_uncut(monkeypatch, pair.p, q, "rerank")
+    if route != "fused":
         pair.do("add", base[:3] + 3.0)
         assert pair.p.quant_stale
-    q = rng.standard_normal((3, 24)).astype(np.float32)
+    if route == "cut":
+        _cut_matches_uncut(monkeypatch, pair.p, q, "rerank")
+        pair.do("quantize", qtype="int4", refine=True)
+        _cut_matches_uncut(monkeypatch, pair.p, q, "refine")
+        pair.do("quantize")
+        pair.do("add", base[:3] + 3.0)
     got_ids, got_vals = pair.p.search(q, 10, mode="rerank", expand=4)
     dec = pair.p.last_rerank_decomposition
-    assert (dec["translate_s"] > 0) == (route == "remap") and dec["batch"] == 3
+    assert (dec["translate_s"] > 0) == (route != "fused") and dec["batch"] == 3
     ref = oracle.distance(q, base, JaxMetric.L2, JaxVectorType.F32)
     for bi in range(3):
         oidx = np.argsort(ref[bi], kind="stable")[:10]

@@ -135,17 +135,17 @@ def test_a_search_records_its_stages_nested(mode, qtype):
 
 
 def test_the_l1_float_finish_records_its_gather_nested():
-    """An exact L1 search over float rows keeps the gathered finish: its
-    `ops.gather` span (B the batch) is the one child of `ops.finish`,
-    inside its interval, on the caller's thread."""
+    """An exact L1 search over float rows keeps the gathered finish, which
+    records no span of its own: `ops.finish` is a leaf, a child of
+    `search.scan` inside its interval, on the caller's thread."""
     ds = _dataset(metric="L1")
     with profiling.recording() as rec:
         ds.search(_queries(3), 5, mode="exact")
     finish = _one(rec, "ops.finish")
-    assert [s.name for s in rec.spans if s.parent == finish.id] == ["ops.gather"]
-    gather = _one(rec, "ops.gather")
-    assert gather.attrs == {"B": 3} and gather.thread == threading.get_ident()
-    assert finish.start_ns <= gather.start_ns and gather.end_ns <= finish.end_ns
+    assert [s.name for s in rec.spans if s.parent == finish.id] == []
+    scan = _one(rec, "search.scan")
+    assert finish.parent == scan.id and finish.thread == threading.get_ident()
+    assert scan.start_ns <= finish.start_ns and finish.end_ns <= scan.end_ns
     assert rec.named("ops.rescore") == []
 
 
@@ -337,9 +337,9 @@ def test_recording_is_one_at_a_time_and_keeps_nothing_after_it_stops():
 def test_profile_trace_holds_the_spans_as_svt_ranges(tmp_path):
     """Under profile_trace, recording at once: every recorded span of two
     searches is a `svt.<name>` range (the scan's `svt.ops.scan:<B>`, the
-    int8 and float rescores' `svt.ops.rescore:<B>`, the L1 float finish's
-    `svt.ops.gather:<B>`), with
-    the same counts, each range inside the range of its span's parent."""
+    int8 and float rescores' `svt.ops.rescore:<B>`; the L1 float finish's
+    `svt.ops.finish` holds no range), with the same counts, each range
+    inside the range of its span's parent."""
     ds = _dataset("int8")
     l1 = _dataset(metric="L1")
     with profile_trace(str(tmp_path)):
@@ -349,7 +349,7 @@ def test_profile_trace_holds_the_spans_as_svt_ranges(tmp_path):
             l1.search(_queries(1, seed=2), 5)
 
     def label(s):
-        return f"svt.{s.name}" + (f":{s.attrs['B']}" if s.name in ("ops.scan", "ops.rescore", "ops.gather") else "")
+        return f"svt.{s.name}" + (f":{s.attrs['B']}" if s.name in ("ops.scan", "ops.rescore") else "")
 
     by_id = {s.id: s for s in rec.spans}
     want = sorted((label(s), label(by_id[s.parent]) if s.parent else None) for s in rec.spans)
@@ -366,7 +366,9 @@ def test_profile_trace_holds_the_spans_as_svt_ranges(tmp_path):
     assert sorted(got) == want
     assert ("svt.ops.scan:3", "svt.search.scan") in got and ("svt.ops.scan:1", "svt.search.scan") in got
     assert ("svt.ops.rescore:1", "svt.ops.finish") in got
-    assert ("svt.ops.gather:1", "svt.ops.finish") in got
+    # three finishes, and only the two rescores inside them: the L1 one is a leaf
+    assert [p for _, p in got].count("svt.search.scan") == 6
+    assert sorted(n for n, p in got if p == "svt.ops.finish") == ["svt.ops.rescore:1", "svt.ops.rescore:3"]
 
 
 def test_a_span_under_a_profiler_keeps_the_interpreter_lock():

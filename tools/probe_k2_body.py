@@ -9,8 +9,8 @@ by a sum (both give wrong minima and are timed only); for the wgmma body
 and `static` hands the groups out in a fixed order (consumer c of C takes
 groups c, c + C, ...) instead of at run time (all three exact). Then, over N x d
 packed int4 codes of N(0, 1) rows from --seed, for each batch it checks the
-body and `phases` bit for bit against the CUDA-core body
-(csrc/int4_minima.cu), times all of them and the CUDA-core body in turns
+body and `phases` bit for bit against K2's plain twin
+(ops/int4_scan.py:int4_block_minima_reference), times all of them in turns
 (CUDA events, one launch of the body alone a call, no host work beside it)
 and prints the phases:
 
@@ -55,7 +55,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 from sqlite_vector_tpu_torch.ops import _build  # noqa: E402
 from sqlite_vector_tpu_torch.ops.block_scan import tma_ready  # noqa: E402
 from sqlite_vector_tpu_torch.ops.int4_scan import (  # noqa: E402
-    _launch_k2,
+    int4_block_minima_reference,
     k2_query_planes,
     k2_query_tile,
     k2_streams_queries,
@@ -302,16 +302,15 @@ def main() -> int:
             streamed = args.streamed or k2_streams_queries(d, b)
             tile = k2_query_tile(d, b, streamed)
             planes = k2_query_planes(qc, tile) if streamed else None
-        want = _launch_k2(qc, qs, packed, alpha, csq, L2, n, None, "simt")
+        want = int4_block_minima_reference(qc, qs, packed, alpha, csq, L2, n)
         outs = {name: torch.empty((b, groups), device="cuda") for name in libs}
         fns = {name: (lambda lib=lib, o=outs[name]: run(lib, qc, qs, o, tile, planes))
                for name, (lib, _) in libs.items()}
-        fns["cuda-core body"] = lambda: _launch_k2(qc, qs, packed, alpha, csq, L2, n, None, "simt")
         for name in (e for e in EXACT if e in fns):
             fns[name]()
             torch.cuda.synchronize()
             if not torch.equal(outs[name].view(torch.int32), want.view(torch.int32)):
-                raise RuntimeError(f"{name} B={b}: minima differ from the CUDA-core body")
+                raise RuntimeError(f"{name} B={b}: minima differ from the twin")
         first = {k: ms(f) for k, f in fns.items()}
         second = {k: ms(f) for k, f in reversed(list(fns.items()))}
         times = ", ".join(f"{k} {(first[k] + second[k]) / 2!r} ms" for k in fns)
@@ -335,7 +334,7 @@ def main() -> int:
                      f"{buf[4] / max(buf[5], 1):.0f} cycles per block over {buf[5]} blocks")
         print(
             f"[probe] K2 {args.body} body {n}x{d} B={b} ({'streamed' if streamed else 'resident'} "
-            f"query tile {tile}; kernel and phases == the CUDA-core body bit for bit): {times}; "
+            f"query tile {tile}; kernel and phases == the twin bit for bit): {times}; "
             f"{split} | {card}",
             flush=True,
         )

@@ -13,7 +13,7 @@ tile (the narrowest resident tile that covers B, else the widest: several
 tiles over the same codes) and the streamed tile (the narrowest of 8, 16,
 32, 64 that covers B) run L2 in turns (CUDA events, the median over 2 x
 rounds passes; chip_smoke.py:in_turns), each minima bit-equal to the
-CUDA-core body's. Prints the card line, each time beside k2_bound
+plain twin's (ops/int4_scan.py:int4_block_minima_reference). Prints the card line, each time beside k2_bound
 (chip_smoke.py), and which of the two ops/int4_scan.py:k2_streams_queries
 picks. This is the reading the route rests on.
 """
@@ -42,7 +42,8 @@ def main() -> int:
         print("probe_k2_routes: needs a CUDA card", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
-    from sqlite_vector_tpu_torch.ops.int4_scan import _launch_k2, k2_query_tile, k2_streams_queries
+    from sqlite_vector_tpu_torch.ops.int4_scan import _launch_k2, int4_block_minima_reference
+    from sqlite_vector_tpu_torch.ops.int4_scan import k2_query_tile, k2_streams_queries
     from sqlite_vector_tpu_torch.types import DistanceMetric
 
     spec = importlib.util.spec_from_file_location("svt_chip_smoke", ROOT / "chip_smoke.py")
@@ -66,7 +67,7 @@ def main() -> int:
             qc = torch.randint(-127, 128, (b, d), generator=gen, device="cuda", dtype=torch.int32)
             args_k2 = (qc.to(torch.int8), torch.rand(b, generator=gen, device="cuda"), packed, alpha,
                        csq, L2, n, None)
-            want = _launch_k2(*args_k2, "simt")
+            want = int4_block_minima_reference(*args_k2[:-1])
             fns, labels = [], []
             for streamed in (False, True):
                 tile = k2_query_tile(d, b, streamed)
@@ -75,7 +76,7 @@ def main() -> int:
                 got = _launch_k2(*args_k2, "mma", streamed)
                 torch.cuda.synchronize()
                 if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
-                    raise RuntimeError(f"d={d} B={b} streamed={streamed}: minima differ from the CUDA-core body")
+                    raise RuntimeError(f"d={d} B={b} streamed={streamed}: minima differ from the twin")
                 fns.append(lambda s=streamed: _launch_k2(*args_k2, "mma", s))
                 labels.append(f"{'streamed' if streamed else 'resident'} tile {tile} "
                               f"x{-(-b // tile)}")

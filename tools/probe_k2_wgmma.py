@@ -16,8 +16,7 @@ resident tile where one fits, and the streamed one) against the plain twin
 failure and exits 1 if any.
 
 --time: at N x d int4 codes of N(0, 1) rows (seed 0), L2 at B = 1 and 64:
-each plan of the wgmma body, the mma.sync body, the CUDA-core body and
-torch._int_mm of the unpacked codes (B = 64), in turns (CUDA events, the
+each plan of the wgmma body, the mma.sync body and torch._int_mm of the unpacked codes (B = 64), in turns (CUDA events, the
 median over 2 x rounds passes: each call's host work included, where it
 outlasts the device's), beside chip_smoke.py:k2_bound; then each one's
 device time under torch.profiler: the K2 kernel's own (the sum of its
@@ -152,8 +151,8 @@ def time_shape(smoke, n: int, d: int, rounds: int) -> None:
             routed = " (routed)" if plan == k2_wgmma_plan(d, b) else ""
             names.append(f"wgmma tile={plan[0]}{'s' if plan[1] else 'r'}{routed}")
             fns.append(run)
-        names += ["mma.sync", "CUDA cores"]
-        fns += [lambda: _launch_k2(*args, L2, n, None, "mma"), lambda: _launch_k2(*args, L2, n, None, "simt")]
+        names.append("mma.sync")
+        fns.append(lambda: _launch_k2(*args, L2, n, None, "mma"))
         lib = smoke.library_call_k2(qc, codes8)
         if lib:
             names.append("torch._int_mm")

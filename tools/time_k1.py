@@ -1,11 +1,8 @@
 #!/usr/bin/env python3
 """Time K1 (ops/block_scan.py:block_minima, routed as the checkout routes
-it, and for float L2 rows each of its bodies forced: the wgmma, mma.sync
-and CUDA-core bodies, where the checkout has them), and K2
+it, and for float L2 rows each body the checkout has forced), and K2
 (ops/int4_scan.py:int4_block_minima, L2 over the rows' int4 codes, routed
-and each of its bodies forced: wgmma, mma.sync and CUDA cores, where the
-checkout has them) in two
-or more checkouts of this repository on one CUDA card, in turns (A B B A
+and each body the checkout has forced) in two or more checkouts of this repository on one CUDA card, in turns (A B B A
 per round), at the main path's size: 1,000,000 x 384 rows from N(0, 1)
 (seed 0) and 64 queries, cast for the 16-bit and u8 shapes (u8: the rows
 scaled by 32 and offset by 128, clamped); and the exact finish that
@@ -67,10 +64,9 @@ def worker() -> None:
         out[f"{metric} {dtype} B={b}"] = window_ms(
             lambda: block_minima(q, base, m, base.shape[0]), 20 if b == 1 else 10)
         if (metric, dtype, b) in FORCED:
-            for body in ("wgmma", "mma", "simt"):
-                if body in block_minima.body_launches:
-                    out[f"{metric} {dtype} B={b} [{body}]"] = window_ms(
-                        lambda: _launch_k1(q, base, m, base.shape[0], None, body), 20 if b == 1 else 10)
+            for body in block_minima.body_launches:
+                out[f"{metric} {dtype} B={b} [{body}]"] = window_ms(
+                    lambda: _launch_k1(q, base, m, base.shape[0], None, body), 20 if b == 1 else 10)
         del base
     for b in (1, 64):
         q = queries[:b].contiguous()
@@ -86,11 +82,10 @@ def worker() -> None:
             return int4_block_minima(qc, qs, packed, alpha, csq, DistanceMetric.L2, packed.shape[0])
 
         out[f"K2 L2 int4 B={b}"] = window_ms(k2, 20 if b == 1 else 10)
-        for body in ("wgmma", "mma", "simt"):
-            if body in int4_block_minima.body_launches:
-                out[f"K2 L2 int4 B={b} [{body}]"] = window_ms(
-                    lambda: _launch_k2(qc, qs, packed, alpha, csq, DistanceMetric.L2, packed.shape[0], None,
-                                       body), 20 if b == 1 else 10)
+        for body in int4_block_minima.body_launches:
+            out[f"K2 L2 int4 B={b} [{body}]"] = window_ms(
+                lambda: _launch_k2(qc, qs, packed, alpha, csq, DistanceMetric.L2, packed.shape[0], None,
+                                   body), 20 if b == 1 else 10)
     print(json.dumps(out))
 
 
